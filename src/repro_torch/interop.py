@@ -1,0 +1,44 @@
+"""Carry state between the reference package and this port.
+
+The port never imports the reference.  A caller that holds both turns a
+reference ``Partition`` into a plain dict (``dataclasses.asdict``: numpy
+arrays, scalars and the config as a nested dict) and hands it to
+``partition_from_dict``; (S, R_max) value and frontier tables cross as
+numpy arrays through ``table_to_torch`` / ``table_to_numpy``.  With these
+a test runs both packages on the very same partition.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.partition import Partition, PartitionConfig
+
+
+def partition_from_dict(d: dict) -> Partition:
+    """The port's ``Partition`` from ``dataclasses.asdict`` of either
+    package's ``Partition``."""
+    fields = {f.name for f in dataclasses.fields(Partition)}
+    if set(d) != fields:
+        raise ValueError(f"partition dict fields differ: "
+                         f"{sorted(set(d) ^ fields)}")
+    cfg = d["cfg"]
+    if isinstance(cfg, dict):
+        cfg = dict(cfg)
+        if cfg.get("mesh_dims") is not None:
+            cfg["mesh_dims"] = tuple(cfg["mesh_dims"])
+        cfg = PartitionConfig(**cfg)
+    return Partition(**{**d, "cfg": cfg})
+
+
+def table_to_torch(table, device, dtype=None) -> torch.Tensor:
+    """An (S, R_max) numpy value or frontier table as a tensor."""
+    return torch.as_tensor(np.ascontiguousarray(table), dtype=dtype,
+                           device=device)
+
+
+def table_to_numpy(table) -> np.ndarray:
+    """An (S, R_max) tensor (any device) as a numpy array."""
+    return torch.as_tensor(table).detach().cpu().numpy()

@@ -1,0 +1,21 @@
+"""Wrappers the exchange layer calls for its kernels.
+
+A CUDA tensor launches the hand-written kernel, and the call raises if
+the kernel does not build or launch; a CPU tensor runs the kernel's plain
+PyTorch version.  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.fused_relax_reduce import fused_relax_reduce as _frr
+
+
+def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
+                       num_segments: int, relax_kind: str, kind: str,
+                       plan=None):
+    """Fused frontier gather + semiring relax + mask + segment reduction —
+    the whole per-round relax phase in one launch.  Returns
+    ((num_segments,) partial, int32 active-edge message count).  ``plan``
+    is the edges' ``fused_relax_reduce.plan_launch``, built once per
+    partition by the engine."""
+    return _frr(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
+                num_segments, relax_kind, kind, with_count=True, plan=plan)
