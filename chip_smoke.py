@@ -3,24 +3,40 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``src/repro_torch/kernels/csrc`` into
-the ignored ``src/repro_torch/kernels/build/`` and runs, in order:
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
+the ignored ``src/repro_torch/kernels/build/`` (one ``nvcc`` per source,
+started together) and runs, in order:
 
-1. device: the card's name and power limit, and the kernel's build time;
-2. kernel vs plain version: the fused relax+reduce kernel against its
-   plain PyTorch version on the card, all three relax/combine pairings,
+1. device: the card's name and power limit, and the kernels' build time;
+2. kernels vs plain versions: the dense kernel K1 and the worklist
+   kernel K2 (from a host plan and from a device plan) against their
+   plain PyTorch versions on the card, all three relax/combine pairings,
    ragged sizes, frontier densities 0 / 1% / 100%, padding edges,
    unsorted ids and negative weights for min.  Min is bit-equal; sum is
-   within rtol 1e-5 (the kernel sums in another order) and bit-equal
-   between two runs; counts and executed cells equal the host mirror;
-3. counter gate: BFS and SSSP on the RMAT scale-8 partition under the
-   flight recorder hit ``benchmarks/baselines/counter_gate.json``'s
-   ``bfs_dense`` / ``sssp_dense`` fields exactly;
-4. main path: ``apps.bfs`` and ``apps.sssp`` with the kernel on an
-   RMAT-18 partition (edge factor 16, seed 7, 16 shards, rpvo_max 4)
-   equal the numpy oracles exactly, with one kernel launch per round;
-   then every round is replayed to time the kernel against its bound,
-   its plain version and a library scatter-reduce.
+   within rtol 1e-5 / atol 1e-6 (the kernels sum in another order) and
+   bit-equal between two runs; counts and executed cells equal the host
+   mirror (K1) or the planner's cells (K2);
+3. counter gate: BFS and SSSP (dense, worklist, device_worklist) and
+   delta-PageRank (auto, device_worklist) on the RMAT scale-8 partition
+   under the flight recorder hit ``benchmarks/baselines/counter_gate.json``
+   exactly;
+4. slice-1 path: ``apps.bfs`` and ``apps.sssp`` with K1 on an RMAT-18
+   partition (edge factor 16, seed 7, 16 shards, rpvo_max 4) equal the
+   numpy oracles exactly, with one K1 launch per round; then every round
+   is replayed to time K1 against its bound, its plain version and a
+   library scatter-reduce;
+5. slice-2 path at the same width: BFS and SSSP under
+   ``grid_mode='worklist'`` and ``'device_worklist'`` equal the oracles,
+   with one host sync per window under ``'device_worklist'`` (and no
+   sync inside a window: it is enqueued under CUDA sync-debug mode
+   'error'); ``apps.pagerank`` (30 rounds, K1 mul_w/sum) and
+   ``apps.pagerank_delta`` (auto and device_worklist) on the partition of
+   ``_pr_graph(g)`` within rtol 1e-4 / atol 1e-7 of
+   ``reference.pagerank``; then every worklist round (BFS, SSSP,
+   delta-PageRank) is replayed to time the host planner, K2 alone, K2
+   with its fold, the relax phase (host plan and device plan), K1 on the
+   same round, the plain version and a library call, against the same
+   byte bound as K1.
 
 Any failure raises and the script exits non-zero.  It imports nothing of
 JAX or of the JAX package.  The last lines are the ``kernels`` JSON and
@@ -45,6 +61,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 RMAT_SCALE, EDGE_FACTOR, SEED, SHARDS, RPVO_MAX = 18, 16, 7, 16, 4
 TIMING_REPS = 20
+PR_ITERS = 30            # dense PageRank rounds
+PR_TOL = 5e-10           # delta-PageRank residual tolerance at RMAT-18
+PR_RTOL, PR_ATOL = 1e-4, 1e-7
+KERNELS = ("fused_relax_reduce", "fused_relax_reduce_wl")
 
 
 def check(cond, msg):
@@ -94,10 +114,11 @@ def phase_device():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    lib = _build.build("fused_relax_reduce")
+    libs = _build.build_all(KERNELS)
     build_s = time.perf_counter() - t0
     log(f"[device] {smi}")
-    log(f"[device] built {lib.name} in {build_s:.2f} s")
+    log(f"[device] built {', '.join(lib.name for lib in libs)} in "
+        f"{build_s:.2f} s (in parallel)")
     return smi, build_s
 
 
@@ -118,16 +139,25 @@ def _case(np, v, e, nseg, frac, seed, sorted_ids, negative):
     return gval, gchg, src, w, mask, ids
 
 
+def _check_out(torch, out, want, kind, where):
+    if kind == "min":
+        check(torch.equal(out, want), f"min differs: {where}")
+    else:
+        check(torch.allclose(out, want, rtol=1e-5, atol=1e-6),
+              f"sum outside rtol 1e-5 / atol 1e-6: {where}")
+    return max_abs_err(torch, out, want)
+
+
 def phase_kernel_vs_plain(torch, np, dev):
     from repro_torch.kernels import fused_relax_reduce as frr
-    from repro_torch.kernels.ref import fused_relax_reduce_ref
+    from repro_torch.kernels.ref import (
+        fused_relax_reduce_ref, fused_relax_reduce_wl_ref)
     shapes = [(17, 7, 3), (1000, 5 * frr.EBLK + 13, 2 * frr.SBLK + 5),
               (30011, 97 * frr.EBLK + 311, 20011)]
-    errs = {}
+    errs = {"K1": 0.0, "K2": 0.0}
     n = 0
     for relax, kind in (("add_w", "min"), ("add_one", "min"),
                         ("mul_w", "sum")):
-        err = 0.0
         for v, e, nseg in shapes:
             for frac in (0.0, 0.01, 1.0):
                 for sorted_ids in (True, False):
@@ -135,36 +165,50 @@ def phase_kernel_vs_plain(torch, np, dev):
                                  sorted_ids=sorted_ids,
                                  negative=kind == "min")
                     args = [torch.as_tensor(x, device=dev) for x in case]
-                    out, count, dbg = frr.fused_relax_reduce(
-                        *args, nseg, relax, kind, with_count=True,
-                        with_debug=True)
+                    gval, gchg, src, w, mask, ids = case
                     want = fused_relax_reduce_ref(*args, nseg, relax, kind)
-                    torch.cuda.synchronize()
                     where = f"{relax}/{kind} v={v} e={e} nseg={nseg} " \
                             f"frac={frac} sorted={sorted_ids}"
-                    if kind == "min":
-                        check(torch.equal(out, want), f"min differs: {where}")
-                    else:
-                        check(torch.allclose(out, want, rtol=1e-5,
-                                             atol=1e-6),
-                              f"sum outside rtol 1e-5: {where}")
-                        again = frr.fused_relax_reduce(*args, nseg, relax,
-                                                       kind)
-                        check(torch.equal(out, again),
-                              f"sum differs between runs: {where}")
-                    err = max(err, max_abs_err(torch, out, want))
-                    gval, gchg, src, w, mask, ids = case
-                    check(int(count) == int((mask & gchg[src]).sum()),
-                          f"count differs: {where}")
-                    mirror = frr.fused_grid_cells(ids, mask, src, gchg, nseg)
-                    check(int(dbg[0]) == mirror["fused_live"],
-                          f"executed cells {int(dbg[0])} != mirror "
-                          f"{mirror['fused_live']}: {where}")
+                    # K1, then K2 from a host plan and from a device plan
+                    for grid_mode in ("dense", "worklist",
+                                      "device_worklist"):
+                        name = "K1" if grid_mode == "dense" else "K2"
+                        at = f"{name} {grid_mode} {where}"
+                        out, count, dbg = frr.fused_relax_reduce(
+                            *args, nseg, relax, kind, with_count=True,
+                            with_debug=True, grid_mode=grid_mode)
+                        torch.cuda.synchronize()
+                        errs[name] = max(errs[name], _check_out(
+                            torch, out, want, kind, at))
+                        if kind == "sum":
+                            again = frr.fused_relax_reduce(
+                                *args, nseg, relax, kind,
+                                grid_mode=grid_mode)
+                            check(torch.equal(out, again),
+                                  f"sum differs between runs: {at}")
+                        check(int(count) == int((mask & gchg[src]).sum()),
+                              f"count differs: {at}")
+                        if grid_mode == "dense":
+                            cells = frr.fused_grid_cells(
+                                ids, mask, src, gchg, nseg)["fused_live"]
+                        else:
+                            wl, info = frr.plan_worklist(
+                                ids, mask, src, gchg, nseg,
+                                dst_filter=grid_mode == "worklist")
+                            cells = info.cells
+                            plain = fused_relax_reduce_wl_ref(
+                                *args, wl.wl_i.to(dev), wl.wl_j.to(dev),
+                                wl.nlive.to(dev), nseg, relax, kind)
+                            errs[name] = max(errs[name], _check_out(
+                                torch, out, plain, kind, at + " (wl plain)"))
+                        check(int(dbg[0]) == cells,
+                              f"executed cells {int(dbg[0])} != {cells}: "
+                              f"{at}")
                     n += 1
-        errs[(relax, kind)] = err
-    log(f"[kernel] {n} cases: min bit-equal, sum max_abs_err "
-        f"{errs[('mul_w', 'sum')]:.3g} (rtol 1e-5), counts and executed "
-        "cells equal the host mirror")
+    log(f"[kernel] {n} cases x (K1, K2 host plan, K2 device plan): min "
+        f"bit-equal, sum max_abs_err K1 {errs['K1']:.3g} K2 "
+        f"{errs['K2']:.3g} (rtol 1e-5) and bit-repeatable, counts and "
+        "executed cells equal the host mirror / the planner")
     return errs
 
 
@@ -172,8 +216,20 @@ def phase_kernel_vs_plain(torch, np, dev):
 # phase 3: counter gate at RMAT scale 8
 # --------------------------------------------------------------------------
 
+def _gate_totals(rounds, run):
+    rs = [r for r in rounds if r.run == run]
+    return {"rounds": len(rs), "frontier_first": rs[0].frontier,
+            "messages": sum(r.messages for r in rs),
+            "pruned": sum(r.pruned for r in rs),
+            "cells": sum(r.cells for r in rs),
+            "launched": sum(r.launched for r in rs),
+            "shard_messages": [sum(c) for c in zip(
+                *(r.shard_messages for r in rs))]}
+
+
 def phase_counter_gate(np, dev):
     from repro_torch import obs
+    from repro_torch.apps.pagerank import _pr_graph
     from repro_torch.core import actions, engine
     from repro_torch.core.partition import PartitionConfig, build_partition
     from repro_torch.graph import generators
@@ -183,35 +239,39 @@ def phase_counter_gate(np, dev):
     g = generators.rmat(gg["scale"], edge_factor=gg["edge_factor"],
                         seed=gg["seed"])
     root = int(np.argmax(g.out_degrees()))
-    part = build_partition(g.with_random_weights(seed=gg["seed"]),
-                           PartitionConfig(num_shards=4, rpvo_max=4))
+    pcfg = PartitionConfig(num_shards=4, rpvo_max=4)
+    part = build_partition(g.with_random_weights(seed=gg["seed"]), pcfg)
+    part_pr = build_partition(_pr_graph(g), pcfg)
     fields = ("rounds", "messages", "pruned", "shard_messages",
               "frontier_first", "cells")
-    with obs.recording() as rec:
-        for sem in (actions.BFS, actions.SSSP):
-            engine.run_stacked(sem, part,
-                               engine.init_values(part, sem, {root: 0.0}),
-                               engine.EngineConfig(use_pallas=True),
-                               device=dev)
-            rs = [r for r in rec.rounds if r.run == sem.name]
-            got = {"rounds": len(rs), "frontier_first": rs[0].frontier,
-                   "messages": sum(r.messages for r in rs),
-                   "pruned": sum(r.pruned for r in rs),
-                   "cells": sum(r.cells for r in rs),
-                   "shard_messages": [sum(c) for c in zip(
-                       *(r.shard_messages for r in rs))]}
-            want = gate["runs"][f"{sem.name}_dense"]
-            for f in fields:
-                check(got[f] == want[f],
-                      f"counter gate {sem.name}_dense.{f}: {got[f]} != "
-                      f"{want[f]}")
-            log(f"[gate] {sem.name}_dense: rounds {got['rounds']}, messages "
-                f"{got['messages']}, pruned {got['pruned']}, cells "
-                f"{got['cells']} — equal to counter_gate.json")
+    legs = [(f"{sem.name}_{grid}", sem.name, grid,
+             lambda cfg, sem=sem: engine.run_stacked(
+                 sem, part, engine.init_values(part, sem, {root: 0.0}), cfg,
+                 device=dev))
+            for sem in (actions.BFS, actions.SSSP)
+            for grid in ("dense", "worklist", "device_worklist")]
+    legs += [(leg, "pagerank_delta", grid,
+              lambda cfg: engine.run_pagerank_delta(
+                  part_pr, tol=3e-5, max_rounds=8, cfg=cfg, device=dev))
+             for leg, grid in (("pagerank_delta", "auto"),
+                               ("pagerank_delta_device", "device_worklist"))]
+    for leg, run, grid, call in legs:
+        with obs.recording() as rec:
+            call(engine.EngineConfig(use_pallas=True, grid_mode=grid))
+        got = _gate_totals(rec.rounds, run)
+        want = gate["runs"][leg]
+        # 'launched' is the port's own launch shape on dense and device
+        # legs; host worklists pad as the reference does
+        for f in fields + (("launched",) if grid == "worklist" else ()):
+            check(got[f] == want[f],
+                  f"counter gate {leg}.{f}: {got[f]} != {want[f]}")
+        log(f"[gate] {leg}: rounds {got['rounds']}, messages "
+            f"{got['messages']}, pruned {got['pruned']}, cells "
+            f"{got['cells']} — equal to counter_gate.json")
 
 
 # --------------------------------------------------------------------------
-# phase 4: the main path at RMAT-18
+# phase 4: the slice-1 path at RMAT-18
 # --------------------------------------------------------------------------
 
 def _round_bound_ms(part, relax_kind, n_active):
@@ -231,15 +291,11 @@ def _round_bound_ms(part, relax_kind, n_active):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_main_path(torch, np, dev):
-    from repro_torch import apps, exchange
-    from repro_torch.core import actions, engine
+def rmat18(np):
+    """The RMAT-18 graph (weighted), its partition, the BFS root and the
+    numpy oracles both slices' paths are held to."""
     from repro_torch.core.partition import PartitionConfig, build_partition
     from repro_torch.graph import generators, reference
-    from repro_torch.kernels import fused_relax_reduce as frr
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import fused_relax_reduce_ref
-
     t0 = time.perf_counter()
     g = generators.rmat(RMAT_SCALE, edge_factor=EDGE_FACTOR,
                         seed=SEED).with_random_weights(seed=SEED)
@@ -250,10 +306,20 @@ def phase_main_path(torch, np, dev):
         f"E_max={part.E_max} R_max={part.R_max} root={root} "
         f"(generate + partition {time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    want_levels = reference.bfs_levels(g, root)
-    want_dist = reference.sssp_dijkstra(g, root)
+    want = {"bfs": reference.bfs_levels(g, root),
+            "sssp": reference.sssp_dijkstra(g, root)}
     log(f"[main] numpy oracles {time.perf_counter() - t0:.1f} s")
+    return g, part, root, want
 
+
+def phase_main_path(torch, np, dev, g, part, root, want):
+    from repro_torch import apps, exchange
+    from repro_torch.core import actions, engine
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import fused_relax_reduce_ref
+
+    want_levels, want_dist = want["bfs"], want["sssp"]
     cfg = engine.EngineConfig(use_pallas=True)
     report = {"rounds": {}, "fixpoint_s": {}, "per_round": []}
     launches = 0
@@ -381,6 +447,311 @@ def phase_main_path(torch, np, dev):
     return launches, err, report
 
 
+# --------------------------------------------------------------------------
+# phase 5: the slice-2 path at RMAT-18 — worklist launches and PageRank
+# --------------------------------------------------------------------------
+
+def _library_ms(torch, kind, ids_long, msg, nseg):
+    """One PyTorch call computing the round's inbox from messages that
+    are already relaxed and masked: ``scatter_reduce_`` amin for min,
+    ``index_add_`` for sum."""
+    if kind == "min":
+        return time_ms(torch, lambda: torch.full(
+            (nseg,), math.inf, device=msg.device).scatter_reduce_(
+                0, ids_long, msg, "amin", include_self=True), reps=5)
+    return time_ms(torch, lambda: torch.zeros(
+        nseg, device=msg.device).index_add_(0, ids_long, msg), reps=5)
+
+
+def _replay_rounds(torch, np, dev, app, sem, part, arrays, planner, state,
+                   tables, step, worklists=True):
+    """Replay one fixpoint round by round: ``tables(state)`` gives the
+    round's (gval, gchg), ``step(state, wl)`` the next state.  With
+    ``worklists`` each round is planned on the host, K2 is checked
+    against its plain version and the planner, and the worklist launch is
+    timed piece by piece beside K1 on the same round; without, the round
+    times K1's relax phase (dense PageRank).  Returns (rows, K2 err)."""
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (
+        fused_relax_reduce_ref, fused_relax_reduce_wl_ref)
+    nseg = part.S * part.R_max
+    plan = arrays.fused_plan
+    src = arrays.edge_src_root_flat.reshape(-1)
+    w = arrays.edge_w.reshape(-1)
+    mask = arrays.edge_mask.reshape(-1)
+    ids = arrays.edge_dst_flat.reshape(-1)
+    ids_long, src_long = ids.long(), src.long()
+    kind, rk = sem.segment, sem.relax_kind
+    rows, err, rnd = [], 0.0, 0
+    while True:
+        gval, gchg = tables(state)
+        gchg_h = gchg.cpu().numpy()
+        if not gchg_h.any():
+            break
+        rnd += 1
+        gval_m = frr._masked_value_tables(gval, gchg, sem.identity)
+        chunk_act, count = frr._chunk_tables(src, mask, gchg)
+        active = mask & gchg[src_long]
+        msg = torch.where(active, sem.relax(gval[src_long], w), sem.identity)
+        n_active = int(count)
+        bound, bound_by = _round_bound_ms(part, rk, n_active)
+        row = {"app": app, "round": rnd, "frontier": int(gchg_h.sum()),
+               "active_edges": n_active, "bound_ms": bound,
+               "bound_by": bound_by,
+               "k1_ms": time_ms(torch, lambda: frr._launch(
+                   gval_m, src, w, mask, ids, plan, chunk_act, rk, kind,
+                   False)),
+               "library_ms": _library_ms(torch, kind, ids_long, msg, nseg)}
+        wl = None
+        if not worklists:
+            row.update(
+                kernel_ms=row["k1_ms"],
+                ms=time_ms(torch, lambda: ops.fused_relax_reduce(
+                    gval, gchg, src, w, mask, ids, nseg, rk, kind,
+                    plan=plan)),
+                plain_ms=time_ms(torch, lambda: fused_relax_reduce_ref(
+                    gval, gchg, src, w, mask, ids, nseg, rk, kind), reps=3))
+        else:
+            t0 = time.perf_counter()
+            wl, info = planner.plan(gchg_h)
+            row["plan_ms"] = 1e3 * (time.perf_counter() - t0)
+            wl_dev = wl.to(dev)
+            grid = frr._wl_grid(wl, dev)
+            out, dbg = frr._launch_wl(gval_m, src, w, mask, ids, wl, nseg,
+                                      rk, kind, True)
+
+            def plain():
+                return fused_relax_reduce_wl_ref(
+                    gval, gchg, src, w, mask, ids, wl_dev.wl_i, wl_dev.wl_j,
+                    wl_dev.nlive, nseg, rk, kind)
+
+            want = plain()
+            torch.cuda.synchronize()
+            err = max(err, _check_out(torch, out, want, kind,
+                                      f"{app} round {rnd} K2"))
+            check(int(dbg[0]) == info.cells,
+                  f"{app} round {rnd}: K2 executed {int(dbg[0])} cells, "
+                  f"planned {info.cells}")
+            row.update(
+                cells=info.cells, dense_cells=info.dense_live,
+                launched=info.launched,
+                cells_ms=time_ms(torch, lambda: frr._wl_cells(
+                    gval_m, src, w, mask, ids, wl_dev, grid, rk, kind,
+                    False)),
+                kernel_ms=time_ms(torch, lambda: frr._wl_fold(
+                    frr._wl_cells(gval_m, src, w, mask, ids, wl_dev, grid,
+                                  rk, kind, False)[0], wl_dev, nseg, kind)),
+                ms=time_ms(torch, lambda: ops.fused_relax_reduce(
+                    gval, gchg, src, w, mask, ids, nseg, rk, kind,
+                    plan=plan, worklist=wl)),
+                device_ms=time_ms(torch, lambda: ops.fused_relax_reduce(
+                    gval, gchg, src, w, mask, ids, nseg, rk, kind,
+                    plan=plan, grid_mode="device_worklist")),
+                plain_ms=time_ms(torch, plain, reps=3))
+        rows.append(row)
+        state = step(state, wl)
+    return rows, err
+
+
+def phase_slice2(torch, np, dev, g, part, root, want):
+    from repro_torch import apps, exchange, obs
+    from repro_torch.apps.pagerank import _pr_graph
+    from repro_torch.core import actions, engine
+    from repro_torch.core.partition import PartitionConfig, build_partition
+    from repro_torch.graph import reference
+    from repro_torch.kernels import fused_relax_reduce as frr
+
+    reg = obs.registry()
+    report = {"runs": {}, "per_round": []}
+    launches = {"K1": 0, "K2": 0}
+
+    def drive(key, run, call):
+        """Drive one run of the path with the launch counts set to 0 just
+        before it and read just after; returns its result and a row."""
+        d = reg.counter("engine_dispatches_total").labels(run=run)
+        h = reg.counter("engine_host_syncs_total").labels(run=run)
+        d0, h0 = d.value, h.value
+        frr.launches = frr.wl_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        row = {"wall_s": time.perf_counter() - t0, "k1": frr.launches,
+               "k2": frr.wl_launches, "dispatches": d.value - d0,
+               "host_syncs": h.value - h0}
+        launches["K1"] += row["k1"]
+        launches["K2"] += row["k2"]
+        report["runs"][key] = row
+        return res, row
+
+    # BFS and SSSP with worklist launches
+    for grid in ("worklist", "device_worklist"):
+        cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid)
+        for name, app in (("bfs", apps.bfs), ("sssp", apps.sssp)):
+            (got, stats, _), row = drive(
+                f"{name}_{grid}", name,
+                lambda: app(g, root, part=part, cfg=cfg))
+            rounds = int(stats.iterations)
+            row.update(rounds=rounds, messages=int(stats.messages))
+            check(np.array_equal(got, want[name]),
+                  f"{name} {grid} differs from the numpy oracle at "
+                  f"{int((got != want[name]).sum())} vertices")
+            check(row["k2"] > 0, f"{name} {grid}: K2 was never launched")
+            windows = -(-rounds // cfg.device_window)
+            syncs = windows if grid == "device_worklist" else rounds + 1
+            check(row["host_syncs"] == syncs and row["dispatches"]
+                  == (windows if grid == "device_worklist" else rounds),
+                  f"{name} {grid}: {row['dispatches']} dispatches, "
+                  f"{row['host_syncs']} host syncs for {rounds} rounds")
+            log(f"[slice2] {name} {grid}: equal to the oracle; {rounds} "
+                f"rounds, K2 launches {row['k2']}, K1 launches "
+                f"{row['k1']}, {row['host_syncs']} host syncs "
+                f"({row['host_syncs'] / rounds:.3f} a round), fixpoint "
+                f"wall {row['wall_s']:.3f} s (setup included)")
+
+    # a device_worklist window enqueues without any host sync
+    arrays = engine.DeviceArrays.from_partition(part, dev)
+    cfg_dev = engine.EngineConfig(use_pallas=True,
+                                  grid_mode="device_worklist")
+    val = torch.as_tensor(engine.init_values(part, actions.SSSP,
+                                             {root: 0.0}), device=dev)
+    chg = (val == 0) & arrays.slot_valid
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exchange.fixpoint_window_stacked(
+            actions.SSSP, arrays, cfg_dev, part.S, part.R_max,
+            cfg_dev.device_window, val, chg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[slice2] a {cfg_dev.device_window}-round SSSP window enqueued "
+        "under sync-debug mode 'error': no host sync inside the window")
+
+    # PageRank on the partition of _pr_graph(g)
+    t0 = time.perf_counter()
+    g_pr = _pr_graph(g)
+    part_pr = build_partition(g_pr, PartitionConfig(num_shards=SHARDS,
+                                                    rpvo_max=RPVO_MAX))
+    conv_iters = math.ceil(math.log(1e-6) / math.log(0.85))
+    if 0.85 ** conv_iters >= 1e-6:
+        conv_iters += 1
+    want_pr = reference.pagerank(g, 0.85, PR_ITERS)
+    want_conv = reference.pagerank(g, 0.85, conv_iters)
+    log(f"[slice2] PageRank partition + numpy oracles "
+        f"({PR_ITERS} and {conv_iters} iterations) "
+        f"{time.perf_counter() - t0:.1f} s")
+    (got, _), row = drive("pagerank", "pagerank", lambda: apps.pagerank(
+        g, iters=PR_ITERS, part=part_pr,
+        cfg=engine.EngineConfig(use_pallas=True)))
+    check(np.allclose(got, want_pr, rtol=PR_RTOL, atol=PR_ATOL),
+          f"pagerank off the oracle by {float(np.abs(got - want_pr).max())}")
+    check(row["k1"] == PR_ITERS, f"pagerank: {row['k1']} K1 launches")
+    row["max_abs_diff"] = float(np.abs(got - want_pr).max())
+    log(f"[slice2] pagerank: {PR_ITERS} rounds within rtol {PR_RTOL} / atol "
+        f"{PR_ATOL} of the oracle (max |diff| {row['max_abs_diff']:.3g}), "
+        f"{row['k1']} K1 launches, wall {row['wall_s']:.3f} s")
+    for grid in ("auto", "device_worklist"):
+        cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid)
+        (got, stats, _), row = drive(
+            f"pagerank_delta_{grid}", "pagerank_delta",
+            lambda: apps.pagerank_delta(g, tol=PR_TOL, part=part_pr,
+                                        cfg=cfg))
+        rounds = int(stats.iterations)
+        row.update(rounds=rounds, messages=int(stats.messages),
+                   max_abs_diff=float(np.abs(got - want_conv).max()))
+        check(np.allclose(got, want_conv, rtol=PR_RTOL, atol=PR_ATOL),
+              f"pagerank_delta {grid} off the oracle by "
+              f"{row['max_abs_diff']}")
+        if grid == "device_worklist":
+            check(row["k2"] >= rounds,
+                  f"pagerank_delta device: {row['k2']} K2 launches")
+            check(row["host_syncs"] == -(-rounds // cfg.device_window),
+                  f"pagerank_delta device: {row['host_syncs']} host syncs")
+        log(f"[slice2] pagerank_delta {grid}: tol {PR_TOL}, {rounds} rounds "
+            f"within rtol {PR_RTOL} / atol {PR_ATOL} of the "
+            f"{conv_iters}-iteration oracle (max |diff| "
+            f"{row['max_abs_diff']:.3g}), K1 {row['k1']} / K2 {row['k2']} "
+            f"launches, {row['host_syncs']} host syncs, wall "
+            f"{row['wall_s']:.3f} s")
+
+    # replay: worklist rounds of BFS, SSSP and delta-PageRank, and one
+    # dense PageRank round (every round has the same active edges)
+    wl_cfg = engine.EngineConfig(use_pallas=True, grid_mode="worklist")
+    planner = engine.launch_planner(part, wl_cfg)
+    err = 0.0
+    for sem in (actions.BFS, actions.SSSP):
+        v0 = torch.as_tensor(engine.init_values(part, sem, {root: 0.0}),
+                             device=dev)
+        c0 = sem.improved(v0, torch.full_like(v0, sem.identity)) \
+            & arrays.slot_valid
+        rows, e = _replay_rounds(
+            torch, np, dev, sem.name, sem, part, arrays, planner, (v0, c0),
+            lambda st: (st[0].reshape(-1), st[1].reshape(-1)),
+            lambda st, wl, sem=sem: exchange.fixpoint_round_stacked(
+                sem, arrays, wl_cfg, part.S, part.R_max, *st,
+                worklist=wl)[:2])
+        check(len(rows) == report["runs"][f"{sem.name}_worklist"]["rounds"],
+              f"{sem.name} replay round count")
+        report["per_round"] += rows
+        err = max(err, e)
+    arrays_pr = engine.DeviceArrays.from_partition(part_pr, dev)
+    planner_pr = engine.launch_planner(part_pr, wl_cfg)
+    pr = actions.PAGERANK
+    tol_t = engine._tol_table(part_pr, PR_TOL, dev)
+    base = (1.0 - 0.85) / part_pr.n
+    d0 = torch.where(arrays_pr.slot_valid, base, 0.0)
+
+    def pr_tables(st):
+        return (st[1].reshape(-1),
+                ((st[1].abs() > tol_t) & arrays_pr.slot_valid).reshape(-1))
+
+    rows, e = _replay_rounds(
+        torch, np, dev, "pagerank_delta", pr, part_pr, arrays_pr, planner_pr,
+        (d0, d0), pr_tables,
+        lambda st, wl: exchange.delta_pagerank_round_stacked(
+            pr, arrays_pr, wl_cfg, part_pr.S, part_pr.R_max, 0.85, tol_t,
+            *st, worklist=wl)[:2])
+    report["per_round"] += rows
+    err = max(err, e)
+    val = torch.where(arrays_pr.slot_valid, 1.0 / part_pr.n, 0.0)
+    rows, _ = _replay_rounds(
+        torch, np, dev, "pagerank", pr, part_pr, arrays_pr, None,
+        (val, arrays_pr.slot_valid),
+        lambda st: (st[0].reshape(-1), st[1].reshape(-1)),
+        lambda st, wl: (st[0], torch.zeros_like(st[1])), worklists=False)
+    report["pagerank_round"] = rows[0]
+    wl_rows = [r for r in report["per_round"] if "cells" in r]
+    keys = ("plan_ms", "cells_ms", "kernel_ms", "ms", "device_ms", "k1_ms",
+            "plain_ms", "library_ms", "bound_ms")
+    report["median"] = {k: statistics.median(r[k] for r in wl_rows)
+                        for k in keys}
+    report["heaviest"] = max(wl_rows, key=lambda r: r["active_edges"])
+    med, heavy = report["median"], report["heaviest"]
+    log(f"[slice2] per worklist round, median of {len(wl_rows)} rounds: "
+        f"planner {med['plan_ms']:.2f} ms (host), K2 {med['cells_ms']:.4f} "
+        f"ms, K2+fold {med['kernel_ms']:.4f} ms, relax phase "
+        f"{med['ms']:.4f} ms (device plan {med['device_ms']:.4f} ms), K1 "
+        f"{med['k1_ms']:.4f} ms, plain {med['plain_ms']:.4f} ms, library "
+        f"{med['library_ms']:.4f} ms, bound {med['bound_ms']:.4f} ms")
+    log(f"[slice2] heaviest worklist round ({heavy['app']} round "
+        f"{heavy['round']}, {heavy['active_edges']} active edges, "
+        f"{heavy['cells']} cells): planner {heavy['plan_ms']:.2f} ms, K2 "
+        f"{heavy['cells_ms']:.4f} ms, K2+fold {heavy['kernel_ms']:.4f} ms, "
+        f"relax phase {heavy['ms']:.4f} ms (device plan "
+        f"{heavy['device_ms']:.4f} ms), K1 {heavy['k1_ms']:.4f} ms, plain "
+        f"{heavy['plain_ms']:.4f} ms, library {heavy['library_ms']:.4f} ms,"
+        f" bound {heavy['bound_ms']:.4f} ms")
+    prr = report["pagerank_round"]
+    log(f"[slice2] dense PageRank round (K1 mul_w/sum, "
+        f"{prr['active_edges']} active edges): relax phase {prr['ms']:.4f} "
+        f"ms, K1 {prr['k1_ms']:.4f} ms, plain {prr['plain_ms']:.4f} ms, "
+        f"index_add_ {prr['library_ms']:.4f} ms, bound "
+        f"{prr['bound_ms']:.4f} ms")
+    return launches, err, report
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -398,10 +769,14 @@ def main() -> int:
     smi, build_s = phase_device()
     errs = phase_kernel_vs_plain(torch, np, dev)
     phase_counter_gate(np, dev)
-    launches, err, report = phase_main_path(torch, np, dev)
-    heavy = report["heaviest"]
+    g, part, root, want = rmat18(np)
+    k1_launches, err, report = phase_main_path(torch, np, dev, g, part, root,
+                                               want)
+    launches2, err2, report2 = phase_slice2(torch, np, dev, g, part, root,
+                                            want)
+    heavy, heavy2 = report["heaviest"], report2["heaviest"]
 
-    report.update(device=smi, build_s=build_s,
+    report.update(slice2=report2, device=smi, build_s=build_s,
                   total_s=time.perf_counter() - t_start)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
@@ -410,8 +785,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:323",
-        "launches": launches,
-        "max_abs_err": max(err, *errs.values()),
+        "launches": k1_launches + launches2["K1"],
+        "max_abs_err": max(err, errs["K1"]),
         "ms": heavy["ms"],
         "plain_ms": heavy["plain_ms"],
         "bound_ms": heavy["bound_ms"],
@@ -419,6 +794,22 @@ def main() -> int:
         "library_ms": heavy["library_ms"],
         "kernel_ms": heavy["kernel_ms"],
         "median_ms": report["median"]["ms"],
+        "checked": True,
+    }, {
+        "name": "fused_relax_reduce_wl",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl.cu",
+        "replaces": "src/repro/kernels/fused_relax_reduce.py:613",
+        "launches": launches2["K2"],
+        "max_abs_err": max(err2, errs["K2"]),
+        "ms": heavy2["ms"],
+        "plain_ms": heavy2["plain_ms"],
+        "bound_ms": heavy2["bound_ms"],
+        "bound_by": heavy2["bound_by"],
+        "library_ms": heavy2["library_ms"],
+        "kernel_ms": heavy2["kernel_ms"],
+        "cells_ms": heavy2["cells_ms"],
+        "median_ms": report2["median"]["ms"],
         "checked": True,
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -13,10 +13,14 @@ rounds: it owns the fixpoint loop, the termination check and the Fig-6
 stats bookkeeping.  ``run_stacked`` keeps all shards stacked ``(S, …)``
 on one device.
 
-With ``EngineConfig.use_pallas`` the relax phase of every round is one
-launch of the hand-written fused kernel
-(``kernels.fused_relax_reduce``) on a CUDA device; without it the same
-math runs as separate torch ops — the oracle path.
+With ``EngineConfig.use_pallas`` the relax phase of every round runs
+through the hand-written fused kernels (``kernels.fused_relax_reduce``)
+on a CUDA device; without it the same math runs as separate torch ops —
+the oracle path.  ``grid_mode`` shapes the launch: the dense launch
+(K1), a host-planned worklist launch (K2) every round ('worklist') or
+when the frontier is sparse ('auto'), or a worklist compacted on the
+device ('device_worklist'), whose rounds run in windows of
+``device_window`` rounds with one host read per window.
 
 Entry points take ``device``: ``None`` means ``"cuda"`` and raises when
 CUDA is absent; pass ``device="cpu"`` to run on the CPU, where the fused
@@ -41,11 +45,12 @@ class EngineConfig:
     """Engine options, with the reference's fields, defaults and checks.
 
     Paths this port has not reached raise ``NotImplementedError`` when a
-    run would take them: ``exchange='compact'``, ``pallas_mode='reduce'``
-    and a ``grid_mode`` other than ``'dense'`` under ``use_pallas``.
-    ``vmem_budget_bytes``, ``smem_budget_bytes``, ``device_window`` and
+    run would take them: ``exchange='compact'`` and
+    ``pallas_mode='reduce'``.  ``vmem_budget_bytes`` and
     ``checkpoint_every`` are validated but not acted on yet: the CUDA
-    kernel reads the value table from device memory at any size."""
+    kernels read the value table from device memory at any size;
+    ``smem_budget_bytes`` only arms the planner's warning, as in the
+    reference."""
 
     collapse: str = "eager"      # 'eager' | 'deferred' (min-semirings only)
     exchange: str = "dense"      # 'dense' | 'compact' (targeted messages)
@@ -59,10 +64,12 @@ class EngineConfig:
     # False skips the Fig-6 message counter; RunStats then reports zero
     # messages/pruned
     track_stats: bool = True
-    # fused-kernel launch shape: 'dense' | 'worklist' | 'auto' |
-    # 'device_worklist'
+    # fused-kernel launch shape: 'dense' (K1) | 'worklist' (host-planned
+    # K2 every round) | 'auto' (K2 when the dense grid's live fraction is
+    # below WORKLIST_AUTO_THRESHOLD) | 'device_worklist' (K2 over a list
+    # compacted on the device, rounds enqueued in windows)
     grid_mode: str = "dense"
-    # rounds per dispatch window of a device-resident loop
+    # rounds per window of a device_worklist loop: one host read each
     device_window: int = 8
     # byte budget for the kernel's prefetched index tables (None: no guard)
     smem_budget_bytes: int | None = None
@@ -94,6 +101,20 @@ class EngineConfig:
                 and self.smem_budget_bytes <= 0:
             raise ValueError(
                 f"smem_budget_bytes={self.smem_budget_bytes!r}")
+
+    @property
+    def wants_worklist(self) -> bool:
+        """Whether runners plan host-side worklist launches (only the
+        fused kernel path has a grid to sparsify)."""
+        return (self.grid_mode in ("worklist", "auto") and self.use_pallas
+                and self.pallas_mode == "fused")
+
+    @property
+    def wants_device_worklist(self) -> bool:
+        """Whether the relax phase compacts its worklist on the device,
+        so the runners enqueue rounds in windows."""
+        return (self.grid_mode == "device_worklist" and self.use_pallas
+                and self.pallas_mode == "fused")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -154,20 +175,54 @@ class RunStats(typing.NamedTuple):
     diffusions: torch.Tensor        # slots that diffused (entered the frontier)
 
 
-def _obs_record_round(rec, run, part, cfg, rnd, gchg, frontier, mc, work,
-                      wall_s):
+# --------------------------------------------------------------------------
+# worklist launch planning (grid_mode='worklist'|'auto' host-driven rounds)
+# --------------------------------------------------------------------------
+
+# 'auto' plans a worklist launch only when the dense grid's live fraction
+# drops below this — a dense frontier gains nothing from the 1-D launch
+# but pays the planning pass
+WORKLIST_AUTO_THRESHOLD = 0.25
+
+
+def launch_planner(part: Partition, cfg: EngineConfig):
+    """Host-side ``WorklistPlanner`` for the stacked fused launch: the
+    dense exchange flattens ``edge_dst_flat`` over ``S*R_max`` segments.
+    The value table stays resident, so the plan is always pinned."""
+    exchange.check_ported(cfg)
+    return frr.WorklistPlanner(
+        part.edge_dst_flat, part.edge_mask, part.edge_src_root_flat,
+        part.S * part.R_max, smem_budget_bytes=cfg.smem_budget_bytes)
+
+
+def plan_round_worklist(planner, cfg: EngineConfig, gchg,
+                        with_info: bool = False):
+    """One round's launch decision for a host-driven loop: a ``Worklist``
+    under 'worklist' (and under 'auto' when the frontier is sparse
+    enough), else None — the dense launch.  ``with_info=True`` also
+    returns the planner's ``WorklistInfo`` (None for dense rounds)."""
+    thresh = (WORKLIST_AUTO_THRESHOLD if cfg.grid_mode == "auto"
+              else None)
+    wl, info = planner.plan(gchg, max_live_fraction=thresh)
+    return (wl, info) if with_info else wl
+
+
+def _obs_record_round(rec, run, part, cfg, planner, rnd, gchg, frontier,
+                      mc, work, wl, info, wall_s):
     """Build + store one flight-recorder ``RoundRecord``: the cell
-    columns come from the host mirror of the fused launch this round made
-    (``frr.fused_grid_cells``: ``cells`` the (block, chunk) cells the
-    kernel executes, ``launched`` the cells its blocks walk), plus the
-    per-shard message-volume mirror feeding the skew gauge.  Only ever
-    called with a recorder installed."""
-    if cfg.use_pallas:
-        path = "fused"
-        m = frr.fused_grid_cells(part.edge_dst_flat, part.edge_mask,
-                                 part.edge_src_root_flat, gchg,
-                                 part.S * part.R_max)
-        cells, launched = m["fused_live"], m["launch_cells"]
+    columns come from the planner mirror of the launch this round made
+    (``WorklistInfo`` for worklist launches; for dense launches the cells
+    K1 executes and, as ``launched``, the cells its blocks walk), plus
+    the per-shard message-volume mirror feeding the skew gauge.  Only
+    ever called with a recorder installed."""
+    grid = "dense" if wl is None else "worklist"
+    if planner is not None:
+        path = planner.path
+        if wl is not None:
+            cells, launched = info.cells, info.launched
+        else:
+            d = planner.dense_mirror(gchg)
+            cells, launched = d["cells"], d["launched"]
     else:
         path = "torch"
         cells = launched = 0
@@ -176,7 +231,7 @@ def _obs_record_round(rec, run, part, cfg, rnd, gchg, frontier, mc, work,
     rec.add_round(
         obs.RoundRecord(
             run=run, round=rnd, frontier=frontier, messages=mc, work=work,
-            pruned=mc - min(work, mc), grid="dense", path=path, cells=cells,
+            pruned=mc - min(work, mc), grid=grid, path=path, cells=cells,
             launched=launched, tile_dmas=0, dma_bytes=0, wall_s=wall_s,
             shard_messages=[int(x) for x in shard]),
         frontier_bitmap=gchg.copy() if rec.keep_frontiers else None)
@@ -193,11 +248,14 @@ def run_stacked(sem: Semiring, part: Partition, init_val,
     ``init_changed`` (optional bool (S, R_max)) seeds the first frontier —
     used by incremental recompute to re-diffuse only mutation sites.
 
-    The fixpoint is a Python loop over rounds: each round is one batch of
-    eager launches, and the loop pays one host sync per round to test
-    the frontier (``engine_dispatches_total`` / ``engine_host_syncs_total``
-    count exactly that).  Returns ((S, R_max) values, ``RunStats``) as
-    tensors on ``device``."""
+    The fixpoint is a Python loop over rounds.  Under 'dense',
+    'worklist' and 'auto' each round is one batch of eager launches and
+    the loop pays one host sync per round to test the frontier (and to
+    plan the worklist); under 'device_worklist' rounds are enqueued in
+    windows of ``cfg.device_window`` with one host read per window.
+    ``engine_dispatches_total`` / ``engine_host_syncs_total`` count
+    exactly that.  Returns ((S, R_max) values, ``RunStats``) as tensors
+    on ``device``."""
     if sem.segment != "min":
         raise ValueError(
             "run_stacked drives monotone min-semiring fixpoints; the "
@@ -206,9 +264,6 @@ def run_stacked(sem: Semiring, part: Partition, init_val,
     exchange.check_ported(cfg)
     dev = resolve_device(device)
     arrays = DeviceArrays.from_partition(part, dev)
-    S, R_max = part.S, part.R_max
-    rec = obs.get_recorder()
-
     val = torch.as_tensor(init_val, dtype=torch.float32, device=dev)
     if init_changed is not None:
         chg = torch.as_tensor(init_changed, dtype=torch.bool, device=dev) \
@@ -216,21 +271,68 @@ def run_stacked(sem: Semiring, part: Partition, init_val,
     else:
         chg = sem.improved(val, torch.full_like(val, sem.identity)) \
             & arrays.slot_valid
+    if cfg.wants_device_worklist:
+        S, R_max = part.S, part.R_max
+
+        def window(k, state):
+            val, chg, counts, ent = exchange.fixpoint_window_stacked(
+                sem, arrays, cfg, S, R_max, k, *state)
+            return (val, chg), counts, ent, chg
+
+        (val, _), stats = _run_device_windows(
+            sem.name, part, arrays, cfg, cfg.max_iters, window, (val, chg),
+            chg)
+    else:
+        def round_fn(state, wl):
+            val, chg, mc = exchange.fixpoint_round_stacked(
+                sem, arrays, cfg, part.S, part.R_max, *state, worklist=wl)
+            return (val, chg), chg, mc
+
+        (val, _), stats = _run_host_rounds(
+            sem.name, part, arrays, cfg, cfg.max_iters, round_fn,
+            (val, chg), chg)
+    if cfg.collapse == "deferred":
+        val = exchange.collapse(sem, val.reshape(-1), arrays.sibling_flat,
+                                arrays.sibling_mask)
+    return val, stats
+
+
+def _run_host_rounds(run, part, arrays, cfg, max_rounds, round_fn, state,
+                     chg):
+    """The host-driven round loop shared by the fixpoint and
+    delta-PageRank runners: test the frontier, plan a worklist when the
+    config asks ('worklist' / 'auto'), run ``round_fn(state, worklist)``
+    -> (state, next frontier, message count).  With no planner and no
+    recorder the frontier test reads one flag; otherwise the frontier
+    comes to the host once per round, for the plan and the accounting
+    alike.  Returns (state, ``RunStats``)."""
+    rec = obs.get_recorder()
+    planner = (launch_planner(part, cfg)
+               if cfg.wants_worklist or (rec is not None and cfg.use_pallas)
+               else None)
+    on_host = planner is not None or rec is not None
+    dev = chg.device
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     msgs = work_total = pruned = zero
     it = syncs = 0
-    while it < cfg.max_iters:
+    while it < max_rounds:
         syncs += 1
-        if not bool(chg.any()):
-            break
-        if rec is not None:
+        if on_host:
             gchg = chg.reshape(-1).cpu().numpy()
+            if not gchg.any():
+                break
+        elif not bool(chg.any()):
+            break
+        wl = info = None
+        if cfg.wants_worklist:
+            wl, info = plan_round_worklist(planner, cfg, gchg,
+                                           with_info=True)
+        if rec is not None:
             frontier = int(gchg.sum())
             t0 = rec.tracer.now()
-            span = rec.tracer.span("round", track=f"engine/{sem.name}",
+            span = rec.tracer.span("round", track=f"engine/{run}",
                                    round=it + 1)
-        val, chg, mc = exchange.fixpoint_round_stacked(
-            sem, arrays, cfg, S, R_max, val, chg)
+        state, chg, mc = round_fn(state, wl)
         mc = mc.to(torch.int64)
         work = chg.sum()
         it += 1
@@ -241,23 +343,131 @@ def run_stacked(sem: Semiring, part: Partition, init_val,
             mc_h, work_h = int(mc), int(work)
             wall = rec.tracer.now() - t0
             span.end(frontier=frontier, messages=mc_h)
-            _obs_record_round(rec, sem.name, part, cfg, it, gchg, frontier,
-                              mc_h, work_h, wall)
-    _count_dispatches(sem.name, it, syncs)
-    stats = RunStats(iterations=torch.tensor(it, dtype=torch.int64,
-                                             device=dev),
-                     messages=msgs, work_actions=work_total,
-                     pruned_actions=pruned, diffusions=work_total)
-    if cfg.collapse == "deferred":
-        val = exchange.collapse(sem, val.reshape(-1), arrays.sibling_flat,
-                                arrays.sibling_mask)
-    return val, stats
+            _obs_record_round(rec, run, part, cfg, planner, it, gchg,
+                              frontier, mc_h, work_h, wl, info, wall)
+    _count_dispatches(run, it, syncs)
+    it_t = torch.tensor(it, dtype=torch.int64, device=dev)
+    return state, RunStats(iterations=it_t, messages=msgs,
+                           work_actions=work_total, pruned_actions=pruned,
+                           diffusions=work_total)
+
+
+def _fetch(*tensors):
+    """Copy several device tensors to the host in ONE transfer (their
+    bytes concatenated); returns numpy arrays of their dtypes and
+    shapes."""
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        n = t.numel() * dtype.itemsize
+        out.append(flat[at:at + n].view(dtype).reshape(tuple(t.shape)))
+        at += n
+    return out
+
+
+def _window_totals(counts_h, sizes):
+    """Accounting of one window from its per-round message counts and
+    frontier sizes (``sizes[r]`` entering round r, ``sizes[k]`` at exit):
+    rounds whose entering frontier is empty ran as no-ops and count as
+    zero rounds, matching the host loop's early exit.  Returns
+    (live_rounds, messages, work, pruned)."""
+    live = msgs = work = pruned = 0
+    for r in range(counts_h.shape[0]):
+        if sizes[r] == 0:
+            break
+        mc, wk = int(counts_h[r]), int(sizes[r + 1])
+        live += 1
+        msgs += mc
+        work += wk
+        pruned += mc - min(wk, mc)
+    return live, msgs, work, pruned
+
+
+def _record_device_window(rec, run, part, planner, l_pad, window, it_end,
+                          ent, totals, wall):
+    """One per-window flight-recorder ``RoundRecord``, recomputed from
+    the window's frontier trajectory ``ent`` ((k+1, V) bool: the frontier
+    entering each round, then the exit frontier): cells and shard
+    messages summed over the live rounds, so window sums equal the
+    host-driven per-round totals.  ``launched`` is the port's static
+    device-worklist length times the live rounds."""
+    live, msgs, work, pruned = totals
+    cells = 0
+    shard_sum = None
+    for r in range(live):
+        cells += planner.dense_mirror(ent[r])["cells"]
+        sh = np.asarray(exchange.shard_message_mirror(
+            part.edge_mask, part.edge_src_root_flat, ent[r]))
+        shard_sum = sh if shard_sum is None else shard_sum + sh
+    rec.add_round(
+        obs.RoundRecord(
+            run=run, round=it_end, frontier=int(ent[0].sum()),
+            messages=msgs, work=work, pruned=pruned,
+            grid="device_worklist", path=planner.path, cells=cells,
+            launched=l_pad * live, tile_dmas=0, dma_bytes=0, wall_s=wall,
+            shard_messages=([int(x) for x in shard_sum]
+                            if shard_sum is not None else None),
+            window=window),
+        frontier_bitmap=ent[0].copy() if rec.keep_frontiers else None)
+
+
+def _run_device_windows(run, part, arrays, cfg, max_rounds, window, state,
+                        chg):
+    """The device_worklist loop: windows of ``cfg.device_window`` rounds,
+    each enqueued by ``window(k, state)`` -> (state, (k,) counts, (k, ...)
+    entering frontiers, exit frontier) with no host sync inside, then
+    ONE host read of the per-round counts and frontier sizes (the whole
+    frontiers too when a flight recorder is installed, which gets one
+    ``RoundRecord`` per window).  The first window is enqueued without
+    looking at the initial frontier: an empty one gives dead rounds,
+    which are no-ops.  Returns (state, ``RunStats``)."""
+    rec = obs.get_recorder()
+    planner = launch_planner(part, cfg) if rec is not None else None
+    l_pad = frr.device_worklist_pad(arrays.fused_plan)
+    it = msgs = work_total = pruned = windows = 0
+    live_exit = True
+    while it < max_rounds and live_exit:
+        k = min(cfg.device_window, max_rounds - it)
+        windows += 1
+        if rec is not None:
+            t0 = rec.tracer.now()
+            span = rec.tracer.span("window", track=f"engine/{run}",
+                                   window=windows)
+        state, counts, ent, chg = window(k, state)
+        ent = torch.cat([ent.reshape(k, -1), chg.reshape(1, -1)])
+        if rec is not None:
+            counts_h, ent_h = _fetch(counts, ent)
+            sizes = ent_h.sum(axis=1)
+        else:
+            counts_h, sizes = _fetch(counts, ent.sum(dim=1))
+        totals = _window_totals(counts_h, sizes)
+        live = totals[0]
+        if rec is not None and live:
+            _record_device_window(rec, run, part, planner, l_pad, windows,
+                                  it + live, ent_h, totals,
+                                  rec.tracer.now() - t0)
+            span.end(frontier=int(sizes[0]), messages=totals[1],
+                     rounds=live)
+        it += live
+        msgs += totals[1]
+        work_total += totals[2]
+        pruned += totals[3]
+        live_exit = bool(sizes[k])
+    _count_dispatches(run, windows, windows)
+    mk = lambda x: torch.tensor(x, dtype=torch.int64, device=chg.device)  # noqa: E731,E501
+    return state, RunStats(iterations=mk(it), messages=mk(msgs),
+                           work_actions=mk(work_total),
+                           pruned_actions=mk(pruned),
+                           diffusions=mk(work_total))
 
 
 def _count_dispatches(run: str, dispatches: int, host_syncs: int):
-    """Registry accounting for the dispatch/host-sync columns: rounds
-    dispatched (one batch of eager launches each) and device→host sync
-    points (frontier tests) that a fixpoint paid."""
+    """Registry accounting for the dispatch/host-sync columns: batches
+    of launches a fixpoint enqueued (a round each on host-driven loops, a
+    window each under 'device_worklist') and the device→host sync points
+    (frontier tests, window reads) it paid."""
     m = obs.registry()
     m.counter(
         "engine_dispatches_total",
@@ -267,6 +477,101 @@ def _count_dispatches(run: str, dispatches: int, host_syncs: int):
         "engine_host_syncs_total",
         "device->host sync points paid by engine fixpoint loops"
     ).labels(run=run).inc(host_syncs)
+
+
+# --------------------------------------------------------------------------
+# PageRank-style counted-iteration apps
+# --------------------------------------------------------------------------
+
+def run_pagerank_stacked(part: Partition, damping: float, iters: int,
+                         cfg: EngineConfig = EngineConfig(), device=None):
+    """``iters`` dense PageRank rounds on the stacked layout; returns the
+    (S, R_max) scores on ``device``."""
+    from repro_torch.core.actions import PAGERANK as sem
+
+    exchange.check_ported(cfg)
+    dev = resolve_device(device)
+    arrays = DeviceArrays.from_partition(part, dev)
+    base = (1.0 - damping) / part.n
+    # initial score 1/n on every replica (consistent view)
+    val = torch.where(arrays.slot_valid, 1.0 / part.n, 0.0)
+    chg = arrays.slot_valid  # PR predicate is #t — always diffuse
+    for _ in range(iters):
+        val, _ = exchange.pagerank_round_stacked(
+            sem, arrays, cfg, part.S, part.R_max, base, damping, val, chg)
+    return val
+
+
+def _tol_table(part: Partition, tol, device):
+    """Per-slot residual tolerance: a scalar passes through as a 0-d
+    float32 tensor; an (n,) per-vertex array maps every replica of vertex
+    v to ``tol[v]`` (invalid slots get +inf — they never diffuse)."""
+    tol_arr = np.asarray(tol, np.float32)
+    if tol_arr.ndim == 0:
+        return torch.tensor(float(tol_arr), dtype=torch.float32,
+                            device=device)
+    if tol_arr.shape != (part.n,):
+        raise ValueError(
+            f"per-vertex tol must be shape ({part.n},); got {tol_arr.shape}")
+    sv = np.asarray(part.slot_vertex)
+    table = np.where(sv >= 0, tol_arr[np.maximum(sv, 0)], np.inf)
+    return torch.as_tensor(table.astype(np.float32), device=device)
+
+
+def run_pagerank_delta(part: Partition, damping: float = 0.85,
+                       tol=1e-6, cfg: EngineConfig = EngineConfig(),
+                       max_rounds: int = 256,
+                       init_rank=None, init_delta=None, device=None):
+    """Stacked **delta-PageRank**: push-based residual propagation with
+    per-vertex pruning.
+
+    Ranks accumulate the Neumann series ``Σ_k (d·Aᵀ)^k base`` — the same
+    fixpoint the dense power iteration converges to — but each round
+    diffuses only residual deltas above ``tol`` (scalar or (n,)
+    per-vertex), so the frontier shrinks as residuals decay and the
+    kernels' chunk skip and worklist launches fire for the sum semiring.
+
+    Host-driven under 'dense' / 'worklist' / 'auto' (the frontier test
+    and any planning read the frontier each round); windows of
+    ``cfg.device_window`` rounds under 'device_worklist'.  Returns
+    ((S, R_max) ranks, RunStats: messages delivered, slots whose residual
+    stayed live (work), deliveries pruned below tolerance).
+    ``init_rank`` / ``init_delta`` warm-start the accumulation."""
+    from repro_torch.core.actions import PAGERANK as sem
+
+    exchange.check_ported(cfg)
+    dev = resolve_device(device)
+    arrays = DeviceArrays.from_partition(part, dev)
+    S, R_max = part.S, part.R_max
+    base = (1.0 - damping) / part.n
+    tol_t = _tol_table(part, tol, dev)
+    if init_rank is None:
+        rank = delta = torch.where(arrays.slot_valid, base, 0.0)
+    else:
+        rank = torch.as_tensor(init_rank, dtype=torch.float32, device=dev)
+        delta = torch.as_tensor(init_delta, dtype=torch.float32, device=dev)
+    chg = (delta.abs() > tol_t) & arrays.slot_valid
+    if cfg.wants_device_worklist:
+        def window(k, state):
+            rank, delta, chg, counts, ent = \
+                exchange.delta_pagerank_window_stacked(
+                    sem, arrays, cfg, S, R_max, k, damping, tol_t, *state)
+            return (rank, delta), counts, ent, chg
+
+        (rank, _), stats = _run_device_windows(
+            "pagerank_delta", part, arrays, cfg, max_rounds, window,
+            (rank, delta), chg)
+        return rank, stats
+
+    def round_fn(state, wl):
+        rank, delta, chg, mc = exchange.delta_pagerank_round_stacked(
+            sem, arrays, cfg, S, R_max, damping, tol_t, *state, worklist=wl)
+        return (rank, delta), chg, mc
+
+    (rank, _), stats = _run_host_rounds(
+        "pagerank_delta", part, arrays, cfg, max_rounds, round_fn,
+        (rank, delta), chg)
+    return rank, stats
 
 
 def init_values(part: Partition, sem: Semiring, sources: dict[int, float]):

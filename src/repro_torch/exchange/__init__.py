@@ -7,12 +7,15 @@ from repro_torch.exchange.primitives import (
     check_ported, collapse, reduce_axis0, relax, stacked_dense_inbox,
 )
 from repro_torch.exchange.rounds import (
-    fixpoint_round_stacked, shard_message_mirror, stacked_collapse,
-    stacked_inbox,
+    delta_pagerank_round_stacked, delta_pagerank_window_stacked,
+    fixpoint_round_stacked, fixpoint_window_stacked, pagerank_round_stacked,
+    shard_message_mirror, stacked_collapse, stacked_inbox, stacked_total_in,
 )
 
 __all__ = [
-    "check_ported", "collapse", "fixpoint_round_stacked", "reduce_axis0",
+    "check_ported", "collapse", "delta_pagerank_round_stacked",
+    "delta_pagerank_window_stacked", "fixpoint_round_stacked",
+    "fixpoint_window_stacked", "pagerank_round_stacked", "reduce_axis0",
     "relax", "shard_message_mirror", "stacked_collapse",
-    "stacked_dense_inbox", "stacked_inbox",
+    "stacked_dense_inbox", "stacked_inbox", "stacked_total_in",
 ]

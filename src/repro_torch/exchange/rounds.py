@@ -1,13 +1,15 @@
 """Round compositions over the exchange primitives (stacked layout).
 
-One relax → exchange → rhizome-collapse composition for monotone
-fixpoints over the unlaned ``(S, R_max)`` tables.  ``core.engine`` is a
-thin loop over it — the round loop, termination check and stats
-bookkeeping live there; the per-round math lives here, once.
+One relax → exchange → rhizome-collapse composition per app class —
+monotone fixpoints and counted PageRank-style rounds — over the unlaned
+``(S, R_max)`` tables.  ``core.engine`` is a thin loop over these — the
+round loop, termination check and stats bookkeeping live there; the
+per-round math lives here, once.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.actions import Semiring
 from repro_torch.exchange.primitives import (
@@ -25,12 +27,14 @@ def _flat(table):
 # --------------------------------------------------------------------------
 
 def stacked_inbox(sem: Semiring, arrays, cfg, S: int, R_max: int,
-                  gval, gchg):
+                  gval, gchg, worklist=None):
     """Relax + dense exchange on the stacked layout: one reduced global
-    inbox.  Returns the ((S, R_max) inbox, message count)."""
+    inbox.  ``worklist`` is a host-planned sparse launch for the fused
+    relax (``core.engine.launch_planner``).  Returns the ((S, R_max)
+    inbox, message count)."""
     check_ported(cfg)
     flat, counts = stacked_dense_inbox(sem, arrays, cfg, gval, gchg,
-                                       S * R_max)
+                                       S * R_max, worklist=worklist)
     return flat.reshape(S, R_max), counts
 
 
@@ -43,17 +47,100 @@ def stacked_collapse(sem: Semiring, arrays, cfg, table):
 
 
 def fixpoint_round_stacked(sem: Semiring, arrays, cfg, S: int, R_max: int,
-                           val, chg):
+                           val, chg, worklist=None):
     """One stacked fixpoint round: relax → exchange → combine → eager
     rhizome collapse → predicate.  ``val``/``chg``: (S, R_max).  Returns
     (new val, new changed, message count)."""
     inbox, counts = stacked_inbox(sem, arrays, cfg, S, R_max, _flat(val),
-                                  _flat(chg))
+                                  _flat(chg), worklist)
     cand = sem.combine(val, inbox)
     if cfg.collapse == "eager":
         cand = stacked_collapse(sem, arrays, cfg, cand)
     new_chg = sem.improved(cand, val) & arrays.slot_valid
     return cand, new_chg, counts
+
+
+def stacked_total_in(sem: Semiring, arrays, cfg, S: int, R_max: int,
+                     gval, gchg, worklist=None):
+    """Relax → exchange → rhizome-collapse(⊕) of the *bare inbox* — the
+    total in-flow per slot that counted (PageRank-style) rounds consume.
+    The collapse sees inbox partials, never combined candidates, so the
+    sum-semiring sibling-total overwrite is exact."""
+    inbox, counts = stacked_inbox(sem, arrays, cfg, S, R_max, gval, gchg,
+                                  worklist)
+    return stacked_collapse(sem, arrays, cfg, inbox), counts
+
+
+def pagerank_round_stacked(sem: Semiring, arrays, cfg, S: int, R_max: int,
+                           base, damping, val, chg, worklist=None):
+    """One stacked PageRank round: relax → exchange → rhizome-collapse(+)
+    → damping update."""
+    total_in, counts = stacked_total_in(sem, arrays, cfg, S, R_max,
+                                        _flat(val), _flat(chg), worklist)
+    new_val = torch.where(arrays.slot_valid, base + damping * total_in, 0.0)
+    return new_val, counts
+
+
+def delta_pagerank_round_stacked(sem: Semiring, arrays, cfg, S: int,
+                                 R_max: int, damping, tol, rank, delta,
+                                 worklist=None):
+    """One stacked **delta-PageRank** round (the diffusion-pruned sum
+    semiring, paper Listing 10 with lazy residuals).
+
+    Ranks follow the Neumann series ``rank = Σ_k (d·Aᵀ)^k base``, but each
+    round ships only the residual delta, and only where ``|delta| > tol``
+    (scalar or per-slot): sub-tolerance residuals are dropped (the
+    paper's pruned diffusions), so the frontier shrinks round over round.
+    Returns (new rank, new delta, new changed, message count); callers
+    seed ``rank = delta = base`` (see ``engine.run_pagerank_delta``)."""
+    chg = (delta.abs() > tol) & arrays.slot_valid
+    total_in, counts = stacked_total_in(sem, arrays, cfg, S, R_max,
+                                        _flat(delta), _flat(chg), worklist)
+    new_delta = torch.where(arrays.slot_valid, damping * total_in, 0.0)
+    new_rank = rank + new_delta
+    new_chg = (new_delta.abs() > tol) & arrays.slot_valid
+    return new_rank, new_delta, new_chg, counts
+
+
+# --------------------------------------------------------------------------
+# K-round windows: round sequences enqueued without a host sync
+# --------------------------------------------------------------------------
+# A round whose entering frontier is empty is a no-op under every
+# semiring here (all sources read the absorbing identity, min candidates
+# equal val, delta residuals are zero), so a window that overruns
+# convergence stays exact — drivers trim the trailing dead rounds from
+# the returned per-round stacks.  Each step also records the frontier
+# ENTERING that round, giving the host the whole trajectory in one read.
+
+
+def fixpoint_window_stacked(sem: Semiring, arrays, cfg, S: int, R_max: int,
+                            k: int, val, chg):
+    """K stacked fixpoint rounds, enqueued back to back.  Returns (val,
+    chg, (k,) int64 per-round message counts, (k, S, R_max) per-round
+    entering frontiers), all on the tables' device."""
+    counts, frontiers = [], []
+    for _ in range(k):
+        frontiers.append(chg)
+        val, chg, c = fixpoint_round_stacked(sem, arrays, cfg, S, R_max,
+                                             val, chg)
+        counts.append(c.to(torch.int64))
+    return val, chg, torch.stack(counts), torch.stack(frontiers)
+
+
+def delta_pagerank_window_stacked(sem: Semiring, arrays, cfg, S: int,
+                                  R_max: int, k: int, damping, tol, rank,
+                                  delta):
+    """K stacked delta-PageRank rounds, enqueued back to back.  Returns
+    (rank, delta, chg, (k,) int64 counts, (k, S, R_max) entering
+    frontiers)."""
+    counts, frontiers = [], []
+    for _ in range(k):
+        frontiers.append((delta.abs() > tol) & arrays.slot_valid)
+        rank, delta, _, c = delta_pagerank_round_stacked(
+            sem, arrays, cfg, S, R_max, damping, tol, rank, delta)
+        counts.append(c.to(torch.int64))
+    chg = (delta.abs() > tol) & arrays.slot_valid
+    return rank, delta, chg, torch.stack(counts), torch.stack(frontiers)
 
 
 # --------------------------------------------------------------------------

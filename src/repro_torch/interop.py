@@ -4,8 +4,10 @@ The port never imports the reference.  A caller that holds both turns a
 reference ``Partition`` into a plain dict (``dataclasses.asdict``: numpy
 arrays, scalars and the config as a nested dict) and hands it to
 ``partition_from_dict``; (S, R_max) value and frontier tables cross as
-numpy arrays through ``table_to_torch`` / ``table_to_numpy``.  With these
-a test runs both packages on the very same partition.
+numpy arrays through ``table_to_torch`` / ``table_to_numpy``; a
+reference worklist plan crosses as the dict of its leaves
+(``vars(worklist)``) through ``worklist_from_dict``.  With these a test
+runs both packages on the very same partition and launch plan.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.partition import Partition, PartitionConfig
+from repro_torch.kernels.fused_relax_reduce import Worklist
 
 
 def partition_from_dict(d: dict) -> Partition:
@@ -42,3 +45,15 @@ def table_to_torch(table, device, dtype=None) -> torch.Tensor:
 def table_to_numpy(table) -> np.ndarray:
     """An (S, R_max) tensor (any device) as a numpy array."""
     return torch.as_tensor(table).detach().cpu().numpy()
+
+
+def worklist_from_dict(d: dict) -> Worklist:
+    """The port's ``Worklist`` from the leaves of a reference worklist
+    (``vars(worklist)``: ``wl_i``, ``wl_j``, ``nlive`` as arrays, and its
+    ``path``); a tiled plan raises, as the port has no tiled kernel."""
+    if d.get("path", "pinned") != "pinned":
+        raise NotImplementedError(
+            "a tiled worklist needs kernel K6, not ported yet (ROADMAP "
+            "Queue 2)")
+    return Worklist(*(torch.as_tensor(np.array(d[k], dtype=np.int32))
+                      for k in ("wl_i", "wl_j", "nlive")))

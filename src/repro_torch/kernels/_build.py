@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for
 ``sm_90a``, into a shared library with a plain C interface under
 ``kernels/build/`` (listed in ``.gitignore``).  The library's file name
-carries a hash of its source, so an edited source rebuilds and a stale
-library is never loaded.  Nothing here runs at import time.
+carries a hash of its source and of the shared headers (``csrc/*.cuh``),
+so an edited source or header rebuilds and a stale library is never
+loaded.  ``build_all`` runs one ``nvcc`` per source, all at once.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "build"
@@ -34,9 +37,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> pathlib.Path:
@@ -55,6 +59,13 @@ def build(name: str) -> pathlib.Path:
                            f"{res.stderr}")
     os.replace(tmp, out)       # atomic: a concurrent loader sees all or none
     return out
+
+
+def build_all(names) -> list[pathlib.Path]:
+    """``build`` each name, every ``nvcc`` started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -20,14 +20,11 @@
 // (block, chunk) cells are therefore exactly the TPU grid's live cells;
 // `dbg` counts them.
 //
-// Reduction.  Each warp owns a private (SBLK,) accumulator in shared
-// memory and takes the chunk's 32-edge batches warp, warp + NWARP, ...
-// Inside a batch, lanes that hit the same segment are grouped with
-// __match_any_sync; the lowest lane of a group folds the group in lane
-// order and updates the warp's accumulator.  At the end thread t folds
-// the NWARP accumulators of segment t in warp order.  No atomics touch
-// a value, so the sum is the same from run to run; min is exact in any
-// order.
+// Reduction: the warp fold of frr_common.cuh.  Each warp owns a private
+// (SBLK,) accumulator in shared memory for all of the block's chunks; at
+// the end thread t folds the NWARP accumulators of segment t in warp
+// order.  No atomics touch a value, so the sum is the same from run to
+// run; min is exact in any order.
 //
 // Bound.  Bytes: a full-frontier RMAT-18 round (4.19 M edge slots of
 // src + ids + mask + w, a 1 MB slot table) must move about 55 MB, about
@@ -37,29 +34,18 @@
 // together, and gathers table values at random from a table that fits
 // in L2.  On the RMAT-18 partition a chunk meets 4.9 blocks on average
 // (40,382 cells over 8,181 chunks), so the edges are read about five
-// times: that, not device memory, bounds this version.  Reading each
-// edge once (blocks that own edge chunks and write partials) and TMA
-// staging are later work.
+// times: that, not device memory, bounds this version.  About 15.6 k of
+// those cells belong to the 15 chunks that straddle two shards' sorted
+// runs, whose [lo, hi] range spans the whole slot space although no edge
+// of theirs lands in most blocks.  The worklist kernel K2
+// (fused_relax_reduce_wl.cu) runs the same cells as independent blocks;
+// TMA staging is later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "frr_common.cuh"
 
 namespace {
 
-constexpr int EBLK = 512;   // edges per chunk (must match the Python side)
-constexpr int SBLK = 256;   // segments per block (must match the Python side)
-constexpr int NWARP = 8;
-constexpr int THREADS = NWARP * 32;
-constexpr int BATCHES = EBLK / 32;
-
-enum Relax { ADD_W = 0, ADD_ONE = 1, MUL_W = 2 };
-enum Kind { KIND_MIN = 0, KIND_SUM = 1 };
-
-template <int KIND>
-__device__ __forceinline__ float combine(float a, float b) {
-  return KIND == KIND_MIN ? fminf(a, b) : __fadd_rn(a, b);
-}
+using namespace frr;
 
 template <int RELAX, int KIND>
 __global__ void __launch_bounds__(THREADS)
@@ -76,11 +62,7 @@ fused_relax_reduce_kernel(const float* __restrict__ gval,
                           int32_t* __restrict__ dbg) {
   __shared__ float acc[NWARP][SBLK];
   __shared__ float msg_s[NWARP][32];
-  const float ident = KIND == KIND_MIN ? INFINITY : 0.0f;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int t = threadIdx.x; t < NWARP * SBLK; t += THREADS)
-    (&acc[0][0])[t] = ident;
+  clear_acc<KIND>(acc);
   __syncthreads();
 
   const int seg0 = blockIdx.x * SBLK;
@@ -89,45 +71,14 @@ fused_relax_reduce_kernel(const float* __restrict__ gval,
     const int j = blk_chunk[p];
     if (!chunk_act[j]) continue;          // frontier skip, block-uniform
     if (dbg != nullptr && threadIdx.x == 0) atomicAdd(dbg, 1);
-    const int e0 = j * EBLK;
-    for (int b = warp; b < BATCHES; b += NWARP) {
-      const int e = e0 + b * 32 + lane;
-      int key = SBLK;                     // SBLK: no contribution
-      float m = ident;
-      if (e < num_edges && mask[e]) {
-        const int local = ids[e] - seg0;
-        if (local >= 0 && local < SBLK) {
-          const float v = gval[src[e]];
-          if (RELAX == ADD_W) m = __fadd_rn(v, w[e]);
-          else if (RELAX == ADD_ONE) m = __fadd_rn(v, 1.0f);
-          else m = __fmul_rn(v, w[e]);
-          key = local;
-        }
-      }
-      msg_s[warp][lane] = m;
-      __syncwarp();
-      const unsigned grp = __match_any_sync(0xffffffffu, key);
-      if (key < SBLK && lane == __ffs(grp) - 1) {
-        float r = m;
-        unsigned rest = grp & (grp - 1);  // the other lanes, ascending
-        while (rest) {
-          r = combine<KIND>(r, msg_s[warp][__ffs(rest) - 1]);
-          rest &= rest - 1;
-        }
-        acc[warp][key] = combine<KIND>(acc[warp][key], r);
-      }
-      __syncwarp();
-    }
+    fold_chunk<RELAX, KIND>(acc, msg_s, gval, src, w, mask, ids, j,
+                            num_edges, seg0);
   }
   __syncthreads();
 
   for (int t = threadIdx.x; t < SBLK; t += THREADS) {
     const int d = seg0 + t;
-    if (d < num_segments) {
-      float r = acc[0][t];
-      for (int k = 1; k < NWARP; ++k) r = combine<KIND>(r, acc[k][t]);
-      out[d] = r;
-    }
+    if (d < num_segments) out[d] = fold_warps<KIND>(acc, t);
   }
 }
 

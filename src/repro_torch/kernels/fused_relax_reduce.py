@@ -30,24 +30,43 @@ So the kernel executes exactly the TPU grid's live (block, chunk) cells;
 ``with_debug`` returns its own count of them, and ``fused_grid_cells``
 mirrors that count on the host.
 
-On a CPU tensor ``fused_relax_reduce`` runs the plain version
-(``ref.fused_relax_reduce_ref``); on a CUDA tensor it launches the
-kernel, or raises.  ``launches`` counts kernel launches.
+**Worklist launches** (``grid_mode='worklist' | 'device_worklist'``, or
+an explicit ``worklist=``) run the same math as a 1-D launch over a list
+of live (block, chunk) cells, j-major (``csrc/fused_relax_reduce_wl.cu``,
+kernel K2): each cell writes an (SBLK,) partial and a second kernel
+folds the partials into the inbox in cell-list order.  The list comes
+from the host planner (``WorklistPlanner``, numpy, with the reference's
+dst filter that drops cells holding no active edge of their block) or is
+compacted on the device from the chunk frontier bits
+(``build_device_worklist``, no host sync; its length is static: the
+power of two above the launch plan's cell count).
+
+On a CPU tensor ``fused_relax_reduce`` runs the plain versions
+(``ref.fused_relax_reduce_ref``, ``ref.fused_relax_reduce_wl_ref``); on a
+CUDA tensor it launches the kernels, or raises.  ``launches`` counts K1
+launches and ``wl_launches`` K2 launches.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 import typing
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.core.actions import RELAX_FNS
-from repro_torch.kernels.ref import fused_relax_reduce_ref
+from repro_torch.kernels.ref import (
+    fused_relax_reduce_ref, fused_relax_reduce_wl_ref,
+)
 
-EBLK = 512   # edge-axis chunk (matches csrc/fused_relax_reduce.cu)
-SBLK = 256   # segment-axis block (matches csrc/fused_relax_reduce.cu)
+EBLK = 512   # edge-axis chunk (matches csrc/frr_common.cuh)
+SBLK = 256   # segment-axis block (matches csrc/frr_common.cuh)
+
+WL_PAD = 8      # host worklists are padded to >= this many cells and then
+                # to a power of two, as the reference pads its launches
+WL_BLOCKS_PER_SM = 8   # K2's fixed grid for a device-resident worklist
 
 RELAX_KINDS = tuple(RELAX_FNS)
 
@@ -61,8 +80,10 @@ ABSORBING_PAIRS = frozenset(
 _RELAX_CODE = {"add_w": 0, "add_one": 1, "mul_w": 2}
 _KIND_CODE = {"min": 0, "sum": 1}
 
-# kernel launches made by ``_launch`` since the count was last set to 0
+# kernel launches made by ``_launch`` (K1) and ``_launch_wl`` (K2) since
+# the counts were last set to 0
 launches = 0
+wl_launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -81,10 +102,14 @@ def _check_pair(relax_kind: str, kind: str):
 class LaunchPlan(typing.NamedTuple):
     """Static launch tables of one edge set: for segment block ``i`` the
     chunks ``blk_chunk[blk_ptr[i]:blk_ptr[i+1]]`` (ascending) are those
-    whose valid-edge id range meets the block."""
+    whose valid-edge id range meets the block.  ``cell_i``/``cell_j``
+    list the same (block, chunk) cells j-major (chunk ascending, then
+    block): the order the worklist launches keep."""
 
     blk_ptr: torch.Tensor     # (n_sblk + 1,) int32
     blk_chunk: torch.Tensor   # (launch cells,) int32
+    cell_i: torch.Tensor      # (launch cells,) int32, j-major
+    cell_j: torch.Tensor      # (launch cells,) int32, j-major
     num_edges: int
     num_segments: int
     num_slots: int
@@ -92,6 +117,10 @@ class LaunchPlan(typing.NamedTuple):
     @property
     def num_blocks(self) -> int:
         return self.blk_ptr.shape[0] - 1
+
+    @property
+    def num_cells(self) -> int:
+        return self.blk_chunk.shape[0]
 
 
 def _pad_to_chunks(x, fill):
@@ -145,6 +174,7 @@ def plan_launch(edge_src, edge_mask, edge_dst, num_segments: int,
     blk_ptr = torch.zeros(n_sblk + 1, dtype=torch.int32, device=dev)
     blk_ptr[1:] = torch.cumsum(counts, 0)
     return LaunchPlan(blk_ptr, chunk[order].to(torch.int32).contiguous(),
+                      blk.to(torch.int32), chunk.to(torch.int32),
                       e, num_segments, num_slots)
 
 
@@ -153,8 +183,7 @@ def _masked_value_tables(gval, gchg, identity):
     relax(identity, w) == identity for all supported pairings, so an
     inactive source can never contribute — the same result as the
     oracle's explicit where(active, ...) mask, one fewer gather."""
-    return torch.where(gchg, gval, torch.tensor(identity, dtype=gval.dtype,
-                                                device=gval.device))
+    return torch.where(gchg, gval, identity)
 
 
 def _chunk_tables(edge_src, edge_mask, gchg):
@@ -172,34 +201,42 @@ def _executed_cells(plan: LaunchPlan, chunk_act):
     return chunk_act[plan.blk_chunk.long()].sum(dtype=torch.int32).view(1)
 
 
-def _bind(lib):
-    fn = lib.frr_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {   # C entry point -> (library, argument types)
+    "frr_launch": ("fused_relax_reduce",
+                   [_P] * 8 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P]),
+    "frr_wl_launch": ("fused_relax_reduce_wl",
+                      [_P] * 8 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_P]),
+    "frr_wl_fold": ("fused_relax_reduce_wl", [_P] * 3 + [_I] * 2 + [_P]
+                    + [_I] + [_P]),
+}
+_fns: dict = {}
+_libs: dict = {}
 
 
-_kernel_fn = None
-
-
-def _kernel():
-    global _kernel_fn
-    if _kernel_fn is None:
+def _kernel(entry: str = "frr_launch"):
+    """The bound C entry point, its library built and loaded on first
+    use."""
+    if entry not in _fns:
         from repro_torch.kernels import _build
-        _kernel_fn = _bind(_build.load("fused_relax_reduce"))
-    return _kernel_fn
+        name, argtypes = _SIGNATURES[entry]
+        if name not in _libs:
+            _libs[name] = _build.load(name)
+        fn = getattr(_libs[name], entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[entry] = fn
+    return _fns[entry]
 
 
-def _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                       plan: LaunchPlan, chunk_act):
+def _check_edge_args(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                     *tables):
+    """Device, dtype, shape and contiguity of a launch's tensors:
+    ``tables`` are further (tensor, dtype, name) triples."""
     dev = gval_m.device
     want = [(gval_m, torch.float32, "gval"), (edge_src, torch.int32, "src"),
             (edge_w, torch.float32, "w"), (edge_mask, torch.bool, "mask"),
-            (edge_dst, torch.int32, "ids"),
-            (plan.blk_ptr, torch.int32, "blk_ptr"),
-            (plan.blk_chunk, torch.int32, "blk_chunk"),
-            (chunk_act, torch.bool, "chunk_act")]
+            (edge_dst, torch.int32, "ids"), *tables]
     for t, dtype, name in want:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, gval on {dev}")
@@ -209,12 +246,23 @@ def _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst,
     e = edge_src.shape[0]
     if any(t.shape[0] != e for t in (edge_w, edge_mask, edge_dst)):
         raise ValueError("edge arrays differ in length")
+    if e >= 2**31 - EBLK:
+        raise ValueError("edge count exceeds int32 indexing")
+
+
+def _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                       plan: LaunchPlan, chunk_act):
+    _check_edge_args(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                     (plan.blk_ptr, torch.int32, "blk_ptr"),
+                     (plan.blk_chunk, torch.int32, "blk_chunk"),
+                     (chunk_act, torch.bool, "chunk_act"))
+    e = edge_src.shape[0]
     if plan.num_edges != e or plan.num_slots != gval_m.shape[0]:
         raise ValueError("launch plan was built for another edge set")
     if chunk_act.shape[0] != _round_up(e, EBLK) // EBLK:
         raise ValueError("chunk_act does not match the edge count")
-    if e >= 2**31 - EBLK or plan.num_segments >= 2**31:
-        raise ValueError("edge or segment count exceeds int32 indexing")
+    if plan.num_segments >= 2**31:
+        raise ValueError("segment count exceeds int32 indexing")
 
 
 def _launch(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan: LaunchPlan,
@@ -230,7 +278,7 @@ def _launch(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan: LaunchPlan,
     dbg = (torch.zeros(1, dtype=torch.int32, device=gval_m.device)
            if with_debug else None)
     stream = torch.cuda.current_stream(gval_m.device).cuda_stream
-    rc = _kernel()(
+    rc = _kernel("frr_launch")(
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
         edge_mask.data_ptr(), edge_dst.data_ptr(), plan.blk_ptr.data_ptr(),
         plan.blk_chunk.data_ptr(), chunk_act.data_ptr(), edge_src.shape[0],
@@ -243,10 +291,348 @@ def _launch(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan: LaunchPlan,
     return out, dbg
 
 
+# --------------------------------------------------------------------------
+# worklist planning (host side)
+# --------------------------------------------------------------------------
+
+class Worklist:
+    """A planned sparse launch: the live (block, chunk) cells ``wl_i``,
+    ``wl_j`` ((l_pad,) int32, j-major, zero past the count) and their
+    count ``nlive`` ((1,) int32).  A host plan holds CPU tensors; a
+    device plan (``build_device_worklist``) holds tensors on the card,
+    and its count is never read on the host."""
+
+    def __init__(self, wl_i, wl_j, nlive):
+        self.wl_i = wl_i
+        self.wl_j = wl_j
+        self.nlive = nlive
+
+    @property
+    def l_pad(self) -> int:
+        return self.wl_i.shape[0]
+
+    def to(self, device) -> "Worklist":
+        return Worklist(self.wl_i.to(device), self.wl_j.to(device),
+                        self.nlive.to(device))
+
+
+class WorklistInfo(typing.NamedTuple):
+    """Host-side accounting of one plan (the ``fused_grid_cells`` mirror
+    for worklist launches)."""
+
+    cells: int           # live cells after the dst-range empty-cell drop
+    launched: int        # padded 1-D grid length
+    dense_live: int      # what the dense grid's two-level skip would run
+    tile_dmas: int       # value-tile copies (none: the table is resident)
+    tile_needed: int
+    dma_bytes: int
+    # the reference's int32 scalar-prefetch tables for this launch:
+    # per-chunk lo/hi/act rows, wl_i/wl_j, nlive
+    smem_table_bytes: int
+
+
+def _wl_pad_len(nlive: int, pad_to: int = WL_PAD) -> int:
+    return max(pad_to, 1 << max(nlive - 1, 0).bit_length())
+
+
+class WorklistPlanner:
+    """Precomputes the frontier-independent parts of worklist planning
+    for one edge set + segment count, so per-round plans only pay the
+    frontier-dependent work (numpy, on the host).
+
+    ``edge_dst``/``edge_mask``/``edge_src`` may be (S, E_max) stacked or
+    flat, flattened as the kernels flatten them.  The (block, chunk)
+    cells whose ranges meet are kept as a j-major list (never as the
+    dense (n_sblk, n_chunks) matrix); ``plan(gchg)`` returns
+    (Worklist, WorklistInfo) equal to the reference planner's pinned
+    plan.  ``path='tiled'`` raises: that is kernel K6."""
+
+    def __init__(self, edge_dst, edge_mask, edge_src, num_segments: int,
+                 *, path: str = "pinned",
+                 smem_budget_bytes: int | None = None):
+        if path != "pinned":
+            raise NotImplementedError(
+                "the tiled worklist path is not ported yet (ROADMAP Queue "
+                "2, kernel K6): the value table stays resident in device "
+                "memory")
+        ids = np.asarray(edge_dst).reshape(-1)
+        mask = np.asarray(edge_mask).reshape(-1).astype(bool)
+        srcs = np.asarray(edge_src).reshape(-1)
+        e = ids.shape[0]
+        e_pad = _round_up(e, EBLK)
+        self.n_i = _round_up(num_segments, SBLK) // SBLK
+        self.n_chunks = e_pad // EBLK
+        self.path = path
+        self.smem_budget_bytes = smem_budget_bytes
+        self._smem_warned = False
+
+        idc = np.zeros(e_pad, np.int64)
+        idc[:e] = ids
+        mkc = np.zeros(e_pad, bool)
+        mkc[:e] = mask
+        srcc = np.zeros(e_pad, np.int64)
+        srcc[:e] = srcs
+        self.mask = mkc.reshape(self.n_chunks, EBLK)
+        self.srcs = srcc.reshape(self.n_chunks, EBLK)
+        idc = idc.reshape(self.n_chunks, EBLK)
+        lo = np.where(self.mask, idc, np.iinfo(np.int64).max).min(axis=1)
+        hi = np.where(self.mask, idc, -1).max(axis=1)
+        i_lo = np.maximum(lo // SBLK, 0)
+        i_hi = np.minimum(hi // SBLK, self.n_i - 1)
+        nb = np.maximum(i_hi - i_lo + 1, 0)
+        # the cells whose ranges meet, j-major: np.nonzero(intersects.T)
+        self.cell_j = np.repeat(np.arange(self.n_chunks), nb)
+        first = np.cumsum(nb) - nb
+        self.cell_i = i_lo[self.cell_j] + np.arange(self.cell_j.shape[0]) \
+            - first[self.cell_j]
+        # each edge's own cell, keyed j-major (j * n_i + dst block)
+        self.edge_cell = (np.arange(self.n_chunks)[:, None] * self.n_i
+                          + idc // SBLK)
+
+    @property
+    def total_cells(self) -> int:
+        """The reference's dense grid, the denominator of 'auto'."""
+        return self.n_i * self.n_chunks
+
+    @property
+    def launch_cells(self) -> int:
+        """Cells the port's dense launch walks (``LaunchPlan.num_cells``)."""
+        return self.cell_j.shape[0]
+
+    def _live_map(self, gchg):
+        gchg = np.asarray(gchg).reshape(-1)
+        act = self.mask & gchg[self.srcs]        # (n_chunks, EBLK)
+        live = act.any(axis=1)[self.cell_j]      # per listed cell
+        return act, live
+
+    def live_fraction(self, gchg) -> float:
+        """Fraction of the dense grid the two-level skip would execute —
+        the signal ``grid_mode='auto'`` keys the dense/worklist choice on."""
+        _, live = self._live_map(gchg)
+        return live.sum() / max(self.total_cells, 1)
+
+    def dense_mirror(self, gchg) -> dict:
+        """Mirror of the dense launch (K1) for this edge set: ``cells`` it
+        executes and ``launched``, the cells its blocks walk."""
+        _, live = self._live_map(gchg)
+        return {"cells": int(live.sum()), "launched": self.launch_cells,
+                "tile_dmas": 0, "dma_bytes": 0}
+
+    def plan(self, gchg, pad_to: int = WL_PAD, dst_filter: bool = True,
+             max_live_fraction: float | None = None):
+        """Plan one round's launch from the (V,) bool frontier.
+
+        j-major cell order (j outer, i inner).  With ``dst_filter`` a
+        cell is kept only if one of its chunk's active edges lands in its
+        block — the reference drops the others, which contribute only
+        the identity.  ``max_live_fraction`` implements 'auto': when the
+        dense grid's live fraction is at or above it, return (None, None)
+        before any per-cell work."""
+        act, live = self._live_map(gchg)
+        dense_live = int(live.sum())
+        if max_live_fraction is not None \
+                and dense_live / max(self.total_cells, 1) \
+                >= max_live_fraction:
+            return None, None
+        if dst_filter:
+            hit = np.zeros(self.total_cells, bool)
+            hit[self.edge_cell[act]] = True
+            jj, ii = np.divmod(np.flatnonzero(hit), self.n_i)
+        else:
+            jj, ii = self.cell_j[live], self.cell_i[live]
+        nlive = int(ii.shape[0])
+        l_pad = _wl_pad_len(nlive, pad_to)
+        wl_i = np.zeros(l_pad, np.int32)
+        wl_j = np.zeros(l_pad, np.int32)
+        wl_i[:nlive] = ii
+        wl_j[:nlive] = jj
+        wl = Worklist(torch.from_numpy(wl_i), torch.from_numpy(wl_j),
+                      torch.tensor([nlive], dtype=torch.int32))
+        info = WorklistInfo(
+            cells=nlive, launched=l_pad, dense_live=dense_live,
+            tile_dmas=0, tile_needed=0, dma_bytes=0,
+            smem_table_bytes=4 * (3 * self.n_chunks + 2 * l_pad + 1))
+        return wl, self._check_smem(info)
+
+    def _check_smem(self, info: WorklistInfo) -> WorklistInfo:
+        if self.smem_budget_bytes is not None and not self._smem_warned \
+                and info.smem_table_bytes > self.smem_budget_bytes:
+            self._smem_warned = True
+            warnings.warn(
+                f"worklist tables ({info.launched} cells, {self.n_chunks} "
+                f"chunks) weigh {info.smem_table_bytes} bytes — over "
+                f"smem_budget_bytes={self.smem_budget_bytes}; prefer "
+                "grid_mode='auto' (dense frontiers keep the dense grid)",
+                stacklevel=3)
+        return info
+
+
+def plan_worklist(edge_dst, edge_mask, edge_src, gchg, num_segments: int,
+                  *, path="pinned", pad_to: int = WL_PAD,
+                  dst_filter: bool = True):
+    """One-shot worklist plan (see ``WorklistPlanner`` for the reusable
+    form drivers amortize across rounds)."""
+    planner = WorklistPlanner(edge_dst, edge_mask, edge_src, num_segments,
+                              path=path)
+    return planner.plan(gchg, pad_to=pad_to, dst_filter=dst_filter)
+
+
+# --------------------------------------------------------------------------
+# device-side worklist compaction (grid_mode='device_worklist')
+# --------------------------------------------------------------------------
+# The device twin of WorklistPlanner.plan(dst_filter=False): the launch
+# plan's j-major cell list, filtered by the chunk frontier bits and
+# compacted by a cumsum-scatter into fixed-length wl_i / wl_j, with the
+# live count left on the device.  The length is static per partition, so
+# rounds enqueue without a host sync.  The reference pads to the power of
+# two above the FULL (n_sblk, n_chunks) grid (8.5 M cells at RMAT-18, so
+# about 17 GB of K2 partials); this pads above the cells whose ranges
+# meet (about 40 k at RMAT-18, 64 MiB of partials).
+
+
+def device_worklist_pad(plan: LaunchPlan) -> int:
+    """Static length of a device-compacted worklist for ``plan``."""
+    return _wl_pad_len(plan.num_cells)
+
+
+def _compact_live_cells(plan: LaunchPlan, chunk_act, l_pad: int):
+    """Cumsum-scatter frontier compaction of the plan's j-major cells:
+    fixed-shape ``wl_i``/``wl_j`` and the (1,) live count.  Dead cells
+    scatter to a dropped slot; the tail keeps cell (0, 0), never run."""
+    live = torch.index_select(chunk_act, 0, plan.cell_j)
+    pos = torch.cumsum(live, 0) - 1
+    idx = torch.where(live, pos, l_pad)
+    dev = chunk_act.device
+    wl_i = torch.zeros(l_pad + 1, dtype=torch.int32, device=dev)
+    wl_j = torch.zeros(l_pad + 1, dtype=torch.int32, device=dev)
+    wl_i.scatter_(0, idx, plan.cell_i)
+    wl_j.scatter_(0, idx, plan.cell_j)
+    nlive = live.sum(dtype=torch.int32).view(1)
+    return Worklist(wl_i[:l_pad], wl_j[:l_pad], nlive)
+
+
+def build_device_worklist(gchg, edge_src, edge_mask, edge_dst,
+                          num_segments: int,
+                          plan: LaunchPlan | None = None) -> Worklist:
+    """The ``grid_mode='device_worklist'`` plan, built with torch ops on
+    the frontier's device.  Its cells equal
+    ``WorklistPlanner.plan(gchg, dst_filter=False)``'s, in order."""
+    if plan is None:
+        plan = plan_launch(edge_src, edge_mask, edge_dst, num_segments,
+                           gchg.shape[0])
+    chunk_act, _ = _chunk_tables(edge_src, edge_mask, gchg)
+    return _compact_live_cells(plan, chunk_act, device_worklist_pad(plan))
+
+
+def _launch_worklist(gchg, edge_src, edge_mask, edge_dst,
+                     num_segments: int) -> Worklist:
+    """Plan a host worklist at launch time from the tensors (copied to
+    the host): the convenience the differential tests drive; round
+    drivers plan with a ``WorklistPlanner`` instead."""
+    wl, _ = plan_worklist(
+        *(t.detach().cpu().numpy() for t in (edge_dst, edge_mask, edge_src,
+                                              gchg)), num_segments)
+    return wl
+
+
+# --------------------------------------------------------------------------
+# K2: the worklist launch on the card
+# --------------------------------------------------------------------------
+
+def _wl_cells(gval_m, edge_src, edge_w, edge_mask, edge_dst, wl: Worklist,
+              grid: int, relax_kind: str, kind: str, with_debug: bool):
+    """K2 proper: one block per live cell over ``grid`` blocks, writing
+    the (l_pad, SBLK) partials.  ``wl`` must already be on the card."""
+    dev = gval_m.device
+    partials = torch.empty((wl.l_pad, SBLK), dtype=torch.float32, device=dev)
+    dbg = torch.zeros(1, dtype=torch.int32, device=dev) if with_debug \
+        else None
+    rc = _kernel("frr_wl_launch")(
+        gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
+        edge_mask.data_ptr(), edge_dst.data_ptr(), wl.wl_i.data_ptr(),
+        wl.wl_j.data_ptr(), wl.nlive.data_ptr(), edge_src.shape[0], grid,
+        partials.data_ptr(), dbg.data_ptr() if dbg is not None else None,
+        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_relax_reduce_wl launch failed: "
+                           f"cudaError {rc}")
+    return partials, dbg
+
+
+def _wl_fold(partials, wl: Worklist, num_segments: int, kind: str):
+    """K2's fold (the reference's ``_scatter_partials``): each block's
+    cells in cell-list order — a stable sort of ``wl_i`` with the cells
+    past the count keyed past every block — combined into the inbox."""
+    dev = partials.device
+    n_i = _round_up(num_segments, SBLK) // SBLK
+    cells = torch.arange(wl.l_pad, dtype=torch.int32, device=dev)
+    key = torch.where(cells < wl.nlive, wl.wl_i, n_i)
+    key, order = torch.sort(key, stable=True)
+    ptr = torch.searchsorted(
+        key, torch.arange(n_i + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    out = torch.empty(num_segments, dtype=torch.float32, device=dev)
+    rc = _kernel("frr_wl_fold")(
+        partials.data_ptr(), order.data_ptr(), ptr.data_ptr(), n_i,
+        num_segments, out.data_ptr(), _KIND_CODE[kind],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_relax_reduce_wl fold failed: "
+                           f"cudaError {rc}")
+    return out
+
+
+def _wl_grid(wl: Worklist, dev) -> int:
+    """K2's grid: exactly ``nlive`` blocks for a host plan (whose count
+    the host holds), else a fixed few blocks per SM striding over the
+    count in device memory."""
+    if wl.nlive.device.type == "cpu":
+        return max(int(wl.nlive[0]), 1)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return min(wl.l_pad, WL_BLOCKS_PER_SM * n_sm)
+
+
+def _launch_wl(gval_m, edge_src, edge_w, edge_mask, edge_dst, wl: Worklist,
+               num_segments: int, relax_kind: str, kind: str,
+               with_debug: bool):
+    """Launch K2 and its fold on the current stream.  A host plan (CPU
+    tensors) is copied to the card; a device plan stays there and nothing
+    here waits for the card.  Returns the (num_segments,) inbox partial
+    and, with ``with_debug``, the (1,) int32 executed-cell count.  Raises
+    on any launch error."""
+    global wl_launches
+    dev = gval_m.device
+    if wl.nlive.device.type == "cpu":     # a host plan: check its cells
+        n = int(wl.nlive[0])
+        n_chunks = _round_up(edge_src.shape[0], EBLK) // EBLK
+        if not 0 <= n <= wl.l_pad or (n and (
+                int(wl.wl_j[:n].max()) >= n_chunks
+                or int(wl.wl_i[:n].max()) * SBLK >= max(num_segments, 1)
+                or int(wl.wl_i[:n].min()) < 0
+                or int(wl.wl_j[:n].min()) < 0)):
+            raise ValueError("worklist cells outside the launch grid")
+    grid = _wl_grid(wl, dev)
+    wl = wl.to(dev)
+    _check_edge_args(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                     (wl.wl_i, torch.int32, "wl_i"),
+                     (wl.wl_j, torch.int32, "wl_j"),
+                     (wl.nlive, torch.int32, "nlive"))
+    if wl.wl_j.shape[0] != wl.l_pad or wl.nlive.shape[0] != 1:
+        raise ValueError("worklist arrays differ in length")
+    partials, dbg = _wl_cells(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                              wl, grid, relax_kind, kind, with_debug)
+    out = _wl_fold(partials, wl, num_segments, kind)
+    wl_launches += 1
+    return out, dbg
+
+
 def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
                        num_segments: int, relax_kind: str, kind: str,
                        with_count: bool = False, with_debug: bool = False,
-                       plan: LaunchPlan | None = None):
+                       plan: LaunchPlan | None = None,
+                       grid_mode: str = "dense",
+                       worklist: Worklist | None = None):
     """Fused gather/relax/mask/segment-reduce.
 
     gval: (V,) f32 vertex (replica-slot) values; gchg: (V,) bool changed
@@ -255,29 +641,53 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     padding).  Returns the (num_segments,) inbox partial — empty segments
     hold the combine identity.  ``with_count=True`` appends the int32
     active-edge count; ``with_debug=True`` appends the (1,) int32 count of
-    executed (block, chunk) cells that ``fused_grid_cells`` mirrors.
-    ``plan`` is ``plan_launch`` of these edges, built here when absent
-    (callers that launch every round build it once).  Edges should be
-    sorted by ``edge_dst`` for the range skip to bite; correctness never
-    depends on the sort.
+    executed (block, chunk) cells.  ``plan`` is ``plan_launch`` of these
+    edges, built here when absent (callers that launch every round build
+    it once).  Edges should be sorted by ``edge_dst`` for the range skip
+    to bite; correctness never depends on the sort.
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    ``worklist=`` (a host plan from ``WorklistPlanner`` or a device plan
+    from ``build_device_worklist``) runs the worklist launch K2;
+    ``grid_mode='worklist'`` plans one on the host here and
+    ``grid_mode='device_worklist'`` compacts one on the device.  Any
+    other ``grid_mode`` keeps the dense launch K1.  Min results are
+    bit-identical across launches; sums differ by reassociation only.
+
+    CUDA tensors launch the kernels; CPU tensors run the plain versions.
     """
     _check_pair(relax_kind, kind)
     identity = math.inf if kind == "min" else 0.0
     dev = gval.device.type
     if dev not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {gval.device}")
-    need_plan = dev == "cuda" or with_debug
+    if worklist is None and grid_mode == "worklist":
+        worklist = _launch_worklist(gchg, edge_src, edge_mask, edge_dst,
+                                    num_segments)
+    need_plan = worklist is None and (
+        dev == "cuda" or with_debug or grid_mode == "device_worklist")
     if need_plan and plan is None:
         plan = plan_launch(edge_src, edge_mask, edge_dst, num_segments,
                            gval.shape[0])
-    if dev == "cuda" or with_debug or with_count:
-        chunk_act, count = _chunk_tables(edge_src, edge_mask, gchg)
+    chunk_act, count = _chunk_tables(edge_src, edge_mask, gchg)
+    if worklist is None and grid_mode == "device_worklist":
+        worklist = _compact_live_cells(plan, chunk_act,
+                                       device_worklist_pad(plan))
     if dev == "cuda":
         gval_m = _masked_value_tables(gval, gchg, identity)
-        out, dbg = _launch(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                           plan, chunk_act, relax_kind, kind, with_debug)
+        if worklist is not None:
+            out, dbg = _launch_wl(gval_m, edge_src, edge_w, edge_mask,
+                                  edge_dst, worklist, num_segments,
+                                  relax_kind, kind, with_debug)
+        else:
+            out, dbg = _launch(gval_m, edge_src, edge_w, edge_mask,
+                               edge_dst, plan, chunk_act, relax_kind, kind,
+                               with_debug)
+    elif worklist is not None:
+        out = fused_relax_reduce_wl_ref(
+            gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
+            worklist.wl_i, worklist.wl_j, worklist.nlive, num_segments,
+            relax_kind, kind)
+        dbg = worklist.nlive.clone() if with_debug else None
     else:
         out = fused_relax_reduce_ref(gval, gchg, edge_src, edge_w,
                                      edge_mask, edge_dst, num_segments,
@@ -306,24 +716,7 @@ def fused_grid_cells(edge_dst, edge_mask, edge_src, gchg,
     and ``fused_live`` (those whose chunk is frontier-live: the cells the
     kernel executes, equal to its ``with_debug`` count and to the
     reference grid's live cells)."""
-    ids = np.asarray(edge_dst).reshape(-1).astype(np.int64)
-    msk = np.asarray(edge_mask).reshape(-1).astype(bool)
-    srcs = np.asarray(edge_src).reshape(-1)
-    g = np.asarray(gchg).reshape(-1)
-    e = ids.shape[0]
-    n_chunks = _round_up(e, EBLK) // EBLK
-    n_sblk = _round_up(num_segments, SBLK) // SBLK
-    pad = n_chunks * EBLK - e
-    idc = np.pad(ids, (0, pad)).reshape(n_chunks, EBLK)
-    mkc = np.pad(msk, (0, pad)).reshape(n_chunks, EBLK)
-    act = np.zeros(n_chunks * EBLK, bool)
-    act[:e] = msk & g[srcs]
-    lo = np.where(mkc, idc, np.iinfo(np.int64).max).min(axis=1)
-    hi = np.where(mkc, idc, -1).max(axis=1)
-    i_lo = np.maximum(lo // SBLK, 0)
-    i_hi = np.minimum(hi // SBLK, n_sblk - 1)
-    nb = np.maximum(i_hi - i_lo + 1, 0)
-    live = act.reshape(n_chunks, EBLK).any(axis=1)
-    return {"total_fused": n_sblk * n_chunks,
-            "launch_cells": int(nb.sum()),
-            "fused_live": int(nb[live].sum())}
+    planner = WorklistPlanner(edge_dst, edge_mask, edge_src, num_segments)
+    d = planner.dense_mirror(gchg)
+    return {"total_fused": planner.total_cells,
+            "launch_cells": d["launched"], "fused_live": d["cells"]}

@@ -11,11 +11,13 @@ from repro_torch.kernels.fused_relax_reduce import fused_relax_reduce as _frr
 
 def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
                        num_segments: int, relax_kind: str, kind: str,
-                       plan=None):
+                       plan=None, worklist=None, grid_mode: str = "dense"):
     """Fused frontier gather + semiring relax + mask + segment reduction —
-    the whole per-round relax phase in one launch.  Returns
-    ((num_segments,) partial, int32 active-edge message count).  ``plan``
-    is the edges' ``fused_relax_reduce.plan_launch``, built once per
-    partition by the engine."""
+    the whole per-round relax phase.  Returns ((num_segments,) partial,
+    int32 active-edge message count).  ``plan`` is the edges'
+    ``fused_relax_reduce.plan_launch``, built once per partition by the
+    engine; ``worklist`` (a host plan) or ``grid_mode='device_worklist'``
+    selects the worklist launch K2, else the dense launch K1 runs."""
     return _frr(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
-                num_segments, relax_kind, kind, with_count=True, plan=plan)
+                num_segments, relax_kind, kind, with_count=True, plan=plan,
+                worklist=worklist, grid_mode=grid_mode)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels (K1 dense, K2 worklist) against their plain
+versions, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (the kernel builds from
 ``src/repro_torch/kernels/csrc`` on first use) and skips without one.
@@ -14,11 +15,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.apps import bfs, sssp  # noqa: E402
-from repro_torch.core import engine  # noqa: E402
+from repro_torch import exchange  # noqa: E402
+from repro_torch.apps import bfs, pagerank, pagerank_delta, sssp  # noqa: E402
+from repro_torch.core import actions, engine  # noqa: E402
+from repro_torch.core.partition import PartitionConfig, build_partition  # noqa: E402,E501
 from repro_torch.graph import generators, reference  # noqa: E402
 from repro_torch.kernels import fused_relax_reduce as frr  # noqa: E402
-from repro_torch.kernels.ref import fused_relax_reduce_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    fused_relax_reduce_ref, fused_relax_reduce_wl_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +126,110 @@ def test_engine_on_card_matches_oracle(dev, app, oracle):
                         cfg=engine.EngineConfig(use_pallas=True))
     np.testing.assert_array_equal(got, oracle(g, root))
     assert frr.launches == int(stats.iterations)
+
+
+# --------------------------------------------------------------------------
+# K2: the worklist launch, from a host plan and from a device plan
+# --------------------------------------------------------------------------
+
+def _check_wl(dev, case, nseg, relax, kind, grid_mode):
+    args = [torch.as_tensor(x, device=dev) for x in case]
+    out, count, dbg = frr.fused_relax_reduce(
+        *args, nseg, relax, kind, with_count=True, with_debug=True,
+        grid_mode=grid_mode)
+    gval, gchg, src, w, mask, ids = case
+    wl, info = frr.plan_worklist(ids, mask, src, gchg, nseg,
+                                 dst_filter=grid_mode == "worklist")
+    plain = fused_relax_reduce_wl_ref(*args, wl.wl_i.to(dev),
+                                      wl.wl_j.to(dev), wl.nlive.to(dev),
+                                      nseg, relax, kind)
+    dense = fused_relax_reduce_ref(*args, nseg, relax, kind)
+    torch.cuda.synchronize()
+    for want in (plain, dense):
+        if kind == "min":
+            assert torch.equal(out, want)
+        else:
+            torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    if kind == "sum":
+        again = frr.fused_relax_reduce(*args, nseg, relax, kind,
+                                       grid_mode=grid_mode)
+        assert torch.equal(out, again)
+    assert int(count) == int((mask & gchg[src]).sum())
+    assert int(dbg[0]) == info.cells
+
+
+@pytest.mark.parametrize("grid_mode", ["worklist", "device_worklist"])
+@pytest.mark.parametrize("relax,kind", PAIRS)
+@pytest.mark.parametrize("v,e,nseg", SHAPES)
+def test_worklist_kernel_matches_plain(dev, relax, kind, v, e, nseg,
+                                       grid_mode):
+    _check_wl(dev, _case(v, e, nseg, 0.4, seed=e + nseg), nseg, relax,
+              kind, grid_mode)
+
+
+@pytest.mark.parametrize("grid_mode", ["worklist", "device_worklist"])
+@pytest.mark.parametrize("relax,kind", PAIRS)
+@pytest.mark.parametrize("frac", [0.0, 0.01, 1.0])
+def test_worklist_kernel_frontier_densities(dev, relax, kind, frac,
+                                            grid_mode):
+    case = _case(4000, 9 * EBLK + 9, 2700, frac, seed=5, sorted_ids=False,
+                 negative=kind == "min")
+    _check_wl(dev, case, 2700, relax, kind, grid_mode)
+
+
+def test_worklist_kernel_counts_launches(dev):
+    case = _case(100, 700, 90, 0.5, seed=1)
+    args = [torch.as_tensor(x, device=dev) for x in case]
+    frr.launches = frr.wl_launches = 0
+    for grid_mode in ("worklist", "device_worklist"):
+        frr.fused_relax_reduce(*args, 90, "add_w", "min", grid_mode=grid_mode)
+    assert (frr.launches, frr.wl_launches) == (0, 2)
+
+
+def test_device_window_enqueues_without_sync(dev):
+    """A device_worklist window enqueues every round without a host
+    sync: the whole window runs under sync-debug mode 'error'."""
+    g = generators.rmat(10, edge_factor=8, seed=3).with_random_weights(seed=3)
+    root = int(np.argmax(g.out_degrees()))
+    part = build_partition(g, PartitionConfig(num_shards=8, rpvo_max=4))
+    arrays = engine.DeviceArrays.from_partition(part, dev)
+    cfg = engine.EngineConfig(use_pallas=True, grid_mode="device_worklist")
+    val = torch.as_tensor(engine.init_values(part, actions.SSSP,
+                                             {root: 0.0}), device=dev)
+    chg = (val == 0) & arrays.slot_valid
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = exchange.fixpoint_window_stacked(
+            actions.SSSP, arrays, cfg, part.S, part.R_max, 4, val, chg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(out[2].sum()) > 0
+
+
+@pytest.mark.parametrize("grid_mode", ["worklist", "auto", "device_worklist"])
+@pytest.mark.parametrize("app,oracle", [(bfs, reference.bfs_levels),
+                                        (sssp, reference.sssp_dijkstra)])
+def test_engine_grid_modes_on_card_match_oracle(dev, app, oracle, grid_mode):
+    g = generators.rmat(10, edge_factor=8, seed=3).with_random_weights(seed=3)
+    root = int(np.argmax(g.out_degrees()))
+    frr.wl_launches = 0
+    got, stats, _ = app(g, root, num_shards=8, rpvo_max=4,
+                        cfg=engine.EngineConfig(use_pallas=True,
+                                                grid_mode=grid_mode))
+    np.testing.assert_array_equal(got, oracle(g, root))
+    assert frr.wl_launches > 0
+
+
+def test_pagerank_on_card_matches_oracle(dev):
+    g = generators.rmat(10, edge_factor=8, seed=3)
+    want = reference.pagerank(g, 0.85, 30)
+    got, _ = pagerank(g, iters=30, num_shards=8, rpvo_max=4,
+                      cfg=engine.EngineConfig(use_pallas=True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7)
+    want = reference.pagerank(g, 0.85, 200)
+    for grid_mode in ("auto", "device_worklist"):
+        got, stats, _ = pagerank_delta(
+            g, tol=1e-9, num_shards=8, rpvo_max=4, max_rounds=400,
+            cfg=engine.EngineConfig(use_pallas=True, grid_mode=grid_mode))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7)

@@ -212,18 +212,31 @@ def test_engine_config_fields_and_defaults_match_reference():
     assert got == want
 
 
-@pytest.mark.parametrize("cfg,item", [
-    (dict(exchange="compact"), "Queue 1 item 4"),
-    (dict(use_pallas=True, pallas_mode="reduce"), "K9"),
-    (dict(use_pallas=True, grid_mode="worklist"), "Queue 1 item 5"),
-    (dict(use_pallas=True, grid_mode="auto"), "Queue 1 item 5"),
-    (dict(use_pallas=True, grid_mode="device_worklist"), "Queue 1 item 5"),
+@pytest.mark.parametrize("case,item", [
+    ("bfs_compact", "Queue 1 item 4"),
+    ("bfs_reduce", "K9"),
+    ("pagerank_delta_compact", "Queue 1 item 4"),
+    ("pagerank_reduce", "K9"),
+    ("pagerank_mesh", "Queue 1 item 10"),
 ])
-def test_unported_options_raise(cfg, item):
+def test_unported_options_raise(case, item):
     _, g, root, _, part = _both("rmat8", 4, 1)
+    compact = engine.EngineConfig(exchange="compact")
+    reduce = engine.EngineConfig(use_pallas=True, pallas_mode="reduce")
+    calls = {
+        "bfs_compact": lambda: apps.bfs(g, root, part=part, cfg=compact,
+                                        device="cpu"),
+        "bfs_reduce": lambda: apps.bfs(g, root, part=part, cfg=reduce,
+                                       device="cpu"),
+        "pagerank_delta_compact": lambda: apps.pagerank_delta(
+            g, part=part, cfg=compact, device="cpu"),
+        "pagerank_reduce": lambda: apps.pagerank(g, part=part, cfg=reduce,
+                                                 device="cpu"),
+        "pagerank_mesh": lambda: apps.pagerank(g, part=part, mesh=object(),
+                                               device="cpu"),
+    }
     with pytest.raises(NotImplementedError, match=item):
-        apps.bfs(g, root, part=part, cfg=engine.EngineConfig(**cfg),
-                 device="cpu")
+        calls[case]()
 
 
 def test_grid_mode_is_moot_without_kernel():

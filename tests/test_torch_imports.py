@@ -66,9 +66,10 @@ def _tiny():
 
 
 @pytest.mark.parametrize("entry", ["bfs", "sssp", "run_stacked",
-                                   "from_partition"])
+                                   "from_partition", "pagerank",
+                                   "pagerank_delta", "run_pagerank_delta"])
 def test_entry_points_without_device_need_cuda(monkeypatch, entry):
-    from repro_torch.apps import bfs, sssp
+    from repro_torch.apps import bfs, pagerank, pagerank_delta, sssp
     from repro_torch.core import actions, engine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g, part = _tiny()
@@ -79,6 +80,9 @@ def test_entry_points_without_device_need_cuda(monkeypatch, entry):
             actions.BFS, part, engine.init_values(part, actions.BFS,
                                                   {0: 0.0})),
         "from_partition": lambda: engine.DeviceArrays.from_partition(part),
+        "pagerank": lambda: pagerank(g, part=part),
+        "pagerank_delta": lambda: pagerank_delta(g, part=part),
+        "run_pagerank_delta": lambda: engine.run_pagerank_delta(part),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
