@@ -24,7 +24,7 @@ def _pr_graph(g: COOGraph) -> COOGraph:
 def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
-            "sharded PageRank (mesh=) is not ported yet (ROADMAP Queue 1 "
+            "sharded runs (mesh=) are not ported yet (ROADMAP Queue 1 "
             "item 10)")
 
 

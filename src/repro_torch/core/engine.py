@@ -44,9 +44,11 @@ from repro_torch.kernels import fused_relax_reduce as frr
 class EngineConfig:
     """Engine options, with the reference's fields, defaults and checks.
 
-    Paths this port has not reached raise ``NotImplementedError`` when a
-    run would take them: ``exchange='compact'`` and
-    ``pallas_mode='reduce'``.  ``vmem_budget_bytes`` and
+    The path this port has not reached, ``exchange='compact'``, raises
+    ``NotImplementedError`` when a run would take it.
+    ``pallas_mode='reduce'`` relaxes with torch ops and reduces with the
+    segment-reduce kernel K9 (unlaned runs only, as in the reference).
+    ``vmem_budget_bytes`` and
     ``checkpoint_every`` are validated but not acted on yet: the CUDA
     kernels read the value table from device memory at any size;
     ``smem_budget_bytes`` only arms the planner's warning, as in the
@@ -185,10 +187,12 @@ class RunStats(typing.NamedTuple):
 WORKLIST_AUTO_THRESHOLD = 0.25
 
 
-def launch_planner(part: Partition, cfg: EngineConfig):
+def launch_planner(part: Partition, cfg: EngineConfig, q_pad: int = 1):
     """Host-side ``WorklistPlanner`` for the stacked fused launch: the
     dense exchange flattens ``edge_dst_flat`` over ``S*R_max`` segments.
-    The value table stays resident, so the plan is always pinned."""
+    The value table stays resident, so the plan is always pinned, and a
+    laned launch's width ``q_pad`` (the reference's residency input)
+    changes nothing: K4 plans from the OR-across-lanes frontier alone."""
     exchange.check_ported(cfg)
     return frr.WorklistPlanner(
         part.edge_dst_flat, part.edge_mask, part.edge_src_root_flat,

@@ -1,7 +1,8 @@
 """The exchange layer: relax, inter-shard exchange and rhizome collapse.
 
 One implementation of the engine's per-round machinery for the stacked
-layout; ``core.engine`` drives it.  Tables are ``(V,)`` per query.
+layout; ``core.engine`` and ``query.lanes`` drive it.  Tables are
+``(V,)`` for one query or ``(V, Q)`` for Q query lanes.
 """
 from repro_torch.exchange.primitives import (
     check_ported, collapse, reduce_axis0, relax, stacked_dense_inbox,

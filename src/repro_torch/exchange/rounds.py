@@ -1,9 +1,10 @@
 """Round compositions over the exchange primitives (stacked layout).
 
 One relax → exchange → rhizome-collapse composition per app class —
-monotone fixpoints and counted PageRank-style rounds — over the unlaned
-``(S, R_max)`` tables.  ``core.engine`` is a thin loop over these — the
-round loop, termination check and stats bookkeeping live there; the
+monotone fixpoints and counted PageRank-style rounds — each serving both
+the unlaned ``(S, R_max)`` and the lane-batched ``(S, R_max, Q)`` table
+layouts.  ``core.engine`` and ``query.lanes`` are thin loops over these —
+the round loop, termination check and stats bookkeeping live there; the
 per-round math lives here, once.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ from repro_torch.exchange.primitives import (
 
 
 def _flat(table):
-    """Collapse the leading (shard, slot) dims."""
+    """Collapse the leading (shard, slot) dims; a trailing Q rides."""
     return table.reshape((-1,) + tuple(table.shape[2:]))
 
 
@@ -27,47 +28,60 @@ def _flat(table):
 # --------------------------------------------------------------------------
 
 def stacked_inbox(sem: Semiring, arrays, cfg, S: int, R_max: int,
-                  gval, gchg, worklist=None):
+                  gval, gchg, lane_unitw=None, worklist=None):
     """Relax + dense exchange on the stacked layout: one reduced global
     inbox.  ``worklist`` is a host-planned sparse launch for the fused
-    relax (``core.engine.launch_planner``).  Returns the ((S, R_max)
-    inbox, message count)."""
+    relax (``core.engine.launch_planner``).  Returns the ((S, R_max[, Q])
+    inbox, message count — a scalar, or (Q,) per lane)."""
     check_ported(cfg)
     flat, counts = stacked_dense_inbox(sem, arrays, cfg, gval, gchg,
-                                       S * R_max, worklist=worklist)
-    return flat.reshape(S, R_max), counts
+                                       S * R_max, lane_unitw, worklist)
+    return flat.reshape((S, R_max) + tuple(flat.shape[1:])), counts
 
 
 def stacked_collapse(sem: Semiring, arrays, cfg, table):
-    """Eager rhizome collapse of a stacked (S, R_max) table: the dense
-    sibling collapse."""
+    """Eager rhizome collapse of a stacked (S, R_max[, Q]) table: the
+    dense sibling collapse."""
     check_ported(cfg)
     return collapse(sem, _flat(table), arrays.sibling_flat,
                     arrays.sibling_mask)
 
 
 def fixpoint_round_stacked(sem: Semiring, arrays, cfg, S: int, R_max: int,
-                           val, chg, worklist=None):
+                           val, chg, lane_unitw=None, worklist=None,
+                           lane_mask=None):
     """One stacked fixpoint round: relax → exchange → combine → eager
-    rhizome collapse → predicate.  ``val``/``chg``: (S, R_max).  Returns
-    (new val, new changed, message count)."""
+    rhizome collapse → predicate.  ``val``/``chg``: (S, R_max) or
+    (S, R_max, Q).  Returns (new val, new changed, message count).
+
+    ``lane_mask`` ((Q,) bool) freezes masked-off lanes for this round:
+    their frontier reads all-False (no relax work, no messages), they
+    emit no next-round frontier, and their values carry through
+    unchanged — the per-lane round budget."""
+    laned = val.dim() == 3
+    if lane_mask is not None:
+        chg = chg & lane_mask
     inbox, counts = stacked_inbox(sem, arrays, cfg, S, R_max, _flat(val),
-                                  _flat(chg), worklist)
+                                  _flat(chg), lane_unitw, worklist)
     cand = sem.combine(val, inbox)
     if cfg.collapse == "eager":
         cand = stacked_collapse(sem, arrays, cfg, cand)
-    new_chg = sem.improved(cand, val) & arrays.slot_valid
+    slot = arrays.slot_valid[..., None] if laned else arrays.slot_valid
+    new_chg = sem.improved(cand, val) & slot
+    if lane_mask is not None:
+        cand = torch.where(lane_mask, cand, val)
+        new_chg = new_chg & lane_mask
     return cand, new_chg, counts
 
 
 def stacked_total_in(sem: Semiring, arrays, cfg, S: int, R_max: int,
-                     gval, gchg, worklist=None):
+                     gval, gchg, lane_unitw=None, worklist=None):
     """Relax → exchange → rhizome-collapse(⊕) of the *bare inbox* — the
     total in-flow per slot that counted (PageRank-style) rounds consume.
     The collapse sees inbox partials, never combined candidates, so the
     sum-semiring sibling-total overwrite is exact."""
     inbox, counts = stacked_inbox(sem, arrays, cfg, S, R_max, gval, gchg,
-                                  worklist)
+                                  lane_unitw, worklist)
     return stacked_collapse(sem, arrays, cfg, inbox), counts
 
 
@@ -76,7 +90,8 @@ def pagerank_round_stacked(sem: Semiring, arrays, cfg, S: int, R_max: int,
     """One stacked PageRank round: relax → exchange → rhizome-collapse(+)
     → damping update."""
     total_in, counts = stacked_total_in(sem, arrays, cfg, S, R_max,
-                                        _flat(val), _flat(chg), worklist)
+                                        _flat(val), _flat(chg),
+                                        worklist=worklist)
     new_val = torch.where(arrays.slot_valid, base + damping * total_in, 0.0)
     return new_val, counts
 
@@ -95,7 +110,8 @@ def delta_pagerank_round_stacked(sem: Semiring, arrays, cfg, S: int,
     seed ``rank = delta = base`` (see ``engine.run_pagerank_delta``)."""
     chg = (delta.abs() > tol) & arrays.slot_valid
     total_in, counts = stacked_total_in(sem, arrays, cfg, S, R_max,
-                                        _flat(delta), _flat(chg), worklist)
+                                        _flat(delta), _flat(chg),
+                                        worklist=worklist)
     new_delta = torch.where(arrays.slot_valid, damping * total_in, 0.0)
     new_rank = rank + new_delta
     new_chg = (new_delta.abs() > tol) & arrays.slot_valid
@@ -114,15 +130,18 @@ def delta_pagerank_round_stacked(sem: Semiring, arrays, cfg, S: int,
 
 
 def fixpoint_window_stacked(sem: Semiring, arrays, cfg, S: int, R_max: int,
-                            k: int, val, chg):
+                            k: int, val, chg, lane_unitw=None,
+                            lane_mask=None):
     """K stacked fixpoint rounds, enqueued back to back.  Returns (val,
-    chg, (k,) int64 per-round message counts, (k, S, R_max) per-round
-    entering frontiers), all on the tables' device."""
+    chg, (k[, Q]) int64 per-round message counts, (k, S, R_max[, Q])
+    per-round entering frontiers), all on the tables' device.  A fixed
+    ``lane_mask`` freezes its masked-off lanes in every round."""
     counts, frontiers = [], []
     for _ in range(k):
         frontiers.append(chg)
-        val, chg, c = fixpoint_round_stacked(sem, arrays, cfg, S, R_max,
-                                             val, chg)
+        val, chg, c = fixpoint_round_stacked(
+            sem, arrays, cfg, S, R_max, val, chg, lane_unitw,
+            lane_mask=lane_mask)
         counts.append(c.to(torch.int64))
     return val, chg, torch.stack(counts), torch.stack(frontiers)
 

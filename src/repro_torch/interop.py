@@ -3,8 +3,10 @@
 The port never imports the reference.  A caller that holds both turns a
 reference ``Partition`` into a plain dict (``dataclasses.asdict``: numpy
 arrays, scalars and the config as a nested dict) and hands it to
-``partition_from_dict``; (S, R_max) value and frontier tables cross as
-numpy arrays through ``table_to_torch`` / ``table_to_numpy``; a
+``partition_from_dict``; (S, R_max) value and frontier tables, and
+(S, R_max, Q) lane tables (``query.lanes.init_lane_values`` and
+``ppr_base_table`` give both packages the same ones), cross as numpy
+arrays through ``table_to_torch`` / ``table_to_numpy``; a
 reference worklist plan crosses as the dict of its leaves
 (``vars(worklist)``) through ``worklist_from_dict``.  With these a test
 runs both packages on the very same partition and launch plan.
@@ -37,13 +39,13 @@ def partition_from_dict(d: dict) -> Partition:
 
 
 def table_to_torch(table, device, dtype=None) -> torch.Tensor:
-    """An (S, R_max) numpy value or frontier table as a tensor."""
+    """An (S, R_max[, Q]) numpy value or frontier table as a tensor."""
     return torch.as_tensor(np.ascontiguousarray(table), dtype=dtype,
                            device=device)
 
 
 def table_to_numpy(table) -> np.ndarray:
-    """An (S, R_max) tensor (any device) as a numpy array."""
+    """An (S, R_max[, Q]) tensor (any device) as a numpy array."""
     return torch.as_tensor(table).detach().cpu().numpy()
 
 

@@ -1,6 +1,7 @@
-// Shared pieces of the fused relax + reduce kernels (K1, K2): the launch
-// constants, the relax and combine of each pairing, and the warp fold of
-// one edge chunk into per-warp shared-memory accumulators.
+// Shared pieces of the fused relax + reduce kernels (K1, K2) and the
+// segment reduce (K9): the launch constants, the relax and combine of each
+// pairing, and the warp fold of one edge chunk's messages into per-warp
+// shared-memory accumulators.
 //
 // The fold.  A thread block of NWARP warps takes one EBLK-edge chunk;
 // warp k takes the chunk's 32-edge batches k, k + NWARP, ...  Inside a
@@ -40,9 +41,9 @@ __device__ __forceinline__ float combine(float a, float b) {
 template <int RELAX>
 __device__ __forceinline__ float relax(float v, const float* __restrict__ w,
                                        int e) {
-  if (RELAX == ADD_W) return __fadd_rn(v, w[e]);
+  if (RELAX == ADD_W) return __fadd_rn(v, __ldg(w + e));
   if (RELAX == ADD_ONE) return __fadd_rn(v, 1.0f);
-  return __fmul_rn(v, w[e]);
+  return __fmul_rn(v, __ldg(w + e));
 }
 
 // Set every per-warp accumulator to the identity (all threads call it).
@@ -52,16 +53,30 @@ __device__ __forceinline__ void clear_acc(float (*acc)[SBLK]) {
     (&acc[0][0])[t] = identity<KIND>();
 }
 
+// Per-edge messages for the warp fold.  `valid(e)` says whether edge e
+// may contribute (it is read before the edge's destination); `value(e)`
+// is its message, read only for edges that land in the block.
+template <int RELAX>
+struct RelaxMsg {                 // K1, K2: relax(gval[src[e]], w[e]) where mask[e]
+  const float* gval;              // the frontier-masked value table
+  const int32_t* src;
+  const float* w;
+  const uint8_t* mask;
+  __device__ __forceinline__ bool valid(int e) const {
+    return __ldg(mask + e) != 0;
+  }
+  __device__ __forceinline__ float value(int e) const {
+    return relax<RELAX>(__ldg(gval + __ldg(src + e)), w, e);
+  }
+};
+
 // Fold edge chunk `j`'s messages to segments [seg0, seg0 + SBLK) into the
-// calling warp's accumulator acc[warp].  `gval` is the frontier-masked
-// value table; padding edges (mask 0 or e >= num_edges) are never read
-// past their mask.
-template <int RELAX, int KIND>
-__device__ __forceinline__ void fold_chunk(
-    float (*acc)[SBLK], float (*msg_s)[32], const float* __restrict__ gval,
-    const int32_t* __restrict__ src, const float* __restrict__ w,
-    const uint8_t* __restrict__ mask, const int32_t* __restrict__ ids, int j,
-    int num_edges, int seg0) {
+// calling warp's accumulator acc[warp].  Padding edges (e >= num_edges,
+// or !msg.valid(e)) never have their message read.
+template <int KIND, class Msg>
+__device__ __forceinline__ void fold_edges(
+    float (*acc)[SBLK], float (*msg_s)[32], const Msg& msg,
+    const int32_t* __restrict__ ids, int j, int num_edges, int seg0) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int e0 = j * EBLK;
@@ -69,10 +84,10 @@ __device__ __forceinline__ void fold_chunk(
     const int e = e0 + b * 32 + lane;
     int key = SBLK;                       // SBLK: no contribution
     float m = identity<KIND>();
-    if (e < num_edges && mask[e]) {
+    if (e < num_edges && msg.valid(e)) {
       const int local = ids[e] - seg0;
       if (local >= 0 && local < SBLK) {
-        m = relax<RELAX>(gval[src[e]], w, e);
+        m = msg.value(e);
         key = local;
       }
     }
@@ -90,6 +105,17 @@ __device__ __forceinline__ void fold_chunk(
     }
     __syncwarp();
   }
+}
+
+// The relax fold of K1 and K2: `gval` is the frontier-masked value table.
+template <int RELAX, int KIND>
+__device__ __forceinline__ void fold_chunk(
+    float (*acc)[SBLK], float (*msg_s)[32], const float* __restrict__ gval,
+    const int32_t* __restrict__ src, const float* __restrict__ w,
+    const uint8_t* __restrict__ mask, const int32_t* __restrict__ ids, int j,
+    int num_edges, int seg0) {
+  fold_edges<KIND>(acc, msg_s, RelaxMsg<RELAX>{gval, src, w, mask}, ids, j,
+                   num_edges, seg0);
 }
 
 // Segment t of the block: the NWARP accumulators folded in warp order.

@@ -1,0 +1,18 @@
+"""Lane-batched multi-query execution: many source-rooted queries as the
+lanes of one shared fixpoint (``lanes``).  ``QueryServer`` is ROADMAP
+Queue 1 item 7."""
+from repro_torch.query.lanes import (
+    LaneStats, init_lane_values, make_ppr_delta_round, make_ppr_round,
+    make_sharded_lanes_fn, make_sharded_min_round, make_sharded_ppr_round,
+    make_sharded_ppr_delta_round, make_stacked_lanes_fn, ppr_base_table,
+    run_ppr_delta_lanes, run_ppr_lanes, run_sharded_lanes,
+    run_stacked_lanes,
+)
+
+__all__ = [
+    "LaneStats", "init_lane_values", "make_ppr_delta_round",
+    "make_ppr_round", "make_sharded_lanes_fn", "make_sharded_min_round",
+    "make_sharded_ppr_round", "make_sharded_ppr_delta_round",
+    "make_stacked_lanes_fn", "ppr_base_table", "run_ppr_delta_lanes",
+    "run_ppr_lanes", "run_sharded_lanes", "run_stacked_lanes",
+]

@@ -220,9 +220,28 @@ def test_engine_config_fields_and_defaults_match_reference():
     ("pagerank_mesh", "Queue 1 item 10"),
 ])
 def test_unported_options_raise(case, item):
-    _, g, root, _, part = _both("rmat8", 4, 1)
+    """Options the port lacks raise, naming the ROADMAP item that brings
+    them.  ``pallas_mode='reduce'`` has come since (kernel K9): its cases
+    now run and equal the reference (``test_torch_segment_reduce.py``
+    holds the path in full)."""
+    g_ref, g, root, part_ref, part = _both("rmat8", 4, 1)
     compact = engine.EngineConfig(exchange="compact")
     reduce = engine.EngineConfig(use_pallas=True, pallas_mode="reduce")
+    if item == "K9":
+        ref_cfg = ref_engine.EngineConfig(use_pallas=True,
+                                          pallas_mode="reduce")
+        if case == "bfs_reduce":
+            want, _, _ = ref_apps.bfs(g_ref, root, part=part_ref,
+                                      cfg=ref_cfg)
+            got, _, _ = apps.bfs(g, root, part=part, cfg=reduce,
+                                 device="cpu")
+            np.testing.assert_array_equal(got, want)
+        else:
+            want, _ = ref_apps.pagerank(g_ref, num_shards=4, cfg=ref_cfg)
+            got, _ = apps.pagerank(g, num_shards=4, cfg=reduce,
+                                   device="cpu")
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7)
+        return
     calls = {
         "bfs_compact": lambda: apps.bfs(g, root, part=part, cfg=compact,
                                         device="cpu"),

@@ -67,13 +67,31 @@ def _tiny():
 
 @pytest.mark.parametrize("entry", ["bfs", "sssp", "run_stacked",
                                    "from_partition", "pagerank",
-                                   "pagerank_delta", "run_pagerank_delta"])
+                                   "pagerank_delta", "run_pagerank_delta",
+                                   "batched_queries", "cc",
+                                   "personalized_pagerank",
+                                   "run_stacked_lanes", "run_ppr_lanes",
+                                   "run_ppr_delta_lanes"])
 def test_entry_points_without_device_need_cuda(monkeypatch, entry):
-    from repro_torch.apps import bfs, pagerank, pagerank_delta, sssp
+    from repro_torch.apps import (
+        batched_queries, bfs, cc, pagerank, pagerank_delta,
+        personalized_pagerank, sssp,
+    )
     from repro_torch.core import actions, engine
+    from repro_torch.query import lanes
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g, part = _tiny()
+    init, unitw = lanes.init_lane_values(part, [("bfs", 0), ("sssp", 1)])
     calls = {
+        "batched_queries": lambda: batched_queries(g, [("bfs", 0)],
+                                                   part=part),
+        "cc": lambda: cc(g),
+        "personalized_pagerank": lambda: personalized_pagerank(g, [0]),
+        "run_stacked_lanes": lambda: lanes.run_stacked_lanes(part, init,
+                                                             unitw),
+        "run_ppr_lanes": lambda: lanes.run_ppr_lanes(part, [0], 0.85),
+        "run_ppr_delta_lanes": lambda: lanes.run_ppr_delta_lanes(
+            part, [0, 1], 0.85),
         "bfs": lambda: bfs(g, 0, part=part),
         "sssp": lambda: sssp(g, 0, part=part),
         "run_stacked": lambda: engine.run_stacked(
