@@ -58,6 +58,24 @@ started together) and runs, in order:
    library call and the bound — K3 also against 16 solo K1 launches of
    the same round.
 
+7. slice-4 path, the tiled residency: first the tiled kernels K5 (dense),
+   K6 (worklist, host and device plans), K7 (dense lanes) and K8
+   (worklist lanes) against their plain versions (all pairings, Q in
+   {1, 5, 16, 33}, vblk 128 and the automatic width, ragged sizes,
+   frontier densities 0 / 1% / 100%, a converged lane), with executed
+   cells and tile copies equal to the host mirror; then on the RMAT-18
+   partition with ``vmem_budget_bytes`` under the value table's bytes
+   (512 KiB unlaned, 8 MiB for Q = 16 lanes): BFS and SSSP under
+   ``dense`` (K5), ``worklist`` and ``device_worklist`` (K6, a window
+   enqueued under sync-debug mode 'error') equal the oracles,
+   delta-PageRank under ``device_worklist`` within tolerance, and
+   ``apps.batched_queries`` under the three launch shapes (K7, K8) every
+   lane bit-equal to the pinned K3 run, with one tiled launch per round;
+   then the heaviest rounds replayed to time K5 against K1, K6 against
+   K2, K7 against K3 and K8 against K4 on the same round, beside their
+   plain versions, the pinned twin's library call and byte bound, and
+   the bytes the tiles copy.
+
 ``--profile`` also traces one replayed lane round's relax phase (K3 and
 K4 host-plan launches) with ``torch.profiler`` and prints its device
 time by operator.
@@ -91,11 +109,16 @@ PR_TOL = 5e-10           # delta-PageRank residual tolerance at RMAT-18
 PR_RTOL, PR_ATOL = 1e-4, 1e-7
 KERNELS = ("fused_relax_reduce", "fused_relax_reduce_wl",
            "fused_relax_reduce_lanes", "fused_relax_reduce_wl_lanes",
-           "segment_combine")
+           "segment_combine", "fused_relax_reduce_tiled",
+           "fused_relax_reduce_wl_tiled", "fused_relax_reduce_tiled_lanes",
+           "fused_relax_reduce_wl_tiled_lanes")
 LANES = 16               # the lane slice's batch: 8 BFS + 8 SSSP queries
 PPR_SEEDS = 8            # personalized-PageRank lanes
 PPR_DAMPINGS = (0.85, 0.7, 0.6, 0.5)
 PPR_DELTA_TOL = 1e-10    # delta-PPR residual tolerance at RMAT-18
+TILED_BUDGET = 512 * 2**10        # under the RMAT-18 table's 1,068,032 B
+TILED_LANE_BUDGET = 8 * 2**20     # under the Q = 16 table's 17,088,512 B
+TILED_REPS = 3                    # timing reps of the tiled kernels
 
 
 def check(cond, msg):
@@ -780,7 +803,7 @@ def phase_slice2(torch, np, dev, g, part, root, want):
         f"ms, K1 {prr['k1_ms']:.4f} ms, plain {prr['plain_ms']:.4f} ms, "
         f"index_add_ {prr['library_ms']:.4f} ms, bound "
         f"{prr['bound_ms']:.4f} ms")
-    return launches, err, report, part_pr
+    return launches, err, report, part_pr, want_conv
 
 
 # --------------------------------------------------------------------------
@@ -1404,6 +1427,600 @@ def phase_lanes(torch, np, dev, g, part, root, want, part_pr):
     return launches, {"K3": err, "K4": err, "K9": err9}, report
 
 
+# --------------------------------------------------------------------------
+# phase 7: the slice-4 path at RMAT-18 — the tiled residency (K5-K8)
+# --------------------------------------------------------------------------
+
+def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
+                 unitw=None):
+    """One tiled launch (K5/K6, or K7/K8 with ``unitw``) against its plain
+    version and the pinned oracle: min bit-equal, sum within rtol 1e-5 /
+    atol 1e-6 and bit-equal between two runs; counts, executed cells and
+    tile copies equal the host mirror.  Returns (kernel, max |err|)."""
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import ref
+    gval, gchg, src, w, mask, ids = case
+    laned = unitw is not None
+    q = gval.shape[1] if laned else 1
+    v = gval.shape[0]
+    vb = frr.select_kernel_path(v, q, path="tiled", vblk=vblk)[1]
+    t = [torch.as_tensor(x, device=dev) for x in case]
+    head = t[:2] + ([torch.as_tensor(unitw, device=dev)] if laned else [])
+    gor = gchg.any(axis=1) if laned else gchg
+    plan = frr.plan_launch(t[2], t[4], t[5], nseg, v)
+    wl = None
+    if grid_mode == "worklist":
+        wl, info = frr.plan_worklist(ids, mask, src, gor, nseg, num_slots=v,
+                                     path="tiled", vblk=vb, lane_width=q)
+        want_dbg = (info.cells, info.tile_dmas)
+    elif grid_mode == "device_worklist":
+        wl = frr.build_device_worklist(t[1], t[2], t[4], t[5], nseg, plan,
+                                       path="tiled", vblk=vb)
+        _, info = frr.plan_worklist(ids, mask, src, gor, nseg, num_slots=v,
+                                    path="tiled", vblk=vb, dst_filter=False)
+        want_dbg = (info.cells, info.tile_needed)
+    else:
+        m = frr.fused_grid_cells(ids, mask, src, gor, nseg, vblk=vb)
+        want_dbg = (m["fused_live"], m["fused_tile_dmas"])
+    name = ("K7" if wl is None else "K8") if laned \
+        else ("K5" if wl is None else "K6")
+    launch = frr.fused_relax_reduce_lanes if laned else frr.fused_relax_reduce
+
+    def run(debug=True):
+        return launch(*head, *t[2:], nseg, relax, kind, with_count=True,
+                      with_debug=debug, plan=plan, worklist=wl, path="tiled",
+                      vblk=vb)
+
+    out, count, dbg = run()
+    if wl is None:
+        plain_fn = (ref.fused_relax_reduce_tiled_lanes_ref if laned
+                    else ref.fused_relax_reduce_tiled_ref)
+        plain, copies = plain_fn(*head, *t[2:], nseg, relax, kind, vb, plan)
+    else:
+        plain_fn = (ref.fused_relax_reduce_wl_tiled_lanes_ref if laned
+                    else ref.fused_relax_reduce_wl_tiled_ref)
+        plain, copies = plain_fn(*head, *t[2:], wl.wl_i.to(dev),
+                                 wl.wl_j.to(dev), wl.nlive.to(dev), nseg,
+                                 relax, kind, vb, wl.cell_ntiles,
+                                 wl.cell_tile, wl.cell_fetch)
+    oracle = (ref.fused_relax_reduce_lanes_ref if laned
+              else ref.fused_relax_reduce_ref)(*head, *t[2:], nseg, relax,
+                                               kind)
+    torch.cuda.synchronize()
+    at = f"{name} {grid_mode} {relax}/{kind} q={q} v={v} nseg={nseg} " \
+         f"vblk={vb}"
+    err = _check_out(torch, out, plain, kind, at)
+    _check_out(torch, out, oracle, kind, at + " (pinned oracle)")
+    if kind == "sum":
+        check(torch.equal(out, run(debug=False)[0]),
+              f"sum differs between runs: {at}")
+    want_count = (mask[:, None] & gchg[src]).sum(axis=0) if laned \
+        else (mask & gchg[src]).sum()
+    check(np.array_equal(count.cpu().numpy(), want_count),
+          f"counts differ: {at}")
+    got_dbg = (int(dbg[0]), int(dbg[1]))
+    check(got_dbg == want_dbg and int(copies) == want_dbg[1],
+          f"cells/copies {got_dbg} (plain {int(copies)}) != mirror "
+          f"{want_dbg}: {at}")
+    return name, err
+
+
+def phase_tiled_kernels_vs_plain(torch, np, dev):
+    from repro_torch.kernels import fused_relax_reduce as frr
+    shapes = [(1025, 5 * frr.EBLK + 13, 2 * frr.SBLK + 5),
+              (30011, 97 * frr.EBLK + 311, 20011)]
+    errs = {"K5": 0.0, "K6": 0.0, "K7": 0.0, "K8": 0.0}
+    n = 0
+    combos = [(None, p) for p in (("add_w", "min"), ("add_one", "min"),
+                                  ("mul_w", "sum"))]
+    combos += [(q, p) for q in (1, 5, 16, 33)
+               for p in (("add_w", "min"), ("mul_w", "sum"))]
+    for q, (relax, kind) in combos:
+        for v, e, nseg in shapes:
+            for frac in (0.0, 0.01, 1.0):
+                vblk = 128 if n % 2 else None
+                if q is None:
+                    case, unitw = _case(np, v, e, nseg, frac, seed=v + n,
+                                        sorted_ids=True,
+                                        negative=kind == "min"), None
+                else:
+                    c = _lane_case(np, v, e, nseg, q, frac, seed=v + q + n)
+                    case, unitw = c[:2] + c[3:], c[2]
+                for grid_mode in ("dense", "worklist", "device_worklist"):
+                    name, err = _tiled_check(torch, np, dev, case, nseg,
+                                             relax, kind, grid_mode, vblk,
+                                             unitw)
+                    errs[name] = max(errs[name], err)
+                n += 1
+    log(f"[tiled] {n} cases x (dense, host plan, device plan): K5/K6 and "
+        f"K7/K8 (Q in 1/5/16/33), vblk 128 and automatic: min bit-equal to "
+        f"the plain versions and the pinned oracle, sum max_abs_err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + " (rtol 1e-5) and bit-repeatable; counts, executed cells and tile "
+        "copies equal the host mirror")
+    return errs
+
+
+def _heaviest_round(torch, dev, part, arrays, sem, root):
+    """Replay ``sem``'s pinned dense fixpoint from ``root`` and return the
+    entering (gval, gchg) of its round with the most active edges, the
+    round number and the rounds run."""
+    from repro_torch import exchange
+    from repro_torch.core import engine
+    val = torch.as_tensor(engine.init_values(part, sem, {root: 0.0}),
+                          device=dev)
+    chg = sem.improved(val, torch.full_like(val, sem.identity)) \
+        & arrays.slot_valid
+    src = arrays.edge_src_root_flat.reshape(-1).long()
+    mask = arrays.edge_mask.reshape(-1)
+    cfg = engine.EngineConfig(use_pallas=True)
+    best, rnd = None, 0
+    while bool(chg.any()):
+        rnd += 1
+        n = int((mask & chg.reshape(-1)[src]).sum())
+        if best is None or n > best[0]:
+            best = (n, rnd, val.reshape(-1).clone(), chg.reshape(-1).clone())
+        val, chg, _ = exchange.fixpoint_round_stacked(
+            sem, arrays, cfg, part.S, part.R_max, val, chg)
+    return best[2], best[3], best[1], rnd
+
+
+def _time_tiled_kernels(torch, np, dev, part, arrays, root):
+    """K5 against K1 and K6 against K2 on the heaviest SSSP round, with
+    the plain versions, the pinned twins' library call and byte bound,
+    and the bytes the tiles copy.  Returns (K5 row, K6 row, max err)."""
+    from repro_torch.core import actions, engine
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import ops, ref
+    sem = actions.SSSP
+    gval, gchg, rnd, rounds = _heaviest_round(torch, dev, part, arrays, sem,
+                                              root)
+    plan = arrays.fused_plan
+    nseg = v = part.S * part.R_max
+    src = arrays.edge_src_root_flat.reshape(-1)
+    w = arrays.edge_w.reshape(-1)
+    mask = arrays.edge_mask.reshape(-1)
+    ids = arrays.edge_dst_flat.reshape(-1)
+    rk, kind = sem.relax_kind, sem.segment
+    path, vblk = frr.select_kernel_path(v, 1, TILED_BUDGET)
+    check(path == "tiled", "the RMAT-18 table is over the tiled budget")
+    gval_m = frr._masked_value_tables(gval, gchg, sem.identity)
+    act = frr._active_edges(src, mask, gchg)
+    chunk_act, count = frr._chunk_tables(src, mask, gchg, act)
+    tt = frr._chunk_tile_tables(src, act, v, vblk)
+    out1, _ = frr._launch(gval_m, src, w, mask, ids, plan, chunk_act, rk,
+                          kind, False)
+    out5, dbg5 = frr._launch_tiled(gval_m, src, w, mask, ids, plan,
+                                   chunk_act, tt, rk, kind, True)
+    plain5, copies5 = ref.fused_relax_reduce_tiled_ref(
+        gval, gchg, src, w, mask, ids, nseg, rk, kind, vblk, plan)
+    gchg_h = gchg.cpu().numpy()
+    mirror = frr.fused_grid_cells(part.edge_dst_flat, part.edge_mask,
+                                  part.edge_src_root_flat, gchg_h, nseg,
+                                  vblk=vblk)
+    torch.cuda.synchronize()
+    check(torch.equal(out5, out1) and torch.equal(out5, plain5),
+          f"K5 round {rnd}: differs from K1 / its plain version")
+    check((int(dbg5[0]), int(dbg5[1])) == (mirror["fused_live"],
+                                           mirror["fused_tile_dmas"])
+          and int(copies5) == mirror["fused_tile_dmas"],
+          f"K5 round {rnd}: cells/copies {dbg5.tolist()} != mirror")
+    n_active = int(count)
+    bound, bound_by = _round_bound_ms(part, rk, n_active)
+    msg = torch.where(act, sem.relax(gval[src.long()], w), sem.identity)
+    common = {"round": rnd, "rounds": rounds, "vblk": vblk,
+              "tiles": tt.n_tiles, "active_edges": n_active,
+              "bound_ms": bound, "bound_by": bound_by,
+              "library_ms": _library_ms(torch, kind, ids.long(), msg, nseg)}
+    k5 = dict(common, cells=mirror["fused_live"],
+              copies=mirror["fused_tile_dmas"], dma_bytes=mirror["dma_bytes"],
+              ms=time_ms(torch, lambda: ops.fused_relax_reduce(
+                  gval, gchg, src, w, mask, ids, nseg, rk, kind, plan=plan,
+                  vmem_budget_bytes=TILED_BUDGET), reps=TILED_REPS,
+                  warmup=1),
+              kernel_ms=time_ms(torch, lambda: frr._launch_tiled(
+                  gval_m, src, w, mask, ids, plan, chunk_act, tt, rk, kind,
+                  False), reps=TILED_REPS, warmup=1),
+              pinned_ms=time_ms(torch, lambda: frr._launch(
+                  gval_m, src, w, mask, ids, plan, chunk_act, rk, kind,
+                  False)),
+              plain_ms=time_ms(torch, lambda: ref.fused_relax_reduce_tiled_ref(
+                  gval, gchg, src, w, mask, ids, nseg, rk, kind, vblk, plan),
+                  reps=TILED_REPS, warmup=1))
+
+    # K6 (host plan, tiled planner) against K2 (host plan, pinned planner)
+    cfg_t = engine.EngineConfig(use_pallas=True, grid_mode="worklist",
+                                vmem_budget_bytes=TILED_BUDGET)
+    planner_t = engine.launch_planner(part, cfg_t)
+    planner_p = engine.launch_planner(part, engine.EngineConfig(
+        use_pallas=True, grid_mode="worklist"))
+    t0 = time.perf_counter()
+    wl_t, info_t = planner_t.plan(gchg_h)
+    plan_ms = 1e3 * (time.perf_counter() - t0)
+    wl_p, info_p = planner_p.plan(gchg_h)
+    grid6, run_ptr, n_runs, wl6 = frr._wl_tiled_on_card(
+        gval_m, src, w, mask, ids, wl_t, nseg, tt)
+    grid2, wl2 = frr._wl_on_card(gval_m, src, w, mask, ids, wl_p, nseg)
+    out6, dbg6 = frr._launch_wl_tiled(gval_m, src, w, mask, ids, wl_t, tt,
+                                      nseg, rk, kind, True)
+    plain6, copies6 = ref.fused_relax_reduce_wl_tiled_ref(
+        gval, gchg, src, w, mask, ids, wl6.wl_i, wl6.wl_j, wl6.nlive, nseg,
+        rk, kind, vblk, wl_t.cell_ntiles, wl_t.cell_tile, wl_t.cell_fetch)
+    torch.cuda.synchronize()
+    check(torch.equal(out6, out1) and torch.equal(out6, plain6),
+          f"K6 round {rnd}: differs from K1 / its plain version")
+    check((int(dbg6[0]), int(dbg6[1])) == (info_t.cells, info_t.tile_dmas)
+          and int(copies6) == info_t.tile_dmas,
+          f"K6 round {rnd}: cells/copies {dbg6.tolist()} != plan")
+    k6 = dict(common, cells=info_t.cells, copies=info_t.tile_dmas,
+              copies_no_reuse=info_t.tile_needed, runs=n_runs,
+              dma_bytes=info_t.dma_bytes, plan_ms=plan_ms,
+              cells_ms=time_ms(torch, lambda: frr._wl_tiled_cells(
+                  gval_m, src, w, mask, ids, wl6, tt, grid6, run_ptr,
+                  n_runs, rk, kind, False), reps=TILED_REPS, warmup=1),
+              kernel_ms=time_ms(torch, lambda: frr._wl_fold(
+                  frr._wl_tiled_cells(gval_m, src, w, mask, ids, wl6, tt,
+                                      grid6, run_ptr, n_runs, rk, kind,
+                                      False)[0], wl6, nseg, kind),
+                  reps=TILED_REPS, warmup=1),
+              pinned_cells=info_p.cells,
+              pinned_cells_ms=time_ms(torch, lambda: frr._wl_cells(
+                  gval_m, src, w, mask, ids, wl2, grid2, rk, kind, False)),
+              pinned_ms=time_ms(torch, lambda: frr._wl_fold(
+                  frr._wl_cells(gval_m, src, w, mask, ids, wl2, grid2, rk,
+                                kind, False)[0], wl2, nseg, kind)),
+              ms=time_ms(torch, lambda: ops.fused_relax_reduce(
+                  gval, gchg, src, w, mask, ids, nseg, rk, kind, plan=plan,
+                  worklist=wl_t), reps=TILED_REPS, warmup=1),
+              device_ms=time_ms(torch, lambda: ops.fused_relax_reduce(
+                  gval, gchg, src, w, mask, ids, nseg, rk, kind, plan=plan,
+                  grid_mode="device_worklist",
+                  vmem_budget_bytes=TILED_BUDGET), reps=TILED_REPS,
+                  warmup=1),
+              plain_ms=time_ms(torch, lambda: ref.fused_relax_reduce_wl_tiled_ref(
+                  gval, gchg, src, w, mask, ids, wl6.wl_i, wl6.wl_j,
+                  wl6.nlive, nseg, rk, kind, vblk, wl_t.cell_ntiles,
+                  wl_t.cell_tile, wl_t.cell_fetch), reps=TILED_REPS,
+                  warmup=1))
+    # the reference's schedule (no restart) on the same cells
+    ref_copies = _reference_schedule_copies(np, wl_t)
+    k6["copies_reference_schedule"] = ref_copies
+    return k5, k6, max(max_abs_err(torch, out5, plain5),
+                       max_abs_err(torch, out6, plain6))
+
+
+def _reference_schedule_copies(np, wl):
+    """Copies of the reference's 2-slot schedule, which carries tiles
+    across runs of cells, on a tiled host plan's cells: the port's
+    schedule with every cell in one run."""
+    from repro_torch.kernels import fused_relax_reduce as frr
+    return frr.tile_schedule(np.zeros(wl.l_pad, np.int32), int(wl.nlive[0]),
+                             wl.cell_ntiles.numpy(),
+                             wl.cell_tile.numpy())[2]
+
+
+def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
+    """K7 against K3 and K8 against K4 on the heaviest Q-lane round, as
+    ``_time_tiled_kernels`` does K5 and K6.  Returns (K7, K8, max err)."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ref import _lane_messages
+    gval, gchg, unitw, rnd, rounds = _heaviest_lane_round(
+        torch, np, dev, part, arrays, queries)
+    plan = arrays.fused_plan
+    nseg = v = part.S * part.R_max
+    q = gval.shape[1]
+    src = arrays.edge_src_root_flat.reshape(-1)
+    w = arrays.edge_w.reshape(-1)
+    mask = arrays.edge_mask.reshape(-1)
+    ids = arrays.edge_dst_flat.reshape(-1)
+    path, vblk = frr.select_kernel_path(v, q, TILED_LANE_BUDGET)
+    check(path == "tiled", "the Q-lane table is over the tiled budget")
+    gval_m = frr._masked_value_tables(gval, gchg, math.inf)
+    unit_u8 = (unitw != 0).to(torch.uint8)
+    chunk_act, counts, act = frr._lane_chunk_tables(
+        src, mask, gchg, plan.src_deg, with_act=True)
+    tt = frr._chunk_tile_tables(src, act, v, vblk)
+    out3, _ = frr._launch_lanes(gval_m, unit_u8, src, w, mask, ids, plan,
+                                chunk_act, "add_w", "min", False)
+    out7, dbg7 = frr._launch_tiled_lanes(gval_m, unit_u8, src, w, mask, ids,
+                                         plan, chunk_act, tt, "add_w", "min",
+                                         True)
+    plain7, copies7 = ref.fused_relax_reduce_tiled_lanes_ref(
+        gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min", vblk,
+        plan)
+    gchg_h = gchg.cpu().numpy()
+    mirror = frr.fused_grid_cells(part.edge_dst_flat, part.edge_mask,
+                                  part.edge_src_root_flat, gchg_h, nseg,
+                                  vblk=vblk, lane_width=q)
+    torch.cuda.synchronize()
+    check(torch.equal(out7, out3) and torch.equal(out7, plain7),
+          f"K7 round {rnd}: differs from K3 / its plain version")
+    check((int(dbg7[0]), int(dbg7[1])) == (mirror["fused_live"],
+                                           mirror["fused_tile_dmas"])
+          and int(copies7) == mirror["fused_tile_dmas"],
+          f"K7 round {rnd}: cells/copies {dbg7.tolist()} != mirror")
+    n_edges = int(act.sum())
+    n_pairs = int(counts.sum())
+    bound, bound_by = _lane_round_bound_ms(part, n_edges, n_pairs, q)
+    msg = _lane_messages(gval, gchg, unitw, src, w, mask, "add_w", "min")
+    ids_long = ids.long()
+    common = {"round": rnd, "rounds": rounds, "lanes": q, "vblk": vblk,
+              "tiles": tt.n_tiles, "active_edges": n_edges,
+              "active_pairs": n_pairs, "bound_ms": bound,
+              "bound_by": bound_by,
+              "library_ms": time_ms(torch, lambda: torch.full(
+                  (nseg, q), math.inf, device=dev).index_reduce_(
+                      0, ids_long, msg, "amin", include_self=True), reps=5)}
+    k7 = dict(common, cells=mirror["fused_live"],
+              copies=mirror["fused_tile_dmas"], dma_bytes=mirror["dma_bytes"],
+              ms=time_ms(torch, lambda: ops.fused_relax_reduce_lanes(
+                  gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min",
+                  plan=plan, vmem_budget_bytes=TILED_LANE_BUDGET),
+                  reps=TILED_REPS, warmup=1),
+              kernel_ms=time_ms(torch, lambda: frr._launch_tiled_lanes(
+                  gval_m, unit_u8, src, w, mask, ids, plan, chunk_act, tt,
+                  "add_w", "min", False), reps=TILED_REPS, warmup=1),
+              pinned_ms=time_ms(torch, lambda: frr._launch_lanes(
+                  gval_m, unit_u8, src, w, mask, ids, plan, chunk_act,
+                  "add_w", "min", False)),
+              plain_ms=time_ms(
+                  torch, lambda: ref.fused_relax_reduce_tiled_lanes_ref(
+                      gval, gchg, unitw, src, w, mask, ids, nseg, "add_w",
+                      "min", vblk, plan), reps=TILED_REPS, warmup=1))
+
+    cfg_t = engine.EngineConfig(use_pallas=True, grid_mode="worklist",
+                                vmem_budget_bytes=TILED_LANE_BUDGET)
+    planner_t = engine.launch_planner(part, cfg_t, q_pad=q)
+    planner_p = engine.launch_planner(part, engine.EngineConfig(
+        use_pallas=True, grid_mode="worklist"), q_pad=q)
+    gor = gchg_h.any(axis=1)
+    t0 = time.perf_counter()
+    wl_t, info_t = planner_t.plan(gor)
+    plan_ms = 1e3 * (time.perf_counter() - t0)
+    wl_p, info_p = planner_p.plan(gor)
+    grid8, run_ptr, n_runs, wl8 = frr._wl_tiled_on_card(
+        gval_m, src, w, mask, ids, wl_t, nseg, tt)
+    grid4, wl4 = frr._wl_on_card(gval_m, src, w, mask, ids, wl_p, nseg)
+    out8, dbg8 = frr._launch_wl_tiled_lanes(gval_m, unit_u8, src, w, mask,
+                                            ids, wl_t, tt, nseg, "add_w",
+                                            "min", True)
+    plain8, copies8 = ref.fused_relax_reduce_wl_tiled_lanes_ref(
+        gval, gchg, unitw, src, w, mask, ids, wl8.wl_i, wl8.wl_j, wl8.nlive,
+        nseg, "add_w", "min", vblk, wl_t.cell_ntiles, wl_t.cell_tile,
+        wl_t.cell_fetch)
+    torch.cuda.synchronize()
+    check(torch.equal(out8, out3) and torch.equal(out8, plain8),
+          f"K8 round {rnd}: differs from K3 / its plain version")
+    check((int(dbg8[0]), int(dbg8[1])) == (info_t.cells, info_t.tile_dmas)
+          and int(copies8) == info_t.tile_dmas,
+          f"K8 round {rnd}: cells/copies {dbg8.tolist()} != plan")
+    k8 = dict(common, cells=info_t.cells, copies=info_t.tile_dmas,
+              copies_no_reuse=info_t.tile_needed, runs=n_runs,
+              copies_reference_schedule=_reference_schedule_copies(np, wl_t),
+              dma_bytes=info_t.dma_bytes, plan_ms=plan_ms,
+              cells_ms=time_ms(torch, lambda: frr._wl_tiled_lanes_cells(
+                  gval_m, unit_u8, src, w, mask, ids, wl8, tt, grid8,
+                  run_ptr, n_runs, "add_w", "min", False), reps=TILED_REPS,
+                  warmup=1),
+              kernel_ms=time_ms(torch, lambda: frr._wl_lanes_fold(
+                  frr._wl_tiled_lanes_cells(
+                      gval_m, unit_u8, src, w, mask, ids, wl8, tt, grid8,
+                      run_ptr, n_runs, "add_w", "min", False)[0], wl8,
+                  nseg, "min"), reps=TILED_REPS, warmup=1),
+              pinned_cells=info_p.cells,
+              pinned_cells_ms=time_ms(torch, lambda: frr._wl_lanes_cells(
+                  gval_m, unit_u8, src, w, mask, ids, wl4, grid4, "add_w",
+                  "min", False)),
+              pinned_ms=time_ms(torch, lambda: frr._wl_lanes_fold(
+                  frr._wl_lanes_cells(gval_m, unit_u8, src, w, mask, ids,
+                                      wl4, grid4, "add_w", "min",
+                                      False)[0], wl4, nseg, "min")),
+              ms=time_ms(torch, lambda: ops.fused_relax_reduce_lanes(
+                  gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min",
+                  plan=plan, worklist=wl_t), reps=TILED_REPS, warmup=1),
+              device_ms=time_ms(torch, lambda: ops.fused_relax_reduce_lanes(
+                  gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min",
+                  plan=plan, grid_mode="device_worklist",
+                  vmem_budget_bytes=TILED_LANE_BUDGET), reps=TILED_REPS,
+                  warmup=1),
+              plain_ms=time_ms(
+                  torch, lambda: ref.fused_relax_reduce_wl_tiled_lanes_ref(
+                      gval, gchg, unitw, src, w, mask, ids, wl8.wl_i,
+                      wl8.wl_j, wl8.nlive, nseg, "add_w", "min", vblk,
+                      wl_t.cell_ntiles, wl_t.cell_tile, wl_t.cell_fetch),
+                  reps=TILED_REPS, warmup=1))
+    return k7, k8, max(max_abs_err(torch, out7, plain7),
+                       max_abs_err(torch, out8, plain8))
+
+
+def phase_tiled(torch, np, dev, g, part, root, want, part_pr, want_conv):
+    from repro_torch import apps, exchange, obs
+    from repro_torch.core import actions, engine
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import rhizome_segment_reduce as rsr
+
+    reg = obs.registry()
+    report = {"runs": {}}
+    counters = {"k1": "launches", "k2": "wl_launches",
+                "k3": "lanes_launches", "k4": "wl_lanes_launches",
+                "k5": "tiled_launches", "k6": "wl_tiled_launches",
+                "k7": "tiled_lanes_launches",
+                "k8": "wl_tiled_lanes_launches"}
+    launches = {"K5": 0, "K6": 0, "K7": 0, "K8": 0}
+
+    def drive(key, run, call):
+        """Drive one run of the path with the launch counts set to 0 just
+        before it and read just after; returns its result and a row."""
+        d = reg.counter("engine_dispatches_total").labels(run=run)
+        h = reg.counter("engine_host_syncs_total").labels(run=run)
+        d0, h0 = d.value, h.value
+        for attr in counters.values():
+            setattr(frr, attr, 0)
+        rsr.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        row = {"wall_s": time.perf_counter() - t0, "k9": rsr.launches,
+               "dispatches": d.value - d0, "host_syncs": h.value - h0}
+        row.update({k: getattr(frr, attr) for k, attr in counters.items()})
+        for k in launches:
+            launches[k] += row[k.lower()]
+        report["runs"][key] = row
+        return res, row
+
+    def only(row, name, n, at):
+        """``name``'s launches are ``n`` and no other kernel launched."""
+        others = {k: v for k, v in row.items()
+                  if k.startswith("k") and k != name and v}
+        check(row[name] == n and not others,
+              f"{at}: {row[name]} {name.upper()} launches for {n} rounds, "
+              f"others {others}")
+
+    # BFS and SSSP over the budget: K5 dense, K6 host and device plans
+    for grid in ("dense", "worklist", "device_worklist"):
+        cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid,
+                                  vmem_budget_bytes=TILED_BUDGET)
+        for name, app in (("bfs", apps.bfs), ("sssp", apps.sssp)):
+            (got, stats, _), row = drive(
+                f"{name}_tiled_{grid}", name,
+                lambda: app(g, root, part=part, cfg=cfg))
+            rounds = int(stats.iterations)
+            row.update(rounds=rounds, messages=int(stats.messages))
+            check(np.array_equal(got, want[name]),
+                  f"{name} tiled {grid} differs from the numpy oracle at "
+                  f"{int((got != want[name]).sum())} vertices")
+            windows = -(-rounds // cfg.device_window)
+            if grid == "device_worklist":
+                only(row, "k6", windows * cfg.device_window,
+                     f"{name} tiled {grid}")
+                check(row["host_syncs"] == windows,
+                      f"{name} tiled {grid}: {row['host_syncs']} syncs")
+            else:
+                only(row, "k5" if grid == "dense" else "k6", rounds,
+                     f"{name} tiled {grid}")
+            log(f"[tiled] {name} {grid} at vmem_budget_bytes="
+                f"{TILED_BUDGET}: equal to the oracle; {rounds} rounds, K5 "
+                f"{row['k5']} / K6 {row['k6']} launches, "
+                f"{row['host_syncs']} host syncs, wall {row['wall_s']:.3f} s")
+
+    # a tiled device_worklist window enqueues without any host sync
+    arrays = engine.DeviceArrays.from_partition(part, dev)
+    cfg_dev = engine.EngineConfig(use_pallas=True,
+                                  grid_mode="device_worklist",
+                                  vmem_budget_bytes=TILED_BUDGET)
+    val = torch.as_tensor(engine.init_values(part, actions.SSSP,
+                                             {root: 0.0}), device=dev)
+    chg = (val == 0) & arrays.slot_valid
+    frr.wl_tiled_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exchange.fixpoint_window_stacked(
+            actions.SSSP, arrays, cfg_dev, part.S, part.R_max,
+            cfg_dev.device_window, val, chg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(frr.wl_tiled_launches == cfg_dev.device_window,
+          "the tiled window's rounds run K6")
+    log(f"[tiled] a {cfg_dev.device_window}-round SSSP window of K6 "
+        "launches enqueued under sync-debug mode 'error': no host sync")
+
+    # delta-PageRank over the budget under device_worklist
+    cfg = engine.EngineConfig(use_pallas=True, grid_mode="device_worklist",
+                              vmem_budget_bytes=TILED_BUDGET)
+    (got, stats, _), row = drive(
+        "pagerank_delta_tiled_device_worklist", "pagerank_delta",
+        lambda: apps.pagerank_delta(g, tol=PR_TOL, part=part_pr, cfg=cfg))
+    rounds = int(stats.iterations)
+    row.update(rounds=rounds, messages=int(stats.messages),
+               max_abs_diff=float(np.abs(got - want_conv).max()))
+    check(np.allclose(got, want_conv, rtol=PR_RTOL, atol=PR_ATOL),
+          f"pagerank_delta tiled off the oracle by {row['max_abs_diff']}")
+    windows = -(-rounds // cfg.device_window)
+    only(row, "k6", windows * cfg.device_window, "pagerank_delta tiled")
+    log(f"[tiled] pagerank_delta device_worklist: {rounds} rounds within "
+        f"rtol {PR_RTOL} / atol {PR_ATOL} of the oracle (max |diff| "
+        f"{row['max_abs_diff']:.3g}), K6 {row['k6']} launches, "
+        f"{row['host_syncs']} host syncs, wall {row['wall_s']:.3f} s")
+
+    # Q = 16 lanes over the budget: K7 dense, K8 host and device plans,
+    # every lane bit-equal to the pinned K3 run
+    deg = np.argsort(-g.out_degrees(), kind="stable")
+    roots = [int(v) for v in deg[:LANES]]
+    half = LANES // 2
+    queries = [("bfs", r) for r in roots[:half]] + \
+        [("sssp", r) for r in roots[half:]]
+    pinned, pstats, _ = apps.batched_queries(
+        g, queries, part=part, cfg=engine.EngineConfig(use_pallas=True))
+    for grid in ("dense", "worklist", "device_worklist"):
+        cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid,
+                                  vmem_budget_bytes=TILED_LANE_BUDGET)
+        (res, stats, _), row = drive(
+            f"lanes_tiled_{grid}", "lanes_min",
+            lambda: apps.batched_queries(g, queries, part=part, cfg=cfg))
+        for q, (got, want_q) in enumerate(zip(res, pinned)):
+            check(np.array_equal(got, want_q),
+                  f"lane {q} tiled {grid} differs from its K3 run at "
+                  f"{int((got != want_q).sum())} vertices")
+        check(all(torch.equal(a, b) for a, b in zip(stats, pstats)),
+              f"lanes tiled {grid}: LaneStats differ from the K3 run")
+        rounds = int(stats.rounds.max())
+        if grid == "device_worklist":
+            windows = -(-rounds // cfg.device_window)
+            only(row, "k8", windows * cfg.device_window,
+                 f"lanes tiled {grid}")
+        else:
+            only(row, "k7" if grid == "dense" else "k8", rounds,
+                 f"lanes tiled {grid}")
+        row.update(rounds=rounds)
+        log(f"[tiled] Q={LANES} {grid} at vmem_budget_bytes="
+            f"{TILED_LANE_BUDGET}: every lane bit-equal to the K3 run, "
+            f"LaneStats equal; {rounds} rounds, K7 {row['k7']} / K8 "
+            f"{row['k8']} launches, {row['host_syncs']} host syncs, wall "
+            f"{row['wall_s']:.3f} s")
+
+    # replay the heaviest rounds for timings
+    k5, k6, err = _time_tiled_kernels(torch, np, dev, part, arrays, root)
+    k7, k8, err_l = _time_tiled_lane_kernels(torch, np, dev, part, arrays,
+                                             queries)
+    report.update(k5=k5, k6=k6, k7=k7, k8=k8)
+    log(f"[tiled] heaviest SSSP round ({k5['round']} of {k5['rounds']}, "
+        f"{k5['active_edges']} active edges, vblk {k5['vblk']}, "
+        f"{k5['tiles']} tiles): K5 relax phase {k5['ms']:.4f} ms (kernel "
+        f"{k5['kernel_ms']:.4f} ms, {k5['copies']} tile copies = "
+        f"{k5['dma_bytes']} B) against K1 {k5['pinned_ms']:.4f} ms; plain "
+        f"{k5['plain_ms']:.4f} ms, scatter_reduce_ amin "
+        f"{k5['library_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms")
+    log(f"[tiled] same round, K6 host plan ({k6['cells']} cells in "
+        f"{k6['runs']} runs, {k6['copies']} copies, reference schedule "
+        f"{k6['copies_reference_schedule']}, no reuse "
+        f"{k6['copies_no_reuse']}; planner {k6['plan_ms']:.1f} ms): K6 "
+        f"{k6['cells_ms']:.4f} ms, K6+fold {k6['kernel_ms']:.4f} ms against "
+        f"K2 {k6['pinned_cells_ms']:.4f} / K2+fold {k6['pinned_ms']:.4f} "
+        f"ms; relax phase {k6['ms']:.4f} ms (device plan "
+        f"{k6['device_ms']:.4f} ms), plain {k6['plain_ms']:.4f} ms")
+    log(f"[tiled] heaviest Q={LANES} round ({k7['round']} of "
+        f"{k7['rounds']}, {k7['active_pairs']} active pairs, vblk "
+        f"{k7['vblk']}, {k7['tiles']} tiles): K7 relax phase "
+        f"{k7['ms']:.4f} ms (kernel {k7['kernel_ms']:.4f} ms, "
+        f"{k7['copies']} copies = {k7['dma_bytes']} B) against K3 "
+        f"{k7['pinned_ms']:.4f} ms; plain {k7['plain_ms']:.4f} ms, "
+        f"index_reduce_ amin {k7['library_ms']:.4f} ms, bound "
+        f"{k7['bound_ms']:.4f} ms")
+    log(f"[tiled] same round, K8 host plan ({k8['cells']} cells, "
+        f"{k8['copies']} copies, reference schedule "
+        f"{k8['copies_reference_schedule']}; planner {k8['plan_ms']:.1f} "
+        f"ms): K8 {k8['cells_ms']:.4f} ms, K8+fold {k8['kernel_ms']:.4f} ms "
+        f"against K4 {k8['pinned_cells_ms']:.4f} / K4+fold "
+        f"{k8['pinned_ms']:.4f} ms; relax phase {k8['ms']:.4f} ms (device "
+        f"plan {k8['device_ms']:.4f} ms), plain {k8['plain_ms']:.4f} ms")
+    return launches, {"K5": err, "K6": err, "K7": err_l, "K8": err_l}, report
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1424,16 +2041,23 @@ def main() -> int:
     g, part, root, want = rmat18(np)
     k1_launches, err, report = phase_main_path(torch, np, dev, g, part, root,
                                                want)
-    launches2, err2, report2, part_pr = phase_slice2(torch, np, dev, g, part,
-                                                     root, want)
+    launches2, err2, report2, part_pr, want_conv = phase_slice2(
+        torch, np, dev, g, part, root, want)
     errs3 = phase_lane_kernels_vs_plain(torch, np, dev)
     launches3, err3, report3 = phase_lanes(torch, np, dev, g, part, root,
                                            want, part_pr)
+    t_tiled = time.perf_counter()
+    errs4 = phase_tiled_kernels_vs_plain(torch, np, dev)
+    launches4, err4, report4 = phase_tiled(torch, np, dev, g, part, root,
+                                           want, part_pr, want_conv)
+    report4["phase_s"] = time.perf_counter() - t_tiled
+    log(f"[tiled] phase 7: {report4['phase_s']:.1f} s")
     heavy, heavy2 = report["heaviest"], report2["heaviest"]
     k3, k4, k9 = report3["k3"], report3["k4"], report3["k9"]
 
-    report.update(slice2=report2, slice3=report3, device=smi,
-                  build_s=build_s, total_s=time.perf_counter() - t_start)
+    report.update(slice2=report2, slice3=report3, slice4=report4,
+                  device=smi, build_s=build_s,
+                  total_s=time.perf_counter() - t_start)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
     kernels = {"kernels": [{
@@ -1514,6 +2138,31 @@ def main() -> int:
         "kernel_ms": k9["kernel_ms"],
         "checked": True,
     }]}
+    tiled = (("K5", "fused_relax_reduce_tiled", 502),
+             ("K6", "fused_relax_reduce_wl_tiled", 703),
+             ("K7", "fused_relax_reduce_tiled_lanes", 553),
+             ("K8", "fused_relax_reduce_wl_tiled_lanes", 744))
+    for key, name, line in tiled:
+        check(launches4[key] > 0, f"{key} was never launched on the path")
+        row = report4[key.lower()]
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/fused_relax_reduce.py:{line}",
+            "launches": launches4[key],
+            "max_abs_err": max(err4[key], errs4[key]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "kernel_ms": row["kernel_ms"],
+            "pinned_ms": row["pinned_ms"],
+            "dma_bytes": row["dma_bytes"],
+            "vblk": row["vblk"],
+            "checked": True,
+        })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))

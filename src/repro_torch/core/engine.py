@@ -48,11 +48,15 @@ class EngineConfig:
     ``NotImplementedError`` when a run would take it.
     ``pallas_mode='reduce'`` relaxes with torch ops and reduces with the
     segment-reduce kernel K9 (unlaned runs only, as in the reference).
-    ``vmem_budget_bytes`` and
-    ``checkpoint_every`` are validated but not acted on yet: the CUDA
-    kernels read the value table from device memory at any size;
-    ``smem_budget_bytes`` only arms the planner's warning, as in the
-    reference."""
+    ``vmem_budget_bytes`` decides the value table's residency, as in the
+    reference (``kernels.fused_relax_reduce.select_kernel_path``; None
+    defers to the ``REPRO_VMEM_BUDGET`` env var, then to a default that
+    keeps every table the card holds pinned): a (S*R_max[, Q]) table over
+    the budget runs the fused relax through the tiled kernels K5-K8,
+    which copy slot tiles into shared memory, instead of K1-K4.
+    ``smem_budget_bytes`` arms the index-table guard (a warning, and a
+    wider tile on the tiled path), as in the reference.
+    ``checkpoint_every`` is validated but not acted on yet."""
 
     collapse: str = "eager"      # 'eager' | 'deferred' (min-semirings only)
     exchange: str = "dense"      # 'dense' | 'compact' (targeted messages)
@@ -190,13 +194,20 @@ WORKLIST_AUTO_THRESHOLD = 0.25
 def launch_planner(part: Partition, cfg: EngineConfig, q_pad: int = 1):
     """Host-side ``WorklistPlanner`` for the stacked fused launch: the
     dense exchange flattens ``edge_dst_flat`` over ``S*R_max`` segments.
-    The value table stays resident, so the plan is always pinned, and a
-    laned launch's width ``q_pad`` (the reference's residency input)
-    changes nothing: K4 plans from the OR-across-lanes frontier alone."""
+    Its residency is the launch's: ``select_kernel_path`` of the
+    (S*R_max, q_pad) table against ``cfg.vmem_budget_bytes``, so a laned
+    launch passes its lane count ``q_pad`` (which also prices the tile
+    copies)."""
     exchange.check_ported(cfg)
+    num_slots = part.S * part.R_max
+    n_chunks = frr._round_up(part.edge_dst_flat.size, frr.EBLK) // frr.EBLK
+    path, vblk = frr.select_kernel_path(
+        num_slots, q_pad, cfg.vmem_budget_bytes, n_chunks=n_chunks,
+        smem_budget_bytes=cfg.smem_budget_bytes)
     return frr.WorklistPlanner(
         part.edge_dst_flat, part.edge_mask, part.edge_src_root_flat,
-        part.S * part.R_max, smem_budget_bytes=cfg.smem_budget_bytes)
+        num_slots, num_slots=num_slots, path=path, vblk=vblk,
+        lane_width=q_pad, smem_budget_bytes=cfg.smem_budget_bytes)
 
 
 def plan_round_worklist(planner, cfg: EngineConfig, gchg,
@@ -213,20 +224,25 @@ def plan_round_worklist(planner, cfg: EngineConfig, gchg,
 
 def _obs_record_round(rec, run, part, cfg, planner, rnd, gchg, frontier,
                       mc, work, wl, info, wall_s):
-    """Build + store one flight-recorder ``RoundRecord``: the cell
-    columns come from the planner mirror of the launch this round made
-    (``WorklistInfo`` for worklist launches; for dense launches the cells
-    K1 executes and, as ``launched``, the cells its blocks walk), plus
-    the per-shard message-volume mirror feeding the skew gauge.  Only
-    ever called with a recorder installed."""
+    """Build + store one flight-recorder ``RoundRecord``: the cell and
+    tile-copy columns come from the planner mirror of the launch this
+    round made (``WorklistInfo`` for worklist launches; for dense
+    launches the cells K1/K5 executes, the tiles it copies and, as
+    ``launched``, the cells its blocks walk), plus the per-shard
+    message-volume mirror feeding the skew gauge.  Only ever called with
+    a recorder installed."""
     grid = "dense" if wl is None else "worklist"
+    tile_dmas = dma_bytes = 0
     if planner is not None:
         path = planner.path
         if wl is not None:
             cells, launched = info.cells, info.launched
+            tile_dmas, dma_bytes = info.tile_dmas, info.dma_bytes
         else:
             d = planner.dense_mirror(gchg)
             cells, launched = d["cells"], d["launched"]
+            if cfg.pallas_mode == "fused":
+                tile_dmas, dma_bytes = d["tile_dmas"], d["dma_bytes"]
     else:
         path = "torch"
         cells = launched = 0
@@ -236,8 +252,8 @@ def _obs_record_round(rec, run, part, cfg, planner, rnd, gchg, frontier,
         obs.RoundRecord(
             run=run, round=rnd, frontier=frontier, messages=mc, work=work,
             pruned=mc - min(work, mc), grid=grid, path=path, cells=cells,
-            launched=launched, tile_dmas=0, dma_bytes=0, wall_s=wall_s,
-            shard_messages=[int(x) for x in shard]),
+            launched=launched, tile_dmas=tile_dmas, dma_bytes=dma_bytes,
+            wall_s=wall_s, shard_messages=[int(x) for x in shard]),
         frontier_bitmap=gchg.copy() if rec.keep_frontiers else None)
 
 
@@ -396,12 +412,17 @@ def _record_device_window(rec, run, part, planner, l_pad, window, it_end,
     entering each round, then the exit frontier): cells and shard
     messages summed over the live rounds, so window sums equal the
     host-driven per-round totals.  ``launched`` is the port's static
-    device-worklist length times the live rounds."""
+    device-worklist length times the live rounds.  A tiled device plan
+    copies every live cell's chunk tiles, which is the dense mirror's
+    count."""
     live, msgs, work, pruned = totals
-    cells = 0
+    cells = tile_dmas = dma_bytes = 0
     shard_sum = None
     for r in range(live):
-        cells += planner.dense_mirror(ent[r])["cells"]
+        d = planner.dense_mirror(ent[r])
+        cells += d["cells"]
+        tile_dmas += d["tile_dmas"]
+        dma_bytes += d["dma_bytes"]
         sh = np.asarray(exchange.shard_message_mirror(
             part.edge_mask, part.edge_src_root_flat, ent[r]))
         shard_sum = sh if shard_sum is None else shard_sum + sh
@@ -410,7 +431,8 @@ def _record_device_window(rec, run, part, planner, l_pad, window, it_end,
             run=run, round=it_end, frontier=int(ent[0].sum()),
             messages=msgs, work=work, pruned=pruned,
             grid="device_worklist", path=planner.path, cells=cells,
-            launched=l_pad * live, tile_dmas=0, dma_bytes=0, wall_s=wall,
+            launched=l_pad * live, tile_dmas=tile_dmas,
+            dma_bytes=dma_bytes, wall_s=wall,
             shard_messages=([int(x) for x in shard_sum]
                             if shard_sum is not None else None),
             window=window),

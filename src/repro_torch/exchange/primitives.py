@@ -50,7 +50,10 @@ def relax(sem: Semiring, cfg, edge_src, edge_w, edge_mask, ids, gval, gchg,
     edges): ``worklist`` — a host-planned live-cell list — selects the
     worklist launch, and so does ``cfg.grid_mode='device_worklist'`` with
     no plan given, which compacts the list on the device; otherwise the
-    dense launch runs.  ``pallas_mode='reduce'`` (unlaned only) relaxes
+    dense launch runs.  ``cfg.vmem_budget_bytes`` and
+    ``cfg.smem_budget_bytes`` decide the value table's residency (pinned
+    or tiled kernels), as ``core.engine.launch_planner`` decides it for
+    the plans.  ``pallas_mode='reduce'`` (unlaned only) relaxes
     with torch ops and reduces with the segment-reduce kernel K9.
     Without ``use_pallas`` the phase runs as separate torch ops — the
     oracle path, which has no grid to sparsify.
@@ -78,7 +81,9 @@ def relax(sem: Semiring, cfg, edge_src, edge_w, edge_mask, ids, gval, gchg,
             partial, count = kops.fused_relax_reduce(
                 gval, gchg, src, w, mask, idsf, num_segments,
                 relax_kind=sem.relax_kind, kind=sem.segment, plan=plan,
-                worklist=worklist, grid_mode=grid_mode)
+                worklist=worklist, grid_mode=grid_mode,
+                vmem_budget_bytes=cfg.vmem_budget_bytes,
+                smem_budget_bytes=cfg.smem_budget_bytes)
             if not cfg.track_stats:
                 count = torch.zeros((), dtype=count.dtype,
                                     device=count.device)
@@ -111,7 +116,9 @@ def relax(sem: Semiring, cfg, edge_src, edge_w, edge_mask, ids, gval, gchg,
         partial, counts = kops.fused_relax_reduce_lanes(
             gval, gchg, unitw, src, w, mask, idsf, num_segments,
             relax_kind=sem.relax_kind, kind=sem.segment, plan=plan,
-            worklist=worklist, grid_mode=grid_mode)
+            worklist=worklist, grid_mode=grid_mode,
+            vmem_budget_bytes=cfg.vmem_budget_bytes,
+            smem_budget_bytes=cfg.smem_budget_bytes)
         if not cfg.track_stats:
             counts = torch.zeros(q, dtype=torch.int32, device=gval.device)
         return partial, counts

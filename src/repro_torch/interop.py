@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.partition import Partition, PartitionConfig
-from repro_torch.kernels.fused_relax_reduce import Worklist
+from repro_torch.kernels.fused_relax_reduce import Worklist, tile_schedule
 
 
 def partition_from_dict(d: dict) -> Partition:
@@ -52,10 +52,21 @@ def table_to_numpy(table) -> np.ndarray:
 def worklist_from_dict(d: dict) -> Worklist:
     """The port's ``Worklist`` from the leaves of a reference worklist
     (``vars(worklist)``: ``wl_i``, ``wl_j``, ``nlive`` as arrays, and its
-    ``path``); a tiled plan raises, as the port has no tiled kernel."""
-    if d.get("path", "pinned") != "pinned":
-        raise NotImplementedError(
-            "a tiled worklist needs kernel K6, not ported yet (ROADMAP "
-            "Queue 2)")
-    return Worklist(*(torch.as_tensor(np.array(d[k], dtype=np.int32))
-                      for k in ("wl_i", "wl_j", "nlive")))
+    ``path`` and ``vblk``).  A tiled host plan keeps its cells' tile
+    lists, but its copy schedule is made anew with the port's rule
+    (``tile_schedule``, restarted at each run of cells sharing a chunk):
+    the reference's schedule reuses tiles across that boundary, which a
+    CUDA block cannot."""
+    def arr(k):
+        return np.array(d[k], dtype=np.int32)
+
+    wl_i, wl_j, nlive = (arr(k) for k in ("wl_i", "wl_j", "nlive"))
+    path = d.get("path", "pinned")
+    if path == "pinned":
+        return Worklist(*map(torch.as_tensor, (wl_i, wl_j, nlive)))
+    ntiles, tiles = arr("cell_ntiles"), arr("cell_tile")
+    n = int(nlive[0])
+    slot, fetch, _ = tile_schedule(wl_j, n, ntiles, tiles)
+    return Worklist(*map(torch.as_tensor, (wl_i, wl_j, nlive, ntiles, tiles,
+                                           slot, fetch)),
+                    path=path, vblk=int(d["vblk"]))

@@ -70,18 +70,20 @@ struct RelaxMsg {                 // K1, K2: relax(gval[src[e]], w[e]) where mas
   }
 };
 
-// Fold edge chunk `j`'s messages to segments [seg0, seg0 + SBLK) into the
-// calling warp's accumulator acc[warp].  Padding edges (e >= num_edges,
-// or !msg.valid(e)) never have their message read.
-template <int KIND, class Msg>
-__device__ __forceinline__ void fold_edges(
+// Fold the messages of the `n` edges edges(0), ..., edges(n - 1) to
+// segments [seg0, seg0 + SBLK) into the calling warp's accumulator
+// acc[warp]: warp k takes the 32-edge batches k, k + NWARP, ...  Padding
+// edges (e >= num_edges, or !msg.valid(e)) never have their message read.
+template <int KIND, class Msg, class Edges>
+__device__ __forceinline__ void fold_list(
     float (*acc)[SBLK], float (*msg_s)[32], const Msg& msg,
-    const int32_t* __restrict__ ids, int j, int num_edges, int seg0) {
+    const int32_t* __restrict__ ids, const Edges& edges, int n,
+    int num_edges, int seg0) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int e0 = j * EBLK;
-  for (int b = warp; b < BATCHES; b += NWARP) {
-    const int e = e0 + b * 32 + lane;
+  for (int b = warp; b * 32 < n; b += NWARP) {
+    const int k = b * 32 + lane;
+    const int e = k < n ? edges(k) : num_edges;
     int key = SBLK;                       // SBLK: no contribution
     float m = identity<KIND>();
     if (e < num_edges && msg.valid(e)) {
@@ -105,6 +107,20 @@ __device__ __forceinline__ void fold_edges(
     }
     __syncwarp();
   }
+}
+
+struct ChunkEdges {               // the EBLK edges of one chunk, in order
+  int e0;
+  __device__ __forceinline__ int operator()(int k) const { return e0 + k; }
+};
+
+// Fold edge chunk `j`'s messages to segments [seg0, seg0 + SBLK).
+template <int KIND, class Msg>
+__device__ __forceinline__ void fold_edges(
+    float (*acc)[SBLK], float (*msg_s)[32], const Msg& msg,
+    const int32_t* __restrict__ ids, int j, int num_edges, int seg0) {
+  fold_list<KIND>(acc, msg_s, msg, ids, ChunkEdges{j * EBLK}, EBLK,
+                  num_edges, seg0);
 }
 
 // The relax fold of K1 and K2: `gval` is the frontier-masked value table.

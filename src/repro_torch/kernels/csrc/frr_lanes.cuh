@@ -70,19 +70,19 @@ __device__ __forceinline__ void stage_chunk(
   }
 }
 
-// Fold the staged chunk into acc: thread t of warp k updates
-// acc[32k + s][t] for lane `lane_q` (< Q, else it only follows the warp).
-// `gval` is the frontier-masked (V, Q) table; `unit` makes add_w relax
-// with weight 1.0 for this lane.
-template <int RELAX, int KIND>
-__device__ __forceinline__ void fold_lanes(
-    float (*acc)[LGRP], const LaneStage& st, const float* __restrict__ gval,
-    int Q, int lane_q, bool unit) {
+// Fold the staged edges at chunk positions pos(0), ..., pos(n - 1) into
+// acc: thread t of warp k updates acc[32k + s][t] for lane `lane_q` (< Q,
+// else it only follows the warp), reading its value of source s as
+// rows(s).  `unit` makes add_w relax with weight 1.0 for this lane.
+template <int RELAX, int KIND, class Pos, class Rows>
+__device__ __forceinline__ void fold_lane_list(
+    float (*acc)[LGRP], const LaneStage& st, const Pos& pos, int n,
+    const Rows& rows, bool on, bool unit) {
   const int t = threadIdx.x & 31;
   const int s0 = (threadIdx.x >> 5) * SEG_PER_WARP;
-  const bool on = lane_q < Q;
-  for (int b = 0; b < EBLK; b += 32) {
-    const int key = st.key[b + t];
+  for (int b = 0; b < n; b += 32) {
+    const int k_own = b + t < n ? pos(b + t) : -1;
+    const int key = k_own >= 0 ? st.key[k_own] : -1;
     unsigned hits = __ballot_sync(0xffffffffu,
                                   key >= s0 && key < s0 + SEG_PER_WARP);
     while (hits) {                        // warp-uniform
@@ -93,11 +93,10 @@ __device__ __forceinline__ void fold_lanes(
         ks[u] = -1;
         vs[u] = identity<KIND>();
         if (hits) {
-          const int k = b + __ffs(hits) - 1;
+          const int k = __shfl_sync(0xffffffffu, k_own, __ffs(hits) - 1);
           hits &= hits - 1;
           ks[u] = k;
-          if (on)
-            vs[u] = __ldg(gval + static_cast<size_t>(st.src[k]) * Q + lane_q);
+          if (on) vs[u] = rows(st.src[k]);
         }
       }
 #pragma unroll
@@ -115,6 +114,29 @@ __device__ __forceinline__ void fold_lanes(
       }
     }
   }
+}
+
+struct StagePos {                 // every staged position, in order
+  __device__ __forceinline__ int operator()(int k) const { return k; }
+};
+
+struct TableRows {                // lane lane_q of the (V, Q) table
+  const float* gval;
+  int Q;
+  int lane_q;
+  __device__ __forceinline__ float operator()(int s) const {
+    return __ldg(gval + static_cast<size_t>(s) * Q + lane_q);
+  }
+};
+
+// Fold the whole staged chunk into acc (K3, K4): `gval` is the
+// frontier-masked (V, Q) table.
+template <int RELAX, int KIND>
+__device__ __forceinline__ void fold_lanes(
+    float (*acc)[LGRP], const LaneStage& st, const float* __restrict__ gval,
+    int Q, int lane_q, bool unit) {
+  fold_lane_list<RELAX, KIND>(acc, st, StagePos{}, EBLK,
+                              TableRows{gval, Q, lane_q}, lane_q < Q, unit);
 }
 
 }  // namespace frr

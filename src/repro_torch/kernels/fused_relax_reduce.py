@@ -50,18 +50,32 @@ counts are per lane, and plans are made from the OR-across-lanes
 frontier: ``WorklistPlanner``, ``plan_worklist``, ``build_device_worklist``
 and ``fused_grid_cells`` accept a (V, Q) frontier and OR it.
 
+**Residency** (``select_kernel_path``): a value table whose padded
+bytes exceed the budget (``vmem_budget_bytes``, the ``REPRO_VMEM_BUDGET``
+env var, else ``DEFAULT_VMEM_BUDGET_BYTES``) runs *tiled*: each live
+cell copies the ``vblk``-wide slot tiles that its chunk's active sources
+fall in (``_chunk_tile_tables``) into a double-buffered shared-memory
+slot with ``cp.async``, and folds each tile's own edges from there —
+kernels K5 (dense), K6 (worklist), K7 (dense lanes) and K8 (worklist
+lanes), sharing ``csrc/frr_tiles.cuh``.  The default budget keeps every
+table the card can hold on the pinned kernels K1–K4; a budget set
+through the config or the env var, or ``path=``/``vblk=``, reaches the
+tiled ones.  Min results are bit-equal across the two residencies; sums
+differ by reassociation only.
+
 On a CPU tensor ``fused_relax_reduce`` runs the plain versions
-(``ref.fused_relax_reduce_ref``, ``ref.fused_relax_reduce_wl_ref``) and
-``fused_relax_reduce_lanes`` theirs (``ref.fused_relax_reduce_lanes_ref``,
-``ref.fused_relax_reduce_wl_lanes_ref``); on a CUDA tensor they launch
-the kernels, or raise.  ``launches`` counts K1 launches, ``wl_launches``
-K2 launches, ``lanes_launches`` K3 launches and ``wl_lanes_launches`` K4
-launches.
+(``ref.fused_relax_reduce_ref``, ``ref.fused_relax_reduce_wl_ref`` and
+their tiled forms) and ``fused_relax_reduce_lanes`` theirs; on a CUDA
+tensor they launch the kernels, or raise.  ``launches``,
+``wl_launches``, ``lanes_launches``, ``wl_lanes_launches``,
+``tiled_launches``, ``wl_tiled_launches``, ``tiled_lanes_launches`` and
+``wl_tiled_lanes_launches`` count K1–K8 launches.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 import typing
 import warnings
 
@@ -69,10 +83,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.actions import RELAX_FNS
-from repro_torch.kernels.ref import (
-    fused_relax_reduce_lanes_ref, fused_relax_reduce_ref,
-    fused_relax_reduce_wl_lanes_ref, fused_relax_reduce_wl_ref,
-)
+from repro_torch.kernels import ref
 
 EBLK = 512   # edge-axis chunk (matches csrc/frr_common.cuh)
 SBLK = 256   # segment-axis block (matches csrc/frr_common.cuh)
@@ -98,16 +109,158 @@ _RELAX_CODE = {"add_w": 0, "add_one": 1, "mul_w": 2}
 _KIND_CODE = {"min": 0, "sum": 1}
 
 # kernel launches made by ``_launch`` (K1), ``_launch_wl`` (K2),
-# ``_launch_lanes`` (K3) and ``_launch_wl_lanes`` (K4) since the counts
-# were last set to 0
+# ``_launch_lanes`` (K3), ``_launch_wl_lanes`` (K4), ``_launch_tiled``
+# (K5), ``_launch_wl_tiled`` (K6), ``_launch_tiled_lanes`` (K7) and
+# ``_launch_wl_tiled_lanes`` (K8) since the counts were last set to 0
 launches = 0
 wl_launches = 0
 lanes_launches = 0
 wl_lanes_launches = 0
+tiled_launches = 0
+wl_tiled_launches = 0
+tiled_lanes_launches = 0
+wl_tiled_lanes_launches = 0
+
+# The value-table budget above which launches go tiled.  The reference's
+# 12 MiB is three quarters of a TPU core's VMEM, the fast memory its
+# pinned kernels copy the whole table into.  Nothing here plays that
+# part: K1-K4 gather from device memory at any table size.  So the
+# default is the H100's 80 GiB of device memory, which keeps every table
+# the card can hold on the pinned kernels; a smaller budget (the config
+# field, the env var) sends the launches to the tiled kernels K5-K8.
+DEFAULT_VMEM_BUDGET_BYTES = 80 * 2**30
+VMEM_BUDGET_ENV = "REPRO_VMEM_BUDGET"
+
+# Shared memory a tiled block may spend on its two tile slots.  On a TPU
+# the double buffer sits in VMEM, so the reference sizes vblk from the
+# table budget; here it sits in a block's shared memory (at most 227 KB
+# on Hopper), beside K5/K6's 9 KB and K7/K8's 38 KB of accumulators and
+# staged edges.  96 KiB leaves room for both and still makes tiles of
+# 12,288 slots (one lane) or 768 slots (16 lanes).
+TILE_SMEM_BYTES = 96 * 1024
+LGRP = 32        # lanes a laned block serves (csrc/frr_lanes.cuh)
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-max(x, 1) // m) * m
+
+
+# --------------------------------------------------------------------------
+# residency: pinned or tiled value table
+# --------------------------------------------------------------------------
+
+def resolve_vmem_budget(vmem_budget_bytes=None) -> int:
+    """The byte budget the value table must live within: an explicit
+    argument wins, else the ``REPRO_VMEM_BUDGET`` env var (an empty one
+    counts as unset), else ``DEFAULT_VMEM_BUDGET_BYTES``."""
+    if vmem_budget_bytes is not None:
+        return int(vmem_budget_bytes)
+    env = os.environ.get(VMEM_BUDGET_ENV)
+    if env:
+        return int(env)
+    return DEFAULT_VMEM_BUDGET_BYTES
+
+
+def smem_table_bytes(n_chunks: int, t_max: int = 0,
+                     wl_cells: int = 0) -> int:
+    """Bytes of the int32 index tables one fused launch reads, priced as
+    the reference prices its scalar-prefetch tables: the per-chunk
+    lo/hi/act rows, plus (tiled) the per-chunk tile lists, plus
+    (worklist) ``wl_i``/``wl_j``/``nlive`` and — when both — the per-cell
+    tile/slot/fetch tables.  ``t_max`` is the tile-list width (0 =
+    pinned), ``wl_cells`` the padded worklist length (0 = dense)."""
+    rows = 3 * n_chunks
+    if t_max and not wl_cells:
+        rows += n_chunks * (1 + t_max)
+    if wl_cells:
+        rows += 2 * wl_cells + 1
+        if t_max:
+            rows += wl_cells * (1 + 3 * t_max)
+    return rows * 4
+
+
+def tile_smem_bytes(vblk: int, q_pad: int = 1) -> int:
+    """Shared memory of a tiled block's two tile slots: a laned block
+    stages only its own group of at most ``LGRP`` lanes."""
+    return 2 * vblk * min(q_pad, LGRP) * 4
+
+
+def select_kernel_path(num_slots: int, q_pad: int = 1,
+                       vmem_budget_bytes=None, *, path=None, vblk=None,
+                       n_chunks=None, wl_cells: int = 0,
+                       smem_budget_bytes=None, return_info: bool = False):
+    """Pick the value table's residency for ``num_slots`` (x ``q_pad``
+    lanes, no lane padding) float32 slots.
+
+    Returns ``("pinned", None)`` when ``round_up(num_slots, 128) * q_pad
+    * 4`` fits the budget, else ``("tiled", vblk)``.  The automatic
+    ``vblk`` is the largest multiple of 128 whose double buffer
+    (``tile_smem_bytes``) fits ``TILE_SMEM_BYTES``, capped at the padded
+    table.  ``path``/``vblk`` force the decision; a forced ``vblk`` must
+    be a positive multiple of 128 whose double buffer fits, or
+    ``ValueError`` — it is never shrunk, since it fixes the tile lists
+    and the copy counts.
+
+    With ``n_chunks`` and ``smem_budget_bytes`` the index tables'
+    footprint (``smem_table_bytes``) joins the decision as in the
+    reference: tile lists over the budget widen ``vblk`` (doubling, as
+    far as the shared-memory room allows) with a warning, and a pinned
+    launch over it warns.  ``return_info=True`` appends a dict with the
+    footprint behind the decision."""
+    budget = resolve_vmem_budget(vmem_budget_bytes)
+    v_pad = _round_up(num_slots, 128)
+    if path is None:
+        path = "pinned" if v_pad * q_pad * 4 <= budget else "tiled"
+    if path == "pinned":
+        info = {"path": "pinned", "vblk": None, "smem_table_bytes":
+                smem_table_bytes(n_chunks, 0, wl_cells) if n_chunks else None}
+        if n_chunks is not None and smem_budget_bytes is not None \
+                and info["smem_table_bytes"] > smem_budget_bytes:
+            warnings.warn(
+                f"fused-kernel index tables ({n_chunks} chunks, "
+                f"wl_cells={wl_cells}) weigh {info['smem_table_bytes']} "
+                f"bytes — over smem_budget_bytes={smem_budget_bytes} on "
+                "the pinned path", stacklevel=2)
+        return ("pinned", None, info) if return_info else ("pinned", None)
+    if path != "tiled":
+        raise ValueError(f"unknown kernel path {path!r}")
+    if vblk is None:
+        vblk = TILE_SMEM_BYTES // tile_smem_bytes(1, q_pad) // 128 * 128
+        if vblk < 128:
+            raise ValueError(
+                f"TILE_SMEM_BYTES={TILE_SMEM_BYTES} cannot hold two "
+                f"128-slot tiles of {min(q_pad, LGRP)} lanes "
+                f"({tile_smem_bytes(128, q_pad)} bytes)")
+        vblk = min(vblk, v_pad)
+    if vblk % 128 or vblk <= 0:
+        raise ValueError(f"vblk must be a positive multiple of 128; "
+                         f"got {vblk}")
+    vblk = int(vblk)
+    if tile_smem_bytes(vblk, q_pad) > TILE_SMEM_BYTES:
+        raise ValueError(
+            f"vblk={vblk} needs a {tile_smem_bytes(vblk, q_pad)}-byte "
+            f"double buffer at {min(q_pad, LGRP)} lanes a block; the "
+            f"shared-memory room is TILE_SMEM_BYTES={TILE_SMEM_BYTES}")
+    info = {"path": "tiled", "vblk": vblk, "smem_table_bytes": None}
+    if n_chunks is not None and smem_budget_bytes is not None:
+        def footprint(vb):
+            t_max = min(_round_up(num_slots, vb) // vb, EBLK)
+            return smem_table_bytes(n_chunks, t_max, wl_cells)
+        if footprint(vblk) > smem_budget_bytes:
+            vblk0 = vblk
+            while footprint(vblk) > smem_budget_bytes and vblk < v_pad \
+                    and tile_smem_bytes(2 * vblk, q_pad) <= TILE_SMEM_BYTES:
+                vblk *= 2    # fewer, wider tiles: shorter tile lists
+            warnings.warn(
+                f"fused-kernel index tables ({n_chunks} chunks, "
+                f"wl_cells={wl_cells}) exceed smem_budget_bytes="
+                f"{smem_budget_bytes} at vblk={vblk0}; widened to "
+                f"vblk={vblk} ({footprint(vblk)} table bytes)"
+                + ("" if footprint(vblk) <= smem_budget_bytes else
+                   " — still over budget"), stacklevel=2)
+        info["vblk"] = vblk
+        info["smem_table_bytes"] = footprint(vblk)
+    return ("tiled", vblk, info) if return_info else ("tiled", vblk)
 
 
 def _check_pair(relax_kind: str, kind: str):
@@ -218,11 +371,18 @@ def _masked_value_tables(gval, gchg, identity):
     return torch.where(gchg, gval, identity)
 
 
-def _chunk_tables(edge_src, edge_mask, gchg):
+def _active_edges(edge_src, edge_mask, gchg):
+    """(E,) bool: valid edges whose source is in the (V,) frontier."""
+    return edge_mask & torch.index_select(gchg, 0, edge_src)
+
+
+def _chunk_tables(edge_src, edge_mask, gchg, act=None):
     """Per-chunk frontier bit (``(n_chunks,) bool``: any valid edge with a
     changed source) and the active-edge count (int32) — the Fig-6
-    message counter, a free reduction of the gather the bitmap needs."""
-    act = edge_mask & torch.index_select(gchg, 0, edge_src)
+    message counter, a free reduction of the gather the bitmap needs.
+    ``act`` passes ``_active_edges`` when the caller already has it."""
+    if act is None:
+        act = _active_edges(edge_src, edge_mask, gchg)
     chunk_act = _pad_to_chunks(act, False).any(dim=1)
     return chunk_act, act.sum(dtype=torch.int32)
 
@@ -235,20 +395,83 @@ def _src_degrees(edge_src, edge_mask, num_slots: int):
         0, src, edge_mask.to(torch.int32))
 
 
-def _lane_chunk_tables(edge_src, edge_mask, gchg, src_deg=None):
+def _lane_chunk_tables(edge_src, edge_mask, gchg, src_deg=None,
+                       with_act: bool = False):
     """Laned chunk tables for a (V, Q) frontier: the per-chunk bit is the
     OR across lanes (a chunk is dead only when no lane has an active
     source in it) and the active-edge counts are per lane ((Q,) int32,
-    one Fig-6 message counter per query).  Both come without an (E, Q)
-    gather: the bit is ``_chunk_tables`` of the OR-across-lanes (V,)
-    frontier, and lane q's count is the sum of ``src_deg`` (valid
-    out-edges per slot, from the launch plan or built here) over its
-    changed slots."""
-    chunk_act, _ = _chunk_tables(edge_src, edge_mask, gchg.any(dim=1))
+    one Fig-6 message counter per query); ``with_act`` appends the (E,)
+    active rows OR'd across lanes, which the tiled launches' tile lists
+    are built from.  All come without an (E, Q) gather: the bit and the
+    rows are ``_chunk_tables`` of the OR-across-lanes (V,) frontier, and
+    lane q's count is the sum of ``src_deg`` (valid out-edges per slot,
+    from the launch plan or built here) over its changed slots."""
+    act = _active_edges(edge_src, edge_mask, gchg.any(dim=1))
+    chunk_act, _ = _chunk_tables(edge_src, edge_mask, None, act)
     if src_deg is None:
         src_deg = _src_degrees(edge_src, edge_mask, gchg.shape[0])
     counts = (gchg * src_deg[:, None]).sum(dim=0, dtype=torch.int32)
-    return chunk_act, counts
+    return (chunk_act, counts, act) if with_act else (chunk_act, counts)
+
+
+class TileTables(typing.NamedTuple):
+    """Per-chunk slot-tile lists of one round (``_chunk_tile_tables``).
+
+    Chunk j's active edges fall in the ``ntiles[j]`` distinct tiles
+    ``tiles[j, :ntiles[j]]`` (ascending; entries past the count hold
+    in-range tiles that are never read).  ``order[j]`` lists the chunk's
+    edge positions stably sorted by tile, inactive edges last, so tile
+    k's own edges are ``order[j, off[j, k]:off[j, k + 1]]`` in chunk
+    order; ``off[j, k]`` for k >= ``ntiles[j]`` is the chunk's active
+    count."""
+
+    ntiles: torch.Tensor   # (n_chunks,) int32
+    tiles: torch.Tensor    # (n_chunks, t_max) int32
+    off: torch.Tensor      # (n_chunks, t_max + 1) int32
+    order: torch.Tensor    # (n_chunks, EBLK) int32
+    vblk: int
+    n_tiles: int
+
+    @property
+    def t_max(self) -> int:
+        return self.tiles.shape[1]
+
+
+def _chunk_tile_tables(edge_src, act, num_slots: int,
+                       vblk: int) -> TileTables:
+    """The tiled launches' per-chunk tile lists from the (E,) active
+    rows, with torch ops on their device and no host sync: sort each
+    chunk row with an ``n_tiles`` sentinel on inactive edges, flag first
+    occurrences and scatter the distinct tiles (and where their edges
+    start) to the left.  O(E log EBLK), independent of the tile count —
+    no (n_chunks, n_tiles) matrix."""
+    n_tiles = _round_up(num_slots, vblk) // vblk
+    t_max = min(n_tiles, EBLK)
+    src = _pad_to_chunks(edge_src, 0)
+    key = torch.where(_pad_to_chunks(act, False),
+                      torch.div(src, vblk, rounding_mode="floor"),
+                      n_tiles).to(torch.int32)
+    t, order = torch.sort(key, dim=1, stable=True)
+    real = t < n_tiles
+    first = torch.ones_like(real)
+    first[:, 1:] = t[:, 1:] != t[:, :-1]
+    is_tile = first & real
+    ntiles = is_tile.sum(dim=1, dtype=torch.int32)
+    n_act = real.sum(dim=1, dtype=torch.int32)
+    # the k-th distinct tile of a row lands in column k; the others in
+    # the dropped column t_max
+    col = torch.where(is_tile, torch.cumsum(is_tile, dim=1) - 1, t_max)
+    pos = torch.arange(EBLK, dtype=torch.int32, device=t.device) \
+        .expand_as(t).contiguous()
+    off = n_act[:, None].repeat(1, t_max + 1)
+    off.scatter_(1, col, torch.where(is_tile, pos, n_act[:, None]))
+    off[:, t_max] = n_act
+    tiles = torch.full((t.shape[0], t_max + 1), n_tiles - 1,
+                       dtype=torch.int32, device=t.device)
+    tiles.scatter_(1, col, torch.where(is_tile, t, n_tiles - 1))
+    return TileTables(ntiles, tiles[:, :t_max].contiguous(),
+                      off.contiguous(), order.to(torch.int32), vblk,
+                      n_tiles)
 
 
 def _or_lanes(gchg):
@@ -283,6 +506,18 @@ _SIGNATURES = {   # C entry point -> (library, argument types)
     "segment_combine_launch": ("segment_combine",
                                [_P] * 4 + [_I] * 3 + [_P] * 2 + [_I] * 2
                                + [_P]),
+    "frr_tiled_launch": ("fused_relax_reduce_tiled",
+                         [_P] * 12 + [_I] * 6 + [_P] * 2 + [_I] * 2
+                         + [_P]),
+    "frr_wl_tiled_launch": ("fused_relax_reduce_wl_tiled",
+                            [_P] * 17 + [_I] * 7 + [_P] * 2 + [_I] * 2
+                            + [_P]),
+    "frr_tiled_lanes_launch": ("fused_relax_reduce_tiled_lanes",
+                               [_P] * 13 + [_I] * 7 + [_P] * 2 + [_I] * 2
+                               + [_P]),
+    "frr_wl_tiled_lanes_launch": ("fused_relax_reduce_wl_tiled_lanes",
+                                  [_P] * 18 + [_I] * 8 + [_P] * 2
+                                  + [_I] * 2 + [_P]),
 }
 _fns: dict = {}
 _libs: dict = {}
@@ -380,20 +615,40 @@ class Worklist:
     ``wl_j`` ((l_pad,) int32, j-major, zero past the count) and their
     count ``nlive`` ((1,) int32).  A host plan holds CPU tensors; a
     device plan (``build_device_worklist``) holds tensors on the card,
-    and its count is never read on the host."""
+    and its count is never read on the host.
 
-    def __init__(self, wl_i, wl_j, nlive):
+    A tiled host plan (``path='tiled'``, tile width ``vblk``) also holds
+    each cell's dst-filtered tile list ``cell_ntiles`` / ``cell_tile``
+    ((l_pad,), (l_pad, t_max)) and its copy schedule ``cell_slot`` /
+    ``cell_fetch`` (``tile_schedule``).  A tiled device plan holds none:
+    its cells read their chunk's tile list."""
+
+    def __init__(self, wl_i, wl_j, nlive, cell_ntiles=None, cell_tile=None,
+                 cell_slot=None, cell_fetch=None, *, path="pinned",
+                 vblk=None):
         self.wl_i = wl_i
         self.wl_j = wl_j
         self.nlive = nlive
+        self.cell_ntiles = cell_ntiles
+        self.cell_tile = cell_tile
+        self.cell_slot = cell_slot
+        self.cell_fetch = cell_fetch
+        self.path = path
+        self.vblk = vblk
 
     @property
     def l_pad(self) -> int:
         return self.wl_i.shape[0]
 
+    @property
+    def has_cell_tiles(self) -> bool:
+        return self.cell_tile is not None
+
     def to(self, device) -> "Worklist":
-        return Worklist(self.wl_i.to(device), self.wl_j.to(device),
-                        self.nlive.to(device))
+        move = [None if t is None else t.to(device) for t in (
+            self.wl_i, self.wl_j, self.nlive, self.cell_ntiles,
+            self.cell_tile, self.cell_slot, self.cell_fetch)]
+        return Worklist(*move, path=self.path, vblk=self.vblk)
 
 
 class WorklistInfo(typing.NamedTuple):
@@ -403,11 +658,11 @@ class WorklistInfo(typing.NamedTuple):
     cells: int           # live cells after the dst-range empty-cell drop
     launched: int        # padded 1-D grid length
     dense_live: int      # what the dense grid's two-level skip would run
-    tile_dmas: int       # value-tile copies (none: the table is resident)
-    tile_needed: int
+    tile_dmas: int       # tile copies the schedule makes (0 pinned)
+    tile_needed: int     # tile visits before reuse
     dma_bytes: int
     # the reference's int32 scalar-prefetch tables for this launch:
-    # per-chunk lo/hi/act rows, wl_i/wl_j, nlive
+    # per-chunk lo/hi/act rows, wl_i/wl_j, nlive (+ the tiled cell tables)
     smem_table_bytes: int
 
 
@@ -415,26 +670,82 @@ def _wl_pad_len(nlive: int, pad_to: int = WL_PAD) -> int:
     return max(pad_to, 1 << max(nlive - 1, 0).bit_length())
 
 
+def tile_schedule(wl_j, nlive: int, cell_ntiles, cell_tile):
+    """The 2-slot copy schedule of a tiled host plan: ``(cell_slot,
+    cell_fetch, copies)``, numpy, shaped like ``cell_tile``.
+
+    A block of K6/K8 runs one run of consecutive cells that share
+    ``wl_j`` (j-major order makes them contiguous), and a block cannot
+    read another block's shared memory, so the schedule restarts at each
+    run's first cell.  Within a run it is the reference's sequential
+    2-entry LRU (a needed tile still in a slot is reused; a fetch goes
+    to the slot the previous tile was not read from), in closed form:
+    over the run's tile visits in order, a visit that repeats its
+    predecessor takes the predecessor's slot and fetches nothing; the
+    k-th of the others goes to slot ``k % 2`` and fetches unless it
+    repeats the visit two before it.  So ``copies`` is the reference's
+    count plus the reuses it carried across a run boundary."""
+    wl_j = np.asarray(wl_j)
+    ntl = np.asarray(cell_ntiles)[:nlive].astype(np.int64)
+    cell_tile = np.asarray(cell_tile)
+    cell_slot = np.zeros(cell_tile.shape, np.int32)
+    cell_fetch = np.zeros(cell_tile.shape, np.int32)
+    n = int(ntl.sum())
+    if n == 0:
+        return cell_slot, cell_fetch, 0
+    cell = np.repeat(np.arange(nlive), ntl)
+    col = np.arange(n) - np.repeat(np.cumsum(ntl) - ntl, ntl)
+    tile = cell_tile[cell, col]
+    run = np.cumsum(np.r_[True, wl_j[1:nlive] != wl_j[:nlive - 1]])[cell]
+    new_run = np.r_[True, run[1:] != run[:-1]]
+    rep = ~new_run & np.r_[False, tile[1:] == tile[:-1]]
+    keep = np.flatnonzero(~rep)
+    d_run, d_tile = run[keep], tile[keep]
+    d_first = np.r_[True, d_run[1:] != d_run[:-1]]
+    starts = np.flatnonzero(d_first)
+    k = np.arange(keep.shape[0]) - np.repeat(
+        starts, np.diff(np.r_[starts, keep.shape[0]]))
+    fetch_d = np.ones(keep.shape[0], bool)
+    fetch_d[2:] = (k[2:] < 2) | (d_tile[2:] != d_tile[:-2])
+    slot = np.zeros(n, np.int32)
+    fetch = np.zeros(n, np.int32)
+    slot[keep] = k % 2
+    fetch[keep] = fetch_d
+    last = np.maximum.accumulate(np.where(~rep, np.arange(n), 0))
+    slot = slot[last]
+    cell_slot[cell, col] = slot
+    cell_fetch[cell, col] = fetch
+    return cell_slot, cell_fetch, int(fetch.sum())
+
+
+def _distinct_tiles(keys, n_tiles: int):
+    """Sorted distinct (group, tile) pairs from int64 keys ``group *
+    n_tiles + tile``: (groups, tiles)."""
+    pairs = np.unique(keys)
+    return pairs // n_tiles, pairs % n_tiles
+
+
 class WorklistPlanner:
     """Precomputes the frontier-independent parts of worklist planning
-    for one edge set + segment count, so per-round plans only pay the
-    frontier-dependent work (numpy, on the host).
+    for one edge set + segment count (+ tile width), so per-round plans
+    only pay the frontier-dependent work (numpy, on the host).
 
     ``edge_dst``/``edge_mask``/``edge_src`` may be (S, E_max) stacked or
     flat, flattened as the kernels flatten them.  The (block, chunk)
     cells whose ranges meet are kept as a j-major list (never as the
     dense (n_sblk, n_chunks) matrix); ``plan(gchg)`` returns
-    (Worklist, WorklistInfo) equal to the reference planner's pinned
-    plan.  ``path='tiled'`` raises: that is kernel K6."""
+    (Worklist, WorklistInfo) equal to the reference planner's plan.
+    ``path='tiled'`` (with ``vblk``; ``num_slots`` sizes the slot tiling)
+    adds each cell's tile list and its copy schedule (``tile_schedule``:
+    the reference's, restarted at each run of cells sharing a chunk);
+    ``lane_width`` prices the copies of a laned launch."""
 
     def __init__(self, edge_dst, edge_mask, edge_src, num_segments: int,
-                 *, path: str = "pinned",
+                 *, num_slots: int | None = None, path: str = "pinned",
+                 vblk: int | None = None, lane_width: int = 1,
                  smem_budget_bytes: int | None = None):
-        if path != "pinned":
-            raise NotImplementedError(
-                "the tiled worklist path is not ported yet (ROADMAP Queue "
-                "2, kernel K6): the value table stays resident in device "
-                "memory")
+        if path not in ("pinned", "tiled"):
+            raise ValueError(f"unknown kernel path {path!r}")
         ids = np.asarray(edge_dst).reshape(-1)
         mask = np.asarray(edge_mask).reshape(-1).astype(bool)
         srcs = np.asarray(edge_src).reshape(-1)
@@ -443,6 +754,8 @@ class WorklistPlanner:
         self.n_i = _round_up(num_segments, SBLK) // SBLK
         self.n_chunks = e_pad // EBLK
         self.path = path
+        self.vblk = int(vblk) if vblk is not None else None
+        self.lane_width = int(lane_width)
         self.smem_budget_bytes = smem_budget_bytes
         self._smem_warned = False
 
@@ -468,6 +781,16 @@ class WorklistPlanner:
         # each edge's own cell, keyed j-major (j * n_i + dst block)
         self.edge_cell = (np.arange(self.n_chunks)[:, None] * self.n_i
                           + idc // SBLK)
+        if self.path == "tiled":
+            if self.vblk is None:
+                raise ValueError("tiled worklist planning needs vblk")
+            v_pad = _round_up(num_slots if num_slots is not None
+                              else int(srcc.max(initial=0)) + 1, self.vblk)
+            self.n_tiles = v_pad // self.vblk
+            self.t_max = min(self.n_tiles, EBLK)
+            self.tile_of = self.srcs // self.vblk
+        else:
+            self.t_max = 0
 
     @property
     def total_cells(self) -> int:
@@ -491,12 +814,29 @@ class WorklistPlanner:
         _, live = self._live_map(gchg)
         return live.sum() / max(self.total_cells, 1)
 
+    def _chunk_ntiles(self, act):
+        """Distinct active-source tiles per chunk ((n_chunks,) int64)."""
+        j = np.nonzero(act)[0]
+        chunks, _ = _distinct_tiles(j * self.n_tiles + self.tile_of[act],
+                                    self.n_tiles)
+        return np.bincount(chunks, minlength=self.n_chunks)
+
     def dense_mirror(self, gchg) -> dict:
-        """Mirror of the dense launch (K1) for this edge set: ``cells`` it
-        executes and ``launched``, the cells its blocks walk."""
-        _, live = self._live_map(gchg)
-        return {"cells": int(live.sum()), "launched": self.launch_cells,
-                "tile_dmas": 0, "dma_bytes": 0}
+        """Mirror of the dense launch (K1, or K5 when tiled) for this edge
+        set: ``cells`` it executes, ``launched``, the cells its blocks
+        walk, and on the tiled path each chunk's distinct active-source
+        tiles (``chunk_ntiles``), the tile copies (every live cell copies
+        its chunk's tiles) and their bytes."""
+        act, live = self._live_map(gchg)
+        out = {"cells": int(live.sum()), "launched": self.launch_cells,
+               "tile_dmas": 0, "dma_bytes": 0}
+        if self.path == "tiled":
+            ntiles = self._chunk_ntiles(act)
+            out["chunk_ntiles"] = ntiles
+            out["tile_dmas"] = int(ntiles[self.cell_j[live]].sum())
+            out["dma_bytes"] = out["tile_dmas"] * self.vblk \
+                * self.lane_width * 4
+        return out
 
     def plan(self, gchg, pad_to: int = WL_PAD, dst_filter: bool = True,
              max_live_fraction: float | None = None):
@@ -506,9 +846,11 @@ class WorklistPlanner:
         j-major cell order (j outer, i inner).  With ``dst_filter`` a
         cell is kept only if one of its chunk's active edges lands in its
         block — the reference drops the others, which contribute only
-        the identity.  ``max_live_fraction`` implements 'auto': when the
-        dense grid's live fraction is at or above it, return (None, None)
-        before any per-cell work."""
+        the identity — and on the tiled path a cell lists only the tiles
+        of those edges; without, a cell lists its chunk's tiles.
+        ``max_live_fraction`` implements 'auto': when the dense grid's
+        live fraction is at or above it, return (None, None) before any
+        per-cell work."""
         act, live = self._live_map(gchg)
         dense_live = int(live.sum())
         if max_live_fraction is not None \
@@ -518,7 +860,8 @@ class WorklistPlanner:
         if dst_filter:
             hit = np.zeros(self.total_cells, bool)
             hit[self.edge_cell[act]] = True
-            jj, ii = np.divmod(np.flatnonzero(hit), self.n_i)
+            keys = np.flatnonzero(hit)
+            jj, ii = np.divmod(keys, self.n_i)
         else:
             jj, ii = self.cell_j[live], self.cell_i[live]
         nlive = int(ii.shape[0])
@@ -527,12 +870,53 @@ class WorklistPlanner:
         wl_j = np.zeros(l_pad, np.int32)
         wl_i[:nlive] = ii
         wl_j[:nlive] = jj
-        wl = Worklist(torch.from_numpy(wl_i), torch.from_numpy(wl_j),
-                      torch.tensor([nlive], dtype=torch.int32))
+        nlive_t = torch.tensor([nlive], dtype=torch.int32)
+        if self.path != "tiled":
+            wl = Worklist(torch.from_numpy(wl_i), torch.from_numpy(wl_j),
+                          nlive_t)
+            info = WorklistInfo(
+                cells=nlive, launched=l_pad, dense_live=dense_live,
+                tile_dmas=0, tile_needed=0, dma_bytes=0,
+                smem_table_bytes=smem_table_bytes(self.n_chunks, 0, l_pad))
+            return wl, self._check_smem(info)
+
+        # each kept cell's distinct tiles, ascending: sorted unique
+        # (cell, tile) keys over the active edges
+        t_max = self.t_max
+        if dst_filter:
+            cells, tiles = _distinct_tiles(
+                self.edge_cell[act] * self.n_tiles + self.tile_of[act],
+                self.n_tiles)
+            c_of = np.searchsorted(keys, cells)
+        else:
+            j_act = np.nonzero(act)[0]
+            ch, ch_tiles = _distinct_tiles(
+                j_act * self.n_tiles + self.tile_of[act], self.n_tiles)
+            ch_cnt = np.bincount(ch, minlength=self.n_chunks)
+            ch_ptr = np.cumsum(ch_cnt) - ch_cnt
+            per = ch_cnt[jj]
+            c_of = np.repeat(np.arange(nlive), per)
+            rank = np.arange(c_of.shape[0]) - np.repeat(
+                np.cumsum(per) - per, per)
+            tiles = ch_tiles[ch_ptr[jj][c_of] + rank]
+        cnt = np.bincount(c_of, minlength=nlive)
+        col = np.arange(c_of.shape[0]) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        cell_ntiles = np.zeros(l_pad, np.int32)
+        cell_ntiles[:nlive] = cnt
+        cell_tile = np.zeros((l_pad, t_max), np.int32)
+        cell_tile[c_of, col] = tiles
+        cell_slot, cell_fetch, fetches = tile_schedule(
+            wl_j, nlive, cell_ntiles, cell_tile)
+        wl = Worklist(
+            torch.from_numpy(wl_i), torch.from_numpy(wl_j), nlive_t,
+            *(torch.from_numpy(x) for x in (cell_ntiles, cell_tile,
+                                             cell_slot, cell_fetch)),
+            path="tiled", vblk=self.vblk)
         info = WorklistInfo(
             cells=nlive, launched=l_pad, dense_live=dense_live,
-            tile_dmas=0, tile_needed=0, dma_bytes=0,
-            smem_table_bytes=4 * (3 * self.n_chunks + 2 * l_pad + 1))
+            tile_dmas=fetches, tile_needed=int(cnt.sum()),
+            dma_bytes=fetches * self.vblk * self.lane_width * 4,
+            smem_table_bytes=smem_table_bytes(self.n_chunks, t_max, l_pad))
         return wl, self._check_smem(info)
 
     def _check_smem(self, info: WorklistInfo) -> WorklistInfo:
@@ -541,20 +925,27 @@ class WorklistPlanner:
             self._smem_warned = True
             warnings.warn(
                 f"worklist tables ({info.launched} cells, {self.n_chunks} "
-                f"chunks) weigh {info.smem_table_bytes} bytes — over "
+                f"chunks, t_max={self.t_max}) weigh "
+                f"{info.smem_table_bytes} bytes — over "
                 f"smem_budget_bytes={self.smem_budget_bytes}; prefer "
-                "grid_mode='auto' (dense frontiers keep the dense grid)",
-                stacklevel=3)
+                "grid_mode='auto' (dense frontiers keep the dense grid) or "
+                "a wider vblk", stacklevel=3)
         return info
 
 
 def plan_worklist(edge_dst, edge_mask, edge_src, gchg, num_segments: int,
-                  *, path="pinned", pad_to: int = WL_PAD,
+                  *, num_slots=None, path="pinned", vblk=None,
+                  lane_width: int = 1, pad_to: int = WL_PAD,
                   dst_filter: bool = True):
     """One-shot worklist plan (see ``WorklistPlanner`` for the reusable
-    form drivers amortize across rounds)."""
+    form round loops amortize across rounds).  ``gchg`` is the (V,)
+    frontier (a (V, Q) one is OR'd across lanes); it also sizes the slot
+    table unless ``num_slots`` overrides."""
+    if num_slots is None:
+        num_slots = np.asarray(gchg).shape[0]
     planner = WorklistPlanner(edge_dst, edge_mask, edge_src, num_segments,
-                              path=path)
+                              num_slots=num_slots, path=path, vblk=vblk,
+                              lane_width=lane_width)
     return planner.plan(gchg, pad_to=pad_to, dst_filter=dst_filter)
 
 
@@ -568,7 +959,9 @@ def plan_worklist(edge_dst, edge_mask, edge_src, gchg, num_segments: int,
 # rounds enqueue without a host sync.  The reference pads to the power of
 # two above the FULL (n_sblk, n_chunks) grid (8.5 M cells at RMAT-18, so
 # about 17 GB of K2 partials); this pads above the cells whose ranges
-# meet (about 40 k at RMAT-18, 64 MiB of partials).
+# meet (about 40 k at RMAT-18, 64 MiB of partials).  A tiled device plan
+# carries no per-cell tile tables: each cell reads its chunk's list
+# (``TileTables``) through ``wl_j`` and copies every tile of it.
 
 
 def device_worklist_pad(plan: LaunchPlan) -> int:
@@ -576,7 +969,8 @@ def device_worklist_pad(plan: LaunchPlan) -> int:
     return _wl_pad_len(plan.num_cells)
 
 
-def _compact_live_cells(plan: LaunchPlan, chunk_act, l_pad: int):
+def _compact_live_cells(plan: LaunchPlan, chunk_act, l_pad: int,
+                        path: str = "pinned", vblk=None):
     """Cumsum-scatter frontier compaction of the plan's j-major cells:
     fixed-shape ``wl_i``/``wl_j`` and the (1,) live count.  Dead cells
     scatter to a dropped slot; the tail keeps cell (0, 0), never run."""
@@ -589,32 +983,40 @@ def _compact_live_cells(plan: LaunchPlan, chunk_act, l_pad: int):
     wl_i.scatter_(0, idx, plan.cell_i)
     wl_j.scatter_(0, idx, plan.cell_j)
     nlive = live.sum(dtype=torch.int32).view(1)
-    return Worklist(wl_i[:l_pad], wl_j[:l_pad], nlive)
+    return Worklist(wl_i[:l_pad], wl_j[:l_pad], nlive, path=path,
+                    vblk=vblk)
 
 
 def build_device_worklist(gchg, edge_src, edge_mask, edge_dst,
                           num_segments: int,
-                          plan: LaunchPlan | None = None) -> Worklist:
+                          plan: LaunchPlan | None = None, *,
+                          path: str = "pinned", vblk=None) -> Worklist:
     """The ``grid_mode='device_worklist'`` plan, built with torch ops on
     the frontier's device.  Its cells equal
     ``WorklistPlanner.plan(gchg, dst_filter=False)``'s, in order.  A
-    (V, Q) lane frontier is OR'd across lanes."""
+    (V, Q) lane frontier is OR'd across lanes.  ``path='tiled'`` marks
+    the plan for the tiled kernels with tile width ``vblk``."""
+    if path == "tiled" and vblk is None:
+        raise ValueError("a tiled device worklist needs vblk")
     if plan is None:
         plan = plan_launch(edge_src, edge_mask, edge_dst, num_segments,
                            gchg.shape[0])
     chunk_act, _ = _chunk_tables(edge_src, edge_mask, _or_lanes(gchg))
-    return _compact_live_cells(plan, chunk_act, device_worklist_pad(plan))
+    return _compact_live_cells(plan, chunk_act, device_worklist_pad(plan),
+                               path, vblk)
 
 
 def _launch_worklist(gchg, edge_src, edge_mask, edge_dst,
-                     num_segments: int) -> Worklist:
+                     num_segments: int, path: str = "pinned", vblk=None,
+                     lane_width: int = 1) -> Worklist:
     """Plan a host worklist at launch time from the tensors (copied to
     the host; a (V, Q) frontier is OR'd across lanes): the convenience
     the differential tests drive; round drivers plan with a
     ``WorklistPlanner`` instead."""
     wl, _ = plan_worklist(
         *(t.detach().cpu().numpy() for t in (edge_dst, edge_mask, edge_src,
-                                              gchg)), num_segments)
+                                              gchg)), num_segments,
+        path=path, vblk=vblk, lane_width=lane_width)
     return wl
 
 
@@ -862,6 +1264,255 @@ def _launch_wl_lanes(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
     return out, dbg
 
 
+# --------------------------------------------------------------------------
+# K5-K8: the tiled launches on the card
+# --------------------------------------------------------------------------
+
+def _check_tiles(gval_m, tt: TileTables, num_edges: int):
+    """The tile tables of a tiled launch: device, dtype, shape, and a
+    double buffer that fits ``TILE_SMEM_BYTES`` at the table's lanes."""
+    q = gval_m.shape[1] if gval_m.dim() == 2 else 1
+    n_chunks = _round_up(num_edges, EBLK) // EBLK
+    for t, name, shape in ((tt.ntiles, "ntiles", (n_chunks,)),
+                           (tt.tiles, "tiles", (n_chunks, tt.t_max)),
+                           (tt.off, "off", (n_chunks, tt.t_max + 1)),
+                           (tt.order, "order", (n_chunks, EBLK))):
+        if t.device != gval_m.device or t.dtype != torch.int32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"tile table {name} must be a contiguous "
+                             f"int32 {shape} on {gval_m.device}")
+    if tt.n_tiles != _round_up(gval_m.shape[0], tt.vblk) // tt.vblk:
+        raise ValueError("tile tables were built for another table size")
+    if tile_smem_bytes(tt.vblk, q) > TILE_SMEM_BYTES:
+        raise ValueError(f"vblk={tt.vblk} needs "
+                         f"{tile_smem_bytes(tt.vblk, q)} bytes of tile "
+                         f"slots; the room is {TILE_SMEM_BYTES}")
+    if gval_m.data_ptr() % 16:
+        raise ValueError("the value table must be 16-byte aligned")
+
+
+def _tile_ptrs(tt: TileTables):
+    return (tt.ntiles.data_ptr(), tt.tiles.data_ptr(), tt.off.data_ptr(),
+            tt.order.data_ptr())
+
+
+def _launch_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                  plan: LaunchPlan, chunk_act, tt: TileTables,
+                  relax_kind: str, kind: str, with_debug: bool):
+    """Launch K5 on the current stream: K1's blocks and cells, each live
+    cell copying its chunk's tiles.  Returns the (num_segments,) partial
+    and, with ``with_debug``, the (2,) int32 [executed cells, tile
+    copies].  Raises on any launch error."""
+    global tiled_launches
+    if gval_m.dim() != 1:
+        raise ValueError("K5 takes a (V,) value table")
+    _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
+                       chunk_act)
+    _check_tiles(gval_m, tt, edge_src.shape[0])
+    dev = gval_m.device
+    out = torch.empty(plan.num_segments, dtype=torch.float32, device=dev)
+    dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
+        else None
+    rc = _kernel("frr_tiled_launch")(
+        gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
+        edge_mask.data_ptr(), edge_dst.data_ptr(), plan.blk_ptr.data_ptr(),
+        plan.blk_chunk.data_ptr(), chunk_act.data_ptr(), *_tile_ptrs(tt),
+        edge_src.shape[0], plan.num_segments, plan.num_blocks,
+        gval_m.shape[0], tt.vblk, tt.t_max, out.data_ptr(),
+        dbg.data_ptr() if dbg is not None else None,
+        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_relax_reduce_tiled launch failed: "
+                           f"cudaError {rc}")
+    tiled_launches += 1
+    return out, dbg
+
+
+def _launch_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
+                        edge_dst, plan: LaunchPlan, chunk_act,
+                        tt: TileTables, relax_kind: str, kind: str,
+                        with_debug: bool):
+    """Launch K7 on the current stream: K3's (segment block, lane group)
+    blocks, each live cell copying its group's columns of its chunk's
+    (vblk, Q) tiles.  Returns the (num_segments, Q) partial and, with
+    ``with_debug``, the (2,) int32 [executed cells, tile copies] (one
+    copy per cell and tile, whatever the lane groups)."""
+    global tiled_lanes_launches
+    _check_lane_tables(gval_m, unitw)
+    _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
+                       chunk_act)
+    _check_tiles(gval_m, tt, edge_src.shape[0])
+    q = gval_m.shape[1]
+    dev = gval_m.device
+    out = torch.empty((plan.num_segments, q), dtype=torch.float32,
+                      device=dev)
+    dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
+        else None
+    rc = _kernel("frr_tiled_lanes_launch")(
+        gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
+        edge_mask.data_ptr(), edge_dst.data_ptr(), unitw.data_ptr(),
+        plan.blk_ptr.data_ptr(), plan.blk_chunk.data_ptr(),
+        chunk_act.data_ptr(), *_tile_ptrs(tt), edge_src.shape[0],
+        plan.num_segments, plan.num_blocks, gval_m.shape[0], q, tt.vblk,
+        tt.t_max, out.data_ptr(),
+        dbg.data_ptr() if dbg is not None else None,
+        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_relax_reduce_tiled_lanes launch failed: "
+                           f"cudaError {rc}")
+    tiled_lanes_launches += 1
+    return out, dbg
+
+
+def _wl_tiled_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                      wl: Worklist, num_segments: int, tt: TileTables):
+    """A tiled worklist checked and moved to the card.  A host plan runs
+    one block per run of cells sharing ``wl_j`` (its copy schedule
+    restarts there): returns (grid, run_ptr on the card, runs, plan).  A
+    device plan runs K2's fixed grid over its count and has no runs."""
+    if wl.vblk != tt.vblk:
+        raise ValueError(f"worklist planned at vblk={wl.vblk}, tile "
+                         f"tables built at {tt.vblk}")
+    run_ptr, n_runs = None, 0
+    if wl.has_cell_tiles:
+        if wl.nlive.device.type != "cpu":
+            raise ValueError("a tiled host plan must hold CPU tensors")
+        n = int(wl.nlive[0])
+        wl_j = wl.wl_j.numpy()
+        ntl = wl.cell_ntiles.numpy()
+        tiles = wl.cell_tile.numpy()
+        if wl.cell_tile.shape != (wl.l_pad, tt.t_max) \
+                or wl.cell_slot.shape != wl.cell_tile.shape \
+                or wl.cell_fetch.shape != wl.cell_tile.shape \
+                or wl.cell_ntiles.shape != (wl.l_pad,):
+            raise ValueError("tiled worklist tables differ in shape")
+        if n and (int(ntl[:n].max()) > tt.t_max or int(ntl[:n].min()) < 0
+                  or int(tiles[:n].max()) >= tt.n_tiles
+                  or int(tiles[:n].min()) < 0
+                  or not np.isin(wl.cell_slot.numpy()[:n], (0, 1)).all()):
+            raise ValueError("tiled worklist cells outside the tile grid")
+        starts = np.flatnonzero(np.r_[True, wl_j[1:n] != wl_j[:n - 1]]) \
+            if n else np.zeros(0, np.int64)
+        n_runs = int(starts.shape[0])
+        run_ptr = torch.as_tensor(np.r_[starts, n].astype(np.int32))
+    _, wl_dev = _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                            wl, num_segments)
+    if run_ptr is None:
+        grid = _wl_grid(wl_dev, gval_m.device)
+    else:
+        grid = max(n_runs, 1)
+        run_ptr = run_ptr.to(gval_m.device)
+    return grid, run_ptr, n_runs, wl_dev
+
+
+def _cell_ptrs(wl: Worklist, run_ptr):
+    """K6/K8's per-cell arguments: null for a device plan."""
+    if not wl.has_cell_tiles:
+        return (None,) * 5
+    return (run_ptr.data_ptr(), wl.cell_ntiles.data_ptr(),
+            wl.cell_tile.data_ptr(), wl.cell_slot.data_ptr(),
+            wl.cell_fetch.data_ptr())
+
+
+def _wl_tiled_cells(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                    wl: Worklist, tt: TileTables, grid: int, run_ptr,
+                    n_runs: int, relax_kind: str, kind: str,
+                    with_debug: bool):
+    """K6 proper, writing the (l_pad, SBLK) partials; ``wl`` and
+    ``run_ptr`` must already be on the card."""
+    dev = gval_m.device
+    partials = torch.empty((wl.l_pad, SBLK), dtype=torch.float32,
+                           device=dev)
+    dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
+        else None
+    cell_tmax = wl.cell_tile.shape[1] if wl.has_cell_tiles else 0
+    rc = _kernel("frr_wl_tiled_launch")(
+        gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
+        edge_mask.data_ptr(), edge_dst.data_ptr(), wl.wl_i.data_ptr(),
+        wl.wl_j.data_ptr(), wl.nlive.data_ptr(), *_cell_ptrs(wl, run_ptr),
+        *_tile_ptrs(tt), edge_src.shape[0], gval_m.shape[0], tt.vblk,
+        tt.t_max, cell_tmax, grid, n_runs, partials.data_ptr(),
+        dbg.data_ptr() if dbg is not None else None,
+        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_relax_reduce_wl_tiled launch failed: "
+                           f"cudaError {rc}")
+    return partials, dbg
+
+
+def _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                     wl: Worklist, tt: TileTables, num_segments: int,
+                     relax_kind: str, kind: str, with_debug: bool):
+    """Launch K6 and K2's fold on the current stream.  A host plan's
+    cells follow its copy schedule; a device plan's cells copy their
+    chunk's tiles, and nothing here waits for the card.  Returns the
+    (num_segments,) inbox partial and, with ``with_debug``, the (2,)
+    int32 [executed cells, tile copies]."""
+    global wl_tiled_launches
+    if gval_m.dim() != 1:
+        raise ValueError("K6 takes a (V,) value table")
+    _check_tiles(gval_m, tt, edge_src.shape[0])
+    grid, run_ptr, n_runs, wl = _wl_tiled_on_card(
+        gval_m, edge_src, edge_w, edge_mask, edge_dst, wl, num_segments, tt)
+    partials, dbg = _wl_tiled_cells(gval_m, edge_src, edge_w, edge_mask,
+                                    edge_dst, wl, tt, grid, run_ptr, n_runs,
+                                    relax_kind, kind, with_debug)
+    out = _wl_fold(partials, wl, num_segments, kind)
+    wl_tiled_launches += 1
+    return out, dbg
+
+
+def _wl_tiled_lanes_cells(gval_m, unitw, edge_src, edge_w, edge_mask,
+                          edge_dst, wl: Worklist, tt: TileTables, grid: int,
+                          run_ptr, n_runs: int, relax_kind: str, kind: str,
+                          with_debug: bool):
+    """K8 proper, writing the (l_pad, SBLK, Q) partials; ``wl`` and
+    ``run_ptr`` must already be on the card."""
+    dev = gval_m.device
+    q = gval_m.shape[1]
+    _check_partial_room(wl_lanes_partial_bytes(wl.l_pad, q), dev)
+    partials = torch.empty((wl.l_pad, SBLK, q), dtype=torch.float32,
+                           device=dev)
+    dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
+        else None
+    cell_tmax = wl.cell_tile.shape[1] if wl.has_cell_tiles else 0
+    rc = _kernel("frr_wl_tiled_lanes_launch")(
+        gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
+        edge_mask.data_ptr(), edge_dst.data_ptr(), unitw.data_ptr(),
+        wl.wl_i.data_ptr(), wl.wl_j.data_ptr(), wl.nlive.data_ptr(),
+        *_cell_ptrs(wl, run_ptr), *_tile_ptrs(tt), edge_src.shape[0],
+        gval_m.shape[0], q, tt.vblk, tt.t_max, cell_tmax, grid, n_runs,
+        partials.data_ptr(), dbg.data_ptr() if dbg is not None else None,
+        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_relax_reduce_wl_tiled_lanes launch "
+                           f"failed: cudaError {rc}")
+    return partials, dbg
+
+
+def _launch_wl_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
+                           edge_dst, wl: Worklist, tt: TileTables,
+                           num_segments: int, relax_kind: str, kind: str,
+                           with_debug: bool):
+    """Launch K8 and K4's laned fold on the current stream, as
+    ``_launch_wl_tiled`` does K6."""
+    global wl_tiled_lanes_launches
+    _check_lane_tables(gval_m, unitw)
+    _check_tiles(gval_m, tt, edge_src.shape[0])
+    grid, run_ptr, n_runs, wl = _wl_tiled_on_card(
+        gval_m, edge_src, edge_w, edge_mask, edge_dst, wl, num_segments, tt)
+    partials, dbg = _wl_tiled_lanes_cells(
+        gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst, wl, tt, grid,
+        run_ptr, n_runs, relax_kind, kind, with_debug)
+    out = _wl_lanes_fold(partials, wl, num_segments, kind)
+    wl_tiled_lanes_launches += 1
+    return out, dbg
+
+
 def _pack(out, count, dbg, with_count: bool, with_debug: bool):
     """out / (out, count) / (out, dbg) / (out, count, dbg)."""
     res = (out,)
@@ -872,12 +1523,26 @@ def _pack(out, count, dbg, with_count: bool, with_debug: bool):
     return res[0] if len(res) == 1 else res
 
 
+def _residency(num_slots: int, q: int, num_edges: int, worklist,
+               vmem_budget_bytes, path, vblk, smem_budget_bytes):
+    """(path, vblk) of one launch: a given worklist's own, else
+    ``select_kernel_path``'s."""
+    if worklist is not None:
+        return worklist.path, worklist.vblk
+    return select_kernel_path(
+        num_slots, q, vmem_budget_bytes, path=path, vblk=vblk,
+        n_chunks=_round_up(num_edges, EBLK) // EBLK,
+        smem_budget_bytes=smem_budget_bytes)
+
+
 def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
                        num_segments: int, relax_kind: str, kind: str,
                        with_count: bool = False, with_debug: bool = False,
                        plan: LaunchPlan | None = None,
                        grid_mode: str = "dense",
-                       worklist: Worklist | None = None):
+                       worklist: Worklist | None = None,
+                       vmem_budget_bytes=None, path=None, vblk=None,
+                       smem_budget_bytes=None):
     """Fused gather/relax/mask/segment-reduce.
 
     gval: (V,) f32 vertex (replica-slot) values; gchg: (V,) bool changed
@@ -885,17 +1550,21 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     [0, num_segments); edge_w: (E,) f32; edge_mask: (E,) bool (False on
     padding).  Returns the (num_segments,) inbox partial — empty segments
     hold the combine identity.  ``with_count=True`` appends the int32
-    active-edge count; ``with_debug=True`` appends the (1,) int32 count of
-    executed (block, chunk) cells.  ``plan`` is ``plan_launch`` of these
-    edges, built here when absent (callers that launch every round build
-    it once).  Edges should be sorted by ``edge_dst`` for the range skip
-    to bite; correctness never depends on the sort.
+    active-edge count; ``with_debug=True`` appends the int32 counts of
+    executed (block, chunk) cells — (1,) pinned, (2,) [cells, tile
+    copies] tiled.  ``plan`` is ``plan_launch`` of these edges, built
+    here when absent (callers that launch every round build it once).
+    Edges should be sorted by ``edge_dst`` for the range skip to bite;
+    correctness never depends on the sort.
 
     ``worklist=`` (a host plan from ``WorklistPlanner`` or a device plan
-    from ``build_device_worklist``) runs the worklist launch K2;
+    from ``build_device_worklist``) runs a worklist launch;
     ``grid_mode='worklist'`` plans one on the host here and
     ``grid_mode='device_worklist'`` compacts one on the device.  Any
-    other ``grid_mode`` keeps the dense launch K1.  Min results are
+    other ``grid_mode`` keeps the dense launch.  Residency follows
+    ``select_kernel_path`` (``vmem_budget_bytes``, ``path``, ``vblk``,
+    ``smem_budget_bytes``), or a given worklist's own: pinned runs K1
+    (dense) / K2 (worklist), tiled K5 / K6.  Min results are
     bit-identical across launches; sums differ by reassociation only.
 
     CUDA tensors launch the kernels; CPU tensors run the plain versions.
@@ -905,38 +1574,66 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     dev = gval.device.type
     if dev not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {gval.device}")
+    v = gval.shape[0]
+    path, vblk = _residency(v, 1, edge_src.shape[0], worklist,
+                            vmem_budget_bytes, path, vblk,
+                            smem_budget_bytes)
+    tiled = path == "tiled"
     if worklist is None and grid_mode == "worklist":
         worklist = _launch_worklist(gchg, edge_src, edge_mask, edge_dst,
-                                    num_segments)
+                                    num_segments, path, vblk)
     need_plan = worklist is None and (
-        dev == "cuda" or with_debug or grid_mode == "device_worklist")
+        dev == "cuda" or with_debug or grid_mode == "device_worklist"
+        or tiled)
     if need_plan and plan is None:
-        plan = plan_launch(edge_src, edge_mask, edge_dst, num_segments,
-                           gval.shape[0])
-    chunk_act, count = _chunk_tables(edge_src, edge_mask, gchg)
+        plan = plan_launch(edge_src, edge_mask, edge_dst, num_segments, v)
+    act = _active_edges(edge_src, edge_mask, gchg)
+    chunk_act, count = _chunk_tables(edge_src, edge_mask, gchg, act)
     if worklist is None and grid_mode == "device_worklist":
         worklist = _compact_live_cells(plan, chunk_act,
-                                       device_worklist_pad(plan))
+                                       device_worklist_pad(plan), path, vblk)
     if dev == "cuda":
         gval_m = _masked_value_tables(gval, gchg, identity)
-        if worklist is not None:
+        tt = _chunk_tile_tables(edge_src, act, v, vblk) if tiled else None
+        if worklist is not None and tiled:
+            out, dbg = _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask,
+                                        edge_dst, worklist, tt,
+                                        num_segments, relax_kind, kind,
+                                        with_debug)
+        elif worklist is not None:
             out, dbg = _launch_wl(gval_m, edge_src, edge_w, edge_mask,
                                   edge_dst, worklist, num_segments,
                                   relax_kind, kind, with_debug)
+        elif tiled:
+            out, dbg = _launch_tiled(gval_m, edge_src, edge_w, edge_mask,
+                                     edge_dst, plan, chunk_act, tt,
+                                     relax_kind, kind, with_debug)
         else:
             out, dbg = _launch(gval_m, edge_src, edge_w, edge_mask,
                                edge_dst, plan, chunk_act, relax_kind, kind,
                                with_debug)
+    elif worklist is not None and tiled:
+        out, copies = ref.fused_relax_reduce_wl_tiled_ref(
+            gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
+            worklist.wl_i, worklist.wl_j, worklist.nlive, num_segments,
+            relax_kind, kind, vblk, worklist.cell_ntiles,
+            worklist.cell_tile, worklist.cell_fetch)
+        dbg = torch.cat([worklist.nlive, copies.view(1)])
     elif worklist is not None:
-        out = fused_relax_reduce_wl_ref(
+        out = ref.fused_relax_reduce_wl_ref(
             gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
             worklist.wl_i, worklist.wl_j, worklist.nlive, num_segments,
             relax_kind, kind)
         dbg = worklist.nlive.clone() if with_debug else None
+    elif tiled:
+        out, copies = ref.fused_relax_reduce_tiled_ref(
+            gval, gchg, edge_src, edge_w, edge_mask, edge_dst, num_segments,
+            relax_kind, kind, vblk, plan)
+        dbg = torch.cat([_executed_cells(plan, chunk_act), copies.view(1)])
     else:
-        out = fused_relax_reduce_ref(gval, gchg, edge_src, edge_w,
-                                     edge_mask, edge_dst, num_segments,
-                                     relax_kind, kind)
+        out = ref.fused_relax_reduce_ref(gval, gchg, edge_src, edge_w,
+                                         edge_mask, edge_dst, num_segments,
+                                         relax_kind, kind)
         dbg = _executed_cells(plan, chunk_act) if with_debug else None
     return _pack(out, count, dbg, with_count, with_debug)
 
@@ -948,25 +1645,29 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
                              with_debug: bool = False,
                              plan: LaunchPlan | None = None,
                              grid_mode: str = "dense",
-                             worklist: Worklist | None = None):
+                             worklist: Worklist | None = None,
+                             vmem_budget_bytes=None, path=None, vblk=None,
+                             smem_budget_bytes=None):
     """Lane-batched fused gather/relax/mask/segment-reduce.
 
     ``gval``/``gchg``: (V, Q) per-lane values and frontiers over one
     shared edge set (shapes of the edges as in ``fused_relax_reduce``).
     Returns the (num_segments, Q) per-lane inbox partial; ``with_count``
     appends the (Q,) int32 per-lane active-edge counts, ``with_debug``
-    the (1,) int32 executed-cell count.  ``lane_unitw`` (Q,) only
-    matters for ``relax_kind='add_w'``: a lane with a nonzero flag relaxes
-    with weight 1.0 (BFS levels) instead of the edge weight (SSSP), so one
-    launch serves a mixed BFS/SSSP batch.  A converged lane has an
-    all-False frontier column and contributes the identity everywhere;
-    the chunk skip is the OR across lanes.
+    the int32 executed-cell count ((2,) [cells, tile copies] tiled).
+    ``lane_unitw`` (Q,) only matters for ``relax_kind='add_w'``: a lane
+    with a nonzero flag relaxes with weight 1.0 (BFS levels) instead of
+    the edge weight (SSSP), so one launch serves a mixed BFS/SSSP batch.
+    A converged lane has an all-False frontier column and contributes the
+    identity everywhere; the chunk skip is the OR across lanes.
 
-    The dense launch is K3; ``worklist=`` (a host plan, from the
-    OR-across-lanes frontier) or ``grid_mode='worklist' |
-    'device_worklist'`` runs K4 and its fold.  There is no lane padding:
-    any Q gives the columns its lanes would give alone.  Min results are
-    bit-identical across launches; sums differ by reassociation only.
+    Pinned, the dense launch is K3 and ``worklist=`` (a host plan, from
+    the OR-across-lanes frontier) or ``grid_mode='worklist' |
+    'device_worklist'`` runs K4 and its fold; tiled (the (V, Q) table
+    over the budget, or ``path``/``vblk``), K7 and K8.  There is no lane
+    padding: any Q gives the columns its lanes would give alone, and
+    residency is judged at Q lanes.  Min results are bit-identical
+    across launches; sums differ by reassociation only.
 
     CUDA tensors launch the kernels; CPU tensors run the plain versions.
     """
@@ -982,43 +1683,70 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
     dev = gval.device.type
     if dev not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {gval.device}")
-    unitw = torch.as_tensor(lane_unitw).reshape(gval.shape[1]).to(
-        device=gval.device)
+    v, q = gval.shape
+    unitw = torch.as_tensor(lane_unitw).reshape(q).to(device=gval.device)
+    path, vblk = _residency(v, q, edge_src.shape[0], worklist,
+                            vmem_budget_bytes, path, vblk,
+                            smem_budget_bytes)
+    tiled = path == "tiled"
     if worklist is None and grid_mode == "worklist":
         worklist = _launch_worklist(gchg, edge_src, edge_mask, edge_dst,
-                                    num_segments)
+                                    num_segments, path, vblk, q)
     need_plan = worklist is None and (
-        dev == "cuda" or with_debug or grid_mode == "device_worklist")
+        dev == "cuda" or with_debug or grid_mode == "device_worklist"
+        or tiled)
     if need_plan and plan is None:
-        plan = plan_launch(edge_src, edge_mask, edge_dst, num_segments,
-                           gval.shape[0])
-    chunk_act, counts = _lane_chunk_tables(
-        edge_src, edge_mask, gchg, None if plan is None else plan.src_deg)
+        plan = plan_launch(edge_src, edge_mask, edge_dst, num_segments, v)
+    chunk_act, counts, act = _lane_chunk_tables(
+        edge_src, edge_mask, gchg, None if plan is None else plan.src_deg,
+        with_act=True)
     if worklist is None and grid_mode == "device_worklist":
         worklist = _compact_live_cells(plan, chunk_act,
-                                       device_worklist_pad(plan))
+                                       device_worklist_pad(plan), path, vblk)
     if dev == "cuda":
         gval_m = _masked_value_tables(gval, gchg, identity)
         unit_u8 = (unitw != 0).to(torch.uint8)
-        if worklist is not None:
+        tt = _chunk_tile_tables(edge_src, act, v, vblk) if tiled else None
+        if worklist is not None and tiled:
+            out, dbg = _launch_wl_tiled_lanes(
+                gval_m, unit_u8, edge_src, edge_w, edge_mask, edge_dst,
+                worklist, tt, num_segments, relax_kind, kind, with_debug)
+        elif worklist is not None:
             out, dbg = _launch_wl_lanes(gval_m, unit_u8, edge_src, edge_w,
                                         edge_mask, edge_dst, worklist,
                                         num_segments, relax_kind, kind,
                                         with_debug)
+        elif tiled:
+            out, dbg = _launch_tiled_lanes(
+                gval_m, unit_u8, edge_src, edge_w, edge_mask, edge_dst, plan,
+                chunk_act, tt, relax_kind, kind, with_debug)
         else:
             out, dbg = _launch_lanes(gval_m, unit_u8, edge_src, edge_w,
                                      edge_mask, edge_dst, plan, chunk_act,
                                      relax_kind, kind, with_debug)
+    elif worklist is not None and tiled:
+        out, copies = ref.fused_relax_reduce_wl_tiled_lanes_ref(
+            gval, gchg, unitw, edge_src, edge_w, edge_mask, edge_dst,
+            worklist.wl_i, worklist.wl_j, worklist.nlive, num_segments,
+            relax_kind, kind, vblk, worklist.cell_ntiles,
+            worklist.cell_tile, worklist.cell_fetch)
+        dbg = torch.cat([worklist.nlive, copies.view(1)])
     elif worklist is not None:
-        out = fused_relax_reduce_wl_lanes_ref(
+        out = ref.fused_relax_reduce_wl_lanes_ref(
             gval, gchg, unitw, edge_src, edge_w, edge_mask, edge_dst,
             worklist.wl_i, worklist.wl_j, worklist.nlive, num_segments,
             relax_kind, kind)
         dbg = worklist.nlive.clone() if with_debug else None
+    elif tiled:
+        out, copies = ref.fused_relax_reduce_tiled_lanes_ref(
+            gval, gchg, unitw, edge_src, edge_w, edge_mask, edge_dst,
+            num_segments, relax_kind, kind, vblk, plan)
+        dbg = torch.cat([_executed_cells(plan, chunk_act), copies.view(1)])
     else:
-        out = fused_relax_reduce_lanes_ref(gval, gchg, unitw, edge_src,
-                                           edge_w, edge_mask, edge_dst,
-                                           num_segments, relax_kind, kind)
+        out = ref.fused_relax_reduce_lanes_ref(gval, gchg, unitw, edge_src,
+                                               edge_w, edge_mask, edge_dst,
+                                               num_segments, relax_kind,
+                                               kind)
         dbg = _executed_cells(plan, chunk_act) if with_debug else None
     return _pack(out, counts, dbg, with_count, with_debug)
 
@@ -1028,7 +1756,8 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
 # --------------------------------------------------------------------------
 
 def fused_grid_cells(edge_dst, edge_mask, edge_src, gchg,
-                     num_segments: int) -> dict:
+                     num_segments: int, vblk: int | None = None,
+                     lane_width: int = 1) -> dict:
     """Host-side mirror of the fused launch over an edge stack.
 
     Edge arrays are (S, E_max) host arrays, or 1-D for a single flat
@@ -1038,8 +1767,23 @@ def fused_grid_cells(edge_dst, edge_mask, edge_src, gchg,
     ``launch_cells`` (the (block, chunk) pairs whose range meets, which
     this port's blocks walk) and ``fused_live`` (those whose chunk is
     frontier-live: the cells the kernel executes, equal to its
-    ``with_debug`` count and to the reference grid's live cells)."""
-    planner = WorklistPlanner(edge_dst, edge_mask, edge_src, num_segments)
+    ``with_debug`` count and to the reference grid's live cells).
+
+    With ``vblk`` it also mirrors the tiled launch: ``chunk_ntiles`` (the
+    distinct active-source tiles of each chunk), ``fused_tile_dmas``
+    (tile copies: each live cell copies its chunk's tiles, equal to the
+    kernel's count) and ``dma_bytes`` (copies x vblk x lane_width x 4)."""
+    num_slots = np.asarray(gchg).shape[0]
+    tiled = vblk is not None
+    planner = WorklistPlanner(edge_dst, edge_mask, edge_src, num_segments,
+                              num_slots=num_slots,
+                              path="tiled" if tiled else "pinned",
+                              vblk=vblk, lane_width=lane_width)
     d = planner.dense_mirror(gchg)
-    return {"total_fused": planner.total_cells,
-            "launch_cells": d["launched"], "fused_live": d["cells"]}
+    out = {"total_fused": planner.total_cells,
+           "launch_cells": d["launched"], "fused_live": d["cells"]}
+    if tiled:
+        out["chunk_ntiles"] = d["chunk_ntiles"].tolist()
+        out["fused_tile_dmas"] = d["tile_dmas"]
+        out["dma_bytes"] = d["dma_bytes"]
+    return out

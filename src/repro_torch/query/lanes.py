@@ -188,12 +188,14 @@ def make_stacked_lanes_fn(part: Partition,
     arrays = DeviceArrays.from_partition(part, dev)
     S, R_max = part.S, part.R_max
     vol = _volume(part)
-    planner = engine.launch_planner(part, cfg) if cfg.wants_worklist \
-        else None
 
     def fn(init_val, lane_unitw, init_chg, lane_budget=None):
         val = torch.as_tensor(init_val, dtype=torch.float32, device=dev)
         q = val.shape[-1]
+        # the plans' residency is judged at this call's Q lanes, as the
+        # launches judge it
+        planner = engine.launch_planner(part, cfg, q_pad=q) \
+            if cfg.wants_worklist else None
         unitw = _lane_vector(lane_unitw, q, torch.int32, dev)
         chg = torch.as_tensor(init_chg, dtype=torch.bool, device=dev)
         budget = (None if lane_budget is None

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 dense, K2 worklist, K3/K4 their
-lane-batched twins, K9 the segment reduce) against their plain versions,
-on the card.
+lane-batched twins, K5-K8 the tiled twins of K1-K4, K9 the segment
+reduce) against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (the kernel builds from
 ``src/repro_torch/kernels/csrc`` on first use) and skips without one.
@@ -23,6 +23,7 @@ from repro_torch.core.partition import PartitionConfig, build_partition  # noqa:
 from repro_torch.graph import generators, reference  # noqa: E402
 from repro_torch.kernels import fused_relax_reduce as frr  # noqa: E402
 from repro_torch.kernels import rhizome_segment_reduce as rsr  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     fused_relax_reduce_lanes_ref, fused_relax_reduce_ref,
     fused_relax_reduce_wl_lanes_ref, fused_relax_reduce_wl_ref,
@@ -448,3 +449,186 @@ def test_reduce_mode_on_card_matches_oracle(dev, app, oracle):
                                                 pallas_mode="reduce"))
     np.testing.assert_array_equal(got, oracle(g, root))
     assert rsr.launches == int(stats.iterations)
+
+
+# --------------------------------------------------------------------------
+# K5-K8: the tiled launches
+# --------------------------------------------------------------------------
+# Shapes straddle a tile (V = 129 at vblk 128, V = 1025 at vblk 1024);
+# vblk None is the automatic width.  A width whose double buffer does not
+# fit the shared-memory room at Q lanes must raise.
+
+TILED_SHAPES = [(1, 1, 1), (129, 300, 50), (1025, 5 * EBLK + 13, 2 * SBLK + 5),
+                (5000, 20 * EBLK + 77, 3000)]
+VBLKS = [128, 1024, None]
+
+
+def _tiled_case(v, e, nseg, frac, seed, q=None):
+    rng = np.random.default_rng(seed)
+    shape = (v,) if q is None else (v, q)
+    gval = rng.uniform(0.0, 10.0, shape).astype(np.float32)
+    gchg = rng.random(shape) < frac
+    if q is not None and q > 1:
+        gchg[:, q // 2] = False             # a converged lane
+    src = rng.integers(0, v, e).astype(np.int32)
+    w = rng.uniform(0.1, 2.0, e).astype(np.float32)
+    mask = rng.random(e) < 0.9
+    ids = np.sort(rng.integers(0, nseg, e)).astype(np.int32)
+    return gval, gchg, src, w, mask, ids
+
+
+def _check_tiled(dev, case, nseg, relax, kind, grid_mode, vblk, unitw=None):
+    """The tiled kernel of ``grid_mode`` against its plain version, the
+    pinned oracle and the host mirror: min bit-equal, sum within rtol
+    1e-5 and bit-equal between two runs, cells and copies exact."""
+    gval, gchg, src, w, mask, ids = case
+    q = 1 if unitw is None else gval.shape[1]
+    laned = unitw is not None
+    if vblk is not None and frr.tile_smem_bytes(vblk, q) \
+            > frr.TILE_SMEM_BYTES:
+        with pytest.raises(ValueError, match="vblk"):
+            frr.select_kernel_path(gval.shape[0], q, path="tiled",
+                                   vblk=vblk)
+        return
+    vb = frr.select_kernel_path(gval.shape[0], q, path="tiled",
+                                vblk=vblk)[1]
+    t = [torch.as_tensor(x, device=dev) for x in case]
+    head = t[:2] + ([torch.as_tensor(unitw, device=dev)] if laned else [])
+    gor = gchg.any(axis=1) if laned else gchg
+    plan = frr.plan_launch(t[2], t[4], t[5], nseg, gval.shape[0])
+    wl = None
+    if grid_mode == "worklist":
+        wl, info = frr.plan_worklist(ids, mask, src, gor, nseg,
+                                     num_slots=gval.shape[0], path="tiled",
+                                     vblk=vb, lane_width=q)
+        want_dbg = (info.cells, info.tile_dmas)
+    elif grid_mode == "device_worklist":
+        wl = frr.build_device_worklist(t[1], t[2], t[4], t[5], nseg, plan,
+                                       path="tiled", vblk=vb)
+        _, info = frr.plan_worklist(ids, mask, src, gor, nseg,
+                                    num_slots=gval.shape[0], path="tiled",
+                                    vblk=vb, dst_filter=False)
+        want_dbg = (info.cells, info.tile_needed)
+    else:
+        m = frr.fused_grid_cells(ids, mask, src, gor, nseg, vblk=vb)
+        want_dbg = (m["fused_live"], m["fused_tile_dmas"])
+    launch = frr.fused_relax_reduce_lanes if laned else frr.fused_relax_reduce
+
+    def run(debug=True):
+        return launch(*head, *t[2:], nseg, relax, kind, with_count=True,
+                      with_debug=debug, plan=plan, worklist=wl, path="tiled",
+                      vblk=vb)
+
+    out, count, dbg = run()
+    if wl is None:
+        plain_fn = (ref.fused_relax_reduce_tiled_lanes_ref if laned
+                    else ref.fused_relax_reduce_tiled_ref)
+        plain, copies = plain_fn(*head, *t[2:], nseg, relax, kind, vb, plan)
+    else:
+        plain_fn = (ref.fused_relax_reduce_wl_tiled_lanes_ref if laned
+                    else ref.fused_relax_reduce_wl_tiled_ref)
+        plain, copies = plain_fn(*head, *t[2:], wl.wl_i.to(dev),
+                                 wl.wl_j.to(dev), wl.nlive.to(dev), nseg,
+                                 relax, kind, vb, wl.cell_ntiles,
+                                 wl.cell_tile, wl.cell_fetch)
+    oracle = (fused_relax_reduce_lanes_ref if laned
+              else fused_relax_reduce_ref)(*head, *t[2:], nseg, relax, kind)
+    torch.cuda.synchronize()
+    if kind == "min":
+        assert torch.equal(out, plain) and torch.equal(out, oracle)
+    else:
+        torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-6)
+        again, _ = run(debug=False)
+        assert torch.equal(out, again)
+    want_count = (mask[:, None] & gchg[src]).sum(axis=0) if laned \
+        else (mask & gchg[src]).sum()
+    np.testing.assert_array_equal(count.cpu().numpy(), want_count)
+    assert (int(dbg[0]), int(dbg[1])) == want_dbg
+    assert int(copies) == want_dbg[1]
+
+
+@pytest.mark.parametrize("vblk", VBLKS)
+@pytest.mark.parametrize("grid_mode", ["dense", "worklist",
+                                       "device_worklist"])
+@pytest.mark.parametrize("relax,kind", PAIRS)
+@pytest.mark.parametrize("v,e,nseg", TILED_SHAPES)
+def test_tiled_kernels_match_plain(dev, v, e, nseg, relax, kind, grid_mode,
+                                   vblk):
+    case = _tiled_case(v, e, nseg, 0.3, v + e)
+    _check_tiled(dev, case, nseg, relax, kind, grid_mode, vblk)
+
+
+@pytest.mark.parametrize("grid_mode", ["dense", "worklist",
+                                       "device_worklist"])
+@pytest.mark.parametrize("relax,kind", PAIRS)
+@pytest.mark.parametrize("frac", [0.0, 0.01, 1.0])
+def test_tiled_kernels_frontier_densities(dev, frac, relax, kind,
+                                          grid_mode):
+    case = _tiled_case(5000, 20 * EBLK + 77, 3000, frac, 11)
+    _check_tiled(dev, case, 3000, relax, kind, grid_mode, 128)
+
+
+@pytest.mark.parametrize("vblk", VBLKS)
+@pytest.mark.parametrize("grid_mode", ["dense", "worklist",
+                                       "device_worklist"])
+@pytest.mark.parametrize("relax,kind", LANE_PAIRS)
+@pytest.mark.parametrize("q", [1, 5, 16, 33])
+def test_tiled_lane_kernels_match_plain(dev, q, relax, kind, grid_mode,
+                                        vblk):
+    case = _tiled_case(1025, 5 * EBLK + 13, 2 * SBLK + 5, 0.3, q, q=q)
+    unitw = (np.arange(q) % 2).astype(np.int32)
+    _check_tiled(dev, case, 2 * SBLK + 5, relax, kind, grid_mode, vblk,
+                 unitw)
+
+
+@pytest.mark.parametrize("grid_mode", ["dense", "worklist",
+                                       "device_worklist"])
+@pytest.mark.parametrize("frac", [0.0, 0.01, 1.0])
+@pytest.mark.parametrize("q", [5, 16])
+def test_tiled_lane_kernels_frontier_densities(dev, q, frac, grid_mode):
+    case = _tiled_case(5000, 20 * EBLK + 77, 3000, frac, 7, q=q)
+    unitw = (np.arange(q) % 3 == 0).astype(np.int32)
+    _check_tiled(dev, case, 3000, "add_w", "min", grid_mode, 128, unitw)
+
+
+def test_tiled_kernels_count_launches(dev):
+    case = [torch.as_tensor(x, device=dev)
+            for x in _tiled_case(1025, 5 * EBLK, 700, 0.5, 3)]
+    counts = ("launches", "wl_launches", "tiled_launches",
+              "wl_tiled_launches")
+    for name in counts:
+        setattr(frr, name, 0)
+    for grid_mode in ("dense", "worklist", "device_worklist"):
+        frr.fused_relax_reduce(*case, 700, "add_w", "min",
+                               grid_mode=grid_mode, vmem_budget_bytes=256)
+    assert [getattr(frr, n) for n in counts] == [0, 0, 1, 2]
+    lane = [torch.as_tensor(x, device=dev)
+            for x in _tiled_case(1025, 5 * EBLK, 700, 0.5, 3, q=4)]
+    unitw = torch.zeros(4, dtype=torch.int32, device=dev)
+    frr.tiled_lanes_launches = frr.wl_tiled_lanes_launches = 0
+    for grid_mode in ("dense", "worklist", "device_worklist"):
+        frr.fused_relax_reduce_lanes(lane[0], lane[1], unitw, *lane[2:], 700,
+                                     "add_w", "min", grid_mode=grid_mode,
+                                     vmem_budget_bytes=256)
+    assert (frr.tiled_lanes_launches, frr.wl_tiled_lanes_launches) == (1, 2)
+
+
+@pytest.mark.parametrize("grid_mode", ["dense", "worklist",
+                                       "device_worklist"])
+@pytest.mark.parametrize("app,oracle", [(bfs, reference.bfs_levels),
+                                        (sssp, reference.sssp_dijkstra)])
+def test_engine_over_budget_on_card_matches_oracle(dev, app, oracle,
+                                                   grid_mode):
+    g = generators.rmat(10, edge_factor=8, seed=5).with_random_weights(
+        seed=5)
+    root = int(np.argmax(g.out_degrees()))
+    cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid_mode,
+                              vmem_budget_bytes=4096)
+    got, stats, _ = app(g, root, num_shards=4, rpvo_max=4, cfg=cfg,
+                        device=dev)
+    np.testing.assert_array_equal(got, oracle(g, root))
+    pinned, pstats, _ = app(g, root, num_shards=4, rpvo_max=4,
+                            cfg=engine.EngineConfig(use_pallas=True,
+                                                    grid_mode=grid_mode),
+                            device=dev)
+    assert [int(x) for x in stats] == [int(x) for x in pstats]

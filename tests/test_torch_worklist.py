@@ -128,13 +128,21 @@ def test_device_compaction_matches_reference_plan(v, e, nseg, frac,
 
 
 def test_tiled_path_names_its_kernel():
+    """The tiled worklist path (kernel K6) plans as the reference's does:
+    without a tile width it raises, and a reference tiled plan crosses
+    with its cells and tile lists (``test_torch_tiled.py`` holds the
+    path in full)."""
     _, gchg, src, _, mask, ids = _case(100, 300, 40, 0.5, 1)
-    with pytest.raises(NotImplementedError, match="K6"):
-        frr.WorklistPlanner(ids, mask, src, 40, path="tiled")
+    for mod in (ref_frr, frr):
+        with pytest.raises(ValueError, match="vblk"):
+            mod.WorklistPlanner(ids, mask, src, 40, path="tiled")
     wl, _ = ref_frr.plan_worklist(ids, mask, src, gchg, 40, path="tiled",
                                   vblk=128)
-    with pytest.raises(NotImplementedError, match="K6"):
-        interop.worklist_from_dict(vars(wl))
+    got = interop.worklist_from_dict(vars(wl))
+    assert got.path == "tiled" and got.vblk == 128
+    for name in ("wl_i", "wl_j", "nlive", "cell_ntiles", "cell_tile"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      getattr(wl, name))
 
 
 def test_smem_budget_warns_like_reference():
