@@ -63,7 +63,8 @@ started together) and runs, in order:
    (worklist lanes) against their plain versions (all pairings, Q in
    {1, 5, 16, 33}, vblk 128 and the automatic width, ragged sizes,
    frontier densities 0 / 1% / 100%, a converged lane), with executed
-   cells and tile copies equal to the host mirror; then on the RMAT-18
+   cells and copies (K5/K7: staged rows; K6/K8: tiles) equal to the host
+   mirror, and K5/K7 bit-equal to K1/K3, sum included; then on the RMAT-18
    partition with ``vmem_budget_bytes`` under the value table's bytes
    (512 KiB unlaned, 8 MiB for Q = 16 lanes): BFS and SSSP under
    ``dense`` (K5), ``worklist`` and ``device_worklist`` (K6, a window
@@ -74,7 +75,8 @@ started together) and runs, in order:
    then the heaviest rounds replayed to time K5 against K1, K6 against
    K2, K7 against K3 and K8 against K4 on the same round, beside their
    plain versions, the pinned twin's library call and byte bound, and
-   the bytes the tiles copy.
+   the bytes the kernels stage (K5/K7 the rows their cells read, K6/K8
+   their tiles).
 
 ``--profile`` also traces one replayed lane round's relax phase (K3 and
 K4 host-plan launches) with ``torch.profiler`` and prints its device
@@ -1435,8 +1437,11 @@ def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
                  unitw=None):
     """One tiled launch (K5/K6, or K7/K8 with ``unitw``) against its plain
     version and the pinned oracle: min bit-equal, sum within rtol 1e-5 /
-    atol 1e-6 and bit-equal between two runs; counts, executed cells and
-    tile copies equal the host mirror.  Returns (kernel, max |err|)."""
+    atol 1e-6 and bit-equal between two runs; a dense one (K5/K7) also
+    bit-equal to the pinned kernel (K1/K3) on the same inputs, sum
+    included; counts, executed cells and copies (staged rows dense, tile
+    copies on a worklist) equal the host mirror.  Returns (kernel,
+    max |err|)."""
     from repro_torch.kernels import fused_relax_reduce as frr
     from repro_torch.kernels import ref
     gval, gchg, src, w, mask, ids = case
@@ -1461,7 +1466,7 @@ def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
         want_dbg = (info.cells, info.tile_needed)
     else:
         m = frr.fused_grid_cells(ids, mask, src, gor, nseg, vblk=vb)
-        want_dbg = (m["fused_live"], m["fused_tile_dmas"])
+        want_dbg = (m["fused_live"], m["fused_staged_rows"])
     name = ("K7" if wl is None else "K8") if laned \
         else ("K5" if wl is None else "K6")
     launch = frr.fused_relax_reduce_lanes if laned else frr.fused_relax_reduce
@@ -1475,7 +1480,9 @@ def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
     if wl is None:
         plain_fn = (ref.fused_relax_reduce_tiled_lanes_ref if laned
                     else ref.fused_relax_reduce_tiled_ref)
-        plain, copies = plain_fn(*head, *t[2:], nseg, relax, kind, vb, plan)
+        plain, copies = plain_fn(*head, *t[2:], nseg, relax, kind, plan)
+        pinned = launch(*head, *t[2:], nseg, relax, kind, plan=plan,
+                        path="pinned")
     else:
         plain_fn = (ref.fused_relax_reduce_wl_tiled_lanes_ref if laned
                     else ref.fused_relax_reduce_wl_tiled_ref)
@@ -1491,6 +1498,9 @@ def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
          f"vblk={vb}"
     err = _check_out(torch, out, plain, kind, at)
     _check_out(torch, out, oracle, kind, at + " (pinned oracle)")
+    if wl is None:
+        check(torch.equal(out, pinned),
+              f"differs from {'K3' if laned else 'K1'} bit for bit: {at}")
     if kind == "sum":
         check(torch.equal(out, run(debug=False)[0]),
               f"sum differs between runs: {at}")
@@ -1536,8 +1546,9 @@ def phase_tiled_kernels_vs_plain(torch, np, dev):
         f"K7/K8 (Q in 1/5/16/33), vblk 128 and automatic: min bit-equal to "
         f"the plain versions and the pinned oracle, sum max_abs_err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-        + " (rtol 1e-5) and bit-repeatable; counts, executed cells and tile "
-        "copies equal the host mirror")
+        + " (rtol 1e-5) and bit-repeatable; K5/K7 bit-equal to K1/K3, sum "
+        "included; counts, executed cells, staged rows (K5/K7) and tile "
+        "copies (K6/K8) equal the host mirror")
     return errs
 
 
@@ -1568,7 +1579,8 @@ def _heaviest_round(torch, dev, part, arrays, sem, root):
 def _time_tiled_kernels(torch, np, dev, part, arrays, root):
     """K5 against K1 and K6 against K2 on the heaviest SSSP round, with
     the plain versions, the pinned twins' library call and byte bound,
-    and the bytes the tiles copy.  Returns (K5 row, K6 row, max err)."""
+    and the bytes each kernel stages (K5 rows, K6 tiles).  Returns (K5
+    row, K6 row, max err)."""
     from repro_torch.core import actions, engine
     from repro_torch.kernels import fused_relax_reduce as frr
     from repro_torch.kernels import ops, ref
@@ -1587,13 +1599,13 @@ def _time_tiled_kernels(torch, np, dev, part, arrays, root):
     gval_m = frr._masked_value_tables(gval, gchg, sem.identity)
     act = frr._active_edges(src, mask, gchg)
     chunk_act, count = frr._chunk_tables(src, mask, gchg, act)
-    tt = frr._chunk_tile_tables(src, act, v, vblk)
+    tt = frr._chunk_tile_tables(src, act, v, vblk)      # K6's
     out1, _ = frr._launch(gval_m, src, w, mask, ids, plan, chunk_act, rk,
                           kind, False)
     out5, dbg5 = frr._launch_tiled(gval_m, src, w, mask, ids, plan,
-                                   chunk_act, tt, rk, kind, True)
-    plain5, copies5 = ref.fused_relax_reduce_tiled_ref(
-        gval, gchg, src, w, mask, ids, nseg, rk, kind, vblk, plan)
+                                   chunk_act, act, rk, kind, True)
+    plain5, rows5 = ref.fused_relax_reduce_tiled_ref(
+        gval, gchg, src, w, mask, ids, nseg, rk, kind, plan)
     gchg_h = gchg.cpu().numpy()
     mirror = frr.fused_grid_cells(part.edge_dst_flat, part.edge_mask,
                                   part.edge_src_root_flat, gchg_h, nseg,
@@ -1602,9 +1614,9 @@ def _time_tiled_kernels(torch, np, dev, part, arrays, root):
     check(torch.equal(out5, out1) and torch.equal(out5, plain5),
           f"K5 round {rnd}: differs from K1 / its plain version")
     check((int(dbg5[0]), int(dbg5[1])) == (mirror["fused_live"],
-                                           mirror["fused_tile_dmas"])
-          and int(copies5) == mirror["fused_tile_dmas"],
-          f"K5 round {rnd}: cells/copies {dbg5.tolist()} != mirror")
+                                           mirror["fused_staged_rows"])
+          and int(rows5) == mirror["fused_staged_rows"],
+          f"K5 round {rnd}: cells/rows {dbg5.tolist()} != mirror")
     n_active = int(count)
     bound, bound_by = _round_bound_ms(part, rk, n_active)
     msg = torch.where(act, sem.relax(gval[src.long()], w), sem.identity)
@@ -1613,20 +1625,23 @@ def _time_tiled_kernels(torch, np, dev, part, arrays, root):
               "bound_ms": bound, "bound_by": bound_by,
               "library_ms": _library_ms(torch, kind, ids.long(), msg, nseg)}
     k5 = dict(common, cells=mirror["fused_live"],
-              copies=mirror["fused_tile_dmas"], dma_bytes=mirror["dma_bytes"],
+              rows=mirror["fused_staged_rows"],
+              dma_bytes=mirror["staged_bytes"],
+              reference_tile_copies=mirror["fused_tile_dmas"],
+              reference_tile_bytes=mirror["dma_bytes"],
               ms=time_ms(torch, lambda: ops.fused_relax_reduce(
                   gval, gchg, src, w, mask, ids, nseg, rk, kind, plan=plan,
-                  vmem_budget_bytes=TILED_BUDGET), reps=TILED_REPS,
-                  warmup=1),
+                  vmem_budget_bytes=TILED_BUDGET)),
+              pinned_phase_ms=time_ms(torch, lambda: ops.fused_relax_reduce(
+                  gval, gchg, src, w, mask, ids, nseg, rk, kind, plan=plan)),
               kernel_ms=time_ms(torch, lambda: frr._launch_tiled(
-                  gval_m, src, w, mask, ids, plan, chunk_act, tt, rk, kind,
-                  False), reps=TILED_REPS, warmup=1),
+                  gval_m, src, w, mask, ids, plan, chunk_act, act, rk, kind,
+                  False)),
               pinned_ms=time_ms(torch, lambda: frr._launch(
                   gval_m, src, w, mask, ids, plan, chunk_act, rk, kind,
                   False)),
               plain_ms=time_ms(torch, lambda: ref.fused_relax_reduce_tiled_ref(
-                  gval, gchg, src, w, mask, ids, nseg, rk, kind, vblk, plan),
-                  reps=TILED_REPS, warmup=1))
+                  gval, gchg, src, w, mask, ids, nseg, rk, kind, plan)))
 
     # K6 (host plan, tiled planner) against K2 (host plan, pinned planner)
     cfg_t = engine.EngineConfig(use_pallas=True, grid_mode="worklist",
@@ -1721,15 +1736,14 @@ def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
     unit_u8 = (unitw != 0).to(torch.uint8)
     chunk_act, counts, act = frr._lane_chunk_tables(
         src, mask, gchg, plan.src_deg, with_act=True)
-    tt = frr._chunk_tile_tables(src, act, v, vblk)
+    tt = frr._chunk_tile_tables(src, act, v, vblk)      # K8's
     out3, _ = frr._launch_lanes(gval_m, unit_u8, src, w, mask, ids, plan,
                                 chunk_act, "add_w", "min", False)
     out7, dbg7 = frr._launch_tiled_lanes(gval_m, unit_u8, src, w, mask, ids,
-                                         plan, chunk_act, tt, "add_w", "min",
-                                         True)
-    plain7, copies7 = ref.fused_relax_reduce_tiled_lanes_ref(
-        gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min", vblk,
-        plan)
+                                         plan, chunk_act, act, "add_w",
+                                         "min", True)
+    plain7, rows7 = ref.fused_relax_reduce_tiled_lanes_ref(
+        gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min", plan)
     gchg_h = gchg.cpu().numpy()
     mirror = frr.fused_grid_cells(part.edge_dst_flat, part.edge_mask,
                                   part.edge_src_root_flat, gchg_h, nseg,
@@ -1738,9 +1752,9 @@ def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
     check(torch.equal(out7, out3) and torch.equal(out7, plain7),
           f"K7 round {rnd}: differs from K3 / its plain version")
     check((int(dbg7[0]), int(dbg7[1])) == (mirror["fused_live"],
-                                           mirror["fused_tile_dmas"])
-          and int(copies7) == mirror["fused_tile_dmas"],
-          f"K7 round {rnd}: cells/copies {dbg7.tolist()} != mirror")
+                                           mirror["fused_staged_rows"])
+          and int(rows7) == mirror["fused_staged_rows"],
+          f"K7 round {rnd}: cells/rows {dbg7.tolist()} != mirror")
     n_edges = int(act.sum())
     n_pairs = int(counts.sum())
     bound, bound_by = _lane_round_bound_ms(part, n_edges, n_pairs, q)
@@ -1754,21 +1768,27 @@ def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
                   (nseg, q), math.inf, device=dev).index_reduce_(
                       0, ids_long, msg, "amin", include_self=True), reps=5)}
     k7 = dict(common, cells=mirror["fused_live"],
-              copies=mirror["fused_tile_dmas"], dma_bytes=mirror["dma_bytes"],
+              rows=mirror["fused_staged_rows"],
+              dma_bytes=mirror["staged_bytes"],
+              reference_tile_copies=mirror["fused_tile_dmas"],
+              reference_tile_bytes=mirror["dma_bytes"],
               ms=time_ms(torch, lambda: ops.fused_relax_reduce_lanes(
                   gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min",
-                  plan=plan, vmem_budget_bytes=TILED_LANE_BUDGET),
-                  reps=TILED_REPS, warmup=1),
+                  plan=plan, vmem_budget_bytes=TILED_LANE_BUDGET)),
+              pinned_phase_ms=time_ms(
+                  torch, lambda: ops.fused_relax_reduce_lanes(
+                      gval, gchg, unitw, src, w, mask, ids, nseg, "add_w",
+                      "min", plan=plan)),
               kernel_ms=time_ms(torch, lambda: frr._launch_tiled_lanes(
-                  gval_m, unit_u8, src, w, mask, ids, plan, chunk_act, tt,
-                  "add_w", "min", False), reps=TILED_REPS, warmup=1),
+                  gval_m, unit_u8, src, w, mask, ids, plan, chunk_act, act,
+                  "add_w", "min", False)),
               pinned_ms=time_ms(torch, lambda: frr._launch_lanes(
                   gval_m, unit_u8, src, w, mask, ids, plan, chunk_act,
                   "add_w", "min", False)),
               plain_ms=time_ms(
                   torch, lambda: ref.fused_relax_reduce_tiled_lanes_ref(
                       gval, gchg, unitw, src, w, mask, ids, nseg, "add_w",
-                      "min", vblk, plan), reps=TILED_REPS, warmup=1))
+                      "min", plan), reps=TILED_REPS, warmup=1))
 
     cfg_t = engine.EngineConfig(use_pallas=True, grid_mode="worklist",
                                 vmem_budget_bytes=TILED_LANE_BUDGET)
@@ -1989,11 +2009,13 @@ def phase_tiled(torch, np, dev, g, part, root, want, part_pr, want_conv):
                                              queries)
     report.update(k5=k5, k6=k6, k7=k7, k8=k8)
     log(f"[tiled] heaviest SSSP round ({k5['round']} of {k5['rounds']}, "
-        f"{k5['active_edges']} active edges, vblk {k5['vblk']}, "
-        f"{k5['tiles']} tiles): K5 relax phase {k5['ms']:.4f} ms (kernel "
-        f"{k5['kernel_ms']:.4f} ms, {k5['copies']} tile copies = "
-        f"{k5['dma_bytes']} B) against K1 {k5['pinned_ms']:.4f} ms; plain "
-        f"{k5['plain_ms']:.4f} ms, scatter_reduce_ amin "
+        f"{k5['active_edges']} active edges, {k5['cells']} cells): K5 relax "
+        f"phase {k5['ms']:.4f} ms (pinned {k5['pinned_phase_ms']:.4f} ms), "
+        f"kernel {k5['kernel_ms']:.4f} ms ({k5['rows']} staged rows = "
+        f"{k5['dma_bytes']} B; the reference's {k5['tiles']} tiles of vblk "
+        f"{k5['vblk']} would copy {k5['reference_tile_copies']} = "
+        f"{k5['reference_tile_bytes']} B) against K1 {k5['pinned_ms']:.4f} "
+        f"ms; plain {k5['plain_ms']:.4f} ms, scatter_reduce_ amin "
         f"{k5['library_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms")
     log(f"[tiled] same round, K6 host plan ({k6['cells']} cells in "
         f"{k6['runs']} runs, {k6['copies']} copies, reference schedule "
@@ -2004,12 +2026,14 @@ def phase_tiled(torch, np, dev, g, part, root, want, part_pr, want_conv):
         f"ms; relax phase {k6['ms']:.4f} ms (device plan "
         f"{k6['device_ms']:.4f} ms), plain {k6['plain_ms']:.4f} ms")
     log(f"[tiled] heaviest Q={LANES} round ({k7['round']} of "
-        f"{k7['rounds']}, {k7['active_pairs']} active pairs, vblk "
-        f"{k7['vblk']}, {k7['tiles']} tiles): K7 relax phase "
-        f"{k7['ms']:.4f} ms (kernel {k7['kernel_ms']:.4f} ms, "
-        f"{k7['copies']} copies = {k7['dma_bytes']} B) against K3 "
-        f"{k7['pinned_ms']:.4f} ms; plain {k7['plain_ms']:.4f} ms, "
-        f"index_reduce_ amin {k7['library_ms']:.4f} ms, bound "
+        f"{k7['rounds']}, {k7['active_pairs']} active pairs, {k7['cells']} "
+        f"cells): K7 relax phase {k7['ms']:.4f} ms (pinned "
+        f"{k7['pinned_phase_ms']:.4f} ms), kernel {k7['kernel_ms']:.4f} ms "
+        f"({k7['rows']} staged rows = {k7['dma_bytes']} B; the reference's "
+        f"{k7['tiles']} tiles of vblk {k7['vblk']} would copy "
+        f"{k7['reference_tile_copies']} = {k7['reference_tile_bytes']} B) "
+        f"against K3 {k7['pinned_ms']:.4f} ms; plain {k7['plain_ms']:.4f} "
+        f"ms, index_reduce_ amin {k7['library_ms']:.4f} ms, bound "
         f"{k7['bound_ms']:.4f} ms")
     log(f"[tiled] same round, K8 host plan ({k8['cells']} cells, "
         f"{k8['copies']} copies, reference schedule "

@@ -225,9 +225,9 @@ def plan_round_worklist(planner, cfg: EngineConfig, gchg,
 def _obs_record_round(rec, run, part, cfg, planner, rnd, gchg, frontier,
                       mc, work, wl, info, wall_s):
     """Build + store one flight-recorder ``RoundRecord``: the cell and
-    tile-copy columns come from the planner mirror of the launch this
-    round made (``WorklistInfo`` for worklist launches; for dense
-    launches the cells K1/K5 executes, the tiles it copies and, as
+    copy columns come from the planner mirror of the launch this round
+    made (``WorklistInfo`` for worklist launches: K6's tile copies; for
+    dense launches the cells K1/K5 executes, the rows K5 stages and, as
     ``launched``, the cells its blocks walk), plus the per-shard
     message-volume mirror feeding the skew gauge.  Only ever called with
     a recorder installed."""
@@ -242,7 +242,7 @@ def _obs_record_round(rec, run, part, cfg, planner, rnd, gchg, frontier,
             d = planner.dense_mirror(gchg)
             cells, launched = d["cells"], d["launched"]
             if cfg.pallas_mode == "fused":
-                tile_dmas, dma_bytes = d["tile_dmas"], d["dma_bytes"]
+                tile_dmas, dma_bytes = d["staged_rows"], d["staged_bytes"]
     else:
         path = "torch"
         cells = launched = 0

@@ -1,8 +1,10 @@
 // Shared pieces of the tiled fused relax + reduce kernels (K5-K8): the
-// value table stays in device memory and each live cell copies only the
-// vblk-wide slot tiles that its chunk's active sources fall in into a
-// 2-slot shared-memory buffer, then folds each tile's own edges from
-// there.
+// value table stays in device memory and is read through shared memory.
+// The worklist kernels K6 and K8 copy the vblk-wide slot tiles that a
+// cell's active sources fall in into a 2-slot shared-memory buffer and
+// fold each tile's own edges from there; the dense kernels K5 and K7
+// stage only the source rows a cell reads (their own sources) and use the
+// cp.async helpers below.
 //
 // Tile tables (built per round on the device, fused_relax_reduce.py
 // `_chunk_tile_tables`): chunk j's active edges fall in the ntiles[j]
@@ -66,10 +68,16 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// Wait until every committed group but the newest has landed (the
+// caller then syncs the block before reading it).
+__device__ __forceinline__ void cp_async_wait_group1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 // Wait until every committed group but the newest has landed, then make
 // the landed data visible to the whole block.
 __device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  cp_async_wait_group1();
   __syncthreads();
 }
 
@@ -161,7 +169,7 @@ struct TileRows {                 // this thread's lane of a staged tile
 // ntiles[c] tiles tile[c][k] (a subset of its chunk's, ascending), each
 // read from shared-memory slot slot[c][k] and copied there first iff
 // fetch[c][k].  All null: a cell walks its chunk's own list and copies
-// every tile, tile k into slot k % 2 (K5, K7, and device plans).
+// every tile, tile k into slot k % 2 (device plans).
 struct CellSchedule {
   const int32_t* ntiles;
   const int32_t* tile;

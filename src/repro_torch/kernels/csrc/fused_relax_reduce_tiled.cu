@@ -8,34 +8,110 @@
 //   out[d] = (+) over edges e with ids[e] == d and mask[e] of
 //            relax(gval[src[e]], w[e])
 //
-// over the frontier-masked value table, but never gathers from the table
-// in device memory: each live cell copies the vblk-wide slot tiles that
-// its chunk's active sources fall in into a 2-slot shared-memory buffer
-// (frr_tiles.cuh), tile t+1's cp.async copy in flight while tile t's own
-// edges are folded with K1's warp fold, reading tile_s[src - tile * vblk].
-// Every active edge lies in exactly one listed tile, so the result is
-// K1's: min bit for bit, sum up to the order of its terms (tile by tile
-// rather than edge by edge; still no atomics, so it repeats bit for bit).
+// over the frontier-masked value table, for a table the residency budget
+// keeps out of the pinned path.
+//
+// The copy unit.  A TPU core cannot gather from device memory, and its
+// VMEM copies move contiguous (8, 128) blocks, so the TPU kernel copies
+// the vblk-wide slot tiles that a chunk's active sources fall in and
+// gathers from VMEM.  Hopper gathers at 32-byte-sector granularity and
+// cp.async copies 4 bytes to any shared-memory address, so here the copy
+// unit is what a cell reads: one source row.  A cell whose 512 sources
+// spread over the table copies 2 KB, not every tile of it (about 1 MB at
+// RMAT-18).
 //
 // Launch shape: K1's.  One block per SBLK-wide segment block walks the
 // chunks whose destination range meets it and skips dead chunks, so the
-// executed cells are K1's; `dbg` counts [cells, tile copies], each live
-// cell copying its chunk's ntiles tiles, as the TPU kernel does.
+// executed cells are K1's.  For each live cell the block copies, with
+// cp.async, the masked value gval[src[e]] of every chunk position whose
+// edge is active (act[e]: mask[e] and a changed source) and lands in the
+// block into a shared-memory slot at the edge's chunk position; every
+// other position gets the identity, written directly, which is what the
+// masked table holds for an inactive source.  Two slots of EBLK floats
+// double-buffer across the block's cells: while cell c is folded, cell
+// c+1's copies are in flight (one commit group a cell) and cell c+2's
+// ids, sources and act flags are loaded into registers.  The fold is
+// K1's own (fold_list over ChunkEdges) with a message read from the slot
+// where K1 reads the table, so K5's result is K1's bit for bit, sum
+// included.  A cell that stages no row (no active edge lands in its
+// block: a chunk that straddles two shards' sorted runs meets nearly
+// every block) skips the fold, whose messages would all be the identity
+// and change no accumulator.  `dbg` counts [cells, staged rows], a row
+// once per (cell, staged position).
 //
-// Bound.  What a round's data needs is K1's bound (the edges' ids,
-// sources, weights and masks, the table, the inbox).  The tiles are
-// extra traffic: a chunk of 512 edges with sources spread over the table
-// touches nearly every tile, so a cell copies up to ntiles * vblk * 4
-// bytes (about 1 MB at RMAT-18 with vblk 12,288) where K1 gathers 2 KB.
-// Those copies are served from L2 while the table fits there (1 MB at
-// RMAT-18).  The design exists for tables no fast memory holds and for
-// sparse frontiers, whose chunks list few tiles.
+// Bound: K1's.  The staged bytes are the gathered bytes (4 per active
+// edge), so the round's data needs what it needs for K1: the edges'
+// ids, sources, weights and masks, the table, the inbox.  Beyond K1 the
+// kernel reads each position's act flag, id and source once more, in a
+// coalesced pass a cell ahead, and syncs the block twice a cell; it
+// saves the fold of the cells that stage no row, which K1 walks.
 
 #include "frr_tiles.cuh"
 
 namespace {
 
 using namespace frr;
+
+// K1's message from the cell's staged rows: relax(stage_s[e - e0], w[e])
+// where mask[e].
+template <int RELAX>
+struct StagedMsg {
+  const float* stage_s;           // the cell's slot, by chunk position
+  int e0;                         // the chunk's first edge
+  const float* w;
+  const uint8_t* mask;
+  __device__ __forceinline__ bool valid(int e) const {
+    return __ldg(mask + e) != 0;
+  }
+  __device__ __forceinline__ float value(int e) const {
+    return relax<RELAX>(stage_s[e - e0], w, e);
+  }
+};
+
+// A cell's edges as this thread stages them: positions threadIdx.x and
+// threadIdx.x + THREADS, loaded into registers a cell ahead of the stage.
+struct CellRegs {
+  int id[EBLK / THREADS];
+  int s[EBLK / THREADS];
+  bool act[EBLK / THREADS];
+};
+
+__device__ __forceinline__ CellRegs load_cell(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ ids,
+    const uint8_t* __restrict__ act, int j, int num_edges) {
+  CellRegs x;
+#pragma unroll
+  for (int u = 0; u < EBLK / THREADS; ++u) {
+    const int e = j * EBLK + u * THREADS + threadIdx.x;
+    const bool in = e < num_edges;
+    x.id[u] = in ? __ldg(ids + e) : -1;
+    x.s[u] = in ? __ldg(src + e) : 0;
+    x.act[u] = in && __ldg(act + e) != 0;
+  }
+  return x;
+}
+
+// Start staging a cell's rows for segments [seg0, seg0 + SBLK) into
+// slot[0 .. EBLK) from its registers (all threads call it).  Returns the
+// rows this thread copied.
+template <int KIND>
+__device__ __forceinline__ int stage_rows(float* slot,
+                                          const float* __restrict__ gval,
+                                          const CellRegs& x, int seg0) {
+  int rows = 0;
+#pragma unroll
+  for (int u = 0; u < EBLK / THREADS; ++u) {
+    const int k = u * THREADS + threadIdx.x;
+    const int local = x.id[u] - seg0;
+    if (x.act[u] && local >= 0 && local < SBLK) {
+      cp_async4(slot + k, gval + x.s[u]);
+      ++rows;
+    } else {
+      slot[k] = identity<KIND>();
+    }
+  }
+  return rows;
+}
 
 template <int RELAX, int KIND>
 __global__ void __launch_bounds__(THREADS)
@@ -44,43 +120,64 @@ frr_tiled_kernel(const float* __restrict__ gval,
                  const float* __restrict__ w,
                  const uint8_t* __restrict__ mask,
                  const int32_t* __restrict__ ids,
+                 const uint8_t* __restrict__ act,
                  const int32_t* __restrict__ blk_ptr,
                  const int32_t* __restrict__ blk_chunk,
-                 const uint8_t* __restrict__ chunk_act, TileTables tt,
-                 int num_edges, int num_segments, int num_slots, int vblk,
-                 float* __restrict__ out, int32_t* __restrict__ dbg) {
+                 const uint8_t* __restrict__ chunk_act, int num_edges,
+                 int num_segments, float* __restrict__ out,
+                 int32_t* __restrict__ dbg) {
   __shared__ float acc[NWARP][SBLK];
   __shared__ float msg_s[NWARP][32];
-  extern __shared__ __align__(16) float tile_s[];   // [2][vblk]
+  __shared__ __align__(16) float stage_s[2][EBLK];
   clear_acc<KIND>(acc);
-  __syncthreads();
 
   const int seg0 = blockIdx.x * SBLK;
   const int p1 = blk_ptr[blockIdx.x + 1];
-  for (int p = blk_ptr[blockIdx.x]; p < p1; ++p) {
+  auto next_live = [&](int p) {           // block-uniform
+    while (p < p1 && !chunk_act[blk_chunk[p]]) ++p;
+    return p;
+  };
+  auto load = [&](int p) {
+    return load_cell(src, ids, act, p < p1 ? blk_chunk[p] : 0,
+                     p < p1 ? num_edges : 0);
+  };
+  // At each step the current cell's rows are in flight, the next cell is
+  // staged from registers, and the cell after it is loaded into
+  // registers, before the current cell is folded.
+  int rows = 0, cells = 0, slot = 0;
+  int p = next_live(blk_ptr[blockIdx.x]);
+  int pn = next_live(p + 1);
+  CellRegs xn = load(pn);
+  int n = p < p1 ? stage_rows<KIND>(stage_s[0], gval, load(p), seg0) : 0;
+  cp_async_commit();
+  bool any = __syncthreads_or(n);         // the cell stages a row
+  while (p < p1) {
     const int j = blk_chunk[p];
-    if (!chunk_act[j]) continue;          // frontier skip, block-uniform
-    const int32_t* pos = tt.positions(j);
-    const int copies = walk_tiles(
-        tt, CellSchedule{}, 0, j,
-        [&](int slot, int tile) {
-          copy_tile(tile_s + slot * vblk, gval, tile, vblk, num_slots);
-        },
-        [&](int slot, int tile, int k) {
-          const int b0 = tt.begin(j, k);
-          fold_list<KIND>(acc, msg_s,
-                          TileMsg<RELAX>{tile_s + slot * vblk, tile * vblk,
-                                         src, w, mask},
-                          ids, TileEdges{pos + b0, j * EBLK},
-                          tt.begin(j, k + 1) - b0, num_edges, seg0);
-        });
-    if (dbg != nullptr && threadIdx.x == 0) {
-      atomicAdd(dbg, 1);
-      atomicAdd(dbg + 1, copies);
-    }
+    const int pq = next_live(pn + 1);
+    const CellRegs xq = load(pq);
+    rows += n;
+    n = pn < p1 ? stage_rows<KIND>(stage_s[slot ^ 1], gval, xn, seg0) : 0;
+    xn = xq;
+    cp_async_commit();
+    cp_async_wait_group1();               // this cell's rows have landed
+    const bool any_next = __syncthreads_or(n);
+    if (any)                              // else every message is identity
+      fold_list<KIND>(acc, msg_s,
+                      StagedMsg<RELAX>{stage_s[slot], j * EBLK, w, mask},
+                      ids, ChunkEdges{j * EBLK}, EBLK, num_edges, seg0);
+    __syncthreads();                      // the slot is read before reuse
+    ++cells;
+    any = any_next;
+    slot ^= 1;
+    p = pn;
+    pn = pq;
   }
-  __syncthreads();
 
+  if (dbg != nullptr) {
+    rows = __reduce_add_sync(0xffffffffu, rows);
+    if ((threadIdx.x & 31) == 0 && rows) atomicAdd(dbg + 1, rows);
+    if (threadIdx.x == 0 && cells) atomicAdd(dbg, cells);
+  }
   for (int t = threadIdx.x; t < SBLK; t += THREADS) {
     const int d = seg0 + t;
     if (d < num_segments) out[d] = fold_warps<KIND>(acc, t);
@@ -91,35 +188,30 @@ frr_tiled_kernel(const float* __restrict__ gval,
 
 // Returns the launch's cudaError_t (0 on success).  relax: 0 add_w,
 // 1 add_one, 2 mul_w; kind: 0 min, 1 sum; the (relax, kind) pairing must
-// be absorbing, which the caller checks.  The tile tables are
-// (n_chunks,), (n_chunks, t_max), (n_chunks, t_max + 1) and
-// (n_chunks, EBLK) int32; `dbg` ((2,) int32) may be null.
+// be absorbing, which the caller checks.  `act` is the (E,) uint8
+// active-edge flags (mask and a changed source); `dbg` ((2,) int32) may
+// be null.
 extern "C" int frr_tiled_launch(
     const float* gval, const int32_t* src, const float* w,
-    const uint8_t* mask, const int32_t* ids, const int32_t* blk_ptr,
-    const int32_t* blk_chunk, const uint8_t* chunk_act,
-    const int32_t* ntiles, const int32_t* tiles, const int32_t* off,
-    const int32_t* order, int num_edges, int num_segments, int num_blocks,
-    int num_slots, int vblk, int t_max, float* out, int32_t* dbg, int relax,
-    int kind, void* stream) {
+    const uint8_t* mask, const int32_t* ids, const uint8_t* act,
+    const int32_t* blk_ptr, const int32_t* blk_chunk,
+    const uint8_t* chunk_act, int num_edges, int num_segments,
+    int num_blocks, float* out, int32_t* dbg, int relax, int kind,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_blocks < 1 || vblk < 128 || vblk % 128 || t_max < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const TileTables tt{ntiles, tiles, off, order, t_max};
-  const size_t smem = 2 * static_cast<size_t>(vblk) * sizeof(float);
+  if (num_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(num_blocks), block(THREADS);
-#define FRR_TILED_ARGS gval, src, w, mask, ids, blk_ptr, blk_chunk, \
-                       chunk_act, tt, num_edges, num_segments, num_slots, \
-                       vblk, out, dbg
+#define FRR_TILED_ARGS gval, src, w, mask, ids, act, blk_ptr, blk_chunk, \
+                       chunk_act, num_edges, num_segments, out, dbg
   if (relax == ADD_W && kind == KIND_MIN)
-    return launch_with_smem(frr_tiled_kernel<ADD_W, KIND_MIN>, grid, block,
-                            smem, s, FRR_TILED_ARGS);
-  if (relax == ADD_ONE && kind == KIND_MIN)
-    return launch_with_smem(frr_tiled_kernel<ADD_ONE, KIND_MIN>, grid, block,
-                            smem, s, FRR_TILED_ARGS);
-  if (relax == MUL_W && kind == KIND_SUM)
-    return launch_with_smem(frr_tiled_kernel<MUL_W, KIND_SUM>, grid, block,
-                            smem, s, FRR_TILED_ARGS);
+    frr_tiled_kernel<ADD_W, KIND_MIN><<<grid, block, 0, s>>>(FRR_TILED_ARGS);
+  else if (relax == ADD_ONE && kind == KIND_MIN)
+    frr_tiled_kernel<ADD_ONE, KIND_MIN><<<grid, block, 0, s>>>(
+        FRR_TILED_ARGS);
+  else if (relax == MUL_W && kind == KIND_SUM)
+    frr_tiled_kernel<MUL_W, KIND_SUM><<<grid, block, 0, s>>>(FRR_TILED_ARGS);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
 #undef FRR_TILED_ARGS
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,12 +3,13 @@
 //
 // Replaces the TPU kernel `_kernel_wl_tiled` (with its loop
 // `_wl_tile_loop`) launched by `_fused_tiled_wl` in
-// src/repro/kernels/fused_relax_reduce.py.  K6 is to K5
-// (fused_relax_reduce_tiled.cu) what K2 is to K1: a worklist lists live
-// (segment block, edge chunk) cells, j-major, and each cell writes an
-// (SBLK,) partial that K2's fold (fused_relax_reduce_wl.cu, frr_wl_fold)
-// combines into the inbox in cell-list order.  Each cell folds its tiles'
-// edges from a 2-slot shared-memory buffer (frr_tiles.cuh walk_tiles).
+// src/repro/kernels/fused_relax_reduce.py.  K6 is the tiled twin of K2:
+// a worklist lists live (segment block, edge chunk) cells, j-major, and
+// each cell writes an (SBLK,) partial that K2's fold
+// (fused_relax_reduce_wl.cu, frr_wl_fold) combines into the inbox in
+// cell-list order.  Each cell copies the vblk-wide slot tiles its active
+// sources fall in into a 2-slot shared-memory buffer and folds each
+// tile's own edges from there (frr_tiles.cuh walk_tiles).
 //
 //   host plan    one block per run of consecutive cells that share wl_j
 //                (run_ptr).  A cell walks its own dst-filtered tile list
@@ -27,7 +28,8 @@
 //
 // `dbg` counts [executed cells, tile copies].  Bound: K2's (the round's
 // edges, table and inbox) plus K2's partials; the tile copies are extra
-// traffic, as for K5.
+// traffic: a cell whose 512 sources spread over the table copies nearly
+// every tile of it.
 
 #include "frr_tiles.cuh"
 

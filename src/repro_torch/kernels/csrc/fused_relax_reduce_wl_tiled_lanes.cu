@@ -7,8 +7,9 @@
 // plan's runs of cells sharing wl_j, each block following the plan's
 // slot/fetch schedule restarted at the run's first cell; a device plan's
 // fixed grid striding over *nlive, each cell copying its chunk's tiles)
-// with K7's cell body (fused_relax_reduce_tiled_lanes.cu: a 32-lane group
-// per block, its columns of each (vblk, Q) tile staged in shared memory),
+// with a laned tile body (K3's stage and fold, frr_lanes.cuh: a 32-lane
+// group per block, its columns of each (vblk, Q) tile staged in shared
+// memory, a strided copy 16 bytes a piece when Q % 4 == 0, else 4),
 // and writes one (SBLK, Q) partial per cell that K4's laned fold
 // (fused_relax_reduce_wl_lanes.cu, frr_wl_lanes_fold) combines into the
 // inbox in cell-list order.  `dbg` counts [cells, tile copies] once per
@@ -16,7 +17,7 @@
 //
 // Bound: K4's (the round's edges, the (V, Q) table, the inbox, plus the
 // SBLK * Q partial floats a live cell writes and the fold reads back);
-// the tile copies are extra traffic, as for K7.
+// the tile copies are extra traffic, as for K6.
 
 #include "frr_tiles.cuh"
 

@@ -52,16 +52,20 @@ and ``fused_grid_cells`` accept a (V, Q) frontier and OR it.
 
 **Residency** (``select_kernel_path``): a value table whose padded
 bytes exceed the budget (``vmem_budget_bytes``, the ``REPRO_VMEM_BUDGET``
-env var, else ``DEFAULT_VMEM_BUDGET_BYTES``) runs *tiled*: each live
-cell copies the ``vblk``-wide slot tiles that its chunk's active sources
-fall in (``_chunk_tile_tables``) into a double-buffered shared-memory
-slot with ``cp.async``, and folds each tile's own edges from there —
+env var, else ``DEFAULT_VMEM_BUDGET_BYTES``) runs *tiled*, through
 kernels K5 (dense), K6 (worklist), K7 (dense lanes) and K8 (worklist
-lanes), sharing ``csrc/frr_tiles.cuh``.  The default budget keeps every
-table the card can hold on the pinned kernels K1–K4; a budget set
+lanes), sharing ``csrc/frr_tiles.cuh``.  The dense ones, K5 and K7, copy
+with ``cp.async`` only the source rows a live cell reads (its active
+edges' sources, from the (E,) active flags) into a shared-memory row
+buffer indexed by chunk position, and fold them in K1's / K3's order, so
+their results equal K1's / K3's bit for bit.  The worklist ones, K6 and
+K8, copy the ``vblk``-wide slot tiles that a cell's active sources fall
+in (``_chunk_tile_tables``) into a double-buffered shared-memory slot
+and fold each tile's own edges from there.  The default budget keeps
+every table the card can hold on the pinned kernels K1–K4; a budget set
 through the config or the env var, or ``path=``/``vblk=``, reaches the
 tiled ones.  Min results are bit-equal across the two residencies; sums
-differ by reassociation only.
+differ by reassociation only on the worklist kernels.
 
 On a CPU tensor ``fused_relax_reduce`` runs the plain versions
 (``ref.fused_relax_reduce_ref``, ``ref.fused_relax_reduce_wl_ref`` and
@@ -134,9 +138,12 @@ VMEM_BUDGET_ENV = "REPRO_VMEM_BUDGET"
 # Shared memory a tiled block may spend on its two tile slots.  On a TPU
 # the double buffer sits in VMEM, so the reference sizes vblk from the
 # table budget; here it sits in a block's shared memory (at most 227 KB
-# on Hopper), beside K5/K6's 9 KB and K7/K8's 38 KB of accumulators and
-# staged edges.  96 KiB leaves room for both and still makes tiles of
-# 12,288 slots (one lane) or 768 slots (16 lanes).
+# on Hopper), beside K6's 9 KB and K8's 38 KB of accumulators and staged
+# edges.  96 KiB leaves room for both and still makes tiles of 12,288
+# slots (one lane) or 768 slots (16 lanes).  The dense kernels stage rows,
+# not tiles: K5's two (EBLK,) slots take 4 KB and K7's row buffer
+# 2 * (EBLK / 2) * min(Q, 32) * 4 bytes, at most 64 KB, within this room
+# at every Q, so two K7 blocks fit an SM.
 TILE_SMEM_BYTES = 96 * 1024
 LGRP = 32        # lanes a laned block serves (csrc/frr_lanes.cuh)
 
@@ -401,11 +408,12 @@ def _lane_chunk_tables(edge_src, edge_mask, gchg, src_deg=None,
     OR across lanes (a chunk is dead only when no lane has an active
     source in it) and the active-edge counts are per lane ((Q,) int32,
     one Fig-6 message counter per query); ``with_act`` appends the (E,)
-    active rows OR'd across lanes, which the tiled launches' tile lists
-    are built from.  All come without an (E, Q) gather: the bit and the
-    rows are ``_chunk_tables`` of the OR-across-lanes (V,) frontier, and
-    lane q's count is the sum of ``src_deg`` (valid out-edges per slot,
-    from the launch plan or built here) over its changed slots."""
+    active rows OR'd across lanes, which the tiled launches stage rows
+    (K7) or build tile lists (K8) from.  All come without an (E, Q)
+    gather: the bit and the rows are ``_chunk_tables`` of the
+    OR-across-lanes (V,) frontier, and lane q's count is the sum of
+    ``src_deg`` (valid out-edges per slot, from the launch plan or built
+    here) over its changed slots."""
     act = _active_edges(edge_src, edge_mask, gchg.any(dim=1))
     chunk_act, _ = _chunk_tables(edge_src, edge_mask, None, act)
     if src_deg is None:
@@ -439,12 +447,12 @@ class TileTables(typing.NamedTuple):
 
 def _chunk_tile_tables(edge_src, act, num_slots: int,
                        vblk: int) -> TileTables:
-    """The tiled launches' per-chunk tile lists from the (E,) active
-    rows, with torch ops on their device and no host sync: sort each
-    chunk row with an ``n_tiles`` sentinel on inactive edges, flag first
-    occurrences and scatter the distinct tiles (and where their edges
-    start) to the left.  O(E log EBLK), independent of the tile count —
-    no (n_chunks, n_tiles) matrix."""
+    """The worklist tiled launches' (K6, K8) per-chunk tile lists from
+    the (E,) active rows, with torch ops on their device and no host
+    sync: sort each chunk row with an ``n_tiles`` sentinel on inactive
+    edges, flag first occurrences and scatter the distinct tiles (and
+    where their edges start) to the left.  O(E log EBLK), independent of
+    the tile count — no (n_chunks, n_tiles) matrix."""
     n_tiles = _round_up(num_slots, vblk) // vblk
     t_max = min(n_tiles, EBLK)
     src = _pad_to_chunks(edge_src, 0)
@@ -507,13 +515,12 @@ _SIGNATURES = {   # C entry point -> (library, argument types)
                                [_P] * 4 + [_I] * 3 + [_P] * 2 + [_I] * 2
                                + [_P]),
     "frr_tiled_launch": ("fused_relax_reduce_tiled",
-                         [_P] * 12 + [_I] * 6 + [_P] * 2 + [_I] * 2
-                         + [_P]),
+                         [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P]),
     "frr_wl_tiled_launch": ("fused_relax_reduce_wl_tiled",
                             [_P] * 17 + [_I] * 7 + [_P] * 2 + [_I] * 2
                             + [_P]),
     "frr_tiled_lanes_launch": ("fused_relax_reduce_tiled_lanes",
-                               [_P] * 13 + [_I] * 7 + [_P] * 2 + [_I] * 2
+                               [_P] * 9 + [_I] * 5 + [_P] * 2 + [_I] * 2
                                + [_P]),
     "frr_wl_tiled_lanes_launch": ("fused_relax_reduce_wl_tiled_lanes",
                                   [_P] * 18 + [_I] * 8 + [_P] * 2
@@ -821,21 +828,40 @@ class WorklistPlanner:
                                     self.n_tiles)
         return np.bincount(chunks, minlength=self.n_chunks)
 
+    def _staged_rows(self, act):
+        """Rows the dense tiled kernels (K5, K7) stage: every live cell
+        stages its chunk's active edges whose destination lies in its
+        block, so a row per active edge whose (chunk, dst block) cell is
+        listed and live (each such edge is, as the plan's ranges cover
+        every valid edge; the count checks it)."""
+        keys = self.cell_j * self.n_i + self.cell_i      # ascending
+        hit = act & act.any(axis=1)[:, None]
+        want = self.edge_cell[hit]
+        at = np.minimum(np.searchsorted(keys, want), max(keys.size - 1, 0))
+        return int((keys[at] == want).sum()) if keys.size else 0
+
     def dense_mirror(self, gchg) -> dict:
         """Mirror of the dense launch (K1, or K5 when tiled) for this edge
         set: ``cells`` it executes, ``launched``, the cells its blocks
-        walk, and on the tiled path each chunk's distinct active-source
-        tiles (``chunk_ntiles``), the tile copies (every live cell copies
-        its chunk's tiles) and their bytes."""
+        walk, and on the tiled path the rows K5/K7 stage
+        (``staged_rows``, ``staged_bytes`` = rows x lane_width x 4) and
+        the reference's tile accounting: each chunk's distinct
+        active-source tiles (``chunk_ntiles``), the tile copies when every
+        live cell copies its chunk's tiles (``tile_dmas``, which a tiled
+        device plan of K6/K8 also makes) and their bytes
+        (``dma_bytes``)."""
         act, live = self._live_map(gchg)
         out = {"cells": int(live.sum()), "launched": self.launch_cells,
-               "tile_dmas": 0, "dma_bytes": 0}
+               "tile_dmas": 0, "dma_bytes": 0, "staged_rows": 0,
+               "staged_bytes": 0}
         if self.path == "tiled":
             ntiles = self._chunk_ntiles(act)
             out["chunk_ntiles"] = ntiles
             out["tile_dmas"] = int(ntiles[self.cell_j[live]].sum())
             out["dma_bytes"] = out["tile_dmas"] * self.vblk \
                 * self.lane_width * 4
+            out["staged_rows"] = self._staged_rows(act)
+            out["staged_bytes"] = out["staged_rows"] * self.lane_width * 4
         return out
 
     def plan(self, gchg, pad_to: int = WL_PAD, dst_filter: bool = True,
@@ -1296,29 +1322,38 @@ def _tile_ptrs(tt: TileTables):
             tt.order.data_ptr())
 
 
+def _check_act(act, edge_src):
+    """The (E,) active-edge flags a dense tiled launch stages rows from."""
+    if act.device != edge_src.device or act.dtype != torch.bool \
+            or act.shape != edge_src.shape or not act.is_contiguous():
+        raise ValueError(f"act must be a contiguous {tuple(edge_src.shape)} "
+                         f"bool on {edge_src.device}")
+
+
 def _launch_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                  plan: LaunchPlan, chunk_act, tt: TileTables,
-                  relax_kind: str, kind: str, with_debug: bool):
+                  plan: LaunchPlan, chunk_act, act, relax_kind: str,
+                  kind: str, with_debug: bool):
     """Launch K5 on the current stream: K1's blocks and cells, each live
-    cell copying its chunk's tiles.  Returns the (num_segments,) partial
-    and, with ``with_debug``, the (2,) int32 [executed cells, tile
-    copies].  Raises on any launch error."""
+    cell staging the rows of its active edges (``act``, from
+    ``_active_edges``) that land in its block.  Returns the
+    (num_segments,) partial and, with ``with_debug``, the (2,) int32
+    [executed cells, staged rows].  Raises on any launch error."""
     global tiled_launches
     if gval_m.dim() != 1:
         raise ValueError("K5 takes a (V,) value table")
     _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
                        chunk_act)
-    _check_tiles(gval_m, tt, edge_src.shape[0])
+    _check_act(act, edge_src)
     dev = gval_m.device
     out = torch.empty(plan.num_segments, dtype=torch.float32, device=dev)
     dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
         else None
     rc = _kernel("frr_tiled_launch")(
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
-        edge_mask.data_ptr(), edge_dst.data_ptr(), plan.blk_ptr.data_ptr(),
-        plan.blk_chunk.data_ptr(), chunk_act.data_ptr(), *_tile_ptrs(tt),
-        edge_src.shape[0], plan.num_segments, plan.num_blocks,
-        gval_m.shape[0], tt.vblk, tt.t_max, out.data_ptr(),
+        edge_mask.data_ptr(), edge_dst.data_ptr(), act.data_ptr(),
+        plan.blk_ptr.data_ptr(), plan.blk_chunk.data_ptr(),
+        chunk_act.data_ptr(), edge_src.shape[0], plan.num_segments,
+        plan.num_blocks, out.data_ptr(),
         dbg.data_ptr() if dbg is not None else None,
         _RELAX_CODE[relax_kind], _KIND_CODE[kind],
         torch.cuda.current_stream(dev).cuda_stream)
@@ -1330,19 +1365,22 @@ def _launch_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst,
 
 
 def _launch_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
-                        edge_dst, plan: LaunchPlan, chunk_act,
-                        tt: TileTables, relax_kind: str, kind: str,
-                        with_debug: bool):
+                        edge_dst, plan: LaunchPlan, chunk_act, act,
+                        relax_kind: str, kind: str, with_debug: bool):
     """Launch K7 on the current stream: K3's (segment block, lane group)
-    blocks, each live cell copying its group's columns of its chunk's
-    (vblk, Q) tiles.  Returns the (num_segments, Q) partial and, with
-    ``with_debug``, the (2,) int32 [executed cells, tile copies] (one
-    copy per cell and tile, whatever the lane groups)."""
+    blocks, each live cell staging its group's columns of the rows of its
+    edges active in some lane (``act``, the OR-across-lanes flags of
+    ``_lane_chunk_tables``) that land in its block.  Returns the
+    (num_segments, Q) partial and, with ``with_debug``, the (2,) int32
+    [executed cells, staged rows] (one row per cell and position,
+    whatever the lane groups)."""
     global tiled_lanes_launches
     _check_lane_tables(gval_m, unitw)
     _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
                        chunk_act)
-    _check_tiles(gval_m, tt, edge_src.shape[0])
+    _check_act(act, edge_src)
+    if gval_m.data_ptr() % 16:
+        raise ValueError("the value table must be 16-byte aligned")
     q = gval_m.shape[1]
     dev = gval_m.device
     out = torch.empty((plan.num_segments, q), dtype=torch.float32,
@@ -1351,11 +1389,10 @@ def _launch_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
         else None
     rc = _kernel("frr_tiled_lanes_launch")(
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
-        edge_mask.data_ptr(), edge_dst.data_ptr(), unitw.data_ptr(),
+        edge_dst.data_ptr(), act.data_ptr(), unitw.data_ptr(),
         plan.blk_ptr.data_ptr(), plan.blk_chunk.data_ptr(),
-        chunk_act.data_ptr(), *_tile_ptrs(tt), edge_src.shape[0],
-        plan.num_segments, plan.num_blocks, gval_m.shape[0], q, tt.vblk,
-        tt.t_max, out.data_ptr(),
+        chunk_act.data_ptr(), edge_src.shape[0], plan.num_segments,
+        plan.num_blocks, gval_m.shape[0], q, out.data_ptr(),
         dbg.data_ptr() if dbg is not None else None,
         _RELAX_CODE[relax_kind], _KIND_CODE[kind],
         torch.cuda.current_stream(dev).cuda_stream)
@@ -1551,8 +1588,8 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     padding).  Returns the (num_segments,) inbox partial — empty segments
     hold the combine identity.  ``with_count=True`` appends the int32
     active-edge count; ``with_debug=True`` appends the int32 counts of
-    executed (block, chunk) cells — (1,) pinned, (2,) [cells, tile
-    copies] tiled.  ``plan`` is ``plan_launch`` of these edges, built
+    executed (block, chunk) cells — (1,) pinned, (2,) tiled: [cells,
+    staged rows] dense, [cells, tile copies] worklist.  ``plan`` is ``plan_launch`` of these edges, built
     here when absent (callers that launch every round build it once).
     Edges should be sorted by ``edge_dst`` for the range skip to bite;
     correctness never depends on the sort.
@@ -1565,7 +1602,8 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     ``select_kernel_path`` (``vmem_budget_bytes``, ``path``, ``vblk``,
     ``smem_budget_bytes``), or a given worklist's own: pinned runs K1
     (dense) / K2 (worklist), tiled K5 / K6.  Min results are
-    bit-identical across launches; sums differ by reassociation only.
+    bit-identical across launches, and K5's sums are K1's; K2's and K6's
+    sums differ from them by reassociation only.
 
     CUDA tensors launch the kernels; CPU tensors run the plain versions.
     """
@@ -1594,8 +1632,8 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
                                        device_worklist_pad(plan), path, vblk)
     if dev == "cuda":
         gval_m = _masked_value_tables(gval, gchg, identity)
-        tt = _chunk_tile_tables(edge_src, act, v, vblk) if tiled else None
         if worklist is not None and tiled:
+            tt = _chunk_tile_tables(edge_src, act, v, vblk)
             out, dbg = _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask,
                                         edge_dst, worklist, tt,
                                         num_segments, relax_kind, kind,
@@ -1606,7 +1644,7 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
                                   relax_kind, kind, with_debug)
         elif tiled:
             out, dbg = _launch_tiled(gval_m, edge_src, edge_w, edge_mask,
-                                     edge_dst, plan, chunk_act, tt,
+                                     edge_dst, plan, chunk_act, act,
                                      relax_kind, kind, with_debug)
         else:
             out, dbg = _launch(gval_m, edge_src, edge_w, edge_mask,
@@ -1626,10 +1664,10 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
             relax_kind, kind)
         dbg = worklist.nlive.clone() if with_debug else None
     elif tiled:
-        out, copies = ref.fused_relax_reduce_tiled_ref(
+        out, rows = ref.fused_relax_reduce_tiled_ref(
             gval, gchg, edge_src, edge_w, edge_mask, edge_dst, num_segments,
-            relax_kind, kind, vblk, plan)
-        dbg = torch.cat([_executed_cells(plan, chunk_act), copies.view(1)])
+            relax_kind, kind, plan)
+        dbg = torch.cat([_executed_cells(plan, chunk_act), rows.view(1)])
     else:
         out = ref.fused_relax_reduce_ref(gval, gchg, edge_src, edge_w,
                                          edge_mask, edge_dst, num_segments,
@@ -1654,7 +1692,8 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
     shared edge set (shapes of the edges as in ``fused_relax_reduce``).
     Returns the (num_segments, Q) per-lane inbox partial; ``with_count``
     appends the (Q,) int32 per-lane active-edge counts, ``with_debug``
-    the int32 executed-cell count ((2,) [cells, tile copies] tiled).
+    the int32 executed-cell count ((2,) tiled: [cells, staged rows]
+    dense, [cells, tile copies] worklist).
     ``lane_unitw`` (Q,) only matters for ``relax_kind='add_w'``: a lane
     with a nonzero flag relaxes with weight 1.0 (BFS levels) instead of
     the edge weight (SSSP), so one launch serves a mixed BFS/SSSP batch.
@@ -1667,7 +1706,8 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
     over the budget, or ``path``/``vblk``), K7 and K8.  There is no lane
     padding: any Q gives the columns its lanes would give alone, and
     residency is judged at Q lanes.  Min results are bit-identical
-    across launches; sums differ by reassociation only.
+    across launches, and K7's sums are K3's; K4's and K8's sums differ
+    from them by reassociation only.
 
     CUDA tensors launch the kernels; CPU tensors run the plain versions.
     """
@@ -1706,8 +1746,8 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
     if dev == "cuda":
         gval_m = _masked_value_tables(gval, gchg, identity)
         unit_u8 = (unitw != 0).to(torch.uint8)
-        tt = _chunk_tile_tables(edge_src, act, v, vblk) if tiled else None
         if worklist is not None and tiled:
+            tt = _chunk_tile_tables(edge_src, act, v, vblk)
             out, dbg = _launch_wl_tiled_lanes(
                 gval_m, unit_u8, edge_src, edge_w, edge_mask, edge_dst,
                 worklist, tt, num_segments, relax_kind, kind, with_debug)
@@ -1719,7 +1759,7 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
         elif tiled:
             out, dbg = _launch_tiled_lanes(
                 gval_m, unit_u8, edge_src, edge_w, edge_mask, edge_dst, plan,
-                chunk_act, tt, relax_kind, kind, with_debug)
+                chunk_act, act, relax_kind, kind, with_debug)
         else:
             out, dbg = _launch_lanes(gval_m, unit_u8, edge_src, edge_w,
                                      edge_mask, edge_dst, plan, chunk_act,
@@ -1738,10 +1778,10 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
             relax_kind, kind)
         dbg = worklist.nlive.clone() if with_debug else None
     elif tiled:
-        out, copies = ref.fused_relax_reduce_tiled_lanes_ref(
+        out, rows = ref.fused_relax_reduce_tiled_lanes_ref(
             gval, gchg, unitw, edge_src, edge_w, edge_mask, edge_dst,
-            num_segments, relax_kind, kind, vblk, plan)
-        dbg = torch.cat([_executed_cells(plan, chunk_act), copies.view(1)])
+            num_segments, relax_kind, kind, plan)
+        dbg = torch.cat([_executed_cells(plan, chunk_act), rows.view(1)])
     else:
         out = ref.fused_relax_reduce_lanes_ref(gval, gchg, unitw, edge_src,
                                                edge_w, edge_mask, edge_dst,
@@ -1769,10 +1809,13 @@ def fused_grid_cells(edge_dst, edge_mask, edge_src, gchg,
     frontier-live: the cells the kernel executes, equal to its
     ``with_debug`` count and to the reference grid's live cells).
 
-    With ``vblk`` it also mirrors the tiled launch: ``chunk_ntiles`` (the
-    distinct active-source tiles of each chunk), ``fused_tile_dmas``
-    (tile copies: each live cell copies its chunk's tiles, equal to the
-    kernel's count) and ``dma_bytes`` (copies x vblk x lane_width x 4)."""
+    With ``vblk`` it also mirrors the tiled launch: ``fused_staged_rows``
+    (the rows K5/K7 stage, equal to their count) and ``staged_bytes``
+    (rows x lane_width x 4), and the reference's tile accounting:
+    ``chunk_ntiles`` (the distinct active-source tiles of each chunk),
+    ``fused_tile_dmas`` (tile copies when each live cell copies its
+    chunk's tiles, equal to the reference kernel's count) and
+    ``dma_bytes`` (copies x vblk x lane_width x 4)."""
     num_slots = np.asarray(gchg).shape[0]
     tiled = vblk is not None
     planner = WorklistPlanner(edge_dst, edge_mask, edge_src, num_segments,
@@ -1786,4 +1829,6 @@ def fused_grid_cells(edge_dst, edge_mask, edge_src, gchg,
         out["chunk_ntiles"] = d["chunk_ntiles"].tolist()
         out["fused_tile_dmas"] = d["tile_dmas"]
         out["dma_bytes"] = d["dma_bytes"]
+        out["fused_staged_rows"] = d["staged_rows"]
+        out["staged_bytes"] = d["staged_bytes"]
     return out

@@ -165,11 +165,30 @@ def fused_relax_reduce_wl_lanes_ref(gval, gchg, lane_unitw, edge_src,
 
 
 # --------------------------------------------------------------------------
-# the tiled launches (K5-K8): the table is read tile by tile
+# the tiled launches (K5-K8): the dense ones stage the rows a cell reads,
+# the worklist ones read the table tile by tile
 # --------------------------------------------------------------------------
 
+def _staged_rows(plan, act, edge_dst):
+    """Rows a dense tiled launch (K5, K7) stages: a row per active edge
+    (``act``) whose (chunk, dst block) cell the plan lists — every live
+    cell stages its own active edges.  Returns an int32 scalar."""
+    from repro_torch.kernels.fused_relax_reduce import EBLK, SBLK
+    dev = act.device
+    n_i = plan.num_blocks
+    keys = plan.cell_j.to(dev).long() * n_i + plan.cell_i.to(dev).long()
+    if keys.numel() == 0:
+        return torch.zeros((), dtype=torch.int32, device=dev)
+    e = torch.nonzero(act).view(-1)
+    want = e // EBLK * n_i + torch.div(edge_dst.long()[e], SBLK,
+                                       rounding_mode="floor")
+    at = torch.searchsorted(keys, want).clamp(max=keys.numel() - 1)
+    return (keys[at] == want).sum(dtype=torch.int32)
+
+
 def _tile_walk(edge_src, act, num_slots: int, vblk: int):
-    """The order in which the tiled kernels fold a round's active edges,
+    """The order in which the worklist tiled kernels fold a round's active
+    edges,
     and their tile tables: chunks ascending, then each chunk's tiles
     ascending, then the tile's own edges in chunk order.  Returns
     ((n_active,) edge indices in that order, ``TileTables``)."""
@@ -182,15 +201,6 @@ def _tile_walk(edge_src, act, num_slots: int, vblk: int):
     keep = (torch.arange(EBLK, device=act.device)[None, :]
             < tt.off[:, -1:]).reshape(-1)
     return walk[keep], tt
-
-
-def _dense_copies(plan, tt, act):
-    """Tile copies of a dense tiled launch: every listed (block, chunk)
-    cell of a live chunk copies the chunk's tiles."""
-    from repro_torch.kernels.fused_relax_reduce import _pad_to_chunks
-    chunk_act = _pad_to_chunks(act, False).any(dim=1)
-    j = plan.blk_chunk.long()
-    return (tt.ntiles[j] * chunk_act[j]).sum(dtype=torch.int32)
 
 
 def _in_plan(tt, edge_src, edge_dst, wl_i, wl_j, nlive, num_segments: int,
@@ -245,19 +255,17 @@ def _wl_copies(tt, wl_j, nlive, cell_fetch):
 
 def fused_relax_reduce_tiled_ref(gval, gchg, edge_src, edge_w, edge_mask,
                                  edge_dst, num_segments: int,
-                                 relax_kind: str, kind: str, vblk: int,
-                                 plan):
-    """Plain version of the dense tiled launch (kernel K5): the active
-    edges folded in the order K5 walks them (``_tile_walk``), and its
-    tile-copy count.  Returns ((num_segments,) partial, int32 copies);
-    min equals ``fused_relax_reduce_ref`` bit for bit, sum up to
-    reassociation.  ``plan`` is the edges' ``LaunchPlan``."""
+                                 relax_kind: str, kind: str, plan):
+    """Plain version of the dense tiled launch (kernel K5), which stages
+    the rows its cells read and folds them in K1's order: the oracle
+    ``fused_relax_reduce_ref`` (min bit-equal to the kernel, sum up to
+    reassociation) and K5's staged-row count (``_staged_rows``).  Returns
+    ((num_segments,) partial, int32 rows).  ``plan`` is the edges'
+    ``LaunchPlan``."""
     act = edge_mask & gchg[edge_src.long()]
-    walk, tt = _tile_walk(edge_src, act, gval.shape[0], vblk)
-    src = edge_src.long()[walk]
-    msg = RELAX_FNS[relax_kind](gval[src], edge_w[walk])
-    return (segment_combine_ref(msg, edge_dst[walk], num_segments, kind),
-            _dense_copies(plan, tt, act))
+    return (fused_relax_reduce_ref(gval, gchg, edge_src, edge_w, edge_mask,
+                                   edge_dst, num_segments, relax_kind, kind),
+            _staged_rows(plan, act, edge_dst))
 
 
 def fused_relax_reduce_wl_tiled_ref(gval, gchg, edge_src, edge_w, edge_mask,
@@ -292,16 +300,17 @@ def _tiled_lanes(gval, gchg, lane_unitw, edge_src, edge_w, edge_dst, walk,
 def fused_relax_reduce_tiled_lanes_ref(gval, gchg, lane_unitw, edge_src,
                                        edge_w, edge_mask, edge_dst,
                                        num_segments: int, relax_kind: str,
-                                       kind: str, vblk: int, plan):
-    """Plain version of the laned dense tiled launch (kernel K7): tile
-    lists from the OR-across-lanes frontier, the laned oracle over the
-    edges active in some lane in K7's walk order, and the tile copies.
-    Returns ((num_segments, Q) partial, int32 copies)."""
+                                       kind: str, plan):
+    """Plain version of the laned dense tiled launch (kernel K7), which
+    stages the rows of edges active in some lane and folds them in K3's
+    order: the laned oracle ``fused_relax_reduce_lanes_ref`` and K7's
+    staged-row count over the OR-across-lanes frontier.  Returns
+    ((num_segments, Q) partial, int32 rows)."""
     act = edge_mask & gchg.any(dim=1)[edge_src.long()]
-    walk, tt = _tile_walk(edge_src, act, gval.shape[0], vblk)
-    return (_tiled_lanes(gval, gchg, lane_unitw, edge_src, edge_w, edge_dst,
-                         walk, num_segments, relax_kind, kind),
-            _dense_copies(plan, tt, act))
+    return (fused_relax_reduce_lanes_ref(gval, gchg, lane_unitw, edge_src,
+                                         edge_w, edge_mask, edge_dst,
+                                         num_segments, relax_kind, kind),
+            _staged_rows(plan, act, edge_dst))
 
 
 def fused_relax_reduce_wl_tiled_lanes_ref(gval, gchg, lane_unitw, edge_src,

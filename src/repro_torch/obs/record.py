@@ -51,8 +51,9 @@ class RoundRecord:
     path: str            # 'pinned' | 'tiled' | 'reduce' | 'jnp'
     cells: int           # live grid cells (planner mirror)
     launched: int        # launched cells (dense: total grid; wl: padded)
-    tile_dmas: int       # value-tile DMAs (tiled path only)
-    dma_bytes: int
+    tile_dmas: int       # tiled path only: rows staged (dense, K5) or
+                         # vblk tiles copied (worklist, K6)
+    dma_bytes: int       # their bytes
     wall_s: float
     shard_messages: list | None = None
     window: int = 0      # dispatch-window index (0 = per-round record)

@@ -480,7 +480,9 @@ def _tiled_case(v, e, nseg, frac, seed, q=None):
 def _check_tiled(dev, case, nseg, relax, kind, grid_mode, vblk, unitw=None):
     """The tiled kernel of ``grid_mode`` against its plain version, the
     pinned oracle and the host mirror: min bit-equal, sum within rtol
-    1e-5 and bit-equal between two runs, cells and copies exact."""
+    1e-5 and bit-equal between two runs, cells and copies (tiles on a
+    worklist, staged rows dense) exact.  The dense kernels K5/K7 equal
+    K1/K3 bit for bit, sum included."""
     gval, gchg, src, w, mask, ids = case
     q = 1 if unitw is None else gval.shape[1]
     laned = unitw is not None
@@ -511,7 +513,7 @@ def _check_tiled(dev, case, nseg, relax, kind, grid_mode, vblk, unitw=None):
         want_dbg = (info.cells, info.tile_needed)
     else:
         m = frr.fused_grid_cells(ids, mask, src, gor, nseg, vblk=vb)
-        want_dbg = (m["fused_live"], m["fused_tile_dmas"])
+        want_dbg = (m["fused_live"], m["fused_staged_rows"])
     launch = frr.fused_relax_reduce_lanes if laned else frr.fused_relax_reduce
 
     def run(debug=True):
@@ -523,7 +525,9 @@ def _check_tiled(dev, case, nseg, relax, kind, grid_mode, vblk, unitw=None):
     if wl is None:
         plain_fn = (ref.fused_relax_reduce_tiled_lanes_ref if laned
                     else ref.fused_relax_reduce_tiled_ref)
-        plain, copies = plain_fn(*head, *t[2:], nseg, relax, kind, vb, plan)
+        plain, copies = plain_fn(*head, *t[2:], nseg, relax, kind, plan)
+        pinned = launch(*head, *t[2:], nseg, relax, kind, plan=plan,
+                        path="pinned")
     else:
         plain_fn = (ref.fused_relax_reduce_wl_tiled_lanes_ref if laned
                     else ref.fused_relax_reduce_wl_tiled_ref)
@@ -540,6 +544,8 @@ def _check_tiled(dev, case, nseg, relax, kind, grid_mode, vblk, unitw=None):
         torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-6)
         again, _ = run(debug=False)
         assert torch.equal(out, again)
+    if wl is None:
+        assert torch.equal(out, pinned)
     want_count = (mask[:, None] & gchg[src]).sum(axis=0) if laned \
         else (mask & gchg[src]).sum()
     np.testing.assert_array_equal(count.cpu().numpy(), want_count)
@@ -611,6 +617,31 @@ def test_tiled_kernels_count_launches(dev):
                                      "add_w", "min", grid_mode=grid_mode,
                                      vmem_budget_bytes=256)
     assert (frr.tiled_lanes_launches, frr.wl_tiled_lanes_launches) == (1, 2)
+
+
+def test_dense_tiled_relax_builds_no_tile_tables(dev, monkeypatch):
+    """The dense tiled relax phase (K5, K7) stages rows and builds no
+    tile tables; the worklist one (K6) still does."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("tile tables built for a dense tiled launch")
+
+    case = [torch.as_tensor(x, device=dev)
+            for x in _tiled_case(1025, 5 * EBLK, 700, 0.5, 3)]
+    lane = [torch.as_tensor(x, device=dev)
+            for x in _tiled_case(1025, 5 * EBLK, 700, 0.5, 3, q=4)]
+    unitw = torch.zeros(4, dtype=torch.int32, device=dev)
+    monkeypatch.setattr(frr, "_chunk_tile_tables", refuse)
+    frr.tiled_launches = frr.tiled_lanes_launches = 0
+    frr.fused_relax_reduce(*case, 700, "add_w", "min",
+                           vmem_budget_bytes=256)
+    frr.fused_relax_reduce_lanes(lane[0], lane[1], unitw, *lane[2:], 700,
+                                 "add_w", "min", vmem_budget_bytes=256)
+    torch.cuda.synchronize()
+    assert (frr.tiled_launches, frr.tiled_lanes_launches) == (1, 1)
+    with pytest.raises(AssertionError, match="tile tables"):
+        frr.fused_relax_reduce(*case, 700, "add_w", "min",
+                               grid_mode="device_worklist",
+                               vmem_budget_bytes=256)
 
 
 @pytest.mark.parametrize("grid_mode", ["dense", "worklist",

@@ -5,8 +5,10 @@ Residency selection follows the reference's rules (budget, env var,
 forced path/vblk, the index-table guard), with the Hopper tile width;
 the per-chunk tile tables equal the reference's; the four plain tiled
 launches equal the reference's tiled kernels in interpret mode (min
-bit-equal, sum within rtol 1e-5 / atol 1e-6, dense cells and copies
-equal); tiled host plans equal the reference planner's but for the
+bit-equal, sum within rtol 1e-5 / atol 1e-6, cells equal; the dense
+launches stage rows, counted by the mirror's ``fused_staged_rows``,
+while the mirror's ``fused_tile_dmas`` equals the reference's tile
+copies); tiled host plans equal the reference planner's but for the
 copy schedule, which restarts at each run of cells sharing a chunk;
 device plans equal in cells and tile lists; and BFS, SSSP, PageRank,
 delta-PageRank and the lane runners with a value table over the budget
@@ -31,6 +33,7 @@ from repro_torch import apps, interop, obs  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.graph import generators  # noqa: E402
 from repro_torch.kernels import fused_relax_reduce as frr  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.query import lanes  # noqa: E402
 
 try:
@@ -231,13 +234,19 @@ def _check_launch(got, want, kind, grid_mode, case, nseg, vblk, q=1):
     np.testing.assert_array_equal(count.numpy(), np.asarray(w_count))
     cells, copies = (int(x) for x in dbg)
     assert cells == int(w_dbg[0])
+    gchg = case[1].any(axis=-1) if case[1].ndim == 2 else case[1]
     if grid_mode == "worklist":
         # the schedule restarts at each run of cells sharing a chunk
         assert copies >= int(w_dbg[1])
-        gchg = case[1].any(axis=-1) if case[1].ndim == 2 else case[1]
         _, info = frr.plan_worklist(case[5], case[4], case[2], gchg, nseg,
                                     path="tiled", vblk=vblk, lane_width=q)
         assert (cells, copies) == (info.cells, info.tile_dmas)
+    elif grid_mode == "dense":
+        # the port stages rows; the mirror keeps the reference's tiles
+        m = frr.fused_grid_cells(case[5], case[4], case[2], gchg, nseg,
+                                 vblk=vblk, lane_width=q)
+        assert (cells, copies) == (m["fused_live"], m["fused_staged_rows"])
+        assert m["fused_tile_dmas"] == int(w_dbg[1])
     else:
         assert copies == int(w_dbg[1])
 
@@ -289,10 +298,11 @@ def test_tiled_lanes_launch_matches_reference(q, relax, kind, grid_mode):
 
 def test_plain_tiled_frontier_extremes():
     """An empty frontier copies nothing; a full one copies at least one
-    tile per executed cell."""
+    tile (worklist) or row (dense) per executed cell, and the dense
+    launch stages a row per valid edge, as the mirror counts."""
     for frac, relax, kind in ((0.0, "add_w", "min"), (1.0, "mul_w", "sum")):
-        case = [torch.as_tensor(x) for x in _case(400, 3 * EBLK, 700, frac,
-                                                  5)]
+        raw = _case(400, 3 * EBLK, 700, frac, 5)
+        case = [torch.as_tensor(x) for x in raw]
         for grid_mode in GRIDS:
             out, dbg = frr.fused_relax_reduce(
                 *case, 700, relax, kind, with_debug=True,
@@ -303,6 +313,96 @@ def test_plain_tiled_frontier_extremes():
                 assert bool((out == np.inf).all())
             else:
                 assert copies >= cells > 0
+            if grid_mode == "dense":
+                m = frr.fused_grid_cells(raw[5], raw[4], raw[2], raw[1], 700,
+                                         vblk=128)
+                assert (cells, copies) == (m["fused_live"],
+                                           m["fused_staged_rows"])
+                assert copies == int(raw[4].sum()) * (frac == 1.0)
+
+
+def _staged_case(v, e, nseg, frac, q, layout, seed):
+    """A case whose ids are one sorted run ("sorted") or two shards'
+    sorted runs back to back ("straddle": the chunk at the seam spans the
+    whole segment range), with a (V,) or (V, q) frontier."""
+    gval, gchg, src, w, mask, ids = _case(v, e, nseg, frac, seed, q=q)
+    if layout == "straddle":
+        cut = e // 2 + EBLK // 3
+        ids = np.r_[np.sort(ids[:cut]), np.sort(ids[cut:])].astype(np.int32)
+    return gval, gchg, src, w, mask, ids
+
+
+def _staged_rows_by_definition(gchg, src, mask, ids, nseg):
+    """Rows the dense tiled kernels stage, from their definition: each
+    live (chunk, segment block) cell whose block meets the chunk's id
+    range stages a row per active edge landing in its block."""
+    gor = gchg.any(axis=1) if gchg.ndim == 2 else gchg
+    act = mask & gor[src]
+    rows = 0
+    for j in range(-(-ids.shape[0] // EBLK)):
+        sl = slice(j * EBLK, (j + 1) * EBLK)
+        if not act[sl].any():
+            continue                            # a dead chunk is skipped
+        lo, hi = ids[sl][mask[sl]].min(), ids[sl][mask[sl]].max()
+        for i in range(lo // SBLK, hi // SBLK + 1):
+            rows += int((act[sl] & (ids[sl] // SBLK == i)).sum())
+    return rows, int(act.sum())
+
+
+@pytest.mark.parametrize("layout", ["sorted", "straddle"])
+@pytest.mark.parametrize("q", [None, 1, 5, 16, 33])
+@pytest.mark.parametrize("frac", FRACS)
+def test_staged_rows_mirror_matches_definition(frac, q, layout):
+    """The staged-row mirror equals a count from the definition and the
+    plain dense tiled launch's own count: every active edge (active in
+    some lane) is staged once, by its own cell, with a straddling chunk's
+    cells included; the bytes are rows x Q x 4."""
+    v, e, nseg = 600, 4 * EBLK - 1, 2 * SBLK + 1
+    case = _staged_case(v, e, nseg, frac, q, layout, 17 + (q or 0))
+    gval, gchg, src, w, mask, ids = case
+    want, n_act = _staged_rows_by_definition(gchg, src, mask, ids, nseg)
+    assert want == n_act
+    lanes = q or 1
+    m = frr.fused_grid_cells(ids, mask, src, gchg, nseg, vblk=128,
+                             lane_width=lanes)
+    assert m["fused_staged_rows"] == want
+    assert m["staged_bytes"] == want * lanes * 4
+    t = [torch.as_tensor(x) for x in case]
+    if q is None:
+        _, dbg = frr.fused_relax_reduce(*t, nseg, "add_w", "min",
+                                        with_debug=True, path="tiled",
+                                        vblk=128)
+    else:
+        _, dbg = frr.fused_relax_reduce_lanes(
+            t[0], t[1], torch.zeros(q, dtype=torch.int32), *t[2:], nseg,
+            "add_w", "min", with_debug=True, path="tiled", vblk=128)
+    assert (int(dbg[0]), int(dbg[1])) == (m["fused_live"], want)
+
+
+@pytest.mark.parametrize("q", [None, 1, 5, 16, 33])
+@pytest.mark.parametrize("relax", ["add_w", "add_one"])
+def test_dense_tiled_plain_min_equals_pinned_plain(relax, q):
+    """The dense tiled launch's plain output is the pinned plain output
+    (``fused_relax_reduce_ref``) bit for bit on min, as K5/K7 equal
+    K1/K3 on the card."""
+    if q is not None and relax == "add_one":
+        relax = "add_w"                         # the laned BFS form
+    v, e, nseg = 600, 4 * EBLK - 1, 700
+    case = _staged_case(v, e, nseg, 0.4, q, "straddle", 3 + (q or 0))
+    t = [torch.as_tensor(x) for x in case]
+    if q is None:
+        got = frr.fused_relax_reduce(*t, nseg, relax, "min", path="tiled",
+                                     vblk=128)
+        want = ref.fused_relax_reduce_ref(*t, nseg, relax, "min")
+    else:
+        unitw = torch.as_tensor((np.arange(q) % 2).astype(np.int32))
+        got = frr.fused_relax_reduce_lanes(t[0], t[1], unitw, *t[2:], nseg,
+                                           relax, "min", path="tiled",
+                                           vblk=128)
+        want = ref.fused_relax_reduce_lanes_ref(t[0], t[1], unitw, *t[2:],
+                                                nseg, relax, "min")
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(want).any())
 
 
 # --------------------------------------------------------------------------
@@ -539,7 +639,9 @@ def test_recorder_tile_copies_equal_the_mirror(room, grid_mode):
         apps.sssp(g, root, part=part, cfg=cfg, device="cpu")
     rounds = [r for r in rec.rounds if r.run == "sssp"]
     assert rounds and all(r.path == "tiled" for r in rounds)
-    assert all(r.dma_bytes == r.tile_dmas * 128 * 4 for r in rounds)
+    # dense rounds stage rows (4 bytes each), worklist rounds 128-slot tiles
+    unit = 4 if grid_mode == "dense" else 128 * 4
+    assert all(r.dma_bytes == r.tile_dmas * unit for r in rounds)
     if grid_mode == "device_worklist":
         assert sum(r.tile_dmas for r in rounds) > 0
         return
@@ -563,7 +665,8 @@ def test_recorder_tile_copies_equal_the_mirror(room, grid_mode):
                                                   info.dma_bytes)
         else:
             d = planner.dense_mirror(gchg.numpy())
-            assert (r.cells, r.tile_dmas) == (d["cells"], d["tile_dmas"])
+            assert (r.cells, r.tile_dmas, r.dma_bytes) == (
+                d["cells"], d["staged_rows"], d["staged_bytes"])
         _, dbg = frr.fused_relax_reduce(
             val.reshape(-1), gchg, *t, nseg, "add_w", "min", with_debug=True,
             worklist=wl, path="tiled", vblk=128, plan=arrays.fused_plan)
