@@ -62,21 +62,23 @@ started together) and runs, in order:
    K6 (worklist, host and device plans), K7 (dense lanes) and K8
    (worklist lanes) against their plain versions (all pairings, Q in
    {1, 5, 16, 33}, vblk 128 and the automatic width, ragged sizes,
-   frontier densities 0 / 1% / 100%, a converged lane), with executed
-   cells and copies (K5/K7: staged rows; K6/K8: tiles) equal to the host
-   mirror, and K5/K7 bit-equal to K1/K3, sum included; then on the RMAT-18
-   partition with ``vmem_budget_bytes`` under the value table's bytes
-   (512 KiB unlaned, 8 MiB for Q = 16 lanes): BFS and SSSP under
-   ``dense`` (K5), ``worklist`` and ``device_worklist`` (K6, a window
-   enqueued under sync-debug mode 'error') equal the oracles,
-   delta-PageRank under ``device_worklist`` within tolerance, and
-   ``apps.batched_queries`` under the three launch shapes (K7, K8) every
-   lane bit-equal to the pinned K3 run, with one tiled launch per round;
-   then the heaviest rounds replayed to time K5 against K1, K6 against
-   K2, K7 against K3 and K8 against K4 on the same round, beside their
-   plain versions, the pinned twin's library call and byte bound, and
-   the bytes the kernels stage (K5/K7 the rows their cells read, K6/K8
-   their tiles).
+   frontier densities 0 / 1% / 100%, a converged lane) and against their
+   pinned twins K1-K4 on the same plan, bit for bit, sum included, with
+   executed cells and staged rows equal to the host mirror (the same rows
+   dense and on both plans); then on the RMAT-18 partition with
+   ``vmem_budget_bytes`` under the value table's bytes (512 KiB unlaned,
+   8 MiB for Q = 16 lanes): BFS and SSSP under ``dense`` (K5),
+   ``worklist`` and ``device_worklist`` (K6, a window enqueued under
+   sync-debug mode 'error') equal the oracles, delta-PageRank under
+   ``device_worklist`` within tolerance, and ``apps.batched_queries``
+   under the three launch shapes (K7, K8) every lane bit-equal to the
+   pinned K3 run, with one tiled launch per round; then the heaviest
+   rounds replayed to time K5 against K1, K6 against K2, K7 against K3
+   and K8 against K4 on the same round and plan (host and device plans
+   for K6/K8, with the tiled and pinned planners' host time and K6/K8
+   alone at 1-8 consecutive cells a block), beside their plain versions,
+   the pinned twin's library call and byte bound, and the rows the
+   kernels stage.
 
 ``--profile`` also traces one replayed lane round's relax phase (K3 and
 K4 host-plan launches) with ``torch.profiler`` and prints its device
@@ -1435,13 +1437,14 @@ def phase_lanes(torch, np, dev, g, part, root, want, part_pr):
 
 def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
                  unitw=None):
-    """One tiled launch (K5/K6, or K7/K8 with ``unitw``) against its plain
-    version and the pinned oracle: min bit-equal, sum within rtol 1e-5 /
-    atol 1e-6 and bit-equal between two runs; a dense one (K5/K7) also
-    bit-equal to the pinned kernel (K1/K3) on the same inputs, sum
-    included; counts, executed cells and copies (staged rows dense, tile
-    copies on a worklist) equal the host mirror.  Returns (kernel,
-    max |err|)."""
+    """One tiled launch (K5/K6, or K7/K8 with ``unitw``) against its
+    pinned twin (K1/K2/K3/K4) on the same plan, bit for bit on min and on
+    sum; against its plain version and the pinned oracle (min bit-equal,
+    sum within rtol 1e-5 / atol 1e-6 and bit-equal between two runs); a
+    worklist one's plain version bit-equal to its twin's on min (the
+    plain sums are not repeatable on the card); counts,
+    executed cells and staged rows equal to the host mirror, the same
+    rows under every launch shape.  Returns (kernel, max |err|)."""
     from repro_torch.kernels import fused_relax_reduce as frr
     from repro_torch.kernels import ref
     gval, gchg, src, w, mask, ids = case
@@ -1453,22 +1456,24 @@ def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
     head = t[:2] + ([torch.as_tensor(unitw, device=dev)] if laned else [])
     gor = gchg.any(axis=1) if laned else gchg
     plan = frr.plan_launch(t[2], t[4], t[5], nseg, v)
+    m = frr.fused_grid_cells(ids, mask, src, gor, nseg, vblk=vb)
     wl = None
     if grid_mode == "worklist":
         wl, info = frr.plan_worklist(ids, mask, src, gor, nseg, num_slots=v,
                                      path="tiled", vblk=vb, lane_width=q)
-        want_dbg = (info.cells, info.tile_dmas)
+        want_dbg = (info.cells, info.staged_rows)
     elif grid_mode == "device_worklist":
         wl = frr.build_device_worklist(t[1], t[2], t[4], t[5], nseg, plan,
                                        path="tiled", vblk=vb)
         _, info = frr.plan_worklist(ids, mask, src, gor, nseg, num_slots=v,
                                     path="tiled", vblk=vb, dst_filter=False)
-        want_dbg = (info.cells, info.tile_needed)
+        want_dbg = (info.cells, info.staged_rows)
     else:
-        m = frr.fused_grid_cells(ids, mask, src, gor, nseg, vblk=vb)
         want_dbg = (m["fused_live"], m["fused_staged_rows"])
     name = ("K7" if wl is None else "K8") if laned \
         else ("K5" if wl is None else "K6")
+    twin = ("K3" if wl is None else "K4") if laned \
+        else ("K1" if wl is None else "K2")
     launch = frr.fused_relax_reduce_lanes if laned else frr.fused_relax_reduce
 
     def run(debug=True):
@@ -1480,16 +1485,22 @@ def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
     if wl is None:
         plain_fn = (ref.fused_relax_reduce_tiled_lanes_ref if laned
                     else ref.fused_relax_reduce_tiled_ref)
-        plain, copies = plain_fn(*head, *t[2:], nseg, relax, kind, plan)
+        plain, rows = plain_fn(*head, *t[2:], nseg, relax, kind, plan)
         pinned = launch(*head, *t[2:], nseg, relax, kind, plan=plan,
                         path="pinned")
+        twin_plain = plain
     else:
-        plain_fn = (ref.fused_relax_reduce_wl_tiled_lanes_ref if laned
-                    else ref.fused_relax_reduce_wl_tiled_ref)
-        plain, copies = plain_fn(*head, *t[2:], wl.wl_i.to(dev),
-                                 wl.wl_j.to(dev), wl.nlive.to(dev), nseg,
-                                 relax, kind, vb, wl.cell_ntiles,
-                                 wl.cell_tile, wl.cell_fetch)
+        plain_fn, twin_fn = (
+            (ref.fused_relax_reduce_wl_tiled_lanes_ref,
+             ref.fused_relax_reduce_wl_lanes_ref) if laned
+            else (ref.fused_relax_reduce_wl_tiled_ref,
+                  ref.fused_relax_reduce_wl_ref))
+        cells = (wl.wl_i.to(dev), wl.wl_j.to(dev), wl.nlive.to(dev), nseg,
+                 relax, kind)
+        plain, rows = plain_fn(*head, *t[2:], *cells)
+        twin_plain = twin_fn(*head, *t[2:], *cells)
+        pinned = launch(*head, *t[2:], nseg, relax, kind, plan=plan,
+                        worklist=frr.Worklist(wl.wl_i, wl.wl_j, wl.nlive))
     oracle = (ref.fused_relax_reduce_lanes_ref if laned
               else ref.fused_relax_reduce_ref)(*head, *t[2:], nseg, relax,
                                                kind)
@@ -1498,9 +1509,13 @@ def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
          f"vblk={vb}"
     err = _check_out(torch, out, plain, kind, at)
     _check_out(torch, out, oracle, kind, at + " (pinned oracle)")
-    if wl is None:
-        check(torch.equal(out, pinned),
-              f"differs from {'K3' if laned else 'K1'} bit for bit: {at}")
+    check(torch.equal(out, pinned),
+          f"differs from {twin} bit for bit: {at}")
+    # the plain versions sum with scatter_reduce_, whose atomics on the
+    # card reorder a sum from call to call: only min repeats bit for bit
+    if kind == "min":
+        check(torch.equal(plain, twin_plain),
+              f"plain version differs from {twin}'s bit for bit: {at}")
     if kind == "sum":
         check(torch.equal(out, run(debug=False)[0]),
               f"sum differs between runs: {at}")
@@ -1509,9 +1524,10 @@ def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
     check(np.array_equal(count.cpu().numpy(), want_count),
           f"counts differ: {at}")
     got_dbg = (int(dbg[0]), int(dbg[1]))
-    check(got_dbg == want_dbg and int(copies) == want_dbg[1],
-          f"cells/copies {got_dbg} (plain {int(copies)}) != mirror "
-          f"{want_dbg}: {at}")
+    check(got_dbg == want_dbg and int(rows) == want_dbg[1]
+          and want_dbg[1] == m["fused_staged_rows"],
+          f"cells/rows {got_dbg} (plain {int(rows)}) != mirror {want_dbg} "
+          f"(dense rows {m['fused_staged_rows']}): {at}")
     return name, err
 
 
@@ -1546,9 +1562,11 @@ def phase_tiled_kernels_vs_plain(torch, np, dev):
         f"K7/K8 (Q in 1/5/16/33), vblk 128 and automatic: min bit-equal to "
         f"the plain versions and the pinned oracle, sum max_abs_err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-        + " (rtol 1e-5) and bit-repeatable; K5/K7 bit-equal to K1/K3, sum "
-        "included; counts, executed cells, staged rows (K5/K7) and tile "
-        "copies (K6/K8) equal the host mirror")
+        + " (rtol 1e-5) and bit-repeatable; K5/K6/K7/K8 bit-equal to "
+        "K1/K2/K3/K4 on the same plan, sum included, and the worklist plain "
+        "versions to K2's/K4's on min; counts, executed cells and staged rows "
+        "equal "
+        "the host mirror, the same rows dense and on both plans")
     return errs
 
 
@@ -1576,11 +1594,58 @@ def _heaviest_round(torch, dev, part, arrays, sem, root):
     return best[2], best[3], best[1], rnd
 
 
+def _plan_ms(planner, gchg_h, reps=3):
+    """Mean host time of one round's plan (ms) and the last plan."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        res = planner.plan(gchg_h)
+    return 1e3 * (time.perf_counter() - t0) / reps, res
+
+
+def _time_wl_twins(torch, frr, dev, tiled_cells, pinned_cells, fold, wl_h,
+                   wl_p, wl_d):
+    """K6 (K8) against K2 (K4): each alone and with its fold on the host
+    plan ``wl_h`` (the pinned planner's cells ``wl_p``), and alone on the
+    device plan ``wl_d``; then K6 (K8) alone at 1, 2, 4 and 8 consecutive
+    cells a block, host and device plans.  ``tiled_cells(wl, grid,
+    cpb)`` and ``pinned_cells(wl, grid)`` launch the kernels proper;
+    ``fold(partials, wl)`` the fold."""
+    pinned_d = frr.Worklist(wl_d.wl_i, wl_d.wl_j, wl_d.nlive)
+    cpb = frr.WL_TILED_CELLS
+    g_h, on_h = frr._wl_grid(wl_h, dev, cpb), wl_h.to(dev)
+    g_p, on_p = frr._wl_grid(wl_p, dev), wl_p.to(dev)
+    g_d, g_pd = frr._wl_grid(wl_d, dev, cpb), frr._wl_grid(pinned_d, dev)
+    row = {
+        "cells_ms": time_ms(torch, lambda: tiled_cells(on_h, g_h, cpb)),
+        "kernel_ms": time_ms(torch, lambda: fold(
+            tiled_cells(on_h, g_h, cpb)[0], on_h)),
+        "pinned_cells_ms": time_ms(torch, lambda: pinned_cells(on_p, g_p)),
+        "pinned_ms": time_ms(torch, lambda: fold(
+            pinned_cells(on_p, g_p)[0], on_p)),
+        "device_cells_ms": time_ms(torch, lambda: tiled_cells(wl_d, g_d,
+                                                              cpb)),
+        "pinned_device_cells_ms": time_ms(
+            torch, lambda: pinned_cells(pinned_d, g_pd)),
+        "cells_per_block": cpb,
+        "cells_per_block_ms": {}}
+    for k in (1, 2, 4, 8):
+        gh, gd = frr._wl_grid(wl_h, dev, k), frr._wl_grid(wl_d, dev, k)
+        row["cells_per_block_ms"][k] = {
+            "host": time_ms(torch, lambda: tiled_cells(on_h, gh, k)),
+            "device": time_ms(torch, lambda: tiled_cells(wl_d, gd, k))}
+    return row
+
+
+def _cpb_text(row):
+    return ", ".join(f"{k}: {v['host']:.4f}/{v['device']:.4f}"
+                     for k, v in row["cells_per_block_ms"].items())
+
+
 def _time_tiled_kernels(torch, np, dev, part, arrays, root):
     """K5 against K1 and K6 against K2 on the heaviest SSSP round, with
     the plain versions, the pinned twins' library call and byte bound,
-    and the bytes each kernel stages (K5 rows, K6 tiles).  Returns (K5
-    row, K6 row, max err)."""
+    the rows each kernel stages and the planners' host time.  Returns
+    (K5 row, K6 row, max err)."""
     from repro_torch.core import actions, engine
     from repro_torch.kernels import fused_relax_reduce as frr
     from repro_torch.kernels import ops, ref
@@ -1599,7 +1664,6 @@ def _time_tiled_kernels(torch, np, dev, part, arrays, root):
     gval_m = frr._masked_value_tables(gval, gchg, sem.identity)
     act = frr._active_edges(src, mask, gchg)
     chunk_act, count = frr._chunk_tables(src, mask, gchg, act)
-    tt = frr._chunk_tile_tables(src, act, v, vblk)      # K6's
     out1, _ = frr._launch(gval_m, src, w, mask, ids, plan, chunk_act, rk,
                           kind, False)
     out5, dbg5 = frr._launch_tiled(gval_m, src, w, mask, ids, plan,
@@ -1621,7 +1685,7 @@ def _time_tiled_kernels(torch, np, dev, part, arrays, root):
     bound, bound_by = _round_bound_ms(part, rk, n_active)
     msg = torch.where(act, sem.relax(gval[src.long()], w), sem.identity)
     common = {"round": rnd, "rounds": rounds, "vblk": vblk,
-              "tiles": tt.n_tiles, "active_edges": n_active,
+              "tiles": -(-v // vblk), "active_edges": n_active,
               "bound_ms": bound, "bound_by": bound_by,
               "library_ms": _library_ms(torch, kind, ids.long(), msg, nseg)}
     k5 = dict(common, cells=mirror["fused_live"],
@@ -1643,75 +1707,74 @@ def _time_tiled_kernels(torch, np, dev, part, arrays, root):
               plain_ms=time_ms(torch, lambda: ref.fused_relax_reduce_tiled_ref(
                   gval, gchg, src, w, mask, ids, nseg, rk, kind, plan)))
 
-    # K6 (host plan, tiled planner) against K2 (host plan, pinned planner)
+    # K6 against K2 on the same cells: the tiled planner's host plan (the
+    # pinned planner's cells) and the device plan
     cfg_t = engine.EngineConfig(use_pallas=True, grid_mode="worklist",
                                 vmem_budget_bytes=TILED_BUDGET)
     planner_t = engine.launch_planner(part, cfg_t)
     planner_p = engine.launch_planner(part, engine.EngineConfig(
         use_pallas=True, grid_mode="worklist"))
-    t0 = time.perf_counter()
-    wl_t, info_t = planner_t.plan(gchg_h)
-    plan_ms = 1e3 * (time.perf_counter() - t0)
-    wl_p, info_p = planner_p.plan(gchg_h)
-    grid6, run_ptr, n_runs, wl6 = frr._wl_tiled_on_card(
-        gval_m, src, w, mask, ids, wl_t, nseg, tt)
-    grid2, wl2 = frr._wl_on_card(gval_m, src, w, mask, ids, wl_p, nseg)
-    out6, dbg6 = frr._launch_wl_tiled(gval_m, src, w, mask, ids, wl_t, tt,
+    plan_ms, (wl_t, info_t) = _plan_ms(planner_t, gchg_h)
+    pinned_plan_ms, (wl_p, info_p) = _plan_ms(planner_p, gchg_h)
+    check(torch.equal(wl_t.wl_j, wl_p.wl_j) and torch.equal(wl_t.wl_i,
+                                                            wl_p.wl_i),
+          "the tiled and pinned planners list other cells")
+    wl_d = frr._compact_live_cells(plan, chunk_act,
+                                   frr.device_worklist_pad(plan), "tiled",
+                                   vblk)
+    out6, dbg6 = frr._launch_wl_tiled(gval_m, src, w, mask, ids, act, wl_t,
                                       nseg, rk, kind, True)
-    plain6, copies6 = ref.fused_relax_reduce_wl_tiled_ref(
-        gval, gchg, src, w, mask, ids, wl6.wl_i, wl6.wl_j, wl6.nlive, nseg,
-        rk, kind, vblk, wl_t.cell_ntiles, wl_t.cell_tile, wl_t.cell_fetch)
+    out2, _ = frr._launch_wl(gval_m, src, w, mask, ids, wl_p, nseg, rk, kind,
+                             False)
+    out6d, dbg6d = frr._launch_wl_tiled(gval_m, src, w, mask, ids, act, wl_d,
+                                        nseg, rk, kind, True)
+    out2d, _ = frr._launch_wl(gval_m, src, w, mask, ids, frr.Worklist(
+        wl_d.wl_i, wl_d.wl_j, wl_d.nlive), nseg, rk, kind, False)
+    on_t = wl_t.to(dev)
+    plain6, rows6 = ref.fused_relax_reduce_wl_tiled_ref(
+        gval, gchg, src, w, mask, ids, on_t.wl_i, on_t.wl_j, on_t.nlive,
+        nseg, rk, kind)
     torch.cuda.synchronize()
-    check(torch.equal(out6, out1) and torch.equal(out6, plain6),
-          f"K6 round {rnd}: differs from K1 / its plain version")
-    check((int(dbg6[0]), int(dbg6[1])) == (info_t.cells, info_t.tile_dmas)
-          and int(copies6) == info_t.tile_dmas,
-          f"K6 round {rnd}: cells/copies {dbg6.tolist()} != plan")
-    k6 = dict(common, cells=info_t.cells, copies=info_t.tile_dmas,
-              copies_no_reuse=info_t.tile_needed, runs=n_runs,
-              dma_bytes=info_t.dma_bytes, plan_ms=plan_ms,
-              cells_ms=time_ms(torch, lambda: frr._wl_tiled_cells(
-                  gval_m, src, w, mask, ids, wl6, tt, grid6, run_ptr,
-                  n_runs, rk, kind, False), reps=TILED_REPS, warmup=1),
-              kernel_ms=time_ms(torch, lambda: frr._wl_fold(
-                  frr._wl_tiled_cells(gval_m, src, w, mask, ids, wl6, tt,
-                                      grid6, run_ptr, n_runs, rk, kind,
-                                      False)[0], wl6, nseg, kind),
-                  reps=TILED_REPS, warmup=1),
+    check(torch.equal(out6, out2) and torch.equal(out6d, out2d)
+          and torch.equal(out6, out1) and torch.equal(out6, plain6),
+          f"K6 round {rnd}: differs from K2 on the same plan / K1 / its "
+          "plain version")
+    check((int(dbg6[0]), int(dbg6[1])) == (info_t.cells, info_t.staged_rows)
+          and int(rows6) == info_t.staged_rows
+          and int(dbg6d[1]) == mirror["fused_staged_rows"]
+          == info_t.staged_rows,
+          f"K6 round {rnd}: cells/rows {dbg6.tolist()} (device plan "
+          f"{dbg6d.tolist()}) != plan")
+    k6 = dict(common, cells=info_t.cells, device_cells=int(dbg6d[0]),
+              rows=info_t.staged_rows, dma_bytes=info_t.staged_bytes,
+              plan_ms=plan_ms, pinned_plan_ms=pinned_plan_ms,
               pinned_cells=info_p.cells,
-              pinned_cells_ms=time_ms(torch, lambda: frr._wl_cells(
-                  gval_m, src, w, mask, ids, wl2, grid2, rk, kind, False)),
-              pinned_ms=time_ms(torch, lambda: frr._wl_fold(
-                  frr._wl_cells(gval_m, src, w, mask, ids, wl2, grid2, rk,
-                                kind, False)[0], wl2, nseg, kind)),
               ms=time_ms(torch, lambda: ops.fused_relax_reduce(
                   gval, gchg, src, w, mask, ids, nseg, rk, kind, plan=plan,
-                  worklist=wl_t), reps=TILED_REPS, warmup=1),
+                  worklist=wl_t)),
+              pinned_phase_ms=time_ms(torch, lambda: ops.fused_relax_reduce(
+                  gval, gchg, src, w, mask, ids, nseg, rk, kind, plan=plan,
+                  worklist=wl_p)),
               device_ms=time_ms(torch, lambda: ops.fused_relax_reduce(
                   gval, gchg, src, w, mask, ids, nseg, rk, kind, plan=plan,
                   grid_mode="device_worklist",
-                  vmem_budget_bytes=TILED_BUDGET), reps=TILED_REPS,
-                  warmup=1),
+                  vmem_budget_bytes=TILED_BUDGET)),
+              pinned_device_ms=time_ms(torch, lambda: ops.fused_relax_reduce(
+                  gval, gchg, src, w, mask, ids, nseg, rk, kind, plan=plan,
+                  grid_mode="device_worklist")),
               plain_ms=time_ms(torch, lambda: ref.fused_relax_reduce_wl_tiled_ref(
-                  gval, gchg, src, w, mask, ids, wl6.wl_i, wl6.wl_j,
-                  wl6.nlive, nseg, rk, kind, vblk, wl_t.cell_ntiles,
-                  wl_t.cell_tile, wl_t.cell_fetch), reps=TILED_REPS,
-                  warmup=1))
-    # the reference's schedule (no restart) on the same cells
-    ref_copies = _reference_schedule_copies(np, wl_t)
-    k6["copies_reference_schedule"] = ref_copies
+                  gval, gchg, src, w, mask, ids, on_t.wl_i, on_t.wl_j,
+                  on_t.nlive, nseg, rk, kind), reps=TILED_REPS, warmup=1))
+    k6.update(_time_wl_twins(
+        torch, frr, dev,
+        lambda wl, grid, cpb: frr._wl_tiled_cells(
+            gval_m, src, w, mask, ids, act, wl, grid, rk, kind, False, cpb),
+        lambda wl, grid: frr._wl_cells(gval_m, src, w, mask, ids, wl, grid,
+                                       rk, kind, False),
+        lambda partials, wl: frr._wl_fold(partials, wl, nseg, kind),
+        wl_t, wl_p, wl_d))
     return k5, k6, max(max_abs_err(torch, out5, plain5),
                        max_abs_err(torch, out6, plain6))
-
-
-def _reference_schedule_copies(np, wl):
-    """Copies of the reference's 2-slot schedule, which carries tiles
-    across runs of cells, on a tiled host plan's cells: the port's
-    schedule with every cell in one run."""
-    from repro_torch.kernels import fused_relax_reduce as frr
-    return frr.tile_schedule(np.zeros(wl.l_pad, np.int32), int(wl.nlive[0]),
-                             wl.cell_ntiles.numpy(),
-                             wl.cell_tile.numpy())[2]
 
 
 def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
@@ -1736,7 +1799,6 @@ def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
     unit_u8 = (unitw != 0).to(torch.uint8)
     chunk_act, counts, act = frr._lane_chunk_tables(
         src, mask, gchg, plan.src_deg, with_act=True)
-    tt = frr._chunk_tile_tables(src, act, v, vblk)      # K8's
     out3, _ = frr._launch_lanes(gval_m, unit_u8, src, w, mask, ids, plan,
                                 chunk_act, "add_w", "min", False)
     out7, dbg7 = frr._launch_tiled_lanes(gval_m, unit_u8, src, w, mask, ids,
@@ -1761,7 +1823,7 @@ def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
     msg = _lane_messages(gval, gchg, unitw, src, w, mask, "add_w", "min")
     ids_long = ids.long()
     common = {"round": rnd, "rounds": rounds, "lanes": q, "vblk": vblk,
-              "tiles": tt.n_tiles, "active_edges": n_edges,
+              "tiles": -(-v // vblk), "active_edges": n_edges,
               "active_pairs": n_pairs, "bound_ms": bound,
               "bound_by": bound_by,
               "library_ms": time_ms(torch, lambda: torch.full(
@@ -1796,61 +1858,75 @@ def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
     planner_p = engine.launch_planner(part, engine.EngineConfig(
         use_pallas=True, grid_mode="worklist"), q_pad=q)
     gor = gchg_h.any(axis=1)
-    t0 = time.perf_counter()
-    wl_t, info_t = planner_t.plan(gor)
-    plan_ms = 1e3 * (time.perf_counter() - t0)
-    wl_p, info_p = planner_p.plan(gor)
-    grid8, run_ptr, n_runs, wl8 = frr._wl_tiled_on_card(
-        gval_m, src, w, mask, ids, wl_t, nseg, tt)
-    grid4, wl4 = frr._wl_on_card(gval_m, src, w, mask, ids, wl_p, nseg)
+    plan_ms, (wl_t, info_t) = _plan_ms(planner_t, gor)
+    pinned_plan_ms, (wl_p, info_p) = _plan_ms(planner_p, gor)
+    check(torch.equal(wl_t.wl_j, wl_p.wl_j) and torch.equal(wl_t.wl_i,
+                                                            wl_p.wl_i),
+          "the tiled and pinned lane planners list other cells")
+    wl_d = frr._compact_live_cells(plan, chunk_act,
+                                   frr.device_worklist_pad(plan), "tiled",
+                                   vblk)
     out8, dbg8 = frr._launch_wl_tiled_lanes(gval_m, unit_u8, src, w, mask,
-                                            ids, wl_t, tt, nseg, "add_w",
+                                            ids, act, wl_t, nseg, "add_w",
                                             "min", True)
-    plain8, copies8 = ref.fused_relax_reduce_wl_tiled_lanes_ref(
-        gval, gchg, unitw, src, w, mask, ids, wl8.wl_i, wl8.wl_j, wl8.nlive,
-        nseg, "add_w", "min", vblk, wl_t.cell_ntiles, wl_t.cell_tile,
-        wl_t.cell_fetch)
+    out4, _ = frr._launch_wl_lanes(gval_m, unit_u8, src, w, mask, ids, wl_p,
+                                   nseg, "add_w", "min", False)
+    out8d, dbg8d = frr._launch_wl_tiled_lanes(gval_m, unit_u8, src, w, mask,
+                                              ids, act, wl_d, nseg, "add_w",
+                                              "min", True)
+    out4d, _ = frr._launch_wl_lanes(gval_m, unit_u8, src, w, mask, ids,
+                                    frr.Worklist(wl_d.wl_i, wl_d.wl_j,
+                                                 wl_d.nlive),
+                                    nseg, "add_w", "min", False)
+    on_t = wl_t.to(dev)
+    plain8, rows8 = ref.fused_relax_reduce_wl_tiled_lanes_ref(
+        gval, gchg, unitw, src, w, mask, ids, on_t.wl_i, on_t.wl_j,
+        on_t.nlive, nseg, "add_w", "min")
     torch.cuda.synchronize()
-    check(torch.equal(out8, out3) and torch.equal(out8, plain8),
-          f"K8 round {rnd}: differs from K3 / its plain version")
-    check((int(dbg8[0]), int(dbg8[1])) == (info_t.cells, info_t.tile_dmas)
-          and int(copies8) == info_t.tile_dmas,
-          f"K8 round {rnd}: cells/copies {dbg8.tolist()} != plan")
-    k8 = dict(common, cells=info_t.cells, copies=info_t.tile_dmas,
-              copies_no_reuse=info_t.tile_needed, runs=n_runs,
-              copies_reference_schedule=_reference_schedule_copies(np, wl_t),
-              dma_bytes=info_t.dma_bytes, plan_ms=plan_ms,
-              cells_ms=time_ms(torch, lambda: frr._wl_tiled_lanes_cells(
-                  gval_m, unit_u8, src, w, mask, ids, wl8, tt, grid8,
-                  run_ptr, n_runs, "add_w", "min", False), reps=TILED_REPS,
-                  warmup=1),
-              kernel_ms=time_ms(torch, lambda: frr._wl_lanes_fold(
-                  frr._wl_tiled_lanes_cells(
-                      gval_m, unit_u8, src, w, mask, ids, wl8, tt, grid8,
-                      run_ptr, n_runs, "add_w", "min", False)[0], wl8,
-                  nseg, "min"), reps=TILED_REPS, warmup=1),
+    check(torch.equal(out8, out4) and torch.equal(out8d, out4d)
+          and torch.equal(out8, out3) and torch.equal(out8, plain8),
+          f"K8 round {rnd}: differs from K4 on the same plan / K3 / its "
+          "plain version")
+    check((int(dbg8[0]), int(dbg8[1])) == (info_t.cells, info_t.staged_rows)
+          and int(rows8) == info_t.staged_rows
+          and int(dbg8d[1]) == mirror["fused_staged_rows"]
+          == info_t.staged_rows,
+          f"K8 round {rnd}: cells/rows {dbg8.tolist()} (device plan "
+          f"{dbg8d.tolist()}) != plan")
+    k8 = dict(common, cells=info_t.cells, device_cells=int(dbg8d[0]),
+              rows=info_t.staged_rows, dma_bytes=info_t.staged_bytes,
+              plan_ms=plan_ms, pinned_plan_ms=pinned_plan_ms,
               pinned_cells=info_p.cells,
-              pinned_cells_ms=time_ms(torch, lambda: frr._wl_lanes_cells(
-                  gval_m, unit_u8, src, w, mask, ids, wl4, grid4, "add_w",
-                  "min", False)),
-              pinned_ms=time_ms(torch, lambda: frr._wl_lanes_fold(
-                  frr._wl_lanes_cells(gval_m, unit_u8, src, w, mask, ids,
-                                      wl4, grid4, "add_w", "min",
-                                      False)[0], wl4, nseg, "min")),
               ms=time_ms(torch, lambda: ops.fused_relax_reduce_lanes(
                   gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min",
-                  plan=plan, worklist=wl_t), reps=TILED_REPS, warmup=1),
+                  plan=plan, worklist=wl_t)),
+              pinned_phase_ms=time_ms(
+                  torch, lambda: ops.fused_relax_reduce_lanes(
+                      gval, gchg, unitw, src, w, mask, ids, nseg, "add_w",
+                      "min", plan=plan, worklist=wl_p)),
               device_ms=time_ms(torch, lambda: ops.fused_relax_reduce_lanes(
                   gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min",
                   plan=plan, grid_mode="device_worklist",
-                  vmem_budget_bytes=TILED_LANE_BUDGET), reps=TILED_REPS,
-                  warmup=1),
+                  vmem_budget_bytes=TILED_LANE_BUDGET)),
+              pinned_device_ms=time_ms(
+                  torch, lambda: ops.fused_relax_reduce_lanes(
+                      gval, gchg, unitw, src, w, mask, ids, nseg, "add_w",
+                      "min", plan=plan, grid_mode="device_worklist")),
               plain_ms=time_ms(
                   torch, lambda: ref.fused_relax_reduce_wl_tiled_lanes_ref(
-                      gval, gchg, unitw, src, w, mask, ids, wl8.wl_i,
-                      wl8.wl_j, wl8.nlive, nseg, "add_w", "min", vblk,
-                      wl_t.cell_ntiles, wl_t.cell_tile, wl_t.cell_fetch),
+                      gval, gchg, unitw, src, w, mask, ids, on_t.wl_i,
+                      on_t.wl_j, on_t.nlive, nseg, "add_w", "min"),
                   reps=TILED_REPS, warmup=1))
+    k8.update(_time_wl_twins(
+        torch, frr, dev,
+        lambda wl, grid, cpb: frr._wl_tiled_lanes_cells(
+            gval_m, unit_u8, src, w, ids, act, wl, grid, "add_w", "min",
+            False, cpb),
+        lambda wl, grid: frr._wl_lanes_cells(gval_m, unit_u8, src, w, mask,
+                                             ids, wl, grid, "add_w", "min",
+                                             False),
+        lambda partials, wl: frr._wl_lanes_fold(partials, wl, nseg, "min"),
+        wl_t, wl_p, wl_d))
     return k7, k8, max(max_abs_err(torch, out7, plain7),
                        max_abs_err(torch, out8, plain8))
 
@@ -2017,14 +2093,18 @@ def phase_tiled(torch, np, dev, g, part, root, want, part_pr, want_conv):
         f"{k5['reference_tile_bytes']} B) against K1 {k5['pinned_ms']:.4f} "
         f"ms; plain {k5['plain_ms']:.4f} ms, scatter_reduce_ amin "
         f"{k5['library_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms")
-    log(f"[tiled] same round, K6 host plan ({k6['cells']} cells in "
-        f"{k6['runs']} runs, {k6['copies']} copies, reference schedule "
-        f"{k6['copies_reference_schedule']}, no reuse "
-        f"{k6['copies_no_reuse']}; planner {k6['plan_ms']:.1f} ms): K6 "
+    log(f"[tiled] same round, K6 host plan ({k6['cells']} cells, "
+        f"{k6['rows']} staged rows = {k6['dma_bytes']} B; tiled planner "
+        f"{k6['plan_ms']:.1f} ms, pinned {k6['pinned_plan_ms']:.1f} ms): K6 "
         f"{k6['cells_ms']:.4f} ms, K6+fold {k6['kernel_ms']:.4f} ms against "
         f"K2 {k6['pinned_cells_ms']:.4f} / K2+fold {k6['pinned_ms']:.4f} "
-        f"ms; relax phase {k6['ms']:.4f} ms (device plan "
-        f"{k6['device_ms']:.4f} ms), plain {k6['plain_ms']:.4f} ms")
+        f"ms; device plan ({k6['device_cells']} cells) K6 "
+        f"{k6['device_cells_ms']:.4f} ms against K2 "
+        f"{k6['pinned_device_cells_ms']:.4f} ms; relax phase {k6['ms']:.4f} "
+        f"ms against {k6['pinned_phase_ms']:.4f} (device plan "
+        f"{k6['device_ms']:.4f} against {k6['pinned_device_ms']:.4f}), plain "
+        f"{k6['plain_ms']:.4f} ms; K6 alone by cells a block (host/device): "
+        + _cpb_text(k6))
     log(f"[tiled] heaviest Q={LANES} round ({k7['round']} of "
         f"{k7['rounds']}, {k7['active_pairs']} active pairs, {k7['cells']} "
         f"cells): K7 relax phase {k7['ms']:.4f} ms (pinned "
@@ -2036,12 +2116,17 @@ def phase_tiled(torch, np, dev, g, part, root, want, part_pr, want_conv):
         f"ms, index_reduce_ amin {k7['library_ms']:.4f} ms, bound "
         f"{k7['bound_ms']:.4f} ms")
     log(f"[tiled] same round, K8 host plan ({k8['cells']} cells, "
-        f"{k8['copies']} copies, reference schedule "
-        f"{k8['copies_reference_schedule']}; planner {k8['plan_ms']:.1f} "
-        f"ms): K8 {k8['cells_ms']:.4f} ms, K8+fold {k8['kernel_ms']:.4f} ms "
-        f"against K4 {k8['pinned_cells_ms']:.4f} / K4+fold "
-        f"{k8['pinned_ms']:.4f} ms; relax phase {k8['ms']:.4f} ms (device "
-        f"plan {k8['device_ms']:.4f} ms), plain {k8['plain_ms']:.4f} ms")
+        f"{k8['rows']} staged rows = {k8['dma_bytes']} B; tiled planner "
+        f"{k8['plan_ms']:.1f} ms, pinned {k8['pinned_plan_ms']:.1f} ms): K8 "
+        f"{k8['cells_ms']:.4f} ms, K8+fold {k8['kernel_ms']:.4f} ms against "
+        f"K4 {k8['pinned_cells_ms']:.4f} / K4+fold {k8['pinned_ms']:.4f} "
+        f"ms; device plan ({k8['device_cells']} cells) K8 "
+        f"{k8['device_cells_ms']:.4f} ms against K4 "
+        f"{k8['pinned_device_cells_ms']:.4f} ms; relax phase {k8['ms']:.4f} "
+        f"ms against {k8['pinned_phase_ms']:.4f} (device plan "
+        f"{k8['device_ms']:.4f} against {k8['pinned_device_ms']:.4f}), plain "
+        f"{k8['plain_ms']:.4f} ms; K8 alone by cells a block (host/device): "
+        + _cpb_text(k8))
     return launches, {"K5": err, "K6": err, "K7": err_l, "K8": err_l}, report
 
 

@@ -8,7 +8,6 @@ and a multi-source query is one lane seeded at several vertices
 """
 from __future__ import annotations
 
-from repro_torch.apps.pagerank import _no_mesh
 from repro_torch.core import engine
 from repro_torch.core.partition import Partition, PartitionConfig, build_partition
 from repro_torch.graph.graph import COOGraph
@@ -31,7 +30,7 @@ def batched_queries(g: COOGraph, queries, part: Partition | None = None,
     (list of per-query (n,) results — int64 levels for BFS, float64
     distances for SSSP — per-lane ``LaneStats``, partition).
     ``device=None`` runs on CUDA (see ``engine.resolve_device``)."""
-    _no_mesh(mesh)
+    engine.no_mesh(mesh)
     dev = engine.resolve_device(device)
     if part is None:
         part = build_partition(

@@ -18,9 +18,11 @@ UNREACHED = np.iinfo(np.int32).max
 
 def bfs(g: COOGraph, root: int, part: Partition | None = None,
         cfg: engine.EngineConfig = engine.EngineConfig(),
-        num_shards: int = 16, rpvo_max: int = 1, device=None):
+        num_shards: int = 16, rpvo_max: int = 1,
+        mesh=None, axis_names=("data", "model"), device=None):
     """Returns (levels (n,) int64, stats, partition).  ``device=None``
     runs on CUDA (see ``engine.resolve_device``)."""
+    engine.no_mesh(mesh)
     dev = engine.resolve_device(device)
     if part is None:
         part = build_partition(

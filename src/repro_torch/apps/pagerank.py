@@ -21,13 +21,6 @@ def _pr_graph(g: COOGraph) -> COOGraph:
     return COOGraph(g.n, g.src, g.dst, w)
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded runs (mesh=) are not ported yet (ROADMAP Queue 1 "
-            "item 10)")
-
-
 def _partition(g, part, num_shards, rpvo_max):
     if part is None:
         part = build_partition(
@@ -44,7 +37,7 @@ def pagerank(g: COOGraph, damping: float = 0.85, iters: int = 30,
              mesh=None, axis_names=("data", "model"), device=None):
     """Returns (scores (n,) float64, partition).  ``device=None`` runs on
     CUDA (see ``engine.resolve_device``)."""
-    _no_mesh(mesh)
+    engine.no_mesh(mesh)
     dev = engine.resolve_device(device)
     part = _partition(g, part, num_shards, rpvo_max)
     val = engine.run_pagerank_stacked(part, damping, iters, cfg, device=dev)
@@ -64,7 +57,7 @@ def pagerank_delta(g: COOGraph, damping: float = 0.85, tol=1e-7,
     O(tol / (1-damping)) per vertex.
 
     Returns (scores (n,) float64, RunStats, partition)."""
-    _no_mesh(mesh)
+    engine.no_mesh(mesh)
     dev = engine.resolve_device(device)
     part = _partition(g, part, num_shards, rpvo_max)
     val, stats = engine.run_pagerank_delta(part, damping, tol, cfg,

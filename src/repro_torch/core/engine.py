@@ -53,7 +53,8 @@ class EngineConfig:
     defers to the ``REPRO_VMEM_BUDGET`` env var, then to a default that
     keeps every table the card holds pinned): a (S*R_max[, Q]) table over
     the budget runs the fused relax through the tiled kernels K5-K8,
-    which copy slot tiles into shared memory, instead of K1-K4.
+    which stage the source rows each live cell reads into shared memory,
+    instead of K1-K4.
     ``smem_budget_bytes`` arms the index-table guard (a warning, and a
     wider tile on the tiled path), as in the reference.
     ``checkpoint_every`` is validated but not acted on yet."""
@@ -196,8 +197,8 @@ def launch_planner(part: Partition, cfg: EngineConfig, q_pad: int = 1):
     dense exchange flattens ``edge_dst_flat`` over ``S*R_max`` segments.
     Its residency is the launch's: ``select_kernel_path`` of the
     (S*R_max, q_pad) table against ``cfg.vmem_budget_bytes``, so a laned
-    launch passes its lane count ``q_pad`` (which also prices the tile
-    copies)."""
+    launch passes its lane count ``q_pad`` (which also prices the
+    staged rows)."""
     exchange.check_ported(cfg)
     num_slots = part.S * part.R_max
     n_chunks = frr._round_up(part.edge_dst_flat.size, frr.EBLK) // frr.EBLK
@@ -226,18 +227,18 @@ def _obs_record_round(rec, run, part, cfg, planner, rnd, gchg, frontier,
                       mc, work, wl, info, wall_s):
     """Build + store one flight-recorder ``RoundRecord``: the cell and
     copy columns come from the planner mirror of the launch this round
-    made (``WorklistInfo`` for worklist launches: K6's tile copies; for
-    dense launches the cells K1/K5 executes, the rows K5 stages and, as
-    ``launched``, the cells its blocks walk), plus the per-shard
-    message-volume mirror feeding the skew gauge.  Only ever called with
-    a recorder installed."""
+    made (``WorklistInfo`` for worklist launches: the cells and the rows
+    K6 stages; for dense launches the cells K1/K5 executes, the rows K5
+    stages and, as ``launched``, the cells its blocks walk), plus the
+    per-shard message-volume mirror feeding the skew gauge.  Only ever
+    called with a recorder installed."""
     grid = "dense" if wl is None else "worklist"
     tile_dmas = dma_bytes = 0
     if planner is not None:
         path = planner.path
         if wl is not None:
             cells, launched = info.cells, info.launched
-            tile_dmas, dma_bytes = info.tile_dmas, info.dma_bytes
+            tile_dmas, dma_bytes = info.staged_rows, info.staged_bytes
         else:
             d = planner.dense_mirror(gchg)
             cells, launched = d["cells"], d["launched"]
@@ -413,16 +414,15 @@ def _record_device_window(rec, run, part, planner, l_pad, window, it_end,
     messages summed over the live rounds, so window sums equal the
     host-driven per-round totals.  ``launched`` is the port's static
     device-worklist length times the live rounds.  A tiled device plan
-    copies every live cell's chunk tiles, which is the dense mirror's
-    count."""
+    stages the dense launch's rows, which is the dense mirror's count."""
     live, msgs, work, pruned = totals
     cells = tile_dmas = dma_bytes = 0
     shard_sum = None
     for r in range(live):
         d = planner.dense_mirror(ent[r])
         cells += d["cells"]
-        tile_dmas += d["tile_dmas"]
-        dma_bytes += d["dma_bytes"]
+        tile_dmas += d["staged_rows"]
+        dma_bytes += d["staged_bytes"]
         sh = np.asarray(exchange.shard_message_mirror(
             part.edge_mask, part.edge_src_root_flat, ent[r]))
         shard_sum = sh if shard_sum is None else shard_sum + sh
@@ -619,3 +619,67 @@ def vertex_values(part: Partition, val) -> np.ndarray:
     """Extract the per-vertex (root-replica) values as numpy."""
     gval = torch.as_tensor(val).detach().reshape(-1).cpu().numpy()
     return gval[part.root_flat]
+
+
+# --------------------------------------------------------------------------
+# sharded execution (ROADMAP Queue 1 item 10): not ported yet
+# --------------------------------------------------------------------------
+
+def no_mesh(mesh):
+    """Refuse a ``mesh``: the apps' sharded runs are not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded runs (mesh=) are not ported yet (ROADMAP Queue 1 "
+            "item 10)")
+
+
+def _unported_sharded(name: str):
+    raise NotImplementedError(
+        f"{name} (sharded execution) is not ported yet (ROADMAP Queue 1 "
+        "item 10)")
+
+
+def make_sharded_fn(sem: Semiring, S: int, R_max: int, mesh,
+                    axis_names=("data", "model"),
+                    cfg: EngineConfig = EngineConfig()):
+    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
+    _unported_sharded("make_sharded_fn")
+
+
+def run_sharded(sem: Semiring, part: Partition, init_val, mesh,
+                axis_names=("data", "model"),
+                cfg: EngineConfig = EngineConfig()):
+    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
+    _unported_sharded("run_sharded")
+
+
+def make_sharded_pagerank_fn(S: int, R_max: int, n: int, damping: float,
+                             iters: int, mesh, axis_names=("data", "model"),
+                             cfg: EngineConfig = EngineConfig()):
+    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
+    _unported_sharded("make_sharded_pagerank_fn")
+
+
+def run_pagerank_sharded(part: Partition, damping: float, iters: int, mesh,
+                         axis_names=("data", "model"),
+                         cfg: EngineConfig = EngineConfig()):
+    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
+    _unported_sharded("run_pagerank_sharded")
+
+
+def make_sharded_pagerank_delta_fn(S: int, R_max: int, damping: float,
+                                   tol: float, mesh,
+                                   axis_names=("data", "model"),
+                                   cfg: EngineConfig = EngineConfig()):
+    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
+    _unported_sharded("make_sharded_pagerank_delta_fn")
+
+
+def run_pagerank_delta_sharded(part: Partition, damping: float = 0.85,
+                               tol: float = 1e-6, mesh=None,
+                               axis_names=("data", "model"),
+                               cfg: EngineConfig = EngineConfig(),
+                               max_rounds: int = 256, init_rank=None,
+                               init_delta=None):
+    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
+    _unported_sharded("run_pagerank_delta_sharded")

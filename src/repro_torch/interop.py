@@ -53,10 +53,9 @@ def worklist_from_dict(d: dict) -> Worklist:
     """The port's ``Worklist`` from the leaves of a reference worklist
     (``vars(worklist)``: ``wl_i``, ``wl_j``, ``nlive`` as arrays, and its
     ``path`` and ``vblk``).  A tiled host plan keeps its cells' tile
-    lists, but its copy schedule is made anew with the port's rule
-    (``tile_schedule``, restarted at each run of cells sharing a chunk):
-    the reference's schedule reuses tiles across that boundary, which a
-    CUDA block cannot."""
+    lists, the reference's accounting, which no launch reads; its copy
+    schedule is made anew with the port's mirror rule (``tile_schedule``,
+    restarted at each run of cells sharing a chunk)."""
     def arr(k):
         return np.array(d[k], dtype=np.int32)
 

@@ -1,56 +1,36 @@
 // Shared pieces of the tiled fused relax + reduce kernels (K5-K8): the
-// value table stays in device memory and is read through shared memory.
-// The worklist kernels K6 and K8 copy the vblk-wide slot tiles that a
-// cell's active sources fall in into a 2-slot shared-memory buffer and
-// fold each tile's own edges from there; the dense kernels K5 and K7
-// stage only the source rows a cell reads (their own sources) and use the
-// cp.async helpers below.
+// value table stays in device memory, and each live cell copies only the
+// source rows it reads into shared memory before it folds them.
 //
-// Tile tables (built per round on the device, fused_relax_reduce.py
-// `_chunk_tile_tables`): chunk j's active edges fall in the ntiles[j]
-// distinct tiles tiles[j][0..ntiles[j]) (ascending); order[j] lists the
-// chunk's edge positions stably sorted by tile, so tile k's own edges are
-// order[j][off[j][k] .. off[j][k + 1]), in chunk order.
+// The copy unit.  The TPU kernels copy the vblk-wide slot tiles that a
+// chunk's active sources fall in, because a TPU core cannot gather from
+// device memory and its VMEM copies move contiguous blocks.  Hopper
+// gathers at 32-byte-sector granularity and cp.async copies 4 or 16
+// bytes to any shared-memory address, so here the unit is what a cell
+// reads: one source row (a lane group's columns of it, laned).
 //
-// Copies are cp.async (16-byte pieces where the rows allow it, 4-byte
-// otherwise), one commit group per tile, and the walk keeps tile t+1's
-// copy in flight while tile t is folded: at step t the block commits
-// tile t+1's group (or an empty one), waits for all groups but the
-// newest, and syncs.  A copy never reads past the table's last row.
+//   K5, K6 (unlaned): a cell stages gval[src[e]] of every chunk position
+//   whose edge is active (act[e]: mask and a changed source) and lands in
+//   the cell's block into an (EBLK,) slot indexed by chunk position; every
+//   other position gets the identity, which is what the masked table
+//   holds for an inactive source.  K1's fold then reads the slot where K1
+//   reads the table (StagedMsg), so the result is K1's (K2's) bit for bit.
+//
+//   K7, K8 (laned): a cell runs in two pieces of EBLK / 2 positions, one
+//   position a thread.  A piece is staged as K3 stages a chunk, with a
+//   position dead in every lane (the OR flags `act`) dropped (key -1) and
+//   src[k] = k, the position's row in the piece's row buffer, the source
+//   row going to `row_src`; the block then copies its lane group's
+//   columns of each kept row.  K3's fold_lane_list reads the rows by
+//   position (StagedRows), so the result is K3's (K4's) bit for bit.
+//
+// A copy never reads past the table's last row: staged sources are
+// valid edges' sources, which plan_launch checks are in range.
 #pragma once
 
 #include "frr_lanes.cuh"
 
 namespace frr {
-
-struct TileTables {
-  const int32_t* ntiles;   // (n_chunks,)
-  const int32_t* tiles;    // (n_chunks, t_max)
-  const int32_t* off;      // (n_chunks, t_max + 1)
-  const int32_t* order;    // (n_chunks, EBLK)
-  int t_max;
-
-  __device__ __forceinline__ int count(int j) const { return ntiles[j]; }
-  __device__ __forceinline__ int tile(int j, int k) const {
-    return tiles[static_cast<size_t>(j) * t_max + k];
-  }
-  __device__ __forceinline__ int begin(int j, int k) const {
-    return off[static_cast<size_t>(j) * (t_max + 1) + k];
-  }
-  __device__ __forceinline__ const int32_t* positions(int j) const {
-    return order + static_cast<size_t>(j) * EBLK;
-  }
-  // k with tile(j, k) == tile, or -1 (the list is ascending)
-  __device__ __forceinline__ int find(int j, int tile_id) const {
-    int lo = 0, hi = ntiles[j];
-    const int32_t* row = tiles + static_cast<size_t>(j) * t_max;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (row[mid] < tile_id) lo = mid + 1; else hi = mid;
-    }
-    return lo < ntiles[j] && row[lo] == tile_id ? lo : -1;
-  }
-};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -81,148 +61,179 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   __syncthreads();
 }
 
-// Rows of tile `tile` that exist in a table of `num_slots` rows.
-__device__ __forceinline__ int tile_rows(int tile, int vblk, int num_slots) {
-  const long long base = static_cast<long long>(tile) * vblk;
-  return static_cast<int>(min(static_cast<long long>(vblk),
-                              static_cast<long long>(num_slots) - base));
-}
+// ---------------------------------------------------------------------
+// K5, K6: a cell's rows staged by chunk position
+// ---------------------------------------------------------------------
 
-// Start copying tile `tile` of the (V,) table into buf[0 .. vblk) (all
-// threads call it; the table is 16-byte aligned and vblk % 128 == 0).
-__device__ __forceinline__ void copy_tile(float* buf,
-                                          const float* __restrict__ gval,
-                                          int tile, int vblk, int num_slots) {
-  const int n = tile_rows(tile, vblk, num_slots);
-  const float* g = gval + static_cast<size_t>(tile) * vblk;
-  const int n4 = n >> 2;
-  for (int k = threadIdx.x; k < n4; k += blockDim.x)
-    cp_async16(buf + 4 * k, g + 4 * k);
-  for (int k = 4 * n4 + threadIdx.x; k < n; k += blockDim.x)
-    cp_async4(buf + k, g + k);
-}
-
-// Start copying columns [c0, c0 + gw) of tile `tile` of the (V, Q) table
-// into buf[r * lw + c] (lw = min(Q, LGRP) >= gw).  With Q % 4 == 0 the row
-// pieces are 16-byte aligned and go 16 bytes at a time.
-__device__ __forceinline__ void copy_lane_tile(
-    float* buf, const float* __restrict__ gval, int tile, int vblk,
-    int num_slots, int Q, int c0, int gw, int lw) {
-  const int rows = tile_rows(tile, vblk, num_slots);
-  const float* g = gval + static_cast<size_t>(tile) * vblk * Q + c0;
-  if ((Q & 3) == 0) {
-    const int per = gw >> 2;
-    for (int k = threadIdx.x; k < rows * per; k += blockDim.x) {
-      const int r = k / per, c = 4 * (k % per);
-      cp_async16(buf + r * lw + c, g + static_cast<size_t>(r) * Q + c);
-    }
-  } else {
-    for (int k = threadIdx.x; k < rows * gw; k += blockDim.x) {
-      const int r = k / gw, c = k % gw;
-      cp_async4(buf + r * lw + c, g + static_cast<size_t>(r) * Q + c);
-    }
-  }
-}
-
-// Unlaned tile message: relax(tile_s[src[e] - base], w[e]) where mask[e].
+// K1's message from the cell's staged rows: relax(stage_s[e - e0], w[e])
+// where mask[e].
 template <int RELAX>
-struct TileMsg {
-  const float* tile_s;            // the tile's slot in shared memory
-  int base;                       // the tile's first table row
-  const int32_t* src;
+struct StagedMsg {
+  const float* stage_s;           // the cell's slot, by chunk position
+  int e0;                         // the chunk's first edge
   const float* w;
   const uint8_t* mask;
   __device__ __forceinline__ bool valid(int e) const {
     return __ldg(mask + e) != 0;
   }
   __device__ __forceinline__ float value(int e) const {
-    return relax<RELAX>(tile_s[__ldg(src + e) - base], w, e);
+    return relax<RELAX>(stage_s[e - e0], w, e);
   }
 };
 
-struct TileEdges {                // a tile's edges: chunk positions -> edges
-  const int32_t* pos;
-  int e0;
-  __device__ __forceinline__ int operator()(int k) const {
-    return e0 + __ldg(pos + k);
+// A cell's edges as this thread stages them: positions threadIdx.x and
+// threadIdx.x + THREADS, loaded into registers a cell ahead of the stage.
+struct CellRegs {
+  int id[EBLK / THREADS];
+  int s[EBLK / THREADS];
+  bool act[EBLK / THREADS];
+};
+
+// Chunk j's edges for this thread (num_edges 0: an empty cell).
+__device__ __forceinline__ CellRegs load_cell(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ ids,
+    const uint8_t* __restrict__ act, int j, int num_edges) {
+  CellRegs x;
+#pragma unroll
+  for (int u = 0; u < EBLK / THREADS; ++u) {
+    const int e = j * EBLK + u * THREADS + threadIdx.x;
+    const bool in = e < num_edges;
+    x.id[u] = in ? __ldg(ids + e) : -1;
+    x.s[u] = in ? __ldg(src + e) : 0;
+    x.act[u] = in && __ldg(act + e) != 0;
   }
-};
-
-struct TilePos {                  // a tile's edges as staged chunk positions
-  const int32_t* pos;
-  __device__ __forceinline__ int operator()(int k) const {
-    return __ldg(pos + k);
-  }
-};
-
-struct TileRows {                 // this thread's lane of a staged tile
-  const float* tile_s;
-  int base;
-  int lw;
-  int t;
-  __device__ __forceinline__ float operator()(int s) const {
-    return tile_s[(s - base) * lw + t];
-  }
-};
-
-// A tiled host plan's per-cell tile schedule (K6, K8): cell c lists
-// ntiles[c] tiles tile[c][k] (a subset of its chunk's, ascending), each
-// read from shared-memory slot slot[c][k] and copied there first iff
-// fetch[c][k].  All null: a cell walks its chunk's own list and copies
-// every tile, tile k into slot k % 2 (device plans).
-struct CellSchedule {
-  const int32_t* ntiles;
-  const int32_t* tile;
-  const int32_t* slot;
-  const int32_t* fetch;
-  int t_max;
-};
-
-// The worklist cells a K6/K8 block runs: a host plan's run blockIdx.x
-// (run_ptr, one block per run of cells sharing wl_j), or a device plan's
-// cells blockIdx.x, blockIdx.x + gridDim.x, ... below *nlive.
-struct BlockCells {
-  int c0, c1, step;
-};
-
-__device__ __forceinline__ BlockCells block_cells(
-    const int32_t* __restrict__ run_ptr, int n_runs,
-    const int32_t* __restrict__ nlive) {
-  if (run_ptr == nullptr)
-    return {static_cast<int>(blockIdx.x), *nlive,
-            static_cast<int>(gridDim.x)};
-  if (static_cast<int>(blockIdx.x) >= n_runs) return {0, 0, 1};
-  return {run_ptr[blockIdx.x], run_ptr[blockIdx.x + 1], 1};
+  return x;
 }
 
-// Walk cell c (chunk j)'s tiles: copy(slot, tile) starts a tile's copy
-// into a slot, fold(slot, tile, k) folds the edges of the chunk's k-th
-// tile from that slot.  Tile t+1's copy is in flight while tile t is
-// folded.  All threads call it; returns the copies it started.
-template <class Copy, class Fold>
-__device__ __forceinline__ int walk_tiles(const TileTables& tt,
-                                          const CellSchedule& cs, int c,
-                                          int j, const Copy& copy,
-                                          const Fold& fold) {
-  const bool own = cs.tile == nullptr;
-  const size_t row = static_cast<size_t>(c) * cs.t_max;
-  const int n = own ? tt.count(j) : cs.ntiles[c];
-  auto tile = [&](int t) { return own ? tt.tile(j, t) : cs.tile[row + t]; };
-  auto slot = [&](int t) { return own ? (t & 1) : cs.slot[row + t]; };
-  auto fetch = [&](int t) { return own ? 1 : cs.fetch[row + t]; };
-  int copies = 0;
-  if (n > 0 && fetch(0)) copy(slot(0), tile(0));
-  cp_async_commit();
-  for (int t = 0; t < n; ++t) {
-    if (t + 1 < n && fetch(t + 1)) copy(slot(t + 1), tile(t + 1));
-    cp_async_commit();
-    cp_async_wait_prev();                 // tile t has landed
-    const int k = own ? t : tt.find(j, tile(t));
-    if (k >= 0) fold(slot(t), tile(t), k);
-    __syncthreads();                      // the slot is read before reuse
-    copies += fetch(t);
+// Start staging a cell's rows for segments [seg0, seg0 + SBLK) into
+// slot[0 .. EBLK) from its registers (all threads call it).  Returns the
+// rows this thread copied.
+template <int KIND>
+__device__ __forceinline__ int stage_rows(float* slot,
+                                          const float* __restrict__ gval,
+                                          const CellRegs& x, int seg0) {
+  int rows = 0;
+#pragma unroll
+  for (int u = 0; u < EBLK / THREADS; ++u) {
+    const int k = u * THREADS + threadIdx.x;
+    const int local = x.id[u] - seg0;
+    if (x.act[u] && local >= 0 && local < SBLK) {
+      cp_async4(slot + k, gval + x.s[u]);
+      ++rows;
+    } else {
+      slot[k] = identity<KIND>();
+    }
   }
-  return copies;
+  return rows;
+}
+
+// ---------------------------------------------------------------------
+// K7, K8: a cell's rows staged in two pieces
+// ---------------------------------------------------------------------
+
+constexpr int HALF = EBLK / 2;            // positions of a piece
+static_assert(HALF == THREADS, "a thread stages one position of a piece");
+
+// One position's edge, loaded into registers a piece ahead of its stage.
+struct EdgeRegs {
+  int id, s;
+  float w;
+  bool act;
+};
+
+__device__ __forceinline__ EdgeRegs load_edge(
+    const int32_t* __restrict__ src, const float* __restrict__ w,
+    const uint8_t* __restrict__ act, const int32_t* __restrict__ ids,
+    int e, int num_edges) {
+  EdgeRegs x{0, 0, 0.0f, false};
+  if (e < num_edges) {
+    x.id = __ldg(ids + e);
+    x.s = __ldg(src + e);
+    x.w = __ldg(w + e);
+    x.act = __ldg(act + e) != 0;
+  }
+  return x;
+}
+
+// K3's stage of this thread's position k (in piece half k / HALF) for
+// segments [seg0, seg0 + SBLK), with a dead position dropped, src[k] = k
+// and the source row in row_src[k].  Returns 1 if it keeps a row.
+__device__ __forceinline__ int stage_position(LaneStage& st,
+                                              int32_t* row_src,
+                                              const EdgeRegs& x, int k,
+                                              int num_slots, int seg0) {
+  const int local = x.id - seg0;
+  const bool keep = x.act && local >= 0 && local < SBLK && x.s < num_slots;
+  st.key[k] = keep ? local : -1;
+  st.src[k] = k;
+  st.w[k] = keep ? x.w : 0.0f;
+  row_src[k] = x.s;
+  return keep;
+}
+
+// Start copying columns [c0, c0 + gw) of the rows of positions
+// [k0, k0 + HALF) with key >= 0 into buf[(k - k0) * lw + c] (all threads
+// call it).  With Q % 4 == 0 the row pieces are 16-byte aligned and go 16
+// bytes at a time.
+__device__ __forceinline__ void copy_rows(float* buf, const LaneStage& st,
+                                          const int32_t* row_src,
+                                          const float* __restrict__ gval,
+                                          int k0, int Q, int c0, int gw,
+                                          int lw) {
+  if ((Q & 3) == 0) {
+    const int per = gw >> 2;
+    for (int i = threadIdx.x; i < HALF * per; i += THREADS) {
+      const int r = i / per, c = 4 * (i % per);
+      if (st.key[k0 + r] >= 0)
+        cp_async16(buf + r * lw + c,
+                   gval + static_cast<size_t>(row_src[k0 + r]) * Q + c0 + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < HALF * gw; i += THREADS) {
+      const int r = i / gw, c = i % gw;
+      if (st.key[k0 + r] >= 0)
+        cp_async4(buf + r * lw + c,
+                  gval + static_cast<size_t>(row_src[k0 + r]) * Q + c0 + c);
+    }
+  }
+}
+
+struct HalfPos {                  // the positions of one piece
+  int k0;
+  __device__ __forceinline__ int operator()(int i) const { return k0 + i; }
+};
+
+struct StagedRows {               // this thread's lane of a staged row
+  const float* buf;               // the piece's row buffer
+  int k0;                         // the piece's first position
+  int lw;
+  int t;
+  __device__ __forceinline__ float operator()(int k) const {
+    return buf[(k - k0) * lw + t];
+  }
+};
+
+// Shared memory of a laned row buffer: two pieces of HALF rows of
+// min(Q, LGRP) floats.
+inline size_t lane_row_smem(int Q) {
+  return 2 * static_cast<size_t>(HALF) * (Q < LGRP ? Q : LGRP) *
+         sizeof(float);
+}
+
+// ---------------------------------------------------------------------
+// K6, K8: the worklist cells a block runs
+// ---------------------------------------------------------------------
+
+// The block's k-th cell, k = 0, 1, ...: blocks take groups of `cpb`
+// consecutive cells, block b the groups b, b + gridDim.x, ...  A host
+// plan's grid has one block per group; a device plan's fixed grid
+// strides.  Returns n (past the end) once the cells run out; ascending
+// in k.
+__device__ __forceinline__ int block_cell(int k, int cpb, int n) {
+  const long long g =
+      blockIdx.x + static_cast<long long>(k / cpb) * gridDim.x;
+  const long long c = g * cpb + k % cpb;
+  return c < n ? static_cast<int>(c) : n;
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory, first

@@ -30,7 +30,8 @@
 // masked table holds for an inactive source.  Two slots of EBLK floats
 // double-buffer across the block's cells: while cell c is folded, cell
 // c+1's copies are in flight (one commit group a cell) and cell c+2's
-// ids, sources and act flags are loaded into registers.  The fold is
+// ids, sources and act flags are loaded into registers (the cell's
+// stage, shared with K6, is in frr_tiles.cuh).  The fold is
 // K1's own (fold_list over ChunkEdges) with a message read from the slot
 // where K1 reads the table, so K5's result is K1's bit for bit, sum
 // included.  A cell that stages no row (no active edge lands in its
@@ -51,67 +52,6 @@
 namespace {
 
 using namespace frr;
-
-// K1's message from the cell's staged rows: relax(stage_s[e - e0], w[e])
-// where mask[e].
-template <int RELAX>
-struct StagedMsg {
-  const float* stage_s;           // the cell's slot, by chunk position
-  int e0;                         // the chunk's first edge
-  const float* w;
-  const uint8_t* mask;
-  __device__ __forceinline__ bool valid(int e) const {
-    return __ldg(mask + e) != 0;
-  }
-  __device__ __forceinline__ float value(int e) const {
-    return relax<RELAX>(stage_s[e - e0], w, e);
-  }
-};
-
-// A cell's edges as this thread stages them: positions threadIdx.x and
-// threadIdx.x + THREADS, loaded into registers a cell ahead of the stage.
-struct CellRegs {
-  int id[EBLK / THREADS];
-  int s[EBLK / THREADS];
-  bool act[EBLK / THREADS];
-};
-
-__device__ __forceinline__ CellRegs load_cell(
-    const int32_t* __restrict__ src, const int32_t* __restrict__ ids,
-    const uint8_t* __restrict__ act, int j, int num_edges) {
-  CellRegs x;
-#pragma unroll
-  for (int u = 0; u < EBLK / THREADS; ++u) {
-    const int e = j * EBLK + u * THREADS + threadIdx.x;
-    const bool in = e < num_edges;
-    x.id[u] = in ? __ldg(ids + e) : -1;
-    x.s[u] = in ? __ldg(src + e) : 0;
-    x.act[u] = in && __ldg(act + e) != 0;
-  }
-  return x;
-}
-
-// Start staging a cell's rows for segments [seg0, seg0 + SBLK) into
-// slot[0 .. EBLK) from its registers (all threads call it).  Returns the
-// rows this thread copied.
-template <int KIND>
-__device__ __forceinline__ int stage_rows(float* slot,
-                                          const float* __restrict__ gval,
-                                          const CellRegs& x, int seg0) {
-  int rows = 0;
-#pragma unroll
-  for (int u = 0; u < EBLK / THREADS; ++u) {
-    const int k = u * THREADS + threadIdx.x;
-    const int local = x.id[u] - seg0;
-    if (x.act[u] && local >= 0 && local < SBLK) {
-      cp_async4(slot + k, gval + x.s[u]);
-      ++rows;
-    } else {
-      slot[k] = identity<KIND>();
-    }
-  }
-  return rows;
-}
 
 template <int RELAX, int KIND>
 __global__ void __launch_bounds__(THREADS)

@@ -17,7 +17,8 @@
 // RMAT-18 and Q = 16 a cell copies a few KB, not 225 tiles of 48 KB.
 //
 // Launch shape: K3's (segment block, 32-lane group) grid, its chunk
-// stage and its owner-thread fold (frr_lanes.cuh).  A block walks its
+// stage and its owner-thread fold (frr_lanes.cuh; the piece's stage and
+// row copies, shared with K8, are in frr_tiles.cuh).  A block walks its
 // live cells in two pieces of EBLK / 2 positions each, one position a
 // thread.  A piece is staged as K3 stages a chunk, with two changes: a
 // position whose source is dead in every lane (the OR table `act`) gets
@@ -51,87 +52,6 @@
 namespace {
 
 using namespace frr;
-
-constexpr int HALF = EBLK / 2;            // positions of a piece
-static_assert(HALF == THREADS, "a thread stages one position of a piece");
-
-// One position's edge, loaded into registers a piece ahead of its stage.
-struct EdgeRegs {
-  int id, s;
-  float w;
-  bool act;
-};
-
-__device__ __forceinline__ EdgeRegs load_edge(
-    const int32_t* __restrict__ src, const float* __restrict__ w,
-    const uint8_t* __restrict__ act, const int32_t* __restrict__ ids,
-    int e, int num_edges) {
-  EdgeRegs x{0, 0, 0.0f, false};
-  if (e < num_edges) {
-    x.id = __ldg(ids + e);
-    x.s = __ldg(src + e);
-    x.w = __ldg(w + e);
-    x.act = __ldg(act + e) != 0;
-  }
-  return x;
-}
-
-// K3's stage of this thread's position k (in piece half k / HALF) for
-// segments [seg0, seg0 + SBLK), with a dead position dropped, src[k] = k
-// and the source row in row_src[k].  Returns 1 if it keeps a row.
-__device__ __forceinline__ int stage_position(LaneStage& st,
-                                              int32_t* row_src,
-                                              const EdgeRegs& x, int k,
-                                              int num_slots, int seg0) {
-  const int local = x.id - seg0;
-  const bool keep = x.act && local >= 0 && local < SBLK && x.s < num_slots;
-  st.key[k] = keep ? local : -1;
-  st.src[k] = k;
-  st.w[k] = keep ? x.w : 0.0f;
-  row_src[k] = x.s;
-  return keep;
-}
-
-// Start copying columns [c0, c0 + gw) of the rows of positions
-// [k0, k0 + HALF) with key >= 0 into buf[(k - k0) * lw + c] (all threads
-// call it).
-__device__ __forceinline__ void copy_rows(float* buf, const LaneStage& st,
-                                          const int32_t* row_src,
-                                          const float* __restrict__ gval,
-                                          int k0, int Q, int c0, int gw,
-                                          int lw) {
-  if ((Q & 3) == 0) {
-    const int per = gw >> 2;
-    for (int i = threadIdx.x; i < HALF * per; i += THREADS) {
-      const int r = i / per, c = 4 * (i % per);
-      if (st.key[k0 + r] >= 0)
-        cp_async16(buf + r * lw + c,
-                   gval + static_cast<size_t>(row_src[k0 + r]) * Q + c0 + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < HALF * gw; i += THREADS) {
-      const int r = i / gw, c = i % gw;
-      if (st.key[k0 + r] >= 0)
-        cp_async4(buf + r * lw + c,
-                  gval + static_cast<size_t>(row_src[k0 + r]) * Q + c0 + c);
-    }
-  }
-}
-
-struct HalfPos {                  // the positions of one piece
-  int k0;
-  __device__ __forceinline__ int operator()(int i) const { return k0 + i; }
-};
-
-struct StagedRows {               // this thread's lane of a staged row
-  const float* buf;               // the piece's row buffer
-  int k0;                         // the piece's first position
-  int lw;
-  int t;
-  __device__ __forceinline__ float operator()(int k) const {
-    return buf[(k - k0) * lw + t];
-  }
-};
 
 template <int RELAX, int KIND>
 __global__ void __launch_bounds__(THREADS)
@@ -256,8 +176,7 @@ extern "C" int frr_tiled_lanes_launch(
     int relax, int kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_blocks < 1 || Q < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      2 * static_cast<size_t>(HALF) * (Q < LGRP ? Q : LGRP) * sizeof(float);
+  const size_t smem = lane_row_smem(Q);
   dim3 grid(num_blocks, (Q + LGRP - 1) / LGRP), block(THREADS);
 #define FRR_TL_ARGS gval, src, w, ids, act, unitw, blk_ptr, blk_chunk, \
                     chunk_act, num_edges, num_segments, num_slots, Q, out, dbg

@@ -54,18 +54,18 @@ and ``fused_grid_cells`` accept a (V, Q) frontier and OR it.
 bytes exceed the budget (``vmem_budget_bytes``, the ``REPRO_VMEM_BUDGET``
 env var, else ``DEFAULT_VMEM_BUDGET_BYTES``) runs *tiled*, through
 kernels K5 (dense), K6 (worklist), K7 (dense lanes) and K8 (worklist
-lanes), sharing ``csrc/frr_tiles.cuh``.  The dense ones, K5 and K7, copy
-with ``cp.async`` only the source rows a live cell reads (its active
-edges' sources, from the (E,) active flags) into a shared-memory row
-buffer indexed by chunk position, and fold them in K1's / K3's order, so
-their results equal K1's / K3's bit for bit.  The worklist ones, K6 and
-K8, copy the ``vblk``-wide slot tiles that a cell's active sources fall
-in (``_chunk_tile_tables``) into a double-buffered shared-memory slot
-and fold each tile's own edges from there.  The default budget keeps
-every table the card can hold on the pinned kernels K1–K4; a budget set
-through the config or the env var, or ``path=``/``vblk=``, reaches the
-tiled ones.  Min results are bit-equal across the two residencies; sums
-differ by reassociation only on the worklist kernels.
+lanes), sharing ``csrc/frr_tiles.cuh``.  Each live cell copies with
+``cp.async`` only the source rows it reads (its active edges' sources,
+from the (E,) active flags) into a shared-memory row buffer indexed by
+chunk position, and folds them with its pinned twin's own fold: K5 and
+K6 equal K1 and K2, K7 and K8 equal K3 and K4, bit for bit, sum
+included.  No tiled launch builds a tile table; the reference's tile
+lists, copy schedule and copy counts stay as a mirror off the launch
+path (``_chunk_tile_tables``, ``tile_schedule``, ``plan(...,
+tile_lists=True)``, ``dense_mirror(..., tile_lists=True)``).  The
+default budget keeps every table the card can hold on the pinned
+kernels K1–K4; a budget set through the config or the env var, or
+``path=``/``vblk=``, reaches the tiled ones.
 
 On a CPU tensor ``fused_relax_reduce`` runs the plain versions
 (``ref.fused_relax_reduce_ref``, ``ref.fused_relax_reduce_wl_ref`` and
@@ -95,6 +95,7 @@ SBLK = 256   # segment-axis block (matches csrc/frr_common.cuh)
 WL_PAD = 8      # host worklists are padded to >= this many cells and then
                 # to a power of two, as the reference pads its launches
 WL_BLOCKS_PER_SM = 8   # K2's fixed grid for a device-resident worklist
+WL_TILED_CELLS = 2     # consecutive cells a K6/K8 block stages in turn
 
 RELAX_KINDS = tuple(RELAX_FNS)
 
@@ -135,15 +136,14 @@ wl_tiled_lanes_launches = 0
 DEFAULT_VMEM_BUDGET_BYTES = 80 * 2**30
 VMEM_BUDGET_ENV = "REPRO_VMEM_BUDGET"
 
-# Shared memory a tiled block may spend on its two tile slots.  On a TPU
-# the double buffer sits in VMEM, so the reference sizes vblk from the
-# table budget; here it sits in a block's shared memory (at most 227 KB
-# on Hopper), beside K6's 9 KB and K8's 38 KB of accumulators and staged
-# edges.  96 KiB leaves room for both and still makes tiles of 12,288
-# slots (one lane) or 768 slots (16 lanes).  The dense kernels stage rows,
-# not tiles: K5's two (EBLK,) slots take 4 KB and K7's row buffer
-# 2 * (EBLK / 2) * min(Q, 32) * 4 bytes, at most 64 KB, within this room
-# at every Q, so two K7 blocks fit an SM.
+# The shared-memory room that sizes the automatic tile width.  On a TPU
+# the double buffer of two vblk-wide tiles sits in VMEM, so the
+# reference sizes vblk from the table budget.  No kernel here allocates a
+# tile: K5-K8 stage rows (K5/K6 two (EBLK,) slots, 4 KB; K7/K8 a row
+# buffer of 2 * (EBLK / 2) * min(Q, 32) * 4 bytes, at most 64 KB).  The
+# automatic vblk, the widest 128-multiple whose two tiles of min(Q, 32)
+# lanes fit this room (12,288 slots at one lane, 768 at 16), shapes only
+# the reference's tile accounting, mirrored off the launch path.
 TILE_SMEM_BYTES = 96 * 1024
 LGRP = 32        # lanes a laned block serves (csrc/frr_lanes.cuh)
 
@@ -204,16 +204,16 @@ def select_kernel_path(num_slots: int, q_pad: int = 1,
     ``vblk`` is the largest multiple of 128 whose double buffer
     (``tile_smem_bytes``) fits ``TILE_SMEM_BYTES``, capped at the padded
     table.  ``path``/``vblk`` force the decision; a forced ``vblk`` must
-    be a positive multiple of 128 whose double buffer fits, or
-    ``ValueError`` — it is never shrunk, since it fixes the tile lists
-    and the copy counts.
+    be a positive multiple of 128, or ``ValueError``, as in the
+    reference.  No kernel allocates a tile: the tiled kernels stage the
+    rows a cell reads, and ``vblk`` shapes only the reference's tile
+    accounting, mirrored off the launch path.
 
     With ``n_chunks`` and ``smem_budget_bytes`` the index tables'
     footprint (``smem_table_bytes``) joins the decision as in the
-    reference: tile lists over the budget widen ``vblk`` (doubling, as
-    far as the shared-memory room allows) with a warning, and a pinned
-    launch over it warns.  ``return_info=True`` appends a dict with the
-    footprint behind the decision."""
+    reference: tile lists over the budget widen ``vblk`` (doubling) with
+    a warning, and a pinned launch over it warns.  ``return_info=True``
+    appends a dict with the footprint behind the decision."""
     budget = resolve_vmem_budget(vmem_budget_bytes)
     v_pad = _round_up(num_slots, 128)
     if path is None:
@@ -243,11 +243,6 @@ def select_kernel_path(num_slots: int, q_pad: int = 1,
         raise ValueError(f"vblk must be a positive multiple of 128; "
                          f"got {vblk}")
     vblk = int(vblk)
-    if tile_smem_bytes(vblk, q_pad) > TILE_SMEM_BYTES:
-        raise ValueError(
-            f"vblk={vblk} needs a {tile_smem_bytes(vblk, q_pad)}-byte "
-            f"double buffer at {min(q_pad, LGRP)} lanes a block; the "
-            f"shared-memory room is TILE_SMEM_BYTES={TILE_SMEM_BYTES}")
     info = {"path": "tiled", "vblk": vblk, "smem_table_bytes": None}
     if n_chunks is not None and smem_budget_bytes is not None:
         def footprint(vb):
@@ -255,8 +250,7 @@ def select_kernel_path(num_slots: int, q_pad: int = 1,
             return smem_table_bytes(n_chunks, t_max, wl_cells)
         if footprint(vblk) > smem_budget_bytes:
             vblk0 = vblk
-            while footprint(vblk) > smem_budget_bytes and vblk < v_pad \
-                    and tile_smem_bytes(2 * vblk, q_pad) <= TILE_SMEM_BYTES:
+            while footprint(vblk) > smem_budget_bytes and vblk < v_pad:
                 vblk *= 2    # fewer, wider tiles: shorter tile lists
             warnings.warn(
                 f"fused-kernel index tables ({n_chunks} chunks, "
@@ -423,7 +417,9 @@ def _lane_chunk_tables(edge_src, edge_mask, gchg, src_deg=None,
 
 
 class TileTables(typing.NamedTuple):
-    """Per-chunk slot-tile lists of one round (``_chunk_tile_tables``).
+    """Per-chunk slot-tile lists of one round (``_chunk_tile_tables``):
+    the reference's tiled scalar-prefetch tables, mirrored off the launch
+    path (no kernel here reads them).
 
     Chunk j's active edges fall in the ``ntiles[j]`` distinct tiles
     ``tiles[j, :ntiles[j]]`` (ascending; entries past the count hold
@@ -447,12 +443,13 @@ class TileTables(typing.NamedTuple):
 
 def _chunk_tile_tables(edge_src, act, num_slots: int,
                        vblk: int) -> TileTables:
-    """The worklist tiled launches' (K6, K8) per-chunk tile lists from
-    the (E,) active rows, with torch ops on their device and no host
-    sync: sort each chunk row with an ``n_tiles`` sentinel on inactive
-    edges, flag first occurrences and scatter the distinct tiles (and
-    where their edges start) to the left.  O(E log EBLK), independent of
-    the tile count — no (n_chunks, n_tiles) matrix."""
+    """The reference's per-chunk tile lists (its tiled kernels' tables,
+    a mirror here) from the (E,) active rows, with torch ops on their
+    device and no host sync: sort each chunk row with an ``n_tiles``
+    sentinel on inactive edges, flag first occurrences and scatter the
+    distinct tiles (and where their edges start) to the left.
+    O(E log EBLK), independent of the tile count — no (n_chunks,
+    n_tiles) matrix."""
     n_tiles = _round_up(num_slots, vblk) // vblk
     t_max = min(n_tiles, EBLK)
     src = _pad_to_chunks(edge_src, 0)
@@ -517,13 +514,13 @@ _SIGNATURES = {   # C entry point -> (library, argument types)
     "frr_tiled_launch": ("fused_relax_reduce_tiled",
                          [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P]),
     "frr_wl_tiled_launch": ("fused_relax_reduce_wl_tiled",
-                            [_P] * 17 + [_I] * 7 + [_P] * 2 + [_I] * 2
+                            [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 2
                             + [_P]),
     "frr_tiled_lanes_launch": ("fused_relax_reduce_tiled_lanes",
                                [_P] * 9 + [_I] * 5 + [_P] * 2 + [_I] * 2
                                + [_P]),
     "frr_wl_tiled_lanes_launch": ("fused_relax_reduce_wl_tiled_lanes",
-                                  [_P] * 18 + [_I] * 8 + [_P] * 2
+                                  [_P] * 9 + [_I] * 5 + [_P] * 2
                                   + [_I] * 2 + [_P]),
 }
 _fns: dict = {}
@@ -624,11 +621,13 @@ class Worklist:
     device plan (``build_device_worklist``) holds tensors on the card,
     and its count is never read on the host.
 
-    A tiled host plan (``path='tiled'``, tile width ``vblk``) also holds
-    each cell's dst-filtered tile list ``cell_ntiles`` / ``cell_tile``
-    ((l_pad,), (l_pad, t_max)) and its copy schedule ``cell_slot`` /
-    ``cell_fetch`` (``tile_schedule``).  A tiled device plan holds none:
-    its cells read their chunk's tile list."""
+    A tiled plan (``path='tiled'``, tile width ``vblk``) runs K6/K8,
+    which need nothing more.  A tiled host plan may also hold the
+    reference's tile accounting, which no launch reads: each cell's
+    dst-filtered tile list ``cell_ntiles`` / ``cell_tile`` ((l_pad,),
+    (l_pad, t_max)) and its copy schedule ``cell_slot`` / ``cell_fetch``
+    (``tile_schedule``), from ``plan(..., tile_lists=True)`` or a
+    reference plan carried across (``interop.worklist_from_dict``)."""
 
     def __init__(self, wl_i, wl_j, nlive, cell_ntiles=None, cell_tile=None,
                  cell_slot=None, cell_fetch=None, *, path="pinned",
@@ -665,12 +664,20 @@ class WorklistInfo(typing.NamedTuple):
     cells: int           # live cells after the dst-range empty-cell drop
     launched: int        # padded 1-D grid length
     dense_live: int      # what the dense grid's two-level skip would run
-    tile_dmas: int       # tile copies the schedule makes (0 pinned)
-    tile_needed: int     # tile visits before reuse
+    # the reference's tile accounting (``plan(..., tile_lists=True)``
+    # only, else 0): tile copies its schedule makes, tile visits before
+    # reuse, and the copies' bytes
+    tile_dmas: int
+    tile_needed: int
     dma_bytes: int
     # the reference's int32 scalar-prefetch tables for this launch:
     # per-chunk lo/hi/act rows, wl_i/wl_j, nlive (+ the tiled cell tables)
     smem_table_bytes: int
+    # the rows K6/K8 stage (0 pinned): a row per active edge (active in
+    # some lane), each staged by the one listed cell that owns it, and
+    # their bytes (rows x lane_width x 4)
+    staged_rows: int = 0
+    staged_bytes: int = 0
 
 
 def _wl_pad_len(nlive: int, pad_to: int = WL_PAD) -> int:
@@ -678,20 +685,20 @@ def _wl_pad_len(nlive: int, pad_to: int = WL_PAD) -> int:
 
 
 def tile_schedule(wl_j, nlive: int, cell_ntiles, cell_tile):
-    """The 2-slot copy schedule of a tiled host plan: ``(cell_slot,
+    """The 2-slot tile-copy schedule over a tiled host plan's tile lists
+    (the reference's accounting, which no launch reads): ``(cell_slot,
     cell_fetch, copies)``, numpy, shaped like ``cell_tile``.
 
-    A block of K6/K8 runs one run of consecutive cells that share
-    ``wl_j`` (j-major order makes them contiguous), and a block cannot
-    read another block's shared memory, so the schedule restarts at each
-    run's first cell.  Within a run it is the reference's sequential
-    2-entry LRU (a needed tile still in a slot is reused; a fetch goes
-    to the slot the previous tile was not read from), in closed form:
-    over the run's tile visits in order, a visit that repeats its
-    predecessor takes the predecessor's slot and fetches nothing; the
-    k-th of the others goes to slot ``k % 2`` and fetches unless it
-    repeats the visit two before it.  So ``copies`` is the reference's
-    count plus the reuses it carried across a run boundary."""
+    The schedule restarts at each run of consecutive cells that share
+    ``wl_j`` (j-major order makes them contiguous).  Within a run it is
+    the reference's sequential 2-entry LRU (a needed tile still in a slot
+    is reused; a fetch goes to the slot the previous tile was not read
+    from), in closed form: over the run's tile visits in order, a visit
+    that repeats its predecessor takes the predecessor's slot and
+    fetches nothing; the k-th of the others goes to slot ``k % 2`` and
+    fetches unless it repeats the visit two before it.  So ``copies`` is
+    the reference's count plus the reuses it carried across a run
+    boundary."""
     wl_j = np.asarray(wl_j)
     ntl = np.asarray(cell_ntiles)[:nlive].astype(np.int64)
     cell_tile = np.asarray(cell_tile)
@@ -743,9 +750,9 @@ class WorklistPlanner:
     dense (n_sblk, n_chunks) matrix); ``plan(gchg)`` returns
     (Worklist, WorklistInfo) equal to the reference planner's plan.
     ``path='tiled'`` (with ``vblk``; ``num_slots`` sizes the slot tiling)
-    adds each cell's tile list and its copy schedule (``tile_schedule``:
-    the reference's, restarted at each run of cells sharing a chunk);
-    ``lane_width`` prices the copies of a laned launch."""
+    plans the same cells and counts the rows K6/K8 stage; ``lane_width``
+    prices a laned launch's rows.  The reference's tile lists and copy
+    schedule are built only on request (``plan(..., tile_lists=True)``)."""
 
     def __init__(self, edge_dst, edge_mask, edge_src, num_segments: int,
                  *, num_slots: int | None = None, path: str = "pinned",
@@ -840,43 +847,53 @@ class WorklistPlanner:
         at = np.minimum(np.searchsorted(keys, want), max(keys.size - 1, 0))
         return int((keys[at] == want).sum()) if keys.size else 0
 
-    def dense_mirror(self, gchg) -> dict:
+    def dense_mirror(self, gchg, tile_lists: bool = False) -> dict:
         """Mirror of the dense launch (K1, or K5 when tiled) for this edge
         set: ``cells`` it executes, ``launched``, the cells its blocks
         walk, and on the tiled path the rows K5/K7 stage
-        (``staged_rows``, ``staged_bytes`` = rows x lane_width x 4) and
-        the reference's tile accounting: each chunk's distinct
+        (``staged_rows``, ``staged_bytes`` = rows x lane_width x 4),
+        which a tiled device plan of K6/K8 stages too.  ``tile_lists``
+        adds the reference's tile accounting: each chunk's distinct
         active-source tiles (``chunk_ntiles``), the tile copies when every
-        live cell copies its chunk's tiles (``tile_dmas``, which a tiled
-        device plan of K6/K8 also makes) and their bytes
-        (``dma_bytes``)."""
+        live cell copies its chunk's tiles (``tile_dmas``) and their bytes
+        (``dma_bytes``); else those two are 0."""
         act, live = self._live_map(gchg)
         out = {"cells": int(live.sum()), "launched": self.launch_cells,
                "tile_dmas": 0, "dma_bytes": 0, "staged_rows": 0,
                "staged_bytes": 0}
         if self.path == "tiled":
-            ntiles = self._chunk_ntiles(act)
-            out["chunk_ntiles"] = ntiles
-            out["tile_dmas"] = int(ntiles[self.cell_j[live]].sum())
-            out["dma_bytes"] = out["tile_dmas"] * self.vblk \
-                * self.lane_width * 4
             out["staged_rows"] = self._staged_rows(act)
             out["staged_bytes"] = out["staged_rows"] * self.lane_width * 4
+            if tile_lists:
+                ntiles = self._chunk_ntiles(act)
+                out["chunk_ntiles"] = ntiles
+                out["tile_dmas"] = int(ntiles[self.cell_j[live]].sum())
+                out["dma_bytes"] = out["tile_dmas"] * self.vblk \
+                    * self.lane_width * 4
         return out
 
     def plan(self, gchg, pad_to: int = WL_PAD, dst_filter: bool = True,
-             max_live_fraction: float | None = None):
+             max_live_fraction: float | None = None,
+             tile_lists: bool = False):
         """Plan one round's launch from the (V,) bool frontier (a (V, Q)
         lane frontier is OR'd across lanes).
 
         j-major cell order (j outer, i inner).  With ``dst_filter`` a
         cell is kept only if one of its chunk's active edges lands in its
         block — the reference drops the others, which contribute only
-        the identity — and on the tiled path a cell lists only the tiles
-        of those edges; without, a cell lists its chunk's tiles.
-        ``max_live_fraction`` implements 'auto': when the dense grid's
-        live fraction is at or above it, return (None, None) before any
-        per-cell work."""
+        the identity.  ``max_live_fraction`` implements 'auto': when the
+        dense grid's live fraction is at or above it, return (None, None)
+        before any per-cell work.
+
+        On the tiled path the info counts the rows K6/K8 stage: every
+        active edge's (chunk, dst block) cell is listed (the dst filter
+        keeps it; unfiltered, its chunk is live and its block meets the
+        chunk's range), so a row per active edge.  ``tile_lists`` adds
+        the reference's tile accounting, which no launch reads: each
+        cell's tile list (with ``dst_filter`` only the tiles of its own
+        active edges, else its chunk's), the copy schedule
+        (``tile_schedule``) and the info's ``tile_dmas`` /
+        ``tile_needed`` / ``dma_bytes``."""
         act, live = self._live_map(gchg)
         dense_live = int(live.sum())
         if max_live_fraction is not None \
@@ -884,12 +901,15 @@ class WorklistPlanner:
                 >= max_live_fraction:
             return None, None
         if dst_filter:
+            act_cells = self.edge_cell[act]      # one entry per active edge
             hit = np.zeros(self.total_cells, bool)
-            hit[self.edge_cell[act]] = True
+            hit[act_cells] = True
             keys = np.flatnonzero(hit)
             jj, ii = np.divmod(keys, self.n_i)
+            n_act = act_cells.shape[0]
         else:
             jj, ii = self.cell_j[live], self.cell_i[live]
+            n_act = np.count_nonzero(act)
         nlive = int(ii.shape[0])
         l_pad = _wl_pad_len(nlive, pad_to)
         wl_i = np.zeros(l_pad, np.int32)
@@ -897,17 +917,21 @@ class WorklistPlanner:
         wl_i[:nlive] = ii
         wl_j[:nlive] = jj
         nlive_t = torch.tensor([nlive], dtype=torch.int32)
-        if self.path != "tiled":
+        staged = int(n_act) if self.path == "tiled" else 0
+        info = WorklistInfo(
+            cells=nlive, launched=l_pad, dense_live=dense_live,
+            tile_dmas=0, tile_needed=0, dma_bytes=0,
+            smem_table_bytes=smem_table_bytes(self.n_chunks, self.t_max,
+                                              l_pad),
+            staged_rows=staged, staged_bytes=staged * self.lane_width * 4)
+        if self.path != "tiled" or not tile_lists:
             wl = Worklist(torch.from_numpy(wl_i), torch.from_numpy(wl_j),
-                          nlive_t)
-            info = WorklistInfo(
-                cells=nlive, launched=l_pad, dense_live=dense_live,
-                tile_dmas=0, tile_needed=0, dma_bytes=0,
-                smem_table_bytes=smem_table_bytes(self.n_chunks, 0, l_pad))
+                          nlive_t, path=self.path, vblk=self.vblk)
             return wl, self._check_smem(info)
 
-        # each kept cell's distinct tiles, ascending: sorted unique
-        # (cell, tile) keys over the active edges
+        # the reference's tile accounting: each kept cell's distinct
+        # tiles, ascending (sorted unique (cell, tile) keys over the
+        # active edges), and their copy schedule
         t_max = self.t_max
         if dst_filter:
             cells, tiles = _distinct_tiles(
@@ -938,11 +962,9 @@ class WorklistPlanner:
             *(torch.from_numpy(x) for x in (cell_ntiles, cell_tile,
                                              cell_slot, cell_fetch)),
             path="tiled", vblk=self.vblk)
-        info = WorklistInfo(
-            cells=nlive, launched=l_pad, dense_live=dense_live,
+        info = info._replace(
             tile_dmas=fetches, tile_needed=int(cnt.sum()),
-            dma_bytes=fetches * self.vblk * self.lane_width * 4,
-            smem_table_bytes=smem_table_bytes(self.n_chunks, t_max, l_pad))
+            dma_bytes=fetches * self.vblk * self.lane_width * 4)
         return wl, self._check_smem(info)
 
     def _check_smem(self, info: WorklistInfo) -> WorklistInfo:
@@ -962,7 +984,7 @@ class WorklistPlanner:
 def plan_worklist(edge_dst, edge_mask, edge_src, gchg, num_segments: int,
                   *, num_slots=None, path="pinned", vblk=None,
                   lane_width: int = 1, pad_to: int = WL_PAD,
-                  dst_filter: bool = True):
+                  dst_filter: bool = True, tile_lists: bool = False):
     """One-shot worklist plan (see ``WorklistPlanner`` for the reusable
     form round loops amortize across rounds).  ``gchg`` is the (V,)
     frontier (a (V, Q) one is OR'd across lanes); it also sizes the slot
@@ -972,7 +994,8 @@ def plan_worklist(edge_dst, edge_mask, edge_src, gchg, num_segments: int,
     planner = WorklistPlanner(edge_dst, edge_mask, edge_src, num_segments,
                               num_slots=num_slots, path=path, vblk=vblk,
                               lane_width=lane_width)
-    return planner.plan(gchg, pad_to=pad_to, dst_filter=dst_filter)
+    return planner.plan(gchg, pad_to=pad_to, dst_filter=dst_filter,
+                        tile_lists=tile_lists)
 
 
 # --------------------------------------------------------------------------
@@ -986,8 +1009,7 @@ def plan_worklist(edge_dst, edge_mask, edge_src, gchg, num_segments: int,
 # two above the FULL (n_sblk, n_chunks) grid (8.5 M cells at RMAT-18, so
 # about 17 GB of K2 partials); this pads above the cells whose ranges
 # meet (about 40 k at RMAT-18, 64 MiB of partials).  A tiled device plan
-# carries no per-cell tile tables: each cell reads its chunk's list
-# (``TileTables``) through ``wl_j`` and copies every tile of it.
+# is the same list: K6/K8 stage each cell's rows from the active flags.
 
 
 def device_worklist_pad(plan: LaunchPlan) -> int:
@@ -1102,21 +1124,23 @@ def _wl_fold(partials, wl: Worklist, num_segments: int, kind: str):
     return out
 
 
-def _wl_grid(wl: Worklist, dev) -> int:
-    """K2's grid: exactly ``nlive`` blocks for a host plan (whose count
-    the host holds), else a fixed few blocks per SM striding over the
-    count in device memory."""
+def _wl_grid(wl: Worklist, dev, cells_per_block: int = 1) -> int:
+    """A worklist launch's grid, blocks taking groups of
+    ``cells_per_block`` consecutive cells: exactly one block per group
+    for a host plan (whose count the host holds), else a fixed few
+    blocks per SM striding over the groups below the count in device
+    memory."""
     if wl.nlive.device.type == "cpu":
-        return max(int(wl.nlive[0]), 1)
+        return max(-(-int(wl.nlive[0]) // cells_per_block), 1)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    return min(wl.l_pad, WL_BLOCKS_PER_SM * n_sm)
+    return min(-(-wl.l_pad // cells_per_block), WL_BLOCKS_PER_SM * n_sm)
 
 
 def _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-               wl: Worklist, num_segments: int):
+               wl: Worklist, num_segments: int, cells_per_block: int = 1):
     """Check a worklist against the launch grid (host plans only: a
     device plan's count is never read) and move it to the card.  Returns
-    (K2/K4 grid, worklist on the card)."""
+    (grid, worklist on the card)."""
     dev = gval_m.device
     if wl.nlive.device.type == "cpu":     # a host plan: check its cells
         n = int(wl.nlive[0])
@@ -1127,7 +1151,7 @@ def _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
                 or int(wl.wl_i[:n].min()) < 0
                 or int(wl.wl_j[:n].min()) < 0)):
             raise ValueError("worklist cells outside the launch grid")
-    grid = _wl_grid(wl, dev)
+    grid = _wl_grid(wl, dev, cells_per_block)
     wl = wl.to(dev)
     _check_edge_args(gval_m, edge_src, edge_w, edge_mask,
                      edge_dst, (wl.wl_i, torch.int32, "wl_i"),
@@ -1294,34 +1318,6 @@ def _launch_wl_lanes(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
 # K5-K8: the tiled launches on the card
 # --------------------------------------------------------------------------
 
-def _check_tiles(gval_m, tt: TileTables, num_edges: int):
-    """The tile tables of a tiled launch: device, dtype, shape, and a
-    double buffer that fits ``TILE_SMEM_BYTES`` at the table's lanes."""
-    q = gval_m.shape[1] if gval_m.dim() == 2 else 1
-    n_chunks = _round_up(num_edges, EBLK) // EBLK
-    for t, name, shape in ((tt.ntiles, "ntiles", (n_chunks,)),
-                           (tt.tiles, "tiles", (n_chunks, tt.t_max)),
-                           (tt.off, "off", (n_chunks, tt.t_max + 1)),
-                           (tt.order, "order", (n_chunks, EBLK))):
-        if t.device != gval_m.device or t.dtype != torch.int32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"tile table {name} must be a contiguous "
-                             f"int32 {shape} on {gval_m.device}")
-    if tt.n_tiles != _round_up(gval_m.shape[0], tt.vblk) // tt.vblk:
-        raise ValueError("tile tables were built for another table size")
-    if tile_smem_bytes(tt.vblk, q) > TILE_SMEM_BYTES:
-        raise ValueError(f"vblk={tt.vblk} needs "
-                         f"{tile_smem_bytes(tt.vblk, q)} bytes of tile "
-                         f"slots; the room is {TILE_SMEM_BYTES}")
-    if gval_m.data_ptr() % 16:
-        raise ValueError("the value table must be 16-byte aligned")
-
-
-def _tile_ptrs(tt: TileTables):
-    return (tt.ntiles.data_ptr(), tt.tiles.data_ptr(), tt.off.data_ptr(),
-            tt.order.data_ptr())
-
-
 def _check_act(act, edge_src):
     """The (E,) active-edge flags a dense tiled launch stages rows from."""
     if act.device != edge_src.device or act.dtype != torch.bool \
@@ -1403,74 +1399,22 @@ def _launch_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
     return out, dbg
 
 
-def _wl_tiled_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                      wl: Worklist, num_segments: int, tt: TileTables):
-    """A tiled worklist checked and moved to the card.  A host plan runs
-    one block per run of cells sharing ``wl_j`` (its copy schedule
-    restarts there): returns (grid, run_ptr on the card, runs, plan).  A
-    device plan runs K2's fixed grid over its count and has no runs."""
-    if wl.vblk != tt.vblk:
-        raise ValueError(f"worklist planned at vblk={wl.vblk}, tile "
-                         f"tables built at {tt.vblk}")
-    run_ptr, n_runs = None, 0
-    if wl.has_cell_tiles:
-        if wl.nlive.device.type != "cpu":
-            raise ValueError("a tiled host plan must hold CPU tensors")
-        n = int(wl.nlive[0])
-        wl_j = wl.wl_j.numpy()
-        ntl = wl.cell_ntiles.numpy()
-        tiles = wl.cell_tile.numpy()
-        if wl.cell_tile.shape != (wl.l_pad, tt.t_max) \
-                or wl.cell_slot.shape != wl.cell_tile.shape \
-                or wl.cell_fetch.shape != wl.cell_tile.shape \
-                or wl.cell_ntiles.shape != (wl.l_pad,):
-            raise ValueError("tiled worklist tables differ in shape")
-        if n and (int(ntl[:n].max()) > tt.t_max or int(ntl[:n].min()) < 0
-                  or int(tiles[:n].max()) >= tt.n_tiles
-                  or int(tiles[:n].min()) < 0
-                  or not np.isin(wl.cell_slot.numpy()[:n], (0, 1)).all()):
-            raise ValueError("tiled worklist cells outside the tile grid")
-        starts = np.flatnonzero(np.r_[True, wl_j[1:n] != wl_j[:n - 1]]) \
-            if n else np.zeros(0, np.int64)
-        n_runs = int(starts.shape[0])
-        run_ptr = torch.as_tensor(np.r_[starts, n].astype(np.int32))
-    _, wl_dev = _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                            wl, num_segments)
-    if run_ptr is None:
-        grid = _wl_grid(wl_dev, gval_m.device)
-    else:
-        grid = max(n_runs, 1)
-        run_ptr = run_ptr.to(gval_m.device)
-    return grid, run_ptr, n_runs, wl_dev
-
-
-def _cell_ptrs(wl: Worklist, run_ptr):
-    """K6/K8's per-cell arguments: null for a device plan."""
-    if not wl.has_cell_tiles:
-        return (None,) * 5
-    return (run_ptr.data_ptr(), wl.cell_ntiles.data_ptr(),
-            wl.cell_tile.data_ptr(), wl.cell_slot.data_ptr(),
-            wl.cell_fetch.data_ptr())
-
-
-def _wl_tiled_cells(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                    wl: Worklist, tt: TileTables, grid: int, run_ptr,
-                    n_runs: int, relax_kind: str, kind: str,
-                    with_debug: bool):
-    """K6 proper, writing the (l_pad, SBLK) partials; ``wl`` and
-    ``run_ptr`` must already be on the card."""
+def _wl_tiled_cells(gval_m, edge_src, edge_w, edge_mask, edge_dst, act,
+                    wl: Worklist, grid: int, relax_kind: str, kind: str,
+                    with_debug: bool, cells_per_block: int):
+    """K6 proper, writing the (l_pad, SBLK) partials; ``wl`` must already
+    be on the card and ``grid`` cover its groups of ``cells_per_block``
+    cells."""
     dev = gval_m.device
     partials = torch.empty((wl.l_pad, SBLK), dtype=torch.float32,
                            device=dev)
     dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
         else None
-    cell_tmax = wl.cell_tile.shape[1] if wl.has_cell_tiles else 0
     rc = _kernel("frr_wl_tiled_launch")(
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
-        edge_mask.data_ptr(), edge_dst.data_ptr(), wl.wl_i.data_ptr(),
-        wl.wl_j.data_ptr(), wl.nlive.data_ptr(), *_cell_ptrs(wl, run_ptr),
-        *_tile_ptrs(tt), edge_src.shape[0], gval_m.shape[0], tt.vblk,
-        tt.t_max, cell_tmax, grid, n_runs, partials.data_ptr(),
+        edge_mask.data_ptr(), edge_dst.data_ptr(), act.data_ptr(),
+        wl.wl_i.data_ptr(), wl.wl_j.data_ptr(), wl.nlive.data_ptr(),
+        edge_src.shape[0], cells_per_block, grid, partials.data_ptr(),
         dbg.data_ptr() if dbg is not None else None,
         _RELAX_CODE[relax_kind], _KIND_CODE[kind],
         torch.cuda.current_stream(dev).cuda_stream)
@@ -1480,34 +1424,36 @@ def _wl_tiled_cells(gval_m, edge_src, edge_w, edge_mask, edge_dst,
     return partials, dbg
 
 
-def _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                     wl: Worklist, tt: TileTables, num_segments: int,
-                     relax_kind: str, kind: str, with_debug: bool):
-    """Launch K6 and K2's fold on the current stream.  A host plan's
-    cells follow its copy schedule; a device plan's cells copy their
-    chunk's tiles, and nothing here waits for the card.  Returns the
-    (num_segments,) inbox partial and, with ``with_debug``, the (2,)
-    int32 [executed cells, tile copies]."""
+def _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst, act,
+                     wl: Worklist, num_segments: int, relax_kind: str,
+                     kind: str, with_debug: bool):
+    """Launch K6 and K2's fold on the current stream: K2's cells, each
+    staging the rows of its active edges (``act``) that land in its block.
+    A host plan is copied to the card; a device plan stays there and
+    nothing here waits for the card.  Returns the (num_segments,) inbox
+    partial and, with ``with_debug``, the (2,) int32 [executed cells,
+    staged rows]."""
     global wl_tiled_launches
     if gval_m.dim() != 1:
         raise ValueError("K6 takes a (V,) value table")
-    _check_tiles(gval_m, tt, edge_src.shape[0])
-    grid, run_ptr, n_runs, wl = _wl_tiled_on_card(
-        gval_m, edge_src, edge_w, edge_mask, edge_dst, wl, num_segments, tt)
+    _check_act(act, edge_src)
+    grid, wl = _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                           wl, num_segments, WL_TILED_CELLS)
     partials, dbg = _wl_tiled_cells(gval_m, edge_src, edge_w, edge_mask,
-                                    edge_dst, wl, tt, grid, run_ptr, n_runs,
-                                    relax_kind, kind, with_debug)
+                                    edge_dst, act, wl, grid, relax_kind,
+                                    kind, with_debug, WL_TILED_CELLS)
     out = _wl_fold(partials, wl, num_segments, kind)
     wl_tiled_launches += 1
     return out, dbg
 
 
-def _wl_tiled_lanes_cells(gval_m, unitw, edge_src, edge_w, edge_mask,
-                          edge_dst, wl: Worklist, tt: TileTables, grid: int,
-                          run_ptr, n_runs: int, relax_kind: str, kind: str,
-                          with_debug: bool):
-    """K8 proper, writing the (l_pad, SBLK, Q) partials; ``wl`` and
-    ``run_ptr`` must already be on the card."""
+def _wl_tiled_lanes_cells(gval_m, unitw, edge_src, edge_w, edge_dst, act,
+                          wl: Worklist, grid: int, relax_kind: str,
+                          kind: str, with_debug: bool,
+                          cells_per_block: int):
+    """K8 proper, writing the (l_pad, SBLK, Q) partials; ``wl`` must
+    already be on the card and ``grid`` cover its groups of
+    ``cells_per_block`` cells."""
     dev = gval_m.device
     q = gval_m.shape[1]
     _check_partial_room(wl_lanes_partial_bytes(wl.l_pad, q), dev)
@@ -1515,13 +1461,11 @@ def _wl_tiled_lanes_cells(gval_m, unitw, edge_src, edge_w, edge_mask,
                            device=dev)
     dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
         else None
-    cell_tmax = wl.cell_tile.shape[1] if wl.has_cell_tiles else 0
     rc = _kernel("frr_wl_tiled_lanes_launch")(
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
-        edge_mask.data_ptr(), edge_dst.data_ptr(), unitw.data_ptr(),
+        edge_dst.data_ptr(), act.data_ptr(), unitw.data_ptr(),
         wl.wl_i.data_ptr(), wl.wl_j.data_ptr(), wl.nlive.data_ptr(),
-        *_cell_ptrs(wl, run_ptr), *_tile_ptrs(tt), edge_src.shape[0],
-        gval_m.shape[0], q, tt.vblk, tt.t_max, cell_tmax, grid, n_runs,
+        edge_src.shape[0], gval_m.shape[0], q, cells_per_block, grid,
         partials.data_ptr(), dbg.data_ptr() if dbg is not None else None,
         _RELAX_CODE[relax_kind], _KIND_CODE[kind],
         torch.cuda.current_stream(dev).cuda_stream)
@@ -1532,19 +1476,24 @@ def _wl_tiled_lanes_cells(gval_m, unitw, edge_src, edge_w, edge_mask,
 
 
 def _launch_wl_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
-                           edge_dst, wl: Worklist, tt: TileTables,
-                           num_segments: int, relax_kind: str, kind: str,
-                           with_debug: bool):
-    """Launch K8 and K4's laned fold on the current stream, as
-    ``_launch_wl_tiled`` does K6."""
+                           edge_dst, act, wl: Worklist, num_segments: int,
+                           relax_kind: str, kind: str, with_debug: bool):
+    """Launch K8 and K4's laned fold on the current stream: K4's (cell,
+    lane group) blocks, each cell staging its group's columns of the rows
+    of its edges active in some lane (``act``) that land in its block.
+    Returns the (num_segments, Q) inbox partial and, with ``with_debug``,
+    the (2,) int32 [executed cells, staged rows] (one row per cell and
+    position, whatever the lane groups)."""
     global wl_tiled_lanes_launches
     _check_lane_tables(gval_m, unitw)
-    _check_tiles(gval_m, tt, edge_src.shape[0])
-    grid, run_ptr, n_runs, wl = _wl_tiled_on_card(
-        gval_m, edge_src, edge_w, edge_mask, edge_dst, wl, num_segments, tt)
+    _check_act(act, edge_src)
+    if gval_m.data_ptr() % 16:
+        raise ValueError("the value table must be 16-byte aligned")
+    grid, wl = _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                           wl, num_segments, WL_TILED_CELLS)
     partials, dbg = _wl_tiled_lanes_cells(
-        gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst, wl, tt, grid,
-        run_ptr, n_runs, relax_kind, kind, with_debug)
+        gval_m, unitw, edge_src, edge_w, edge_dst, act, wl, grid,
+        relax_kind, kind, with_debug, WL_TILED_CELLS)
     out = _wl_lanes_fold(partials, wl, num_segments, kind)
     wl_tiled_lanes_launches += 1
     return out, dbg
@@ -1589,7 +1538,7 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     hold the combine identity.  ``with_count=True`` appends the int32
     active-edge count; ``with_debug=True`` appends the int32 counts of
     executed (block, chunk) cells — (1,) pinned, (2,) tiled: [cells,
-    staged rows] dense, [cells, tile copies] worklist.  ``plan`` is ``plan_launch`` of these edges, built
+    staged rows].  ``plan`` is ``plan_launch`` of these edges, built
     here when absent (callers that launch every round build it once).
     Edges should be sorted by ``edge_dst`` for the range skip to bite;
     correctness never depends on the sort.
@@ -1602,8 +1551,8 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     ``select_kernel_path`` (``vmem_budget_bytes``, ``path``, ``vblk``,
     ``smem_budget_bytes``), or a given worklist's own: pinned runs K1
     (dense) / K2 (worklist), tiled K5 / K6.  Min results are
-    bit-identical across launches, and K5's sums are K1's; K2's and K6's
-    sums differ from them by reassociation only.
+    bit-identical across launches; K5's sums are K1's and K6's are K2's,
+    and K2's differ from K1's by reassociation only.
 
     CUDA tensors launch the kernels; CPU tensors run the plain versions.
     """
@@ -1633,9 +1582,8 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     if dev == "cuda":
         gval_m = _masked_value_tables(gval, gchg, identity)
         if worklist is not None and tiled:
-            tt = _chunk_tile_tables(edge_src, act, v, vblk)
             out, dbg = _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask,
-                                        edge_dst, worklist, tt,
+                                        edge_dst, act, worklist,
                                         num_segments, relax_kind, kind,
                                         with_debug)
         elif worklist is not None:
@@ -1651,12 +1599,11 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
                                edge_dst, plan, chunk_act, relax_kind, kind,
                                with_debug)
     elif worklist is not None and tiled:
-        out, copies = ref.fused_relax_reduce_wl_tiled_ref(
+        out, rows = ref.fused_relax_reduce_wl_tiled_ref(
             gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
             worklist.wl_i, worklist.wl_j, worklist.nlive, num_segments,
-            relax_kind, kind, vblk, worklist.cell_ntiles,
-            worklist.cell_tile, worklist.cell_fetch)
-        dbg = torch.cat([worklist.nlive, copies.view(1)])
+            relax_kind, kind)
+        dbg = torch.cat([worklist.nlive, rows.view(1)])
     elif worklist is not None:
         out = ref.fused_relax_reduce_wl_ref(
             gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
@@ -1692,8 +1639,7 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
     shared edge set (shapes of the edges as in ``fused_relax_reduce``).
     Returns the (num_segments, Q) per-lane inbox partial; ``with_count``
     appends the (Q,) int32 per-lane active-edge counts, ``with_debug``
-    the int32 executed-cell count ((2,) tiled: [cells, staged rows]
-    dense, [cells, tile copies] worklist).
+    the int32 executed-cell count ((2,) tiled: [cells, staged rows]).
     ``lane_unitw`` (Q,) only matters for ``relax_kind='add_w'``: a lane
     with a nonzero flag relaxes with weight 1.0 (BFS levels) instead of
     the edge weight (SSSP), so one launch serves a mixed BFS/SSSP batch.
@@ -1706,8 +1652,8 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
     over the budget, or ``path``/``vblk``), K7 and K8.  There is no lane
     padding: any Q gives the columns its lanes would give alone, and
     residency is judged at Q lanes.  Min results are bit-identical
-    across launches, and K7's sums are K3's; K4's and K8's sums differ
-    from them by reassociation only.
+    across launches; K7's sums are K3's and K8's are K4's, and K4's
+    differ from K3's by reassociation only.
 
     CUDA tensors launch the kernels; CPU tensors run the plain versions.
     """
@@ -1747,10 +1693,9 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
         gval_m = _masked_value_tables(gval, gchg, identity)
         unit_u8 = (unitw != 0).to(torch.uint8)
         if worklist is not None and tiled:
-            tt = _chunk_tile_tables(edge_src, act, v, vblk)
             out, dbg = _launch_wl_tiled_lanes(
-                gval_m, unit_u8, edge_src, edge_w, edge_mask, edge_dst,
-                worklist, tt, num_segments, relax_kind, kind, with_debug)
+                gval_m, unit_u8, edge_src, edge_w, edge_mask, edge_dst, act,
+                worklist, num_segments, relax_kind, kind, with_debug)
         elif worklist is not None:
             out, dbg = _launch_wl_lanes(gval_m, unit_u8, edge_src, edge_w,
                                         edge_mask, edge_dst, worklist,
@@ -1765,12 +1710,11 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
                                      edge_mask, edge_dst, plan, chunk_act,
                                      relax_kind, kind, with_debug)
     elif worklist is not None and tiled:
-        out, copies = ref.fused_relax_reduce_wl_tiled_lanes_ref(
+        out, rows = ref.fused_relax_reduce_wl_tiled_lanes_ref(
             gval, gchg, unitw, edge_src, edge_w, edge_mask, edge_dst,
             worklist.wl_i, worklist.wl_j, worklist.nlive, num_segments,
-            relax_kind, kind, vblk, worklist.cell_ntiles,
-            worklist.cell_tile, worklist.cell_fetch)
-        dbg = torch.cat([worklist.nlive, copies.view(1)])
+            relax_kind, kind)
+        dbg = torch.cat([worklist.nlive, rows.view(1)])
     elif worklist is not None:
         out = ref.fused_relax_reduce_wl_lanes_ref(
             gval, gchg, unitw, edge_src, edge_w, edge_mask, edge_dst,
@@ -1822,7 +1766,7 @@ def fused_grid_cells(edge_dst, edge_mask, edge_src, gchg,
                               num_slots=num_slots,
                               path="tiled" if tiled else "pinned",
                               vblk=vblk, lane_width=lane_width)
-    d = planner.dense_mirror(gchg)
+    d = planner.dense_mirror(gchg, tile_lists=tiled)
     out = {"total_fused": planner.total_cells,
            "launch_cells": d["launched"], "fused_live": d["cells"]}
     if tiled:

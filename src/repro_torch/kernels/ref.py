@@ -133,20 +133,12 @@ def fused_relax_reduce_lanes_ref(gval, gchg, lane_unitw, edge_src, edge_w,
     return _lane_combine(msg, edge_dst, num_segments, kind)
 
 
-def fused_relax_reduce_wl_lanes_ref(gval, gchg, lane_unitw, edge_src,
-                                    edge_w, edge_mask, edge_dst, wl_i, wl_j,
-                                    nlive, num_segments: int,
-                                    relax_kind: str, kind: str):
-    """Plain version of the laned worklist launch (kernel K4 and its
-    fold): the laned oracle over the edges whose (dst block, chunk) cell
-    is one of the first ``nlive`` listed cells — each listed cell folds
-    exactly its chunk's edges into its block, and the partials of
-    distinct cells meet only in the inbox.  Shapes as in
-    ``fused_relax_reduce_lanes_ref``; ``wl_i``/``wl_j``: (l_pad,) int,
-    ``nlive``: (1,) int."""
+def _listed_edges(edge_dst, wl_i, wl_j, nlive, num_segments: int):
+    """(E,) bool: the edge's (chunk, dst block) cell is one of the first
+    ``nlive`` listed cells (a worklist lists a cell at most once)."""
     from repro_torch.kernels.fused_relax_reduce import EBLK, SBLK
-    dev = gval.device
-    e = edge_src.shape[0]
+    dev = edge_dst.device
+    e = edge_dst.shape[0]
     n_chunks = max(-(-e // EBLK), 1)
     n_i = max(-(-num_segments // SBLK), 1)
     cells = torch.arange(wl_i.shape[0], device=dev)
@@ -158,15 +150,29 @@ def fused_relax_reduce_wl_lanes_ref(gval, gchg, lane_unitw, edge_src,
     blk = torch.div(edge_dst.long(), SBLK, rounding_mode="floor") \
         .clamp(0, n_i - 1)
     chunk = torch.arange(e, device=dev) // EBLK
-    in_cell = listed[chunk * n_i + blk]
+    return listed[chunk * n_i + blk]
+
+
+def fused_relax_reduce_wl_lanes_ref(gval, gchg, lane_unitw, edge_src,
+                                    edge_w, edge_mask, edge_dst, wl_i, wl_j,
+                                    nlive, num_segments: int,
+                                    relax_kind: str, kind: str):
+    """Plain version of the laned worklist launch (kernel K4 and its
+    fold): the laned oracle over the edges whose (dst block, chunk) cell
+    is one of the first ``nlive`` listed cells — each listed cell folds
+    exactly its chunk's edges into its block, and the partials of
+    distinct cells meet only in the inbox.  Shapes as in
+    ``fused_relax_reduce_lanes_ref``; ``wl_i``/``wl_j``: (l_pad,) int,
+    ``nlive``: (1,) int."""
+    in_cell = _listed_edges(edge_dst, wl_i, wl_j, nlive, num_segments)
     return fused_relax_reduce_lanes_ref(
         gval, gchg, lane_unitw, edge_src, edge_w, edge_mask & in_cell,
         edge_dst, num_segments, relax_kind, kind)
 
 
 # --------------------------------------------------------------------------
-# the tiled launches (K5-K8): the dense ones stage the rows a cell reads,
-# the worklist ones read the table tile by tile
+# the tiled launches (K5-K8): each live cell stages the rows it reads and
+# folds them as its pinned twin (K1-K4) does
 # --------------------------------------------------------------------------
 
 def _staged_rows(plan, act, edge_dst):
@@ -186,71 +192,12 @@ def _staged_rows(plan, act, edge_dst):
     return (keys[at] == want).sum(dtype=torch.int32)
 
 
-def _tile_walk(edge_src, act, num_slots: int, vblk: int):
-    """The order in which the worklist tiled kernels fold a round's active
-    edges,
-    and their tile tables: chunks ascending, then each chunk's tiles
-    ascending, then the tile's own edges in chunk order.  Returns
-    ((n_active,) edge indices in that order, ``TileTables``)."""
-    from repro_torch.kernels.fused_relax_reduce import (
-        EBLK, _chunk_tile_tables)
-    tt = _chunk_tile_tables(edge_src, act, num_slots, vblk)
-    n_chunks = tt.order.shape[0]
-    base = torch.arange(n_chunks, device=act.device)[:, None] * EBLK
-    walk = (base + tt.order).reshape(-1)
-    keep = (torch.arange(EBLK, device=act.device)[None, :]
-            < tt.off[:, -1:]).reshape(-1)
-    return walk[keep], tt
-
-
-def _in_plan(tt, edge_src, edge_dst, wl_i, wl_j, nlive, num_segments: int,
-             cell_ntiles, cell_tile):
-    """(E,) bool: the edge's (chunk, dst block) cell is one of the first
-    ``nlive`` listed cells and — for a host plan, whose cells list their
-    own tiles — its source's tile is in that cell's list.  A device plan
-    (no ``cell_tile``) lists its chunk's tiles, which hold every active
-    source."""
-    from repro_torch.kernels.fused_relax_reduce import EBLK, SBLK
-    dev = edge_src.device
-    e = edge_src.shape[0]
-    n_chunks = max(-(-e // EBLK), 1)
-    n_i = max(-(-num_segments // SBLK), 1)
-    wl_i, wl_j = wl_i.to(dev).long(), wl_j.to(dev).long()
-    live = torch.arange(wl_i.shape[0], device=dev) < nlive.to(dev).long()
-    key = torch.where(live, wl_j * n_i + wl_i, n_chunks * n_i)
-    cell_of = torch.full((n_chunks * n_i + 1,), -1, dtype=torch.long,
-                         device=dev)
-    cell_of[key] = torch.arange(wl_i.shape[0], device=dev)
-    cell_of[-1] = -1
-    blk = torch.div(edge_dst.long(), SBLK, rounding_mode="floor") \
-        .clamp(0, n_i - 1)
-    c = cell_of[torch.arange(e, device=dev) // EBLK * n_i + blk]
-    ok = c >= 0
-    if cell_tile is None:
-        return ok
-    # the host plan's (cell, tile) pairs as sorted keys cell * n_tiles +
-    # tile (cells ascending, tiles ascending within a cell)
-    cell_tile = cell_tile.to(dev).long()
-    cols = torch.arange(cell_tile.shape[1], device=dev)[None, :]
-    listed = (cols < cell_ntiles.to(dev).long()[:, None]) & live[:, None]
-    pairs = (torch.arange(cell_tile.shape[0], device=dev)[:, None]
-             * tt.n_tiles + cell_tile)[listed]
-    want = c.clamp(min=0) * tt.n_tiles + torch.div(
-        edge_src.long(), tt.vblk, rounding_mode="floor")
-    at = torch.searchsorted(pairs, want).clamp(max=max(pairs.shape[0] - 1,
-                                                       0))
-    found = pairs[at] == want if pairs.shape[0] else torch.zeros_like(ok)
-    return ok & found
-
-
-def _wl_copies(tt, wl_j, nlive, cell_fetch):
-    """Tile copies of a worklist tiled launch: a host plan's scheduled
-    fetches, or a device plan's chunk tiles for every live cell."""
-    dev = tt.ntiles.device
-    live = torch.arange(wl_j.shape[0], device=dev) < nlive.to(dev).long()
-    if cell_fetch is not None:
-        return (cell_fetch.to(dev) * live[:, None]).sum(dtype=torch.int32)
-    return (tt.ntiles[wl_j.to(dev).long()] * live).sum(dtype=torch.int32)
+def _wl_staged_rows(act, edge_dst, wl_i, wl_j, nlive, num_segments: int):
+    """Rows a worklist tiled launch (K6, K8) stages: a row per active
+    edge (``act``) whose (chunk, dst block) cell is one of the plan's
+    first ``nlive`` cells.  Returns an int32 scalar."""
+    return (act & _listed_edges(edge_dst, wl_i, wl_j, nlive, num_segments)
+            ).sum(dtype=torch.int32)
 
 
 def fused_relax_reduce_tiled_ref(gval, gchg, edge_src, edge_w, edge_mask,
@@ -271,30 +218,18 @@ def fused_relax_reduce_tiled_ref(gval, gchg, edge_src, edge_w, edge_mask,
 def fused_relax_reduce_wl_tiled_ref(gval, gchg, edge_src, edge_w, edge_mask,
                                     edge_dst, wl_i, wl_j, nlive,
                                     num_segments: int, relax_kind: str,
-                                    kind: str, vblk: int, cell_ntiles=None,
-                                    cell_tile=None, cell_fetch=None):
+                                    kind: str):
     """Plain version of the worklist tiled launch (kernel K6 and K2's
-    fold): the active edges of the plan's first ``nlive`` cells whose
-    tile the cell lists, folded in the order K6 walks them, and the
-    plan's tile copies.  A host plan passes its ``cell_*`` tables; a
-    device plan none.  Returns ((num_segments,) partial, int32
-    copies)."""
+    fold), which stages the rows its cells read and folds them in K2's
+    order: K2's plain version ``fused_relax_reduce_wl_ref`` and K6's
+    staged-row count over the plan's first ``nlive`` cells
+    (``_wl_staged_rows``).  Returns ((num_segments,) partial, int32
+    rows)."""
     act = edge_mask & gchg[edge_src.long()]
-    walk, tt = _tile_walk(edge_src, act, gval.shape[0], vblk)
-    walk = walk[_in_plan(tt, edge_src, edge_dst, wl_i, wl_j, nlive,
-                         num_segments, cell_ntiles, cell_tile)[walk]]
-    src = edge_src.long()[walk]
-    msg = RELAX_FNS[relax_kind](gval[src], edge_w[walk])
-    return (segment_combine_ref(msg, edge_dst[walk], num_segments, kind),
-            _wl_copies(tt, wl_j, nlive, cell_fetch))
-
-
-def _tiled_lanes(gval, gchg, lane_unitw, edge_src, edge_w, edge_dst, walk,
-                 num_segments: int, relax_kind: str, kind: str):
-    msg = _lane_messages(gval, gchg, lane_unitw, edge_src[walk],
-                         edge_w[walk], torch.ones_like(walk, dtype=torch.bool),
-                         relax_kind, kind)
-    return _lane_combine(msg, edge_dst[walk], num_segments, kind)
+    return (fused_relax_reduce_wl_ref(gval, gchg, edge_src, edge_w,
+                                      edge_mask, edge_dst, wl_i, wl_j,
+                                      nlive, num_segments, relax_kind, kind),
+            _wl_staged_rows(act, edge_dst, wl_i, wl_j, nlive, num_segments))
 
 
 def fused_relax_reduce_tiled_lanes_ref(gval, gchg, lane_unitw, edge_src,
@@ -316,17 +251,14 @@ def fused_relax_reduce_tiled_lanes_ref(gval, gchg, lane_unitw, edge_src,
 def fused_relax_reduce_wl_tiled_lanes_ref(gval, gchg, lane_unitw, edge_src,
                                           edge_w, edge_mask, edge_dst, wl_i,
                                           wl_j, nlive, num_segments: int,
-                                          relax_kind: str, kind: str,
-                                          vblk: int, cell_ntiles=None,
-                                          cell_tile=None, cell_fetch=None):
+                                          relax_kind: str, kind: str):
     """Plain version of the laned worklist tiled launch (kernel K8 and
-    K4's fold), as ``fused_relax_reduce_wl_tiled_ref`` over the
-    OR-across-lanes frontier.  Returns ((num_segments, Q) partial, int32
-    copies)."""
+    K4's fold): K4's plain version ``fused_relax_reduce_wl_lanes_ref``
+    and K8's staged-row count over the OR-across-lanes frontier.  Returns
+    ((num_segments, Q) partial, int32 rows)."""
     act = edge_mask & gchg.any(dim=1)[edge_src.long()]
-    walk, tt = _tile_walk(edge_src, act, gval.shape[0], vblk)
-    walk = walk[_in_plan(tt, edge_src, edge_dst, wl_i, wl_j, nlive,
-                         num_segments, cell_ntiles, cell_tile)[walk]]
-    return (_tiled_lanes(gval, gchg, lane_unitw, edge_src, edge_w, edge_dst,
-                         walk, num_segments, relax_kind, kind),
-            _wl_copies(tt, wl_j, nlive, cell_fetch))
+    return (fused_relax_reduce_wl_lanes_ref(gval, gchg, lane_unitw, edge_src,
+                                            edge_w, edge_mask, edge_dst,
+                                            wl_i, wl_j, nlive, num_segments,
+                                            relax_kind, kind),
+            _wl_staged_rows(act, edge_dst, wl_i, wl_j, nlive, num_segments))

@@ -51,9 +51,8 @@ class RoundRecord:
     path: str            # 'pinned' | 'tiled' | 'reduce' | 'jnp'
     cells: int           # live grid cells (planner mirror)
     launched: int        # launched cells (dense: total grid; wl: padded)
-    tile_dmas: int       # tiled path only: rows staged (dense, K5) or
-                         # vblk tiles copied (worklist, K6)
-    dma_bytes: int       # their bytes
+    tile_dmas: int       # tiled path only: rows staged (K5-K8)
+    dma_bytes: int       # their bytes (rows x Q x 4)
     wall_s: float
     shard_messages: list | None = None
     window: int = 0      # dispatch-window index (0 = per-round record)
@@ -107,7 +106,7 @@ class FlightRecorder:
                   "live fused-grid cells (planner mirror)"
                   ).labels(run=run).inc(record.cells)
         m.counter("engine_dma_bytes_total",
-                  "value-tile DMA bytes (planner mirror)"
+                  "bytes the tiled kernels stage (planner mirror)"
                   ).labels(run=run).inc(record.dma_bytes)
         m.gauge("engine_frontier",
                 "live slots entering the last round"

@@ -455,8 +455,8 @@ def test_reduce_mode_on_card_matches_oracle(dev, app, oracle):
 # K5-K8: the tiled launches
 # --------------------------------------------------------------------------
 # Shapes straddle a tile (V = 129 at vblk 128, V = 1025 at vblk 1024);
-# vblk None is the automatic width.  A width whose double buffer does not
-# fit the shared-memory room at Q lanes must raise.
+# vblk None is the automatic width.  The width shapes only the
+# reference's tile accounting: the kernels stage rows.
 
 TILED_SHAPES = [(1, 1, 1), (129, 300, 50), (1025, 5 * EBLK + 13, 2 * SBLK + 5),
                 (5000, 20 * EBLK + 77, 3000)]
@@ -478,42 +478,38 @@ def _tiled_case(v, e, nseg, frac, seed, q=None):
 
 
 def _check_tiled(dev, case, nseg, relax, kind, grid_mode, vblk, unitw=None):
-    """The tiled kernel of ``grid_mode`` against its plain version, the
-    pinned oracle and the host mirror: min bit-equal, sum within rtol
-    1e-5 and bit-equal between two runs, cells and copies (tiles on a
-    worklist, staged rows dense) exact.  The dense kernels K5/K7 equal
-    K1/K3 bit for bit, sum included."""
+    """The tiled kernel of ``grid_mode`` against its pinned twin on the
+    same plan, its plain version, the pinned oracle and the host mirror:
+    K5/K6/K7/K8 equal K1/K2/K3/K4 bit for bit, sum included; min
+    bit-equal to the plain version and the oracle, sum within rtol 1e-5;
+    cells and staged rows exact, the same rows under every launch
+    shape."""
     gval, gchg, src, w, mask, ids = case
     q = 1 if unitw is None else gval.shape[1]
     laned = unitw is not None
-    if vblk is not None and frr.tile_smem_bytes(vblk, q) \
-            > frr.TILE_SMEM_BYTES:
-        with pytest.raises(ValueError, match="vblk"):
-            frr.select_kernel_path(gval.shape[0], q, path="tiled",
-                                   vblk=vblk)
-        return
     vb = frr.select_kernel_path(gval.shape[0], q, path="tiled",
                                 vblk=vblk)[1]
     t = [torch.as_tensor(x, device=dev) for x in case]
     head = t[:2] + ([torch.as_tensor(unitw, device=dev)] if laned else [])
     gor = gchg.any(axis=1) if laned else gchg
     plan = frr.plan_launch(t[2], t[4], t[5], nseg, gval.shape[0])
+    m = frr.fused_grid_cells(ids, mask, src, gor, nseg, vblk=vb)
     wl = None
     if grid_mode == "worklist":
         wl, info = frr.plan_worklist(ids, mask, src, gor, nseg,
                                      num_slots=gval.shape[0], path="tiled",
                                      vblk=vb, lane_width=q)
-        want_dbg = (info.cells, info.tile_dmas)
+        want_dbg = (info.cells, info.staged_rows)
     elif grid_mode == "device_worklist":
         wl = frr.build_device_worklist(t[1], t[2], t[4], t[5], nseg, plan,
                                        path="tiled", vblk=vb)
         _, info = frr.plan_worklist(ids, mask, src, gor, nseg,
                                     num_slots=gval.shape[0], path="tiled",
                                     vblk=vb, dst_filter=False)
-        want_dbg = (info.cells, info.tile_needed)
+        want_dbg = (info.cells, info.staged_rows)
     else:
-        m = frr.fused_grid_cells(ids, mask, src, gor, nseg, vblk=vb)
         want_dbg = (m["fused_live"], m["fused_staged_rows"])
+    assert want_dbg[1] == m["fused_staged_rows"]
     launch = frr.fused_relax_reduce_lanes if laned else frr.fused_relax_reduce
 
     def run(debug=True):
@@ -525,32 +521,32 @@ def _check_tiled(dev, case, nseg, relax, kind, grid_mode, vblk, unitw=None):
     if wl is None:
         plain_fn = (ref.fused_relax_reduce_tiled_lanes_ref if laned
                     else ref.fused_relax_reduce_tiled_ref)
-        plain, copies = plain_fn(*head, *t[2:], nseg, relax, kind, plan)
+        plain, rows = plain_fn(*head, *t[2:], nseg, relax, kind, plan)
         pinned = launch(*head, *t[2:], nseg, relax, kind, plan=plan,
                         path="pinned")
     else:
         plain_fn = (ref.fused_relax_reduce_wl_tiled_lanes_ref if laned
                     else ref.fused_relax_reduce_wl_tiled_ref)
-        plain, copies = plain_fn(*head, *t[2:], wl.wl_i.to(dev),
-                                 wl.wl_j.to(dev), wl.nlive.to(dev), nseg,
-                                 relax, kind, vb, wl.cell_ntiles,
-                                 wl.cell_tile, wl.cell_fetch)
+        plain, rows = plain_fn(*head, *t[2:], wl.wl_i.to(dev),
+                               wl.wl_j.to(dev), wl.nlive.to(dev), nseg,
+                               relax, kind)
+        pinned = launch(*head, *t[2:], nseg, relax, kind, plan=plan,
+                        worklist=frr.Worklist(wl.wl_i, wl.wl_j, wl.nlive))
     oracle = (fused_relax_reduce_lanes_ref if laned
               else fused_relax_reduce_ref)(*head, *t[2:], nseg, relax, kind)
     torch.cuda.synchronize()
+    assert torch.equal(out, pinned)
     if kind == "min":
         assert torch.equal(out, plain) and torch.equal(out, oracle)
     else:
         torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-6)
         again, _ = run(debug=False)
         assert torch.equal(out, again)
-    if wl is None:
-        assert torch.equal(out, pinned)
     want_count = (mask[:, None] & gchg[src]).sum(axis=0) if laned \
         else (mask & gchg[src]).sum()
     np.testing.assert_array_equal(count.cpu().numpy(), want_count)
     assert (int(dbg[0]), int(dbg[1])) == want_dbg
-    assert int(copies) == want_dbg[1]
+    assert int(rows) == want_dbg[1]
 
 
 @pytest.mark.parametrize("vblk", VBLKS)
@@ -620,10 +616,11 @@ def test_tiled_kernels_count_launches(dev):
 
 
 def test_dense_tiled_relax_builds_no_tile_tables(dev, monkeypatch):
-    """The dense tiled relax phase (K5, K7) stages rows and builds no
-    tile tables; the worklist one (K6) still does."""
+    """No tiled launch (K5-K8, dense, host and device plans) builds a
+    tile table or a copy schedule: the kernels stage rows from the
+    active flags the chunk tables already compute."""
     def refuse(*args, **kwargs):
-        raise AssertionError("tile tables built for a dense tiled launch")
+        raise AssertionError("tile tables built for a tiled launch")
 
     case = [torch.as_tensor(x, device=dev)
             for x in _tiled_case(1025, 5 * EBLK, 700, 0.5, 3)]
@@ -631,17 +628,20 @@ def test_dense_tiled_relax_builds_no_tile_tables(dev, monkeypatch):
             for x in _tiled_case(1025, 5 * EBLK, 700, 0.5, 3, q=4)]
     unitw = torch.zeros(4, dtype=torch.int32, device=dev)
     monkeypatch.setattr(frr, "_chunk_tile_tables", refuse)
-    frr.tiled_launches = frr.tiled_lanes_launches = 0
-    frr.fused_relax_reduce(*case, 700, "add_w", "min",
-                           vmem_budget_bytes=256)
-    frr.fused_relax_reduce_lanes(lane[0], lane[1], unitw, *lane[2:], 700,
-                                 "add_w", "min", vmem_budget_bytes=256)
-    torch.cuda.synchronize()
-    assert (frr.tiled_launches, frr.tiled_lanes_launches) == (1, 1)
-    with pytest.raises(AssertionError, match="tile tables"):
+    monkeypatch.setattr(frr, "tile_schedule", refuse)
+    counts = ("tiled_launches", "wl_tiled_launches", "tiled_lanes_launches",
+              "wl_tiled_lanes_launches")
+    for name in counts:
+        setattr(frr, name, 0)
+    for grid_mode in ("dense", "worklist", "device_worklist"):
         frr.fused_relax_reduce(*case, 700, "add_w", "min",
-                               grid_mode="device_worklist",
-                               vmem_budget_bytes=256)
+                               grid_mode=grid_mode, vmem_budget_bytes=256)
+        frr.fused_relax_reduce_lanes(lane[0], lane[1], unitw, *lane[2:],
+                                     700, "add_w", "min",
+                                     grid_mode=grid_mode,
+                                     vmem_budget_bytes=256)
+    torch.cuda.synchronize()
+    assert [getattr(frr, n) for n in counts] == [1, 2, 1, 2]
 
 
 @pytest.mark.parametrize("grid_mode", ["dense", "worklist",

@@ -7,6 +7,7 @@ reference's jnp path and its Pallas kernel in interpret mode.  The
 scale-8 counter gate's algorithmic fields are hit exactly.
 """
 import dataclasses
+import inspect
 import json
 import pathlib
 
@@ -190,6 +191,11 @@ def test_dispatch_counters_count_rounds():
     assert disp.value - d0 == it + 2 and syncs.value - s0 == it + 3
 
 
+SHARDED_ENGINE_FNS = ["make_sharded_fn", "run_sharded",
+                      "make_sharded_pagerank_fn", "run_pagerank_sharded",
+                      "make_sharded_pagerank_delta_fn",
+                      "run_pagerank_delta_sharded"]
+
 BAD_FIELDS = [dict(collapse="lazy"), dict(exchange="sparse"),
               dict(pallas_mode="tiled"), dict(vmem_budget_bytes=0),
               dict(grid_mode="sparse"), dict(device_window=0),
@@ -218,13 +224,39 @@ def test_engine_config_fields_and_defaults_match_reference():
     ("pagerank_delta_compact", "Queue 1 item 4"),
     ("pagerank_reduce", "K9"),
     ("pagerank_mesh", "Queue 1 item 10"),
-])
+    ("bfs_mesh", "Queue 1 item 10"),
+    ("sssp_mesh", "Queue 1 item 10"),
+] + [(name, "Queue 1 item 10") for name in SHARDED_ENGINE_FNS])
 def test_unported_options_raise(case, item):
     """Options the port lacks raise, naming the ROADMAP item that brings
     them.  ``pallas_mode='reduce'`` has come since (kernel K9): its cases
     now run and equal the reference (``test_torch_segment_reduce.py``
-    holds the path in full)."""
+    holds the path in full).  The sharded entry points take the
+    reference's parameters and call form (``mesh=`` on the apps, the six
+    sharded engine functions) and raise for item 10."""
     g_ref, g, root, part_ref, part = _both("rmat8", 4, 1)
+    mesh = object()
+    if case in SHARDED_ENGINE_FNS:
+        fn = getattr(engine, case)
+        want = inspect.signature(getattr(ref_engine, case)).parameters
+        assert list(inspect.signature(fn).parameters) == list(want)
+        init = engine.init_values(part, actions.BFS, {root: 0.0})
+        args = {"make_sharded_fn": (actions.BFS, part.S, part.R_max, mesh),
+                "run_sharded": (actions.BFS, part, init, mesh),
+                "make_sharded_pagerank_fn": (part.S, part.R_max, g.n, 0.85,
+                                             5, mesh),
+                "run_pagerank_sharded": (part, 0.85, 5, mesh),
+                "make_sharded_pagerank_delta_fn": (part.S, part.R_max, 0.85,
+                                                   1e-6, mesh),
+                "run_pagerank_delta_sharded": (part, 0.85, 1e-6, mesh)}
+        with pytest.raises(NotImplementedError, match=item):
+            fn(*args[case], ("data", "model"), engine.EngineConfig())
+        return
+    if case in ("bfs_mesh", "sssp_mesh"):
+        app = case.split("_")[0]
+        want = list(inspect.signature(getattr(ref_apps, app)).parameters)
+        got = list(inspect.signature(getattr(apps, app)).parameters)
+        assert got == want + ["device"]
     compact = engine.EngineConfig(exchange="compact")
     reduce = engine.EngineConfig(use_pallas=True, pallas_mode="reduce")
     if item == "K9":
@@ -253,6 +285,9 @@ def test_unported_options_raise(case, item):
                                                  device="cpu"),
         "pagerank_mesh": lambda: apps.pagerank(g, part=part, mesh=object(),
                                                device="cpu"),
+        # the reference's call form (tests/test_engine_sharded.py)
+        "bfs_mesh": lambda: apps.bfs(g, root, num_shards=1, mesh=mesh),
+        "sssp_mesh": lambda: apps.sssp(g, root, num_shards=1, mesh=mesh),
     }
     with pytest.raises(NotImplementedError, match=item):
         calls[case]()

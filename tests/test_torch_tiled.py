@@ -5,10 +5,13 @@ Residency selection follows the reference's rules (budget, env var,
 forced path/vblk, the index-table guard), with the Hopper tile width;
 the per-chunk tile tables equal the reference's; the four plain tiled
 launches equal the reference's tiled kernels in interpret mode (min
-bit-equal, sum within rtol 1e-5 / atol 1e-6, cells equal; the dense
-launches stage rows, counted by the mirror's ``fused_staged_rows``,
-while the mirror's ``fused_tile_dmas`` equals the reference's tile
-copies); tiled host plans equal the reference planner's but for the
+bit-equal, sum within rtol 1e-5 / atol 1e-6, cells equal; the port's
+launches stage rows, counted by the mirror's ``fused_staged_rows`` and
+the planner's ``staged_rows``, while the mirrors of the reference's tile
+copies, ``fused_tile_dmas`` and ``plan(..., tile_lists=True)``, hold its
+counts); the tiled worklist plain versions equal the pinned ones (K2's,
+K4's) bit for bit; the default tiled planner builds no tile list, and
+with ``tile_lists`` its plans equal the reference planner's but for the
 copy schedule, which restarts at each run of cells sharing a chunk;
 device plans equal in cells and tile lists; and BFS, SSSP, PageRank,
 delta-PageRank and the lane runners with a value table over the budget
@@ -148,11 +151,25 @@ def test_auto_vblk_is_the_largest_tile_the_room_holds(q):
         < frr.tile_smem_bytes(vblk + 128, q)
     # capped at the padded table
     assert frr.select_kernel_path(300, q, TINY_BUDGET) == ("tiled", 384)
-    # a forced tile whose double buffer does not fit raises, with bytes
+    # a forced tile wider than the room is accepted, as in the
+    # reference: no kernel allocates a tile
     big = want + 128
-    with pytest.raises(ValueError,
-                       match=str(frr.tile_smem_bytes(big, q))):
-        frr.select_kernel_path(10**6, q, TINY_BUDGET, vblk=big)
+    assert frr.select_kernel_path(10**6, q, TINY_BUDGET, vblk=big) \
+        == ref_frr.select_kernel_path(10**6, q, TINY_BUDGET, vblk=big) \
+        == ("tiled", big)
+
+
+@pytest.mark.parametrize("q,vblk", [(1, 16384), (16, 1024), (33, 768),
+                                    (1, 12288)])
+def test_forced_vblk_matches_reference(q, vblk):
+    """A forced positive multiple of 128 gives the reference's (path,
+    vblk), whatever the shared-memory room holds."""
+    for path in (None, "tiled"):
+        got = frr.select_kernel_path(100_000, q, TINY_BUDGET, path=path,
+                                     vblk=vblk)
+        want = ref_frr.select_kernel_path(100_000, q, TINY_BUDGET,
+                                          path=path, vblk=vblk)
+        assert got == want == ("tiled", vblk)
 
 
 def test_smem_guard_widens_like_reference():
@@ -232,23 +249,26 @@ def _check_launch(got, want, kind, grid_mode, case, nseg, vblk, q=1):
     w_out, w_count, w_dbg = want
     _assert_close(out.numpy(), np.asarray(w_out), kind)
     np.testing.assert_array_equal(count.numpy(), np.asarray(w_count))
-    cells, copies = (int(x) for x in dbg)
+    cells, rows = (int(x) for x in dbg)
     assert cells == int(w_dbg[0])
     gchg = case[1].any(axis=-1) if case[1].ndim == 2 else case[1]
+    # the port stages rows, the same under every launch shape; the
+    # mirrors keep the reference's tile copies
+    m = frr.fused_grid_cells(case[5], case[4], case[2], gchg, nseg,
+                             vblk=vblk, lane_width=q)
+    assert rows == m["fused_staged_rows"]
     if grid_mode == "worklist":
-        # the schedule restarts at each run of cells sharing a chunk
-        assert copies >= int(w_dbg[1])
         _, info = frr.plan_worklist(case[5], case[4], case[2], gchg, nseg,
-                                    path="tiled", vblk=vblk, lane_width=q)
-        assert (cells, copies) == (info.cells, info.tile_dmas)
-    elif grid_mode == "dense":
-        # the port stages rows; the mirror keeps the reference's tiles
-        m = frr.fused_grid_cells(case[5], case[4], case[2], gchg, nseg,
-                                 vblk=vblk, lane_width=q)
-        assert (cells, copies) == (m["fused_live"], m["fused_staged_rows"])
-        assert m["fused_tile_dmas"] == int(w_dbg[1])
+                                    path="tiled", vblk=vblk, lane_width=q,
+                                    tile_lists=True)
+        assert (cells, rows) == (info.cells, info.staged_rows)
+        # the mirror's schedule restarts at each run of cells sharing a
+        # chunk
+        assert info.tile_dmas >= int(w_dbg[1])
     else:
-        assert copies == int(w_dbg[1])
+        if grid_mode == "dense":
+            assert cells == m["fused_live"]
+        assert m["fused_tile_dmas"] == int(w_dbg[1])
 
 
 @pytest.mark.parametrize("grid_mode", GRIDS)
@@ -297,9 +317,9 @@ def test_tiled_lanes_launch_matches_reference(q, relax, kind, grid_mode):
 
 
 def test_plain_tiled_frontier_extremes():
-    """An empty frontier copies nothing; a full one copies at least one
-    tile (worklist) or row (dense) per executed cell, and the dense
-    launch stages a row per valid edge, as the mirror counts."""
+    """An empty frontier stages nothing; a full one stages at least one
+    row per executed cell, and every launch shape stages a row per valid
+    edge, as the mirror counts."""
     for frac, relax, kind in ((0.0, "add_w", "min"), (1.0, "mul_w", "sum")):
         raw = _case(400, 3 * EBLK, 700, frac, 5)
         case = [torch.as_tensor(x) for x in raw]
@@ -313,12 +333,12 @@ def test_plain_tiled_frontier_extremes():
                 assert bool((out == np.inf).all())
             else:
                 assert copies >= cells > 0
+            m = frr.fused_grid_cells(raw[5], raw[4], raw[2], raw[1], 700,
+                                     vblk=128)
+            assert copies == m["fused_staged_rows"] \
+                == int(raw[4].sum()) * (frac == 1.0)
             if grid_mode == "dense":
-                m = frr.fused_grid_cells(raw[5], raw[4], raw[2], raw[1], 700,
-                                         vblk=128)
-                assert (cells, copies) == (m["fused_live"],
-                                           m["fused_staged_rows"])
-                assert copies == int(raw[4].sum()) * (frac == 1.0)
+                assert cells == m["fused_live"]
 
 
 def _staged_case(v, e, nseg, frac, q, layout, seed):
@@ -440,8 +460,11 @@ def test_tiled_host_plan_matches_reference(v, e, nseg, frac, dst_filter):
     _, gchg, src, _, mask, ids = _case(v, e, nseg, frac, v + e + 1)
     kw = dict(path="tiled", vblk=128, lane_width=3, dst_filter=dst_filter)
     want, want_info = ref_frr.plan_worklist(ids, mask, src, gchg, nseg, **kw)
-    got, info = frr.plan_worklist(ids, mask, src, gchg, nseg, **kw)
+    got, info = frr.plan_worklist(ids, mask, src, gchg, nseg, **kw,
+                                  tile_lists=True)
     assert got.path == "tiled" and got.vblk == 128
+    n_act = int((mask & gchg[src]).sum())
+    assert (info.staged_rows, info.staged_bytes) == (n_act, n_act * 3 * 4)
     for name in ("wl_i", "wl_j", "nlive", "cell_ntiles", "cell_tile"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       getattr(want, name))
@@ -459,6 +482,88 @@ def test_tiled_host_plan_matches_reference(v, e, nseg, frac, dst_filter):
     carried = interop.worklist_from_dict(vars(want))
     np.testing.assert_array_equal(carried.cell_fetch.numpy(), fetch)
     np.testing.assert_array_equal(carried.cell_slot.numpy(), slot)
+
+
+@pytest.mark.parametrize("dst_filter", [True, False])
+@pytest.mark.parametrize("q", [None, 5])
+@pytest.mark.parametrize("v,e,nseg", SHAPES[1:])
+def test_default_tiled_plan_builds_no_tile_lists(monkeypatch, v, e, nseg, q,
+                                                 dst_filter):
+    """The default tiled plan (what launches and round loops use) builds
+    no tile list and no schedule, and still equals the reference planner
+    in cells, order and counts; it counts a staged row per active edge
+    (active in some lane)."""
+    _, gchg, src, _, mask, ids = _case(v, e, nseg, 0.3, v + e + 3, q=q)
+    gor = gchg.any(axis=1) if q else gchg
+    kw = dict(path="tiled", vblk=128, dst_filter=dst_filter)
+    want, want_info = ref_frr.plan_worklist(ids, mask, src, gor, nseg, **kw)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tile list built for a tiled launch")
+
+    monkeypatch.setattr(frr, "tile_schedule", refuse)
+    monkeypatch.setattr(frr, "_distinct_tiles", refuse)
+    lanes_ = q or 1
+    got, info = frr.plan_worklist(ids, mask, src, gchg, nseg, **kw,
+                                  lane_width=lanes_)
+    assert got.path == "tiled" and not got.has_cell_tiles
+    for name in ("wl_i", "wl_j", "nlive"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      getattr(want, name))
+    for f in ("cells", "launched", "dense_live", "smem_table_bytes"):
+        assert getattr(info, f) == getattr(want_info, f)
+    n_act = int((mask & gor[src]).sum())
+    assert (info.tile_dmas, info.staged_rows, info.staged_bytes) \
+        == (0, n_act, n_act * lanes_ * 4)
+
+
+@pytest.mark.parametrize("grid_mode", ["worklist", "device_worklist"])
+@pytest.mark.parametrize("q,relax,kind", [
+    (None, "add_w", "min"), (None, "add_one", "min"), (None, "mul_w", "sum")]
+    + [(q, r, k) for q in (1, 5, 16, 33) for r, k in LANE_PAIRS])
+def test_tiled_worklist_plain_equals_pinned_plain(q, relax, kind, grid_mode):
+    """The tiled worklist plain versions (K6's, K8's) are K2's and K4's
+    bit for bit, sum included, as the kernels are on the card; their
+    staged rows equal the host plan's ``staged_rows`` or, on a device
+    plan, the dense mirror's, and both equal K5's / K7's count on the
+    same round."""
+    v, e, nseg = 600, 4 * EBLK - 1, 2 * SBLK + 1
+    case = _staged_case(v, e, nseg, 0.4, q, "straddle", 29 + (q or 0))
+    gval, gchg, src, w, mask, ids = case
+    t = [torch.as_tensor(x) for x in case]
+    gor = gchg.any(axis=1) if q else gchg
+    planner = frr.WorklistPlanner(ids, mask, src, nseg, num_slots=v,
+                                  path="tiled", vblk=128,
+                                  lane_width=q or 1)
+    if grid_mode == "worklist":
+        wl, info = planner.plan(gor)
+        want_rows = info.staged_rows
+    else:
+        wl = frr.build_device_worklist(torch.as_tensor(gor), t[2], t[4],
+                                       t[5], nseg, path="tiled", vblk=128)
+        want_rows = planner.dense_mirror(gor)["staged_rows"]
+    args = (wl.wl_i, wl.wl_j, wl.nlive, nseg, relax, kind)
+    if q is None:
+        plain, rows = ref.fused_relax_reduce_wl_tiled_ref(*t, *args)
+        pinned = ref.fused_relax_reduce_wl_ref(*t, *args)
+        launch = frr.fused_relax_reduce
+        head = t[:2]
+    else:
+        unitw = torch.as_tensor((np.arange(q) % 2).astype(np.int32))
+        plain, rows = ref.fused_relax_reduce_wl_tiled_lanes_ref(
+            t[0], t[1], unitw, *t[2:], *args)
+        pinned = ref.fused_relax_reduce_wl_lanes_ref(t[0], t[1], unitw,
+                                                     *t[2:], *args)
+        launch = frr.fused_relax_reduce_lanes
+        head = [t[0], t[1], unitw]
+    assert torch.equal(plain, pinned)
+    assert bool(torch.isfinite(plain).any())
+    _, dbg = launch(*head, *t[2:], nseg, relax, kind, with_debug=True,
+                    worklist=wl)
+    _, dense_dbg = launch(*head, *t[2:], nseg, relax, kind, with_debug=True,
+                          path="tiled", vblk=128)
+    assert int(rows) == int(dbg[1]) == want_rows == int(dense_dbg[1]) \
+        == int((mask & gor[src]).sum())
 
 
 if HAVE_HYPOTHESIS:
@@ -629,8 +734,10 @@ def test_ppr_delta_lanes_over_budget_match_reference(room, grid_mode):
 @pytest.mark.parametrize("grid_mode", ["dense", "worklist",
                                        "device_worklist"])
 def test_recorder_tile_copies_equal_the_mirror(room, grid_mode):
-    """The flight recorder's tile columns are the planner mirror's, and
-    the launches' own copy counters equal them round by round."""
+    """The flight recorder's copy columns are the planner mirror's staged
+    rows (4 bytes each on every tiled round, worklist and device windows
+    included), and the launches' own row counters equal them round by
+    round."""
     room(1)
     _, g, root, _, part = _partitions()
     cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid_mode,
@@ -639,9 +746,8 @@ def test_recorder_tile_copies_equal_the_mirror(room, grid_mode):
         apps.sssp(g, root, part=part, cfg=cfg, device="cpu")
     rounds = [r for r in rec.rounds if r.run == "sssp"]
     assert rounds and all(r.path == "tiled" for r in rounds)
-    # dense rounds stage rows (4 bytes each), worklist rounds 128-slot tiles
-    unit = 4 if grid_mode == "dense" else 128 * 4
-    assert all(r.dma_bytes == r.tile_dmas * unit for r in rounds)
+    # every tiled round stages rows, 4 bytes each
+    assert all(r.dma_bytes == r.tile_dmas * 4 for r in rounds)
     if grid_mode == "device_worklist":
         assert sum(r.tile_dmas for r in rounds) > 0
         return
@@ -661,8 +767,8 @@ def test_recorder_tile_copies_equal_the_mirror(room, grid_mode):
         wl = None
         if r.grid == "worklist":
             wl, info = planner.plan(gchg.numpy())
-            assert (r.tile_dmas, r.dma_bytes) == (info.tile_dmas,
-                                                  info.dma_bytes)
+            assert (r.cells, r.tile_dmas, r.dma_bytes) == (
+                info.cells, info.staged_rows, info.staged_bytes)
         else:
             d = planner.dense_mirror(gchg.numpy())
             assert (r.cells, r.tile_dmas, r.dma_bytes) == (
