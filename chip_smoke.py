@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --plan-timing [SRC]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 the ignored ``src/repro_torch/kernels/build/`` (one ``nvcc`` per source,
@@ -33,10 +34,15 @@ started together) and runs, in order:
    ``apps.pagerank_delta`` (auto and device_worklist) on the partition of
    ``_pr_graph(g)`` within rtol 1e-4 / atol 1e-7 of
    ``reference.pagerank``; then every worklist round (BFS, SSSP,
-   delta-PageRank) is replayed to time the host planner, K2 alone, K2
-   with its fold, the relax phase (host plan and device plan), K1 on the
-   same round, the plain version and a library call, against the same
-   byte bound as K1;
+   delta-PageRank) is replayed: K2 from the host plan and the device
+   plan against its plain version and the planner's cell counts, and
+   with every segment block one piece against K1 bit for bit; the host
+   planner, K2 alone (host and device plans), the relax phase (both
+   plans), K1 on the same round, the plain version and a library call
+   are timed against the same byte bound as K1; on the heaviest round K2
+   is timed at 4, 8, 16 and 32 cells a piece, the cut's histogram is
+   printed, and ``torch.profiler`` counts the kernels each relax phase
+   (K1, K2 host plan, K2 device plan) puts on the card;
 6. slice-3 path, query lanes, at the same width: first the lane-batched
    kernels K3 (dense) and K4 (worklist, host and device plans) against
    their plain versions (both laned pairings, mixed ``lane_unitw``,
@@ -54,16 +60,19 @@ started together) and runs, in order:
    seeds and mixed dampings within rtol 1e-4 / atol 1e-7 of a float64
    power iteration; BFS and SSSP under ``pallas_mode='reduce'`` (K9)
    equal the numpy oracles; and the heaviest rounds replayed to time K3,
-   K4 (with and without its fold) and K9 against their plain versions, a
+   K4 (host and device plans; also at 4-32 cells a piece, and one piece a
+   block held to K3 bit for bit) and K9 against their plain versions, a
    library call and the bound — K3 also against 16 solo K1 launches of
-   the same round.
+   the same round — with the kernels each laned relax phase puts on the
+   card counted by ``torch.profiler``.
 
 7. slice-4 path, the tiled residency: first the tiled kernels K5 (dense),
    K6 (worklist, host and device plans), K7 (dense lanes) and K8
    (worklist lanes) against their plain versions (all pairings, Q in
    {1, 5, 16, 33}, vblk 128 and the automatic width, ragged sizes,
    frontier densities 0 / 1% / 100%, a converged lane) and against their
-   pinned twins K1-K4 on the same plan, bit for bit, sum included, with
+   pinned twins K1-K4 on the same plan and pieces, bit for bit, sum
+   included (and, one piece a block, to the dense K1/K3), with
    executed cells and staged rows equal to the host mirror (the same rows
    dense and on both plans); then on the RMAT-18 partition with
    ``vmem_budget_bytes`` under the value table's bytes (512 KiB unlaned,
@@ -76,13 +85,21 @@ started together) and runs, in order:
    rounds replayed to time K5 against K1, K6 against K2, K7 against K3
    and K8 against K4 on the same round and plan (host and device plans
    for K6/K8, with the tiled and pinned planners' host time and K6/K8
-   alone at 1-8 consecutive cells a block), beside their plain versions,
+   alone at 4-32 cells a piece), beside their plain versions,
    the pinned twin's library call and byte bound, and the rows the
    kernels stage.
 
 ``--profile`` also traces one replayed lane round's relax phase (K3 and
 K4 host-plan launches) with ``torch.profiler`` and prints its device
 time by operator.
+
+``--plan-timing`` runs none of the phases: it times, on the RMAT-18
+partition, the launch plan's build (``plan_launch`` as the engine calls
+it, and, where the package builds them apart, the tables a plan's first
+worklist launch adds), the device arrays' upload and the dense BFS/SSSP
+fixpoints, with the ``repro_torch`` under ``SRC`` (this checkout's
+``src`` by default; another checkout's, to set two versions side by
+side), and prints them as one JSON line.
 
 Any failure raises and the script exits non-zero.  It imports nothing of
 JAX or of the JAX package.  The last lines are the ``kernels`` JSON and
@@ -108,6 +125,7 @@ F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 RMAT_SCALE, EDGE_FACTOR, SEED, SHARDS, RPVO_MAX = 18, 16, 7, 16, 4
 TIMING_REPS = 20
 PROFILE = "--profile" in sys.argv[1:]
+PLAN_REPS = 10                    # timing reps of --plan-timing
 PR_ITERS = 30            # dense PageRank rounds
 PR_TOL = 5e-10           # delta-PageRank residual tolerance at RMAT-18
 PR_RTOL, PR_ATOL = 1e-4, 1e-7
@@ -521,14 +539,93 @@ def _library_ms(torch, kind, ids_long, msg, nseg):
         nseg, device=msg.device).index_add_(0, ids_long, msg), reps=5)
 
 
+PIECE_SWEEP = (4, 8, 16, 32)     # cells a piece, timed on the heaviest rounds
+WHOLE_BLOCKS = 1 << 30           # cells a piece: every block one piece
+
+
+def _with_pieces(frr, cells, fn):
+    """``fn()`` with the worklist launches' pieces at ``cells`` cells."""
+    old = frr.PIECE_CELLS
+    frr.PIECE_CELLS = cells
+    try:
+        return fn()
+    finally:
+        frr.PIECE_CELLS = old
+
+
+def _one_piece(frr, fn):
+    """``fn()`` with every segment block one piece: K2/K4/K6/K8 then run
+    K1's/K3's cells in K1's/K3's order, bit for bit."""
+    return _with_pieces(frr, WHOLE_BLOCKS, fn)
+
+
+def _piece_sweep(torch, frr, launch):
+    """Device ms of ``launch(flags)`` (a host plan's flags, or None for
+    the device plan; ``launch`` closes over the rest) at each piece size
+    of ``PIECE_SWEEP``: {cells: {"host": ms, "device": ms}}."""
+    return {p: {plan: _with_pieces(frr, p, lambda: time_ms(
+        torch, lambda: launch(plan == "host")))
+        for plan in ("host", "device")} for p in PIECE_SWEEP}
+
+
+def _sweep_text(sweep):
+    return ", ".join(f"P={p} {v['host']:.4f}/{v['device']:.4f}"
+                     for p, v in sweep.items())
+
+
+def _piece_stats(frr, plan):
+    """The kept cut of ``plan``: the heaviest block's planned cells and a
+    histogram of blocks by their piece count."""
+    pc = frr.plan_pieces(plan)
+    cells = (plan.blk_ptr[1:] - plan.blk_ptr[:-1]).cpu()
+    npc = (pc.blk_piece[1:] - pc.blk_piece[:-1]).cpu()
+    edges = (1, 2, 4, 8, 16, 32, 64, 1 << 30)
+    hist, lo = {}, 1
+    for hi in edges:
+        n = int(((npc >= lo) & (npc <= hi)).sum())
+        if n:
+            hist[f"{lo}" if lo == hi else f"{lo}-{hi}"] = n
+        lo = hi + 1
+    return {"cells_per_piece": pc.cells,
+            "pieces": int((pc.piece_blk >= 0).sum()), "grid": pc.num_pieces,
+            "split_rows": int((pc.piece_slot >= 0).sum()),
+            "blocks": plan.num_blocks,
+            "planned_cells": plan.num_cells,
+            "heaviest_block_cells": int(cells.max()),
+            "blocks_by_pieces": hist, "combine": "ticket"}
+
+
+def _launch_count(torch, fn):
+    """What one call of ``fn`` puts on the card, by ``torch.profiler``:
+    {"kernels": n, "copies": n, "names": [...]} (memcpy and memset
+    events are copies).  The profiler records the third of three calls,
+    after one skipped and one warm-up step (a trace that starts with the
+    call can miss its first kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    copies = [n for n in names if n.startswith(("Memcpy", "Memset"))]
+    return {"kernels": len(names) - len(copies), "copies": len(copies),
+            "names": names}
+
+
 def _replay_rounds(torch, np, dev, app, sem, part, arrays, planner, state,
                    tables, step, worklists=True):
     """Replay one fixpoint round by round: ``tables(state)`` gives the
     round's (gval, gchg), ``step(state, wl)`` the next state.  With
-    ``worklists`` each round is planned on the host, K2 is checked
-    against its plain version and the planner, and the worklist launch is
-    timed piece by piece beside K1 on the same round; without, the round
-    times K1's relax phase (dense PageRank).  Returns (rows, K2 err)."""
+    ``worklists`` each round is planned on the host, K2 (host and device
+    plans) is checked against its plain version, the planner and, one
+    piece a block, against K1 bit for bit, and the relax phase and K2
+    alone are timed beside K1 on the same round; without, the round
+    times K1's relax phase (dense PageRank).  Returns (rows, K2 err, the
+    heaviest worklist round's launch arguments)."""
     from repro_torch.kernels import fused_relax_reduce as frr
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import (
@@ -541,7 +638,7 @@ def _replay_rounds(torch, np, dev, app, sem, part, arrays, planner, state,
     ids = arrays.edge_dst_flat.reshape(-1)
     ids_long, src_long = ids.long(), src.long()
     kind, rk = sem.segment, sem.relax_kind
-    rows, err, rnd = [], 0.0, 0
+    rows, err, rnd, best = [], 0.0, 0, None
     while True:
         gval, gchg = tables(state)
         gchg_h = gchg.cpu().numpy()
@@ -575,9 +672,16 @@ def _replay_rounds(torch, np, dev, app, sem, part, arrays, planner, state,
             wl, info = planner.plan(gchg_h)
             row["plan_ms"] = 1e3 * (time.perf_counter() - t0)
             wl_dev = wl.to(dev)
-            grid = frr._wl_grid(wl, dev)
-            out, dbg = frr._launch_wl(gval_m, src, w, mask, ids, wl, nseg,
-                                      rk, kind, True)
+            flags = frr._card_flags(wl, plan, nseg)
+            out, dbg = frr._launch_wl(gval_m, src, w, mask, ids, plan,
+                                      chunk_act, flags, rk, kind, True)
+            out_d, dbg_d = frr._launch_wl(gval_m, src, w, mask, ids, plan,
+                                          chunk_act, None, rk, kind, True)
+            out1, _ = frr._launch(gval_m, src, w, mask, ids, plan,
+                                  chunk_act, rk, kind, False)
+            whole = _one_piece(frr, lambda: frr._launch_wl(
+                gval_m, src, w, mask, ids, plan, chunk_act, flags, rk, kind,
+                False)[0])
 
             def plain():
                 return fused_relax_reduce_wl_ref(
@@ -586,20 +690,26 @@ def _replay_rounds(torch, np, dev, app, sem, part, arrays, planner, state,
 
             want = plain()
             torch.cuda.synchronize()
-            err = max(err, _check_out(torch, out, want, kind,
-                                      f"{app} round {rnd} K2"))
+            at = f"{app} round {rnd} K2"
+            err = max(err, _check_out(torch, out, want, kind, at))
+            err = max(err, _check_out(torch, out_d, want, kind,
+                                      at + " device plan"))
+            check(torch.equal(whole, out1),
+                  f"{at}: one piece a block differs from K1 bit for bit")
             check(int(dbg[0]) == info.cells,
-                  f"{app} round {rnd}: K2 executed {int(dbg[0])} cells, "
-                  f"planned {info.cells}")
+                  f"{at}: executed {int(dbg[0])} cells, planned {info.cells}")
+            check(int(dbg_d[0]) == info.dense_live,
+                  f"{at}: device plan executed {int(dbg_d[0])} cells, the "
+                  f"dense launch {info.dense_live}")
             row.update(
                 cells=info.cells, dense_cells=info.dense_live,
                 launched=info.launched,
-                cells_ms=time_ms(torch, lambda: frr._wl_cells(
-                    gval_m, src, w, mask, ids, wl_dev, grid, rk, kind,
-                    False)),
-                kernel_ms=time_ms(torch, lambda: frr._wl_fold(
-                    frr._wl_cells(gval_m, src, w, mask, ids, wl_dev, grid,
-                                  rk, kind, False)[0], wl_dev, nseg, kind)),
+                kernel_ms=time_ms(torch, lambda: frr._launch_wl(
+                    gval_m, src, w, mask, ids, plan, chunk_act, flags, rk,
+                    kind, False)),
+                device_kernel_ms=time_ms(torch, lambda: frr._launch_wl(
+                    gval_m, src, w, mask, ids, plan, chunk_act, None, rk,
+                    kind, False)),
                 ms=time_ms(torch, lambda: ops.fused_relax_reduce(
                     gval, gchg, src, w, mask, ids, nseg, rk, kind,
                     plan=plan, worklist=wl)),
@@ -607,13 +717,21 @@ def _replay_rounds(torch, np, dev, app, sem, part, arrays, planner, state,
                     gval, gchg, src, w, mask, ids, nseg, rk, kind,
                     plan=plan, grid_mode="device_worklist")),
                 plain_ms=time_ms(torch, plain, reps=3))
+            if best is None or n_active > best["active_edges"]:
+                best = {"app": app, "round": rnd, "active_edges": n_active,
+                        "launch": (gval_m, src, w, mask, ids, plan,
+                                   chunk_act, flags, rk, kind),
+                        "relax": (gval, gchg, src, w, mask, ids, nseg, rk,
+                                  kind),
+                        "wl": wl}
         rows.append(row)
         state = step(state, wl)
-    return rows, err
+    return rows, err, best
 
 
 def phase_slice2(torch, np, dev, g, part, root, want):
     from repro_torch import apps, exchange, obs
+    from repro_torch.kernels import ops
     from repro_torch.apps.pagerank import _pr_graph
     from repro_torch.core import actions, engine
     from repro_torch.core.partition import PartitionConfig, build_partition
@@ -738,13 +856,13 @@ def phase_slice2(torch, np, dev, g, part, root, want):
     # dense PageRank round (every round has the same active edges)
     wl_cfg = engine.EngineConfig(use_pallas=True, grid_mode="worklist")
     planner = engine.launch_planner(part, wl_cfg)
-    err = 0.0
+    err, heavy_wl = 0.0, None
     for sem in (actions.BFS, actions.SSSP):
         v0 = torch.as_tensor(engine.init_values(part, sem, {root: 0.0}),
                              device=dev)
         c0 = sem.improved(v0, torch.full_like(v0, sem.identity)) \
             & arrays.slot_valid
-        rows, e = _replay_rounds(
+        rows, e, best = _replay_rounds(
             torch, np, dev, sem.name, sem, part, arrays, planner, (v0, c0),
             lambda st: (st[0].reshape(-1), st[1].reshape(-1)),
             lambda st, wl, sem=sem: exchange.fixpoint_round_stacked(
@@ -754,6 +872,9 @@ def phase_slice2(torch, np, dev, g, part, root, want):
               f"{sem.name} replay round count")
         report["per_round"] += rows
         err = max(err, e)
+        if heavy_wl is None \
+                or best["active_edges"] > heavy_wl["active_edges"]:
+            heavy_wl = best
     arrays_pr = engine.DeviceArrays.from_partition(part_pr, dev)
     planner_pr = engine.launch_planner(part_pr, wl_cfg)
     pr = actions.PAGERANK
@@ -765,7 +886,7 @@ def phase_slice2(torch, np, dev, g, part, root, want):
         return (st[1].reshape(-1),
                 ((st[1].abs() > tol_t) & arrays_pr.slot_valid).reshape(-1))
 
-    rows, e = _replay_rounds(
+    rows, e, best = _replay_rounds(
         torch, np, dev, "pagerank_delta", pr, part_pr, arrays_pr, planner_pr,
         (d0, d0), pr_tables,
         lambda st, wl: exchange.delta_pagerank_round_stacked(
@@ -773,34 +894,67 @@ def phase_slice2(torch, np, dev, g, part, root, want):
             *st, worklist=wl)[:2])
     report["per_round"] += rows
     err = max(err, e)
+    if best["active_edges"] > heavy_wl["active_edges"]:
+        heavy_wl = best
     val = torch.where(arrays_pr.slot_valid, 1.0 / part_pr.n, 0.0)
-    rows, _ = _replay_rounds(
+    rows, _, _ = _replay_rounds(
         torch, np, dev, "pagerank", pr, part_pr, arrays_pr, None,
         (val, arrays_pr.slot_valid),
         lambda st: (st[0].reshape(-1), st[1].reshape(-1)),
         lambda st, wl: (st[0], torch.zeros_like(st[1])), worklists=False)
     report["pagerank_round"] = rows[0]
+
+    # the heaviest worklist round: K2 at each piece size, and the kernels
+    # each relax phase puts on the card
+    args, relax = heavy_wl["launch"], heavy_wl["relax"]
+    plan_h = args[5]
+    report["pieces"] = _piece_stats(frr, plan_h)
+    report["piece_sweep"] = _piece_sweep(
+        torch, frr, lambda host: frr._launch_wl(
+            *args[:7], args[7] if host else None, *args[8:], False))
+    report["relax_launches"] = {
+        "K1": _launch_count(torch, lambda: ops.fused_relax_reduce(
+            *relax, plan=plan_h)),
+        "K2_host_plan": _launch_count(torch, lambda: ops.fused_relax_reduce(
+            *relax, plan=plan_h, worklist=heavy_wl["wl"])),
+        "K2_device_plan": _launch_count(
+            torch, lambda: ops.fused_relax_reduce(
+                *relax, plan=plan_h, grid_mode="device_worklist"))}
     wl_rows = [r for r in report["per_round"] if "cells" in r]
-    keys = ("plan_ms", "cells_ms", "kernel_ms", "ms", "device_ms", "k1_ms",
-            "plain_ms", "library_ms", "bound_ms")
+    keys = ("plan_ms", "kernel_ms", "device_kernel_ms", "ms", "device_ms",
+            "k1_ms", "plain_ms", "library_ms", "bound_ms")
     report["median"] = {k: statistics.median(r[k] for r in wl_rows)
                         for k in keys}
     report["heaviest"] = max(wl_rows, key=lambda r: r["active_edges"])
     med, heavy = report["median"], report["heaviest"]
     log(f"[slice2] per worklist round, median of {len(wl_rows)} rounds: "
-        f"planner {med['plan_ms']:.2f} ms (host), K2 {med['cells_ms']:.4f} "
-        f"ms, K2+fold {med['kernel_ms']:.4f} ms, relax phase "
-        f"{med['ms']:.4f} ms (device plan {med['device_ms']:.4f} ms), K1 "
-        f"{med['k1_ms']:.4f} ms, plain {med['plain_ms']:.4f} ms, library "
+        f"planner {med['plan_ms']:.2f} ms (host), K2 "
+        f"{med['kernel_ms']:.4f} ms (device plan "
+        f"{med['device_kernel_ms']:.4f} ms), relax phase {med['ms']:.4f} ms "
+        f"(device plan {med['device_ms']:.4f} ms), K1 {med['k1_ms']:.4f} "
+        f"ms, plain {med['plain_ms']:.4f} ms, library "
         f"{med['library_ms']:.4f} ms, bound {med['bound_ms']:.4f} ms")
     log(f"[slice2] heaviest worklist round ({heavy['app']} round "
         f"{heavy['round']}, {heavy['active_edges']} active edges, "
         f"{heavy['cells']} cells): planner {heavy['plan_ms']:.2f} ms, K2 "
-        f"{heavy['cells_ms']:.4f} ms, K2+fold {heavy['kernel_ms']:.4f} ms, "
-        f"relax phase {heavy['ms']:.4f} ms (device plan "
-        f"{heavy['device_ms']:.4f} ms), K1 {heavy['k1_ms']:.4f} ms, plain "
-        f"{heavy['plain_ms']:.4f} ms, library {heavy['library_ms']:.4f} ms,"
-        f" bound {heavy['bound_ms']:.4f} ms")
+        f"{heavy['kernel_ms']:.4f} ms (device plan "
+        f"{heavy['device_kernel_ms']:.4f} ms), relax phase "
+        f"{heavy['ms']:.4f} ms (device plan {heavy['device_ms']:.4f} ms), "
+        f"K1 {heavy['k1_ms']:.4f} ms, plain {heavy['plain_ms']:.4f} ms, "
+        f"library {heavy['library_ms']:.4f} ms, bound "
+        f"{heavy['bound_ms']:.4f} ms")
+    ps, rl = report["pieces"], report["relax_launches"]
+    log(f"[pieces] P={ps['cells_per_piece']} cells a piece, combine "
+        f"{ps['combine']} (kept): {ps['pieces']} pieces (grid "
+        f"{ps['grid']}) over "
+        f"{ps['blocks']} blocks and {ps['planned_cells']} planned cells, "
+        f"{ps['split_rows']} split rows, heaviest block "
+        f"{ps['heaviest_block_cells']} cells, blocks by pieces "
+        f"{ps['blocks_by_pieces']}; K2 on the heaviest round "
+        f"(host/device plan ms): {_sweep_text(report['piece_sweep'])}")
+    log("[pieces] kernels (+ copies) a relax phase puts on the card, by "
+        "torch.profiler: " + ", ".join(
+            f"{k} {v['kernels']} (+{v['copies']})" for k, v in rl.items()))
     prr = report["pagerank_round"]
     log(f"[slice2] dense PageRank round (K1 mul_w/sum, "
         f"{prr['active_edges']} active edges): relax phase {prr['ms']:.4f} "
@@ -1112,34 +1266,50 @@ def _time_lane_kernels(torch, np, dev, part, arrays, planner, queries):
     wl, info = planner.plan(gchg_h.any(axis=1))
     plan_ms = 1e3 * (time.perf_counter() - t0)
     wl_dev = wl.to(dev)
-    grid = frr._wl_grid(wl, dev)
-    out4, dbg4 = frr._launch_wl_lanes(gval_m, unit_u8, src, w, mask, ids, wl,
-                                      nseg, "add_w", "min", True)
+    flags = frr._card_flags(wl, plan, nseg)
+
+    def launch4(flags, debug=False):
+        return frr._launch_wl_lanes(gval_m, unit_u8, src, w, mask, ids, plan,
+                                    chunk_act, flags, "add_w", "min", debug)
+
+    out4, dbg4 = launch4(flags, True)
+    out4d, dbg4d = launch4(None, True)
+    whole = _one_piece(frr, lambda: launch4(flags)[0])
     plain4 = fused_relax_reduce_wl_lanes_ref(
         gval, gchg, unitw, src, w, mask, ids, wl_dev.wl_i, wl_dev.wl_j,
         wl_dev.nlive, nseg, "add_w", "min")
     torch.cuda.synchronize()
-    check(torch.equal(out4, plain4) and torch.equal(out4, plain),
+    check(torch.equal(out4, plain4) and torch.equal(out4, plain)
+          and torch.equal(out4d, plain),
           f"K4 round {rnd}: differs from plain")
-    check(int(dbg4[0]) == info.cells, f"K4 round {rnd}: cells")
-    dev_pad = frr.device_worklist_pad(plan)
+    check(torch.equal(whole, out), f"K4 round {rnd}: one piece a block "
+          "differs from K3 bit for bit")
+    check(int(dbg4[0]) == info.cells
+          and int(dbg4d[0]) == mirror["fused_live"],
+          f"K4 round {rnd}: cells {int(dbg4[0])} (device plan "
+          f"{int(dbg4d[0])})")
     if PROFILE:
         _profile(torch, "K4 relax phase (host plan)",
                  lambda: ops.fused_relax_reduce_lanes(
                      gval, gchg, unitw, src, w, mask, ids, nseg, "add_w",
                      "min", plan=plan, worklist=wl))
+    relax = (gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min")
     k4 = dict(common, cells=info.cells, launched=info.launched,
-              plan_ms=plan_ms,
-              partial_bytes_host=frr.wl_lanes_partial_bytes(info.launched, q),
-              partial_bytes_device=frr.wl_lanes_partial_bytes(dev_pad, q),
-              device_pad=dev_pad,
-              cells_ms=time_ms(torch, lambda: frr._wl_lanes_cells(
-                  gval_m, unit_u8, src, w, mask, ids, wl_dev, grid, "add_w",
-                  "min", False)),
-              kernel_ms=time_ms(torch, lambda: frr._wl_lanes_fold(
-                  frr._wl_lanes_cells(gval_m, unit_u8, src, w, mask, ids,
-                                      wl_dev, grid, "add_w", "min",
-                                      False)[0], wl_dev, nseg, "min")),
+              device_cells=int(dbg4d[0]), plan_ms=plan_ms,
+              split_bytes=frr.plan_pieces(plan).n_split * frr.SBLK * q * 4,
+              kernel_ms=time_ms(torch, lambda: launch4(flags)),
+              device_kernel_ms=time_ms(torch, lambda: launch4(None)),
+              piece_sweep=_piece_sweep(
+                  torch, frr, lambda host: launch4(flags if host else None)),
+              relax_launches={
+                  "K3": _launch_count(torch, lambda: (
+                      ops.fused_relax_reduce_lanes(*relax, plan=plan))),
+                  "K4_host_plan": _launch_count(torch, lambda: (
+                      ops.fused_relax_reduce_lanes(*relax, plan=plan,
+                                                   worklist=wl))),
+                  "K4_device_plan": _launch_count(torch, lambda: (
+                      ops.fused_relax_reduce_lanes(
+                          *relax, plan=plan, grid_mode="device_worklist")))},
               ms=time_ms(torch, lambda: ops.fused_relax_reduce_lanes(
                   gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min",
                   plan=plan, worklist=wl)),
@@ -1416,13 +1586,18 @@ def phase_lanes(torch, np, dev, g, part, root, want, part_pr):
         f"{k3['batching_gain']:.2f}x), plain {k3['plain_ms']:.4f} ms, "
         f"index_reduce_ amin {k3['library_ms']:.4f} ms, bound "
         f"{k3['bound_ms']:.4f} ms ({k3['bound_by']})")
-    log(f"[lanes] same round, K4 ({k4['cells']} cells): planner "
-        f"{k4['plan_ms']:.2f} ms (host), K4 {k4['cells_ms']:.4f} ms, K4+fold "
-        f"{k4['kernel_ms']:.4f} ms, relax phase {k4['ms']:.4f} ms (device "
-        f"plan {k4['device_ms']:.4f} ms), plain {k4['plain_ms']:.4f} ms; "
-        f"partials {k4['partial_bytes_host']} B (host pad "
-        f"{k4['launched']}), {k4['partial_bytes_device']} B (device pad "
-        f"{k4['device_pad']})")
+    log(f"[lanes] same round, K4 ({k4['cells']} cells, device plan "
+        f"{k4['device_cells']}): planner {k4['plan_ms']:.2f} ms (host), K4 "
+        f"{k4['kernel_ms']:.4f} ms (device plan "
+        f"{k4['device_kernel_ms']:.4f} ms), relax phase {k4['ms']:.4f} ms "
+        f"(device plan {k4['device_ms']:.4f} ms), plain "
+        f"{k4['plain_ms']:.4f} ms; split buffer {k4['split_bytes']} B; K4 "
+        f"by piece size (host/device plan ms): "
+        f"{_sweep_text(k4['piece_sweep'])}")
+    log("[lanes] kernels (+ copies) a laned relax phase puts on the card, "
+        "by torch.profiler: " + ", ".join(
+            f"{k} {v['kernels']} (+{v['copies']})"
+            for k, v in k4["relax_launches"].items()))
     log(f"[lanes] heaviest reduce round ({k9['app']} round {k9['round']}, "
         f"{k9['active_edges']} active of {k9['edges']} edges): K9 "
         f"{k9['ms']:.4f} ms (kernel alone {k9['kernel_ms']:.4f} ms), plain "
@@ -1501,6 +1676,17 @@ def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
         twin_plain = twin_fn(*head, *t[2:], *cells)
         pinned = launch(*head, *t[2:], nseg, relax, kind, plan=plan,
                         worklist=frr.Worklist(wl.wl_i, wl.wl_j, wl.nlive))
+        # one piece a block: the tiled and pinned worklist launches give
+        # the dense pinned launch's bits, sum included
+        whole = _one_piece(frr, lambda: (run(debug=False)[0], launch(
+            *head, *t[2:], nseg, relax, kind, plan=plan,
+            worklist=frr.Worklist(wl.wl_i, wl.wl_j, wl.nlive))))
+        dense = launch(*head, *t[2:], nseg, relax, kind, plan=plan,
+                       path="pinned")
+        check(torch.equal(whole[0], whole[1])
+              and torch.equal(whole[0], dense),
+              f"{name}/{twin} one piece a block differ from the dense "
+              f"launch: {grid_mode} {relax}/{kind} q={q}")
     oracle = (ref.fused_relax_reduce_lanes_ref if laned
               else ref.fused_relax_reduce_ref)(*head, *t[2:], nseg, relax,
                                                kind)
@@ -1602,43 +1788,18 @@ def _plan_ms(planner, gchg_h, reps=3):
     return 1e3 * (time.perf_counter() - t0) / reps, res
 
 
-def _time_wl_twins(torch, frr, dev, tiled_cells, pinned_cells, fold, wl_h,
-                   wl_p, wl_d):
-    """K6 (K8) against K2 (K4): each alone and with its fold on the host
-    plan ``wl_h`` (the pinned planner's cells ``wl_p``), and alone on the
-    device plan ``wl_d``; then K6 (K8) alone at 1, 2, 4 and 8 consecutive
-    cells a block, host and device plans.  ``tiled_cells(wl, grid,
-    cpb)`` and ``pinned_cells(wl, grid)`` launch the kernels proper;
-    ``fold(partials, wl)`` the fold."""
-    pinned_d = frr.Worklist(wl_d.wl_i, wl_d.wl_j, wl_d.nlive)
-    cpb = frr.WL_TILED_CELLS
-    g_h, on_h = frr._wl_grid(wl_h, dev, cpb), wl_h.to(dev)
-    g_p, on_p = frr._wl_grid(wl_p, dev), wl_p.to(dev)
-    g_d, g_pd = frr._wl_grid(wl_d, dev, cpb), frr._wl_grid(pinned_d, dev)
-    row = {
-        "cells_ms": time_ms(torch, lambda: tiled_cells(on_h, g_h, cpb)),
-        "kernel_ms": time_ms(torch, lambda: fold(
-            tiled_cells(on_h, g_h, cpb)[0], on_h)),
-        "pinned_cells_ms": time_ms(torch, lambda: pinned_cells(on_p, g_p)),
-        "pinned_ms": time_ms(torch, lambda: fold(
-            pinned_cells(on_p, g_p)[0], on_p)),
-        "device_cells_ms": time_ms(torch, lambda: tiled_cells(wl_d, g_d,
-                                                              cpb)),
-        "pinned_device_cells_ms": time_ms(
-            torch, lambda: pinned_cells(pinned_d, g_pd)),
-        "cells_per_block": cpb,
-        "cells_per_block_ms": {}}
-    for k in (1, 2, 4, 8):
-        gh, gd = frr._wl_grid(wl_h, dev, k), frr._wl_grid(wl_d, dev, k)
-        row["cells_per_block_ms"][k] = {
-            "host": time_ms(torch, lambda: tiled_cells(on_h, gh, k)),
-            "device": time_ms(torch, lambda: tiled_cells(wl_d, gd, k))}
-    return row
-
-
-def _cpb_text(row):
-    return ", ".join(f"{k}: {v['host']:.4f}/{v['device']:.4f}"
-                     for k, v in row["cells_per_block_ms"].items())
+def _time_wl_twins(torch, frr, tiled, pinned, flags_t, flags_p):
+    """K6 (K8) against K2 (K4), each alone, on the host plan (the tiled
+    planner's flags ``flags_t``, the pinned one's ``flags_p``) and the
+    device plan; then K6 (K8) at each piece size of ``PIECE_SWEEP``.
+    ``tiled(flags)`` and ``pinned(flags)`` launch the kernels."""
+    return {
+        "kernel_ms": time_ms(torch, lambda: tiled(flags_t)),
+        "pinned_ms": time_ms(torch, lambda: pinned(flags_p)),
+        "device_kernel_ms": time_ms(torch, lambda: tiled(None)),
+        "pinned_device_kernel_ms": time_ms(torch, lambda: pinned(None)),
+        "piece_sweep": _piece_sweep(
+            torch, frr, lambda host: tiled(flags_t if host else None))}
 
 
 def _time_tiled_kernels(torch, np, dev, part, arrays, root):
@@ -1719,26 +1880,32 @@ def _time_tiled_kernels(torch, np, dev, part, arrays, root):
     check(torch.equal(wl_t.wl_j, wl_p.wl_j) and torch.equal(wl_t.wl_i,
                                                             wl_p.wl_i),
           "the tiled and pinned planners list other cells")
-    wl_d = frr._compact_live_cells(plan, chunk_act,
-                                   frr.device_worklist_pad(plan), "tiled",
-                                   vblk)
-    out6, dbg6 = frr._launch_wl_tiled(gval_m, src, w, mask, ids, act, wl_t,
-                                      nseg, rk, kind, True)
-    out2, _ = frr._launch_wl(gval_m, src, w, mask, ids, wl_p, nseg, rk, kind,
-                             False)
-    out6d, dbg6d = frr._launch_wl_tiled(gval_m, src, w, mask, ids, act, wl_d,
-                                        nseg, rk, kind, True)
-    out2d, _ = frr._launch_wl(gval_m, src, w, mask, ids, frr.Worklist(
-        wl_d.wl_i, wl_d.wl_j, wl_d.nlive), nseg, rk, kind, False)
+    f_t, f_p = (frr._card_flags(wl, plan, nseg) for wl in (wl_t, wl_p))
+
+    def launch6(flags, debug=False):
+        return frr._launch_wl_tiled(gval_m, src, w, mask, ids, act, plan,
+                                    chunk_act, flags, rk, kind, debug)
+
+    def launch2(flags):
+        return frr._launch_wl(gval_m, src, w, mask, ids, plan, chunk_act,
+                              flags, rk, kind, False)
+
+    out6, dbg6 = launch6(f_t, True)
+    out2, _ = launch2(f_p)
+    out6d, dbg6d = launch6(None, True)
+    out2d, _ = launch2(None)
+    whole6, whole2 = _one_piece(frr, lambda: (launch6(f_t)[0],
+                                              launch2(f_p)[0]))
     on_t = wl_t.to(dev)
     plain6, rows6 = ref.fused_relax_reduce_wl_tiled_ref(
         gval, gchg, src, w, mask, ids, on_t.wl_i, on_t.wl_j, on_t.nlive,
         nseg, rk, kind)
     torch.cuda.synchronize()
     check(torch.equal(out6, out2) and torch.equal(out6d, out2d)
+          and torch.equal(whole6, whole2) and torch.equal(whole6, out1)
           and torch.equal(out6, out1) and torch.equal(out6, plain6),
-          f"K6 round {rnd}: differs from K2 on the same plan / K1 / its "
-          "plain version")
+          f"K6 round {rnd}: differs from K2 on the same plan and pieces / "
+          "K1 / its plain version")
     check((int(dbg6[0]), int(dbg6[1])) == (info_t.cells, info_t.staged_rows)
           and int(rows6) == info_t.staged_rows
           and int(dbg6d[1]) == mirror["fused_staged_rows"]
@@ -1765,14 +1932,7 @@ def _time_tiled_kernels(torch, np, dev, part, arrays, root):
               plain_ms=time_ms(torch, lambda: ref.fused_relax_reduce_wl_tiled_ref(
                   gval, gchg, src, w, mask, ids, on_t.wl_i, on_t.wl_j,
                   on_t.nlive, nseg, rk, kind), reps=TILED_REPS, warmup=1))
-    k6.update(_time_wl_twins(
-        torch, frr, dev,
-        lambda wl, grid, cpb: frr._wl_tiled_cells(
-            gval_m, src, w, mask, ids, act, wl, grid, rk, kind, False, cpb),
-        lambda wl, grid: frr._wl_cells(gval_m, src, w, mask, ids, wl, grid,
-                                       rk, kind, False),
-        lambda partials, wl: frr._wl_fold(partials, wl, nseg, kind),
-        wl_t, wl_p, wl_d))
+    k6.update(_time_wl_twins(torch, frr, launch6, launch2, f_t, f_p))
     return k5, k6, max(max_abs_err(torch, out5, plain5),
                        max_abs_err(torch, out6, plain6))
 
@@ -1863,30 +2023,33 @@ def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
     check(torch.equal(wl_t.wl_j, wl_p.wl_j) and torch.equal(wl_t.wl_i,
                                                             wl_p.wl_i),
           "the tiled and pinned lane planners list other cells")
-    wl_d = frr._compact_live_cells(plan, chunk_act,
-                                   frr.device_worklist_pad(plan), "tiled",
-                                   vblk)
-    out8, dbg8 = frr._launch_wl_tiled_lanes(gval_m, unit_u8, src, w, mask,
-                                            ids, act, wl_t, nseg, "add_w",
-                                            "min", True)
-    out4, _ = frr._launch_wl_lanes(gval_m, unit_u8, src, w, mask, ids, wl_p,
-                                   nseg, "add_w", "min", False)
-    out8d, dbg8d = frr._launch_wl_tiled_lanes(gval_m, unit_u8, src, w, mask,
-                                              ids, act, wl_d, nseg, "add_w",
-                                              "min", True)
-    out4d, _ = frr._launch_wl_lanes(gval_m, unit_u8, src, w, mask, ids,
-                                    frr.Worklist(wl_d.wl_i, wl_d.wl_j,
-                                                 wl_d.nlive),
-                                    nseg, "add_w", "min", False)
+    f_t, f_p = (frr._card_flags(wl, plan, nseg) for wl in (wl_t, wl_p))
+
+    def launch8(flags, debug=False):
+        return frr._launch_wl_tiled_lanes(gval_m, unit_u8, src, w, mask, ids,
+                                          act, plan, chunk_act, flags,
+                                          "add_w", "min", debug)
+
+    def launch4(flags):
+        return frr._launch_wl_lanes(gval_m, unit_u8, src, w, mask, ids, plan,
+                                    chunk_act, flags, "add_w", "min", False)
+
+    out8, dbg8 = launch8(f_t, True)
+    out4, _ = launch4(f_p)
+    out8d, dbg8d = launch8(None, True)
+    out4d, _ = launch4(None)
+    whole8, whole4 = _one_piece(frr, lambda: (launch8(f_t)[0],
+                                              launch4(f_p)[0]))
     on_t = wl_t.to(dev)
     plain8, rows8 = ref.fused_relax_reduce_wl_tiled_lanes_ref(
         gval, gchg, unitw, src, w, mask, ids, on_t.wl_i, on_t.wl_j,
         on_t.nlive, nseg, "add_w", "min")
     torch.cuda.synchronize()
     check(torch.equal(out8, out4) and torch.equal(out8d, out4d)
+          and torch.equal(whole8, whole4) and torch.equal(whole8, out3)
           and torch.equal(out8, out3) and torch.equal(out8, plain8),
-          f"K8 round {rnd}: differs from K4 on the same plan / K3 / its "
-          "plain version")
+          f"K8 round {rnd}: differs from K4 on the same plan and pieces / "
+          "K3 / its plain version")
     check((int(dbg8[0]), int(dbg8[1])) == (info_t.cells, info_t.staged_rows)
           and int(rows8) == info_t.staged_rows
           and int(dbg8d[1]) == mirror["fused_staged_rows"]
@@ -1917,16 +2080,7 @@ def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
                       gval, gchg, unitw, src, w, mask, ids, on_t.wl_i,
                       on_t.wl_j, on_t.nlive, nseg, "add_w", "min"),
                   reps=TILED_REPS, warmup=1))
-    k8.update(_time_wl_twins(
-        torch, frr, dev,
-        lambda wl, grid, cpb: frr._wl_tiled_lanes_cells(
-            gval_m, unit_u8, src, w, ids, act, wl, grid, "add_w", "min",
-            False, cpb),
-        lambda wl, grid: frr._wl_lanes_cells(gval_m, unit_u8, src, w, mask,
-                                             ids, wl, grid, "add_w", "min",
-                                             False),
-        lambda partials, wl: frr._wl_lanes_fold(partials, wl, nseg, "min"),
-        wl_t, wl_p, wl_d))
+    k8.update(_time_wl_twins(torch, frr, launch8, launch4, f_t, f_p))
     return k7, k8, max(max_abs_err(torch, out7, plain7),
                        max_abs_err(torch, out8, plain8))
 
@@ -2096,15 +2250,14 @@ def phase_tiled(torch, np, dev, g, part, root, want, part_pr, want_conv):
     log(f"[tiled] same round, K6 host plan ({k6['cells']} cells, "
         f"{k6['rows']} staged rows = {k6['dma_bytes']} B; tiled planner "
         f"{k6['plan_ms']:.1f} ms, pinned {k6['pinned_plan_ms']:.1f} ms): K6 "
-        f"{k6['cells_ms']:.4f} ms, K6+fold {k6['kernel_ms']:.4f} ms against "
-        f"K2 {k6['pinned_cells_ms']:.4f} / K2+fold {k6['pinned_ms']:.4f} "
-        f"ms; device plan ({k6['device_cells']} cells) K6 "
-        f"{k6['device_cells_ms']:.4f} ms against K2 "
-        f"{k6['pinned_device_cells_ms']:.4f} ms; relax phase {k6['ms']:.4f} "
-        f"ms against {k6['pinned_phase_ms']:.4f} (device plan "
+        f"{k6['kernel_ms']:.4f} ms against K2 {k6['pinned_ms']:.4f} ms; "
+        f"device plan ({k6['device_cells']} cells) K6 "
+        f"{k6['device_kernel_ms']:.4f} ms against K2 "
+        f"{k6['pinned_device_kernel_ms']:.4f} ms; relax phase "
+        f"{k6['ms']:.4f} ms against {k6['pinned_phase_ms']:.4f} (device plan "
         f"{k6['device_ms']:.4f} against {k6['pinned_device_ms']:.4f}), plain "
-        f"{k6['plain_ms']:.4f} ms; K6 alone by cells a block (host/device): "
-        + _cpb_text(k6))
+        f"{k6['plain_ms']:.4f} ms; K6 by piece size (host/device plan ms): "
+        + _sweep_text(k6["piece_sweep"]))
     log(f"[tiled] heaviest Q={LANES} round ({k7['round']} of "
         f"{k7['rounds']}, {k7['active_pairs']} active pairs, {k7['cells']} "
         f"cells): K7 relax phase {k7['ms']:.4f} ms (pinned "
@@ -2118,16 +2271,78 @@ def phase_tiled(torch, np, dev, g, part, root, want, part_pr, want_conv):
     log(f"[tiled] same round, K8 host plan ({k8['cells']} cells, "
         f"{k8['rows']} staged rows = {k8['dma_bytes']} B; tiled planner "
         f"{k8['plan_ms']:.1f} ms, pinned {k8['pinned_plan_ms']:.1f} ms): K8 "
-        f"{k8['cells_ms']:.4f} ms, K8+fold {k8['kernel_ms']:.4f} ms against "
-        f"K4 {k8['pinned_cells_ms']:.4f} / K4+fold {k8['pinned_ms']:.4f} "
-        f"ms; device plan ({k8['device_cells']} cells) K8 "
-        f"{k8['device_cells_ms']:.4f} ms against K4 "
-        f"{k8['pinned_device_cells_ms']:.4f} ms; relax phase {k8['ms']:.4f} "
-        f"ms against {k8['pinned_phase_ms']:.4f} (device plan "
+        f"{k8['kernel_ms']:.4f} ms against K4 {k8['pinned_ms']:.4f} ms; "
+        f"device plan ({k8['device_cells']} cells) K8 "
+        f"{k8['device_kernel_ms']:.4f} ms against K4 "
+        f"{k8['pinned_device_kernel_ms']:.4f} ms; relax phase "
+        f"{k8['ms']:.4f} ms against {k8['pinned_phase_ms']:.4f} (device plan "
         f"{k8['device_ms']:.4f} against {k8['pinned_device_ms']:.4f}), plain "
-        f"{k8['plain_ms']:.4f} ms; K8 alone by cells a block (host/device): "
-        + _cpb_text(k8))
+        f"{k8['plain_ms']:.4f} ms; K8 by piece size (host/device plan ms): "
+        + _sweep_text(k8["piece_sweep"]))
     return launches, {"K5": err, "K6": err, "K7": err_l, "K8": err_l}, report
+
+
+def plan_timing(src) -> int:
+    """``--plan-timing``: wall ms (synced, median, min and max over
+    ``PLAN_REPS``) of the launch plan's build, the device arrays' upload
+    and the dense BFS/SSSP fixpoints (set-up included, as phase 4 times
+    them), each after one warm-up call, with the ``repro_torch`` under ``src``;
+    prints the card and one JSON line."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch import apps
+    from repro_torch.core import engine
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_relax_reduce as frr
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    _build.build_all(("fused_relax_reduce",))
+    g, part, root, want = rmat18(np)
+
+    def wall(fn, reps=PLAN_REPS):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return {"median": statistics.median(times), "min": min(times),
+                "max": max(times)}
+
+    arrays = engine.DeviceArrays.from_partition(part, dev)
+    src_f, mask_f, dst_f = (arrays.edge_src_root_flat.reshape(-1),
+                            arrays.edge_mask.reshape(-1),
+                            arrays.edge_dst_flat.reshape(-1))
+    n = part.S * part.R_max
+    out = {"src": str(src), "num_edges": int(src_f.shape[0]),
+           "plan_launch_ms": wall(lambda: frr.plan_launch(
+               src_f, mask_f, dst_f, n, n)),
+           "device_arrays_ms": wall(
+               lambda: engine.DeviceArrays.from_partition(part, dev))}
+    if hasattr(frr, "cell_batches"):      # built on a first worklist launch
+        plan = arrays.fused_plan
+        out["worklist_tables_ms"] = wall(lambda: (
+            frr.piece_tables(plan.blk_ptr, plan.num_cells, frr.PIECE_CELLS),
+            frr.cell_batches(plan, mask_f, dst_f)))
+    cfg = engine.EngineConfig(use_pallas=True)
+    for name, app in (("bfs", apps.bfs), ("sssp", apps.sssp)):
+        got, _, _ = app(g, root, part=part, cfg=cfg)
+        check(np.array_equal(got, want[name]),
+              f"{name} differs from the numpy oracle")
+        out[f"{name}_fixpoint_ms"] = wall(
+            lambda app=app: app(g, root, part=part, cfg=cfg))
+    print(smi)
+    print(json.dumps({"plan_timing": out}))
+    return 0
 
 
 def main() -> int:
@@ -2197,7 +2412,7 @@ def main() -> int:
         "bound_by": heavy2["bound_by"],
         "library_ms": heavy2["library_ms"],
         "kernel_ms": heavy2["kernel_ms"],
-        "cells_ms": heavy2["cells_ms"],
+        "device_kernel_ms": heavy2["device_kernel_ms"],
         "median_ms": report2["median"]["ms"],
         "checked": True,
     }, {
@@ -2229,7 +2444,7 @@ def main() -> int:
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
         "kernel_ms": k4["kernel_ms"],
-        "cells_ms": k4["cells_ms"],
+        "device_kernel_ms": k4["device_kernel_ms"],
         "lanes": k4["lanes"],
         "checked": True,
     }, {
@@ -2282,4 +2497,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--plan-timing" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--plan-timing") + 1:]
+        sys.exit(plan_timing(pathlib.Path(rest[0]).resolve() if rest
+                             else SRC))
     sys.exit(main())

@@ -70,18 +70,21 @@ struct RelaxMsg {                 // K1, K2: relax(gval[src[e]], w[e]) where mas
   }
 };
 
-// Fold the messages of the `n` edges edges(0), ..., edges(n - 1) to
-// segments [seg0, seg0 + SBLK) into the calling warp's accumulator
-// acc[warp]: warp k takes the 32-edge batches k, k + NWARP, ...  Padding
-// edges (e >= num_edges, or !msg.valid(e)) never have their message read.
+// Fold the messages of the 32-edge batches [b_lo, b_hi) of the `n` edges
+// edges(0), ..., edges(n - 1) to segments [seg0, seg0 + SBLK) into the
+// calling warp's accumulator acc[warp]: batch b goes to warp b % NWARP,
+// whatever the range, so a fold over a sub-range that holds every edge of
+// the block changes no bit.  Padding edges (e >= num_edges, or
+// !msg.valid(e)) never have their message read.
 template <int KIND, class Msg, class Edges>
-__device__ __forceinline__ void fold_list(
+__device__ __forceinline__ void fold_range(
     float (*acc)[SBLK], float (*msg_s)[32], const Msg& msg,
-    const int32_t* __restrict__ ids, const Edges& edges, int n,
-    int num_edges, int seg0) {
+    const int32_t* __restrict__ ids, const Edges& edges, int b_lo, int b_hi,
+    int n, int num_edges, int seg0) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int b = warp; b * 32 < n; b += NWARP) {
+  for (int b = b_lo + ((warp - b_lo) & (NWARP - 1)); b < b_hi;
+       b += NWARP) {
     const int k = b * 32 + lane;
     const int e = k < n ? edges(k) : num_edges;
     int key = SBLK;                       // SBLK: no contribution
@@ -107,6 +110,16 @@ __device__ __forceinline__ void fold_list(
     }
     __syncwarp();
   }
+}
+
+// fold_range over every batch: warp k takes batches k, k + NWARP, ...
+template <int KIND, class Msg, class Edges>
+__device__ __forceinline__ void fold_list(
+    float (*acc)[SBLK], float (*msg_s)[32], const Msg& msg,
+    const int32_t* __restrict__ ids, const Edges& edges, int n,
+    int num_edges, int seg0) {
+  fold_range<KIND>(acc, msg_s, msg, ids, edges, 0, (n + 31) / 32, n,
+                   num_edges, seg0);
 }
 
 struct ChunkEdges {               // the EBLK edges of one chunk, in order
@@ -140,6 +153,104 @@ __device__ __forceinline__ float fold_warps(float (*acc)[SBLK], int t) {
   float r = acc[0][t];
   for (int k = 1; k < NWARP; ++k) r = combine<KIND>(r, acc[k][t]);
   return r;
+}
+
+// ---------------------------------------------------------------------
+// The worklist launches (K2, K4, K6, K8): a thread block per piece
+// ---------------------------------------------------------------------
+//
+// The Python side (piece_tables) cuts each segment block's planned cells
+// (blk_chunk, i-major: chunks ascending) into pieces of at most
+// PIECE_CELLS consecutive cells, on a plan's first worklist launch, with
+// no host sync: the grid is a bound known on the host, and a thread block
+// past the real pieces (piece_blk -1) returns at once.  A thread block
+// takes one piece, walks its cells in order, runs those the round lists
+// and carries one accumulator across them.  A block that is one piece
+// writes the inbox itself.  The pieces of a split block each write their
+// partial to a row of the split buffer (rows consecutive, in piece
+// order), then take a ticket; the piece that arrives last folds the rows
+// in piece order into the inbox and resets the ticket for the next
+// launch.  No float atomics, so a sum repeats bit for bit.
+
+struct Pieces {
+  const int32_t* piece_lo;    // (n_pieces,) a piece's first cell position
+  const int32_t* piece_hi;    // (n_pieces,) one past its last
+  const int32_t* piece_blk;   // (n_pieces,) its segment block, -1: none
+  const int32_t* piece_slot;  // (n_pieces,) split-buffer row, -1: whole block
+  const int32_t* blk_piece;   // (n_blocks + 1,) a block's pieces
+  const int32_t* blk_chunk;   // (n_cells,) a cell's chunk
+  const uint8_t* cell_batch;  // (n_cells, 2) [first, last + 1) batches
+  const uint8_t* flags;       // (n_cells,) listed cells; null: device plan
+  const uint8_t* chunk_act;   // (n_chunks,) chunk frontier bits
+  int32_t* tickets;           // arrivals per (block, lane group), zero
+
+  // Whether the round runs cell p: a host plan's flag, or for a device
+  // plan (no flags) its chunk's frontier bit.  Block-uniform.
+  __device__ __forceinline__ bool live(int p) const {
+    return flags != nullptr ? flags[p] != 0 : chunk_act[blk_chunk[p]] != 0;
+  }
+  __device__ __forceinline__ int batch_lo(int p) const {
+    return cell_batch[2 * p];
+  }
+  __device__ __forceinline__ int batch_hi(int p) const {
+    return cell_batch[2 * p + 1];
+  }
+};
+
+// The C entry points take a Pieces as ten pointers, in field order.
+#define FRR_PIECE_PARAMS                                                  \
+  const int32_t *piece_lo, const int32_t *piece_hi,                       \
+      const int32_t *piece_blk, const int32_t *piece_slot,                \
+      const int32_t *blk_piece, const int32_t *blk_chunk,                 \
+      const uint8_t *cell_batch, const uint8_t *flags,                    \
+      const uint8_t *chunk_act, int32_t *tickets
+#define FRR_PIECES                                                        \
+  Pieces{piece_lo, piece_hi, piece_blk, piece_slot, blk_piece, blk_chunk,  \
+         cell_batch, flags, chunk_act, tickets}
+
+// Called by every thread of a piece of a split block once it has written
+// its partial: true in the piece that arrives last of the block's `n`
+// (block-uniform), which then reads the other pieces' rows.
+__device__ __forceinline__ bool arrive_last(int32_t* ticket, int n) {
+  __shared__ int last;
+  __threadfence();                        // this piece's row is visible
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1) == n - 1;
+    if (last) *ticket = 0;                // every piece has arrived
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// Finish piece k of segment block i (K2, K6): the block's inbox when it
+// is one piece, else the piece's row of `split` and, in the last piece to
+// arrive, the rows folded in piece order.  `acc` must be whole (the
+// caller syncs).
+template <int KIND>
+__device__ __forceinline__ void finish_piece(
+    float (*acc)[SBLK], const Pieces& pc, int k, int i, int num_segments,
+    float* __restrict__ out, float* __restrict__ split) {
+  const int seg0 = i * SBLK;
+  const int slot = pc.piece_slot[k];
+  if (slot < 0) {
+    for (int t = threadIdx.x; t < SBLK; t += THREADS)
+      if (seg0 + t < num_segments) out[seg0 + t] = fold_warps<KIND>(acc, t);
+    return;
+  }
+  for (int t = threadIdx.x; t < SBLK; t += THREADS)
+    split[static_cast<size_t>(slot) * SBLK + t] = fold_warps<KIND>(acc, t);
+  const int k0 = pc.blk_piece[i];
+  const int n = pc.blk_piece[i + 1] - k0;
+  if (!arrive_last(pc.tickets + i, n)) return;
+  const float* rows = split + static_cast<size_t>(pc.piece_slot[k0]) * SBLK;
+  for (int t = threadIdx.x; t < SBLK; t += THREADS) {
+    float r = __ldcg(rows + t);
+    for (int s = 1; s < n; ++s)
+      r = combine<KIND>(r, __ldcg(rows + static_cast<size_t>(s) * SBLK + t));
+    if (seg0 + t < num_segments) out[seg0 + t] = r;
+  }
 }
 
 }  // namespace frr

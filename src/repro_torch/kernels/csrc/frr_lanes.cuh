@@ -1,6 +1,7 @@
 // Shared pieces of the lane-batched fused relax + reduce kernels (K3, K4):
 // one (segment block, edge chunk) cell folded into a (SBLK, LGRP)
-// accumulator of query lanes.
+// accumulator of query lanes, and how a worklist piece's accumulator
+// reaches the inbox (K4, K8).
 //
 // The value table is (V, Q) row-major, one column per query; a launch's
 // grid has a lane-group axis, and the block of lane group y serves lanes
@@ -45,13 +46,14 @@ __device__ __forceinline__ void clear_lane_acc(float (*acc)[LGRP]) {
     (&acc[0][0])[t] = identity<KIND>();
 }
 
-// Stage edge chunk `j` for segments [seg0, seg0 + SBLK) (all threads call
-// it; the caller syncs before and after).
+// Stage positions [k_lo, k_hi) of edge chunk `j` for segments [seg0,
+// seg0 + SBLK) (all threads call it; the caller syncs before and after).
 __device__ __forceinline__ void stage_chunk(
     LaneStage& st, const int32_t* __restrict__ src,
     const float* __restrict__ w, const uint8_t* __restrict__ mask,
-    const int32_t* __restrict__ ids, int j, int num_edges, int seg0) {
-  for (int k = threadIdx.x; k < EBLK; k += THREADS) {
+    const int32_t* __restrict__ ids, int j, int num_edges, int seg0,
+    int k_lo = 0, int k_hi = EBLK) {
+  for (int k = k_lo + threadIdx.x; k < k_hi; k += THREADS) {
     const int e = j * EBLK + k;
     int key = -1;
     int s = 0;
@@ -120,6 +122,11 @@ struct StagePos {                 // every staged position, in order
   __device__ __forceinline__ int operator()(int k) const { return k; }
 };
 
+struct RangePos {                 // the positions k0, k0 + 1, ...
+  int k0;
+  __device__ __forceinline__ int operator()(int i) const { return k0 + i; }
+};
+
 struct TableRows {                // lane lane_q of the (V, Q) table
   const float* gval;
   int Q;
@@ -137,6 +144,51 @@ __device__ __forceinline__ void fold_lanes(
     int Q, int lane_q, bool unit) {
   fold_lane_list<RELAX, KIND>(acc, st, StagePos{}, EBLK,
                               TableRows{gval, Q, lane_q}, lane_q < Q, unit);
+}
+
+// Finish piece k of segment block i for lane group blockIdx.y (K4, K8),
+// as finish_piece does for K2: the inbox columns when the block is one
+// piece, else the piece's (SBLK, Q) row of `split` (its group's columns)
+// and, in the last piece of the block to arrive for this group, the rows
+// folded in piece order.  `acc` must be whole (the caller syncs).
+template <int KIND>
+__device__ __forceinline__ void finish_lane_piece(
+    float (*acc)[LGRP], const Pieces& pc, int k, int i, int num_segments,
+    int Q, float* __restrict__ out, float* __restrict__ split) {
+  const int seg0 = i * SBLK;
+  const int c0 = blockIdx.y * LGRP;
+  const int slot = pc.piece_slot[k];
+  const size_t row = static_cast<size_t>(SBLK) * Q;
+  if (slot < 0) {
+    for (int t = threadIdx.x; t < SBLK * LGRP; t += THREADS) {
+      const int d = seg0 + t / LGRP;
+      const int q = c0 + t % LGRP;
+      if (d < num_segments && q < Q)
+        out[static_cast<size_t>(d) * Q + q] = acc[t / LGRP][t % LGRP];
+    }
+    return;
+  }
+  for (int t = threadIdx.x; t < SBLK * LGRP; t += THREADS) {
+    const int q = c0 + t % LGRP;
+    if (q < Q)
+      split[slot * row + static_cast<size_t>(t / LGRP) * Q + q] =
+          acc[t / LGRP][t % LGRP];
+  }
+  const int k0 = pc.blk_piece[i];
+  const int n = pc.blk_piece[i + 1] - k0;
+  if (!arrive_last(pc.tickets + static_cast<size_t>(i) * gridDim.y +
+                       blockIdx.y, n))
+    return;
+  const float* rows = split + pc.piece_slot[k0] * row;
+  for (int t = threadIdx.x; t < SBLK * LGRP; t += THREADS) {
+    const int d = seg0 + t / LGRP;
+    const int q = c0 + t % LGRP;
+    if (d >= num_segments || q >= Q) continue;
+    const size_t at = static_cast<size_t>(t / LGRP) * Q + q;
+    float r = __ldcg(rows + at);
+    for (int s = 1; s < n; ++s) r = combine<KIND>(r, __ldcg(rows + s * row + at));
+    out[static_cast<size_t>(d) * Q + q] = r;
+  }
 }
 
 }  // namespace frr

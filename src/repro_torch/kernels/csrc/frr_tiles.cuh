@@ -198,10 +198,7 @@ __device__ __forceinline__ void copy_rows(float* buf, const LaneStage& st,
   }
 }
 
-struct HalfPos {                  // the positions of one piece
-  int k0;
-  __device__ __forceinline__ int operator()(int i) const { return k0 + i; }
-};
+using HalfPos = RangePos;         // the positions of one piece
 
 struct StagedRows {               // this thread's lane of a staged row
   const float* buf;               // the piece's row buffer
@@ -218,22 +215,6 @@ struct StagedRows {               // this thread's lane of a staged row
 inline size_t lane_row_smem(int Q) {
   return 2 * static_cast<size_t>(HALF) * (Q < LGRP ? Q : LGRP) *
          sizeof(float);
-}
-
-// ---------------------------------------------------------------------
-// K6, K8: the worklist cells a block runs
-// ---------------------------------------------------------------------
-
-// The block's k-th cell, k = 0, 1, ...: blocks take groups of `cpb`
-// consecutive cells, block b the groups b, b + gridDim.x, ...  A host
-// plan's grid has one block per group; a device plan's fixed grid
-// strides.  Returns n (past the end) once the cells run out; ascending
-// in k.
-__device__ __forceinline__ int block_cell(int k, int cpb, int n) {
-  const long long g =
-      blockIdx.x + static_cast<long long>(k / cpb) * gridDim.x;
-  const long long c = g * cpb + k % cpb;
-  return c < n ? static_cast<int>(c) : n;
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory, first

@@ -38,8 +38,9 @@
 // those cells belong to the 15 chunks that straddle two shards' sorted
 // runs, whose [lo, hi] range spans the whole slot space although no edge
 // of theirs lands in most blocks.  The worklist kernel K2
-// (fused_relax_reduce_wl.cu) runs the same cells as independent blocks;
-// TMA staging is later work.
+// (fused_relax_reduce_wl.cu) runs a block's cells in pieces and reads
+// only the batches of a cell that hold edges of its block; TMA staging
+// is later work.
 
 #include "frr_common.cuh"
 

@@ -31,21 +31,35 @@ So the kernel executes exactly the TPU grid's live (block, chunk) cells;
 mirrors that count on the host.
 
 **Worklist launches** (``grid_mode='worklist' | 'device_worklist'``, or
-an explicit ``worklist=``) run the same math as a 1-D launch over a list
-of live (block, chunk) cells, j-major (``csrc/fused_relax_reduce_wl.cu``,
-kernel K2): each cell writes an (SBLK,) partial and a second kernel
-folds the partials into the inbox in cell-list order.  The list comes
-from the host planner (``WorklistPlanner``, numpy, with the reference's
-dst filter that drops cells holding no active edge of their block) or is
-compacted on the device from the chunk frontier bits
-(``build_device_worklist``, no host sync; its length is static: the
+an explicit ``worklist=``) run the same math over the cells a worklist
+lists (``csrc/fused_relax_reduce_wl.cu``, kernel K2), in one launch with
+no partials per cell.  The first worklist launch of a plan cuts each
+segment block's planned cells into pieces of at most ``PIECE_CELLS``
+consecutive cells (``plan_pieces``) and finds each cell's batch range
+(``plan_batches``), with no host sync, and keeps both on the plan (a
+plan that only ever runs dense launches builds neither); a thread block
+takes one piece, walks its cells in chunk order, skips the cells the
+round does not list, folds only the 32-edge batches of a cell that hold
+edges of its block, and keeps one accumulator for the piece.  A
+block that is one piece writes the inbox (bit for bit K1's result on the
+same cells); the pieces of a split block write their partials to a small
+buffer, and the last to arrive folds them in piece order.  Which cells
+are listed is a flag byte per planned cell: the host planner
+(``WorklistPlanner``, numpy, with the reference's dst filter that drops
+cells holding no active edge of their block) fills them and the launch
+uploads them in one copy; a device plan (``grid_mode='device_worklist'``)
+needs none, as the kernel reads each cell's chunk frontier bit; a
+worklist given as ``wl_i``/``wl_j``/``nlive`` alone is mapped onto them
+on the card (``worklist_flags``).  ``Worklist`` keeps the reference's
+j-major ``wl_i``/``wl_j``/``nlive``; ``build_device_worklist`` still
+compacts them on the device (no host sync; its length is static: the
 power of two above the launch plan's cell count).
 
 **Lane-batched launches** (``fused_relax_reduce_lanes``) run the same
 math over a (V, Q) table of query lanes that share one edge set: kernel
 K3 (``csrc/fused_relax_reduce_lanes.cu``) for the dense launch and K4
-(``csrc/fused_relax_reduce_wl_lanes.cu``) with its laned fold for
-worklists.  The chunk frontier bit is the OR across lanes, the message
+(``csrc/fused_relax_reduce_wl_lanes.cu``) for worklists (the same pieces
+and flags).  The chunk frontier bit is the OR across lanes, the message
 counts are per lane, and plans are made from the OR-across-lanes
 frontier: ``WorklistPlanner``, ``plan_worklist``, ``build_device_worklist``
 and ``fused_grid_cells`` accept a (V, Q) frontier and OR it.
@@ -57,8 +71,9 @@ kernels K5 (dense), K6 (worklist), K7 (dense lanes) and K8 (worklist
 lanes), sharing ``csrc/frr_tiles.cuh``.  Each live cell copies with
 ``cp.async`` only the source rows it reads (its active edges' sources,
 from the (E,) active flags) into a shared-memory row buffer indexed by
-chunk position, and folds them with its pinned twin's own fold: K5 and
-K6 equal K1 and K2, K7 and K8 equal K3 and K4, bit for bit, sum
+chunk position, and folds them with its pinned twin's own fold; K6 and
+K8 run K2's and K4's launch (the same pieces, flags and combine).  K5
+and K6 equal K1 and K2, K7 and K8 equal K3 and K4, bit for bit, sum
 included.  No tiled launch builds a tile table; the reference's tile
 lists, copy schedule and copy counts stay as a mirror off the launch
 path (``_chunk_tile_tables``, ``tile_schedule``, ``plan(...,
@@ -94,8 +109,8 @@ SBLK = 256   # segment-axis block (matches csrc/frr_common.cuh)
 
 WL_PAD = 8      # host worklists are padded to >= this many cells and then
                 # to a power of two, as the reference pads its launches
-WL_BLOCKS_PER_SM = 8   # K2's fixed grid for a device-resident worklist
-WL_TILED_CELLS = 2     # consecutive cells a K6/K8 block stages in turn
+PIECE_CELLS = 8        # planned cells a worklist launch's block takes at
+                       # most (PERF.md: the sweep over 4, 8, 16 and 32)
 
 RELAX_KINDS = tuple(RELAX_FNS)
 
@@ -273,23 +288,60 @@ def _check_pair(relax_kind: str, kind: str):
             f"(supported: {sorted(ABSORBING_PAIRS)})")
 
 
+class PieceTables(typing.NamedTuple):
+    """How the worklist launches (K2, K4, K6, K8) cut the segment blocks'
+    planned cells into pieces of at most ``cells`` consecutive cells of
+    the i-major list (``LaunchPlan.blk_chunk``), one thread block each.
+    A block with no planned cell is one empty piece, so every segment is
+    written.  The pieces of block ``i`` are ``blk_piece[i]:blk_piece[i +
+    1]``, piece ``k`` holds cell positions ``piece_ptr[k]:piece_ptr[k +
+    1]``.  A block cut into several pieces ("split") gives each piece a
+    row of the launch's split buffer, ``piece_slot`` (consecutive over a
+    block's pieces, in piece order; -1 for a block that is one piece).
+    The tables are built on the card with no host sync, so their lengths
+    are bounds known on the host: ``num_pieces`` (the launch's grid) is
+    ``n_blocks + n_cells // cells``, never fewer than the real pieces,
+    which come first; a piece past them has ``piece_blk`` -1 and its
+    thread block returns at once.  ``n_split`` (the split buffer's rows)
+    is the same bound."""
+
+    piece_ptr: torch.Tensor   # (n_pieces + 1,) int32
+    piece_blk: torch.Tensor   # (n_pieces,) int32
+    piece_slot: torch.Tensor  # (n_pieces,) int32
+    blk_piece: torch.Tensor   # (n_sblk + 1,) int32
+    n_split: int
+    cells: int
+
+    @property
+    def num_pieces(self) -> int:
+        return self.piece_blk.shape[0]
+
+
 class LaunchPlan(typing.NamedTuple):
     """Static launch tables of one edge set: for segment block ``i`` the
     chunks ``blk_chunk[blk_ptr[i]:blk_ptr[i+1]]`` (ascending) are those
-    whose valid-edge id range meets the block.  ``cell_i``/``cell_j``
-    list the same (block, chunk) cells j-major (chunk ascending, then
-    block): the order the worklist launches keep.  ``src_deg`` is each
-    slot's count of valid out-edges (the laned launches' per-lane message
-    counts come from it); a segment-reduce plan has none."""
+    whose valid-edge id range meets the block: the planned cells,
+    i-major.  ``cell_i``/``cell_j`` list the same (block, chunk) cells
+    j-major (chunk ascending, then block), the order worklists keep, and
+    ``cell_order[p]`` is the j-major index of i-major cell ``p``.
+    ``scratch`` keeps what the worklist launches build on first use: the
+    cells' batch ranges (``plan_batches``), the cuts of the blocks' cells
+    into pieces (``plan_pieces``) and the arrival tickets, one set per
+    CUDA stream (``_tickets``: right while the launches on a stream run
+    in order).  ``src_deg`` is each slot's count of valid out-edges (the
+    laned launches' per-lane message counts come from it); a
+    segment-reduce plan has none."""
 
     blk_ptr: torch.Tensor     # (n_sblk + 1,) int32
-    blk_chunk: torch.Tensor   # (launch cells,) int32
+    blk_chunk: torch.Tensor   # (launch cells,) int32, i-major
     cell_i: torch.Tensor      # (launch cells,) int32, j-major
     cell_j: torch.Tensor      # (launch cells,) int32, j-major
     num_edges: int
     num_segments: int
     num_slots: int
     src_deg: torch.Tensor | None = None   # (num_slots,) int32
+    cell_order: torch.Tensor | None = None   # (launch cells,) int64
+    scratch: dict | None = None
 
     @property
     def num_blocks(self) -> int:
@@ -320,12 +372,107 @@ def _chunk_ranges(edge_dst, edge_mask):
     return lo, hi
 
 
+def cell_batches(plan: LaunchPlan, edge_mask, edge_dst):
+    """(num_cells, 2) uint8, i-major: each planned cell's ``[first, last +
+    1)`` 32-edge batches of its chunk holding a valid edge of its block,
+    ``(0, 0)`` for none, with torch ops on the plan's device and no host
+    sync.  Right for any edge order; tight for edges sorted by
+    destination."""
+    n_cells = plan.num_cells
+    dev = edge_dst.device
+    if n_cells == 0:
+        return torch.zeros((0, 2), dtype=torch.uint8, device=dev)
+    e = edge_dst.shape[0]
+    pos = torch.arange(e, device=dev)
+    j = pos // EBLK
+    # a chunk's first j-major cell, and the block it lists first: a chunk
+    # with no planned cell holds no valid edge
+    first = torch.searchsorted(
+        plan.cell_j, torch.arange(_round_up(e, EBLK) // EBLK, device=dev,
+                                  dtype=torch.int32))
+    i_lo = plan.cell_i[first.clamp(max=n_cells - 1)].long()
+    blk = torch.div(edge_dst.long(), SBLK, rounding_mode="floor")
+    c = torch.where(edge_mask, first[j] + blk - i_lo[j], n_cells)
+    b = (pos % EBLK) // 32
+    lo = torch.full((n_cells + 1,), EBLK // 32, dtype=torch.int64,
+                    device=dev).scatter_reduce_(0, c, b, "amin")
+    hi = torch.zeros(n_cells + 1, dtype=torch.int64, device=dev) \
+        .scatter_reduce_(0, c, b + 1, "amax")
+    lo = torch.where(hi > 0, lo, 0)
+    return torch.stack([lo, hi], 1)[:n_cells][plan.cell_order] \
+        .to(torch.uint8).contiguous()
+
+
+def piece_tables(blk_ptr, num_cells: int, cells: int) -> PieceTables:
+    """Cut each segment block's planned cells (``blk_ptr``, i-major;
+    ``num_cells`` of them) into consecutive pieces of at most ``cells``
+    cells, with torch ops on the plan's device and no host sync
+    (``PieceTables``: padded to a bound known on the host)."""
+    if cells < 1:
+        raise ValueError(f"a piece holds at least one cell; got {cells}")
+    dev = blk_ptr.device
+    ptr = blk_ptr.long()
+    n_blk = ptr.shape[0] - 1
+    # max(1, ceil(c / cells)) <= c // cells + 1 for each block's c cells
+    bound = n_blk + num_cells // cells
+    npc = torch.clamp(torch.div(ptr[1:] - ptr[:-1] + cells - 1, cells,
+                                rounding_mode="floor"), min=1)
+    blk_piece = torch.zeros(n_blk + 1, dtype=torch.int64, device=dev)
+    blk_piece[1:] = torch.cumsum(npc, 0)
+    k = torch.arange(bound, device=dev)
+    blk = torch.searchsorted(blk_piece[1:], k, right=True)
+    real = blk < n_blk
+    blk_c = blk.clamp(max=max(n_blk - 1, 0))
+    piece_lo = torch.where(real, ptr[blk_c] + (k - blk_piece[blk_c]) * cells,
+                           num_cells)
+    split = real & (npc[blk_c] > 1)
+    slot = torch.where(split, torch.cumsum(split, 0) - 1, -1)
+    i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    return PieceTables(i32(torch.cat([piece_lo, ptr[-1:]])),
+                       i32(torch.where(real, blk, -1)), i32(slot),
+                       i32(blk_piece), bound, int(cells))
+
+
+def plan_pieces(plan: LaunchPlan, cells: int | None = None) -> PieceTables:
+    """``plan``'s pieces at ``cells`` cells (default ``PIECE_CELLS``),
+    made on first use with no host sync and kept in its ``scratch``."""
+    key = ("pieces", PIECE_CELLS if cells is None else int(cells))
+    if key not in plan.scratch:
+        plan.scratch[key] = piece_tables(plan.blk_ptr, plan.num_cells,
+                                         key[1])
+    return plan.scratch[key]
+
+
+def plan_batches(plan: LaunchPlan, edge_mask, edge_dst):
+    """``cell_batches`` of ``plan`` (whose edges these are), made on first
+    use with no host sync and kept in its ``scratch``."""
+    if "batches" not in plan.scratch:
+        plan.scratch["batches"] = cell_batches(plan, edge_mask, edge_dst)
+    return plan.scratch["batches"]
+
+
+def _tickets(plan: LaunchPlan, n: int, stream: int):
+    """The plan's (n,) int32 arrival tickets for launches on ``stream``
+    (a ``cuda_stream`` handle), made once per size and stream.  They are
+    zero between launches: the piece of a split block that arrives last
+    resets its block's ticket.  That holds because the worklist launches
+    on one stream run one after another and each runs to its end (a
+    kernel that faults leaves the CUDA context unusable); launches on
+    another stream get tickets of their own."""
+    key = ("tickets", n, stream)
+    if key not in plan.scratch:
+        plan.scratch[key] = torch.zeros(n, dtype=torch.int32,
+                                        device=plan.blk_ptr.device)
+    return plan.scratch[key]
+
+
 def plan_launch(edge_src, edge_mask, edge_dst, num_segments: int,
                 num_slots: int) -> LaunchPlan:
     """Build the block -> chunk lists for one edge set, with torch ops on
-    the edges' device.  Valid edges must address ``[0, num_slots)`` with
-    ``edge_src`` and ``[0, num_segments)`` with ``edge_dst``; the kernel
-    reads memory at those offsets, so they are checked here, once.
+    the edges' device, and the i-major order (``cell_order``).  Valid
+    edges must address ``[0, num_slots)`` with ``edge_src`` and ``[0,
+    num_segments)`` with ``edge_dst``; the kernel reads memory at those
+    offsets, so they are checked here, once.
     ``edge_src=None`` plans a segment reduce of given messages (K9), which
     gathers nothing."""
     e = edge_dst.shape[0]
@@ -359,7 +506,8 @@ def plan_launch(edge_src, edge_mask, edge_dst, num_segments: int,
                       blk.to(torch.int32), chunk.to(torch.int32),
                       e, num_segments, num_slots,
                       None if edge_src is None
-                      else _src_degrees(edge_src, edge_mask, num_slots))
+                      else _src_degrees(edge_src, edge_mask, num_slots),
+                      order, {})
 
 
 def _masked_value_tables(gval, gchg, identity):
@@ -498,29 +646,25 @@ _SIGNATURES = {   # C entry point -> (library, argument types)
     "frr_launch": ("fused_relax_reduce",
                    [_P] * 8 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P]),
     "frr_wl_launch": ("fused_relax_reduce_wl",
-                      [_P] * 8 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_P]),
-    "frr_wl_fold": ("fused_relax_reduce_wl", [_P] * 3 + [_I] * 2 + [_P]
-                    + [_I] + [_P]),
+                      [_P] * 15 + [_I] * 3 + [_P] * 3 + [_I] * 2 + [_P]),
     "frr_lanes_launch": ("fused_relax_reduce_lanes",
                          [_P] * 9 + [_I] * 4 + [_P] * 2 + [_I] * 2 + [_P]),
     "frr_wl_lanes_launch": ("fused_relax_reduce_wl_lanes",
-                            [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 2
+                            [_P] * 16 + [_I] * 4 + [_P] * 3 + [_I] * 2
                             + [_P]),
-    "frr_wl_lanes_fold": ("fused_relax_reduce_wl_lanes",
-                          [_P] * 3 + [_I] * 3 + [_P] + [_I] + [_P]),
     "segment_combine_launch": ("segment_combine",
                                [_P] * 4 + [_I] * 3 + [_P] * 2 + [_I] * 2
                                + [_P]),
     "frr_tiled_launch": ("fused_relax_reduce_tiled",
                          [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P]),
     "frr_wl_tiled_launch": ("fused_relax_reduce_wl_tiled",
-                            [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 2
+                            [_P] * 16 + [_I] * 3 + [_P] * 3 + [_I] * 2
                             + [_P]),
     "frr_tiled_lanes_launch": ("fused_relax_reduce_tiled_lanes",
                                [_P] * 9 + [_I] * 5 + [_P] * 2 + [_I] * 2
                                + [_P]),
     "frr_wl_tiled_lanes_launch": ("fused_relax_reduce_wl_tiled_lanes",
-                                  [_P] * 9 + [_I] * 5 + [_P] * 2
+                                  [_P] * 16 + [_I] * 5 + [_P] * 3
                                   + [_I] * 2 + [_P]),
 }
 _fns: dict = {}
@@ -617,9 +761,14 @@ def _launch(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan: LaunchPlan,
 class Worklist:
     """A planned sparse launch: the live (block, chunk) cells ``wl_i``,
     ``wl_j`` ((l_pad,) int32, j-major, zero past the count) and their
-    count ``nlive`` ((1,) int32).  A host plan holds CPU tensors; a
-    device plan (``build_device_worklist``) holds tensors on the card,
-    and its count is never read on the host.
+    count ``nlive`` ((1,) int32).  A host plan holds CPU tensors, and a
+    planner's plan also the launch's own form of its cells: ``flags``,
+    a (num_cells,) uint8 byte per planned cell of the edges'
+    ``LaunchPlan``, i-major, 1 where the cell is listed (page-locked
+    when a card is present, so the launch uploads it in one copy that
+    does not wait).  A device plan (``build_device_worklist``) holds
+    tensors on the card, and its count is never read on the host; a plan
+    without flags is mapped onto them at launch (``worklist_flags``).
 
     A tiled plan (``path='tiled'``, tile width ``vblk``) runs K6/K8,
     which need nothing more.  A tiled host plan may also hold the
@@ -631,7 +780,7 @@ class Worklist:
 
     def __init__(self, wl_i, wl_j, nlive, cell_ntiles=None, cell_tile=None,
                  cell_slot=None, cell_fetch=None, *, path="pinned",
-                 vblk=None):
+                 vblk=None, flags=None):
         self.wl_i = wl_i
         self.wl_j = wl_j
         self.nlive = nlive
@@ -641,6 +790,7 @@ class Worklist:
         self.cell_fetch = cell_fetch
         self.path = path
         self.vblk = vblk
+        self.flags = flags
 
     @property
     def l_pad(self) -> int:
@@ -653,8 +803,9 @@ class Worklist:
     def to(self, device) -> "Worklist":
         move = [None if t is None else t.to(device) for t in (
             self.wl_i, self.wl_j, self.nlive, self.cell_ntiles,
-            self.cell_tile, self.cell_slot, self.cell_fetch)]
-        return Worklist(*move, path=self.path, vblk=self.vblk)
+            self.cell_tile, self.cell_slot, self.cell_fetch, self.flags)]
+        return Worklist(*move[:7], path=self.path, vblk=self.vblk,
+                        flags=move[7])
 
 
 class WorklistInfo(typing.NamedTuple):
@@ -792,9 +943,17 @@ class WorklistPlanner:
         first = np.cumsum(nb) - nb
         self.cell_i = i_lo[self.cell_j] + np.arange(self.cell_j.shape[0]) \
             - first[self.cell_j]
-        # each edge's own cell, keyed j-major (j * n_i + dst block)
+        # each edge's own cell, keyed j-major (j * n_i + dst block), and
+        # for a valid edge the j-major index of that cell in the list
         self.edge_cell = (np.arange(self.n_chunks)[:, None] * self.n_i
                           + idc // SBLK)
+        self.edge_cidx = np.where(
+            self.mask, first[:, None] + idc // SBLK - i_lo[:, None], 0)
+        # each j-major cell's position in the launch's i-major list (the
+        # inverse of plan_launch's stable sort by block)
+        self.imajor = np.empty(self.cell_j.shape[0], np.int64)
+        self.imajor[np.argsort(self.cell_i, kind="stable")] = \
+            np.arange(self.cell_j.shape[0])
         if self.path == "tiled":
             if self.vblk is None:
                 raise ValueError("tiled worklist planning needs vblk")
@@ -901,15 +1060,16 @@ class WorklistPlanner:
                 >= max_live_fraction:
             return None, None
         if dst_filter:
-            act_cells = self.edge_cell[act]      # one entry per active edge
-            hit = np.zeros(self.total_cells, bool)
-            hit[act_cells] = True
-            keys = np.flatnonzero(hit)
-            jj, ii = np.divmod(keys, self.n_i)
-            n_act = act_cells.shape[0]
+            hit = np.zeros(self.launch_cells, bool)
+            hit[self.edge_cidx[act]] = True      # one entry per active edge
+            cidx = np.flatnonzero(hit)
         else:
-            jj, ii = self.cell_j[live], self.cell_i[live]
-            n_act = np.count_nonzero(act)
+            cidx = np.flatnonzero(live)
+        n_act = np.count_nonzero(act)
+        jj, ii = self.cell_j[cidx], self.cell_i[cidx]
+        keys = jj * self.n_i + ii
+        flags = _host_flags(self.launch_cells)
+        flags.numpy()[self.imajor[cidx]] = 1
         nlive = int(ii.shape[0])
         l_pad = _wl_pad_len(nlive, pad_to)
         wl_i = np.zeros(l_pad, np.int32)
@@ -926,7 +1086,8 @@ class WorklistPlanner:
             staged_rows=staged, staged_bytes=staged * self.lane_width * 4)
         if self.path != "tiled" or not tile_lists:
             wl = Worklist(torch.from_numpy(wl_i), torch.from_numpy(wl_j),
-                          nlive_t, path=self.path, vblk=self.vblk)
+                          nlive_t, path=self.path, vblk=self.vblk,
+                          flags=flags)
             return wl, self._check_smem(info)
 
         # the reference's tile accounting: each kept cell's distinct
@@ -961,7 +1122,7 @@ class WorklistPlanner:
             torch.from_numpy(wl_i), torch.from_numpy(wl_j), nlive_t,
             *(torch.from_numpy(x) for x in (cell_ntiles, cell_tile,
                                              cell_slot, cell_fetch)),
-            path="tiled", vblk=self.vblk)
+            path="tiled", vblk=self.vblk, flags=flags)
         info = info._replace(
             tile_dmas=fetches, tile_needed=int(cnt.sum()),
             dma_bytes=fetches * self.vblk * self.lane_width * 4)
@@ -999,17 +1160,55 @@ def plan_worklist(edge_dst, edge_mask, edge_src, gchg, num_segments: int,
 
 
 # --------------------------------------------------------------------------
-# device-side worklist compaction (grid_mode='device_worklist')
+# the worklist launches' live cells
 # --------------------------------------------------------------------------
-# The device twin of WorklistPlanner.plan(dst_filter=False): the launch
-# plan's j-major cell list, filtered by the chunk frontier bits and
-# compacted by a cumsum-scatter into fixed-length wl_i / wl_j, with the
-# live count left on the device.  The length is static per partition, so
-# rounds enqueue without a host sync.  The reference pads to the power of
-# two above the FULL (n_sblk, n_chunks) grid (8.5 M cells at RMAT-18, so
-# about 17 GB of K2 partials); this pads above the cells whose ranges
-# meet (about 40 k at RMAT-18, 64 MiB of partials).  A tiled device plan
-# is the same list: K6/K8 stage each cell's rows from the active flags.
+# A worklist launch (K2, K4, K6, K8) walks every planned cell of its
+# pieces and runs the listed ones.  A host plan lists them as a flag byte
+# per planned cell (``Worklist.flags``, filled by the planner); a device
+# plan lists the planned cells whose chunk is live, which the kernel
+# reads from the chunk frontier bits itself, so ``grid_mode=
+# 'device_worklist'`` compacts nothing on the card.  ``build_device_
+# worklist`` still compacts them into the reference's j-major form: the
+# plan's cell list filtered by the chunk bits and compacted by a
+# cumsum-scatter into fixed-length wl_i / wl_j, with the live count left
+# on the device (static length, no host sync).  The reference pads to the
+# power of two above the FULL (n_sblk, n_chunks) grid (8.5 M cells at
+# RMAT-18); this pads above the cells whose ranges meet (about 40 k).
+
+
+def _host_flags(n: int):
+    """(n,) uint8 zeros on the host for a plan's flags: page-locked when a
+    card is present.  PyTorch's caching host allocator hands the planner
+    the same buffers back once their copies to the card are done, so the
+    launch's upload is one copy that does not wait."""
+    return torch.zeros(n, dtype=torch.uint8,
+                       pin_memory=torch.cuda.is_available())
+
+
+def device_flags(plan: LaunchPlan, chunk_act):
+    """The (num_cells,) uint8 live flags of a device plan, i-major: the
+    planned cells whose chunk is live.  The kernels read each from
+    ``chunk_act`` themselves; this is its plain version."""
+    return torch.index_select(chunk_act, 0, plan.blk_chunk.long()) \
+        .to(torch.uint8)
+
+
+def worklist_flags(plan: LaunchPlan, wl_i, wl_j, nlive):
+    """Map a worklist's first ``nlive`` j-major cells onto ``plan``'s
+    (num_cells,) uint8 flags, i-major, with torch ops on the plan's
+    device (no host sync).  A listed cell that the plan does not hold
+    meets no edge of its block and is dropped."""
+    dev = plan.blk_ptr.device
+    n_i, n = plan.num_blocks, plan.num_cells
+    out = torch.zeros(n + 1, dtype=torch.uint8, device=dev)
+    if n:
+        keys = plan.cell_j.long() * n_i + plan.cell_i.long()   # ascending
+        key = wl_j.to(dev).long() * n_i + wl_i.to(dev).long()
+        pos = torch.searchsorted(keys, key).clamp(max=n - 1)
+        listed = torch.arange(key.shape[0], device=dev) \
+            < nlive.to(dev).long()
+        out[torch.where(listed & (keys[pos] == key), pos, n)] = 1
+    return out[:n][plan.cell_order]
 
 
 def device_worklist_pad(plan: LaunchPlan) -> int:
@@ -1039,8 +1238,8 @@ def build_device_worklist(gchg, edge_src, edge_mask, edge_dst,
                           num_segments: int,
                           plan: LaunchPlan | None = None, *,
                           path: str = "pinned", vblk=None) -> Worklist:
-    """The ``grid_mode='device_worklist'`` plan, built with torch ops on
-    the frontier's device.  Its cells equal
+    """The ``grid_mode='device_worklist'`` plan in the reference's form,
+    built with torch ops on the frontier's device.  Its cells equal
     ``WorklistPlanner.plan(gchg, dst_filter=False)``'s, in order.  A
     (V, Q) lane frontier is OR'd across lanes.  ``path='tiled'`` marks
     the plan for the tiled kernels with tile width ``vblk``."""
@@ -1068,127 +1267,95 @@ def _launch_worklist(gchg, edge_src, edge_mask, edge_dst,
     return wl
 
 
-# --------------------------------------------------------------------------
-# K2: the worklist launch on the card
-# --------------------------------------------------------------------------
-
-def _wl_cells(gval_m, edge_src, edge_w, edge_mask, edge_dst, wl: Worklist,
-              grid: int, relax_kind: str, kind: str, with_debug: bool):
-    """K2 proper: one block per live cell over ``grid`` blocks, writing
-    the (l_pad, SBLK) partials.  ``wl`` must already be on the card."""
-    dev = gval_m.device
-    partials = torch.empty((wl.l_pad, SBLK), dtype=torch.float32, device=dev)
-    dbg = torch.zeros(1, dtype=torch.int32, device=dev) if with_debug \
-        else None
-    rc = _kernel("frr_wl_launch")(
-        gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
-        edge_mask.data_ptr(), edge_dst.data_ptr(), wl.wl_i.data_ptr(),
-        wl.wl_j.data_ptr(), wl.nlive.data_ptr(), edge_src.shape[0], grid,
-        partials.data_ptr(), dbg.data_ptr() if dbg is not None else None,
-        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_relax_reduce_wl launch failed: "
-                           f"cudaError {rc}")
-    return partials, dbg
-
-
-def _wl_order(wl: Worklist, num_segments: int):
-    """The folds' cell order: each segment block's cells in cell-list
-    order — a stable sort of ``wl_i`` with the cells past the count keyed
-    past every block — as (n_i, order, ptr), on the worklist's device."""
-    dev = wl.wl_i.device
-    n_i = _round_up(num_segments, SBLK) // SBLK
-    cells = torch.arange(wl.l_pad, dtype=torch.int32, device=dev)
-    key = torch.where(cells < wl.nlive, wl.wl_i, n_i)
-    key, order = torch.sort(key, stable=True)
-    ptr = torch.searchsorted(
-        key, torch.arange(n_i + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
-    return n_i, order, ptr
-
-
-def _wl_fold(partials, wl: Worklist, num_segments: int, kind: str):
-    """K2's fold (the reference's ``_scatter_partials``): each block's
-    cells combined into the inbox in cell-list order (``_wl_order``)."""
-    dev = partials.device
-    n_i, order, ptr = _wl_order(wl, num_segments)
-    out = torch.empty(num_segments, dtype=torch.float32, device=dev)
-    rc = _kernel("frr_wl_fold")(
-        partials.data_ptr(), order.data_ptr(), ptr.data_ptr(), n_i,
-        num_segments, out.data_ptr(), _KIND_CODE[kind],
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_relax_reduce_wl fold failed: "
-                           f"cudaError {rc}")
-    return out
-
-
-def _wl_grid(wl: Worklist, dev, cells_per_block: int = 1) -> int:
-    """A worklist launch's grid, blocks taking groups of
-    ``cells_per_block`` consecutive cells: exactly one block per group
-    for a host plan (whose count the host holds), else a fixed few
-    blocks per SM striding over the groups below the count in device
-    memory."""
-    if wl.nlive.device.type == "cpu":
-        return max(-(-int(wl.nlive[0]) // cells_per_block), 1)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    return min(-(-wl.l_pad // cells_per_block), WL_BLOCKS_PER_SM * n_sm)
-
-
-def _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-               wl: Worklist, num_segments: int, cells_per_block: int = 1):
-    """Check a worklist against the launch grid (host plans only: a
-    device plan's count is never read) and move it to the card.  Returns
-    (grid, worklist on the card)."""
-    dev = gval_m.device
+def _card_flags(wl: Worklist | None, plan: LaunchPlan, num_segments: int):
+    """A worklist's live flags on the plan's card: None for a device
+    plan (the kernel reads the chunk frontier bits), a planner's flags in
+    one copy that does not wait, else ``worklist_flags`` of its cells (a
+    host plan's cells are checked against the launch grid first)."""
+    if wl is None:
+        return None
+    if wl.flags is not None:
+        return wl.flags.to(plan.blk_ptr.device, non_blocking=True)
     if wl.nlive.device.type == "cpu":     # a host plan: check its cells
         n = int(wl.nlive[0])
-        n_chunks = _round_up(edge_src.shape[0], EBLK) // EBLK
+        n_chunks = _round_up(plan.num_edges, EBLK) // EBLK
         if not 0 <= n <= wl.l_pad or (n and (
                 int(wl.wl_j[:n].max()) >= n_chunks
                 or int(wl.wl_i[:n].max()) * SBLK >= max(num_segments, 1)
                 or int(wl.wl_i[:n].min()) < 0
                 or int(wl.wl_j[:n].min()) < 0)):
             raise ValueError("worklist cells outside the launch grid")
-    grid = _wl_grid(wl, dev, cells_per_block)
-    wl = wl.to(dev)
-    _check_edge_args(gval_m, edge_src, edge_w, edge_mask,
-                     edge_dst, (wl.wl_i, torch.int32, "wl_i"),
-                     (wl.wl_j, torch.int32, "wl_j"),
-                     (wl.nlive, torch.int32, "nlive"))
-    if wl.wl_j.shape[0] != wl.l_pad or wl.nlive.shape[0] != 1:
-        raise ValueError("worklist arrays differ in length")
-    return grid, wl
+    return worklist_flags(plan, wl.wl_i, wl.wl_j, wl.nlive)
 
 
-def _launch_wl(gval_m, edge_src, edge_w, edge_mask, edge_dst, wl: Worklist,
-               num_segments: int, relax_kind: str, kind: str,
-               with_debug: bool):
-    """Launch K2 and its fold on the current stream.  A host plan (CPU
-    tensors) is copied to the card; a device plan stays there and nothing
-    here waits for the card.  Returns the (num_segments,) inbox partial
-    and, with ``with_debug``, the (1,) int32 executed-cell count.  Raises
-    on any launch error."""
+# --------------------------------------------------------------------------
+# K2 and K4: the worklist launches on the card
+# --------------------------------------------------------------------------
+
+def _check_flags(flags, plan: LaunchPlan, dev):
+    if flags is not None and (
+            flags.device != dev or flags.dtype != torch.uint8
+            or flags.shape != (plan.num_cells,)
+            or not flags.is_contiguous()):
+        raise ValueError(f"flags must be a contiguous ({plan.num_cells},) "
+                         f"uint8 on {dev}")
+
+
+def _piece_ptrs(plan: LaunchPlan, pc: PieceTables, flags, chunk_act,
+                n_tickets: int, edge_mask, edge_dst):
+    """The ten piece-table pointers a worklist launch takes, in the C
+    entry points' order: piece begin / end, block, split slot, a block's
+    pieces, the cells' chunks and batch ranges (of the plan's edges
+    ``edge_mask``/``edge_dst``), the flags (null for a device plan), the
+    chunk frontier bits and the arrival tickets."""
+    return [pc.piece_ptr.data_ptr(), pc.piece_ptr[1:].data_ptr(),
+            pc.piece_blk.data_ptr(), pc.piece_slot.data_ptr(),
+            pc.blk_piece.data_ptr(), plan.blk_chunk.data_ptr(),
+            plan_batches(plan, edge_mask, edge_dst).data_ptr(),
+            None if flags is None else flags.data_ptr(),
+            chunk_act.data_ptr(),
+            _tickets(plan, n_tickets, torch.cuda.current_stream(
+                chunk_act.device).cuda_stream).data_ptr()]
+
+
+def _launch_wl(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+               plan: LaunchPlan, chunk_act, flags, relax_kind: str,
+               kind: str, with_debug: bool):
+    """Launch K2 on the current stream: one block per piece of ``plan``
+    (``PIECE_CELLS``), running the cells ``flags`` lists ((num_cells,)
+    uint8 on the card, i-major), or with ``flags=None`` (a device plan)
+    the planned cells whose chunk is live.  Nothing here waits for the
+    card.  Returns the (num_segments,) inbox partial and, with
+    ``with_debug``, the (1,) int32 count of cells run.  Raises on any
+    launch error."""
     global wl_launches
     if gval_m.dim() != 1:
         raise ValueError("K2 takes a (V,) value table")
-    grid, wl = _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst, wl,
-                           num_segments)
-    partials, dbg = _wl_cells(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                              wl, grid, relax_kind, kind, with_debug)
-    out = _wl_fold(partials, wl, num_segments, kind)
+    _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
+                       chunk_act)
+    dev = gval_m.device
+    _check_flags(flags, plan, dev)
+    out = torch.empty(plan.num_segments, dtype=torch.float32, device=dev)
+    dbg = torch.zeros(1, dtype=torch.int32, device=dev) if with_debug \
+        else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pc = plan_pieces(plan)
+    split = torch.empty((pc.n_split, SBLK), dtype=torch.float32, device=dev)
+    if pc.num_pieces:
+        rc = _kernel("frr_wl_launch")(
+            gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
+            edge_mask.data_ptr(), edge_dst.data_ptr(),
+            *_piece_ptrs(plan, pc, flags, chunk_act, plan.num_blocks,
+                         edge_mask, edge_dst),
+            edge_src.shape[0], plan.num_segments, pc.num_pieces,
+            out.data_ptr(), split.data_ptr(),
+            dbg.data_ptr() if dbg is not None else None,
+            _RELAX_CODE[relax_kind], _KIND_CODE[kind], stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_relax_reduce_wl launch failed: "
+                               f"cudaError {rc}")
     wl_launches += 1
     return out, dbg
-
-
-# --------------------------------------------------------------------------
-# K3 and K4: the lane-batched launches on the card
-# --------------------------------------------------------------------------
-
-def wl_lanes_partial_bytes(l_pad: int, q: int) -> int:
-    """Bytes of K4's (l_pad, SBLK, Q) float32 partial buffer."""
-    return l_pad * SBLK * q * 4
 
 
 def _check_lane_tables(gval_m, unitw):
@@ -1238,78 +1405,44 @@ def _launch_lanes(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
     return out, dbg
 
 
-def _check_partial_room(nbytes: int, dev):
-    """Raise, with the byte count, when K4's partial buffer cannot be
-    allocated: it must fit in the allocator's free cache plus the card's
-    free memory.  Nothing here waits for the card."""
-    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    if nbytes <= cached:
-        return
-    free, _ = torch.cuda.mem_get_info(dev)
-    if nbytes > free + cached:
-        raise RuntimeError(
-            f"K4's partial buffer needs {nbytes} bytes (l_pad x {SBLK} x Q "
-            f"x 4); the card has {free + cached} free")
+def _lane_groups(q: int) -> int:
+    return -(-q // LGRP)
 
 
-def _wl_lanes_cells(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
-                    wl: Worklist, grid: int, relax_kind: str, kind: str,
-                    with_debug: bool):
-    """K4 proper: ``grid`` blocks per lane group over the live cells,
-    writing the (l_pad, SBLK, Q) partials.  ``wl`` must already be on the
-    card."""
+def _launch_wl_lanes(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
+                     plan: LaunchPlan, chunk_act, flags, relax_kind: str,
+                     kind: str, with_debug: bool):
+    """Launch K4 on the current stream: K2's pieces and flags with K3's
+    cell, one block per (piece, group of 32 lanes).  Returns the
+    (num_segments, Q) inbox partial and, with ``with_debug``, the (1,)
+    int32 count of cells run."""
+    global wl_lanes_launches
+    _check_lane_tables(gval_m, unitw)
+    _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
+                       chunk_act)
     dev = gval_m.device
+    _check_flags(flags, plan, dev)
     q = gval_m.shape[1]
-    _check_partial_room(wl_lanes_partial_bytes(wl.l_pad, q), dev)
-    partials = torch.empty((wl.l_pad, SBLK, q), dtype=torch.float32,
-                           device=dev)
+    pc = plan_pieces(plan)
+    out = torch.empty((plan.num_segments, q), dtype=torch.float32,
+                      device=dev)
+    split = torch.empty((pc.n_split, SBLK, q), dtype=torch.float32,
+                        device=dev)
     dbg = torch.zeros(1, dtype=torch.int32, device=dev) if with_debug \
         else None
     rc = _kernel("frr_wl_lanes_launch")(
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
         edge_mask.data_ptr(), edge_dst.data_ptr(), unitw.data_ptr(),
-        wl.wl_i.data_ptr(), wl.wl_j.data_ptr(), wl.nlive.data_ptr(),
-        edge_src.shape[0], grid, q, partials.data_ptr(),
+        *_piece_ptrs(plan, pc, flags, chunk_act,
+                     plan.num_blocks * _lane_groups(q), edge_mask, edge_dst),
+        edge_src.shape[0], plan.num_segments, pc.num_pieces, q,
+        out.data_ptr(), split.data_ptr(),
         dbg.data_ptr() if dbg is not None else None,
         _RELAX_CODE[relax_kind], _KIND_CODE[kind],
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_relax_reduce_wl_lanes launch failed: "
                            f"cudaError {rc}")
-    return partials, dbg
-
-
-def _wl_lanes_fold(partials, wl: Worklist, num_segments: int, kind: str):
-    """K4's laned fold: each block's (SBLK, Q) partials combined into the
-    (num_segments, Q) inbox in cell-list order (``_wl_order``)."""
-    dev = partials.device
-    q = partials.shape[2]
-    n_i, order, ptr = _wl_order(wl, num_segments)
-    out = torch.empty((num_segments, q), dtype=torch.float32, device=dev)
-    rc = _kernel("frr_wl_lanes_fold")(
-        partials.data_ptr(), order.data_ptr(), ptr.data_ptr(), n_i,
-        num_segments, q, out.data_ptr(), _KIND_CODE[kind],
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_relax_reduce_wl_lanes fold failed: "
-                           f"cudaError {rc}")
-    return out
-
-
-def _launch_wl_lanes(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
-                     wl: Worklist, num_segments: int, relax_kind: str,
-                     kind: str, with_debug: bool):
-    """Launch K4 and its laned fold on the current stream, as
-    ``_launch_wl`` does K2.  Returns the (num_segments, Q) inbox partial
-    and, with ``with_debug``, the (1,) int32 executed-cell count."""
-    global wl_lanes_launches
-    _check_lane_tables(gval_m, unitw)
-    grid, wl = _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                           wl, num_segments)
-    partials, dbg = _wl_lanes_cells(gval_m, unitw, edge_src, edge_w,
-                                    edge_mask, edge_dst, wl, grid,
-                                    relax_kind, kind, with_debug)
-    out = _wl_lanes_fold(partials, wl, num_segments, kind)
     wl_lanes_launches += 1
     return out, dbg
 
@@ -1399,102 +1532,83 @@ def _launch_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
     return out, dbg
 
 
-def _wl_tiled_cells(gval_m, edge_src, edge_w, edge_mask, edge_dst, act,
-                    wl: Worklist, grid: int, relax_kind: str, kind: str,
-                    with_debug: bool, cells_per_block: int):
-    """K6 proper, writing the (l_pad, SBLK) partials; ``wl`` must already
-    be on the card and ``grid`` cover its groups of ``cells_per_block``
-    cells."""
+def _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst, act,
+                     plan: LaunchPlan, chunk_act, flags, relax_kind: str,
+                     kind: str, with_debug: bool):
+    """Launch K6 on the current stream: K2's launch (pieces, flags,
+    combine), each cell staging the rows of its active edges (``act``)
+    that land in its block.  Nothing here waits for the card.  Returns
+    the (num_segments,) inbox partial and, with ``with_debug``, the (2,)
+    int32 [cells run, staged rows]."""
+    global wl_tiled_launches
+    if gval_m.dim() != 1:
+        raise ValueError("K6 takes a (V,) value table")
+    _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
+                       chunk_act)
+    _check_act(act, edge_src)
     dev = gval_m.device
-    partials = torch.empty((wl.l_pad, SBLK), dtype=torch.float32,
-                           device=dev)
+    _check_flags(flags, plan, dev)
+    pc = plan_pieces(plan)
+    out = torch.empty(plan.num_segments, dtype=torch.float32, device=dev)
+    split = torch.empty((pc.n_split, SBLK), dtype=torch.float32, device=dev)
     dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
         else None
     rc = _kernel("frr_wl_tiled_launch")(
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
         edge_mask.data_ptr(), edge_dst.data_ptr(), act.data_ptr(),
-        wl.wl_i.data_ptr(), wl.wl_j.data_ptr(), wl.nlive.data_ptr(),
-        edge_src.shape[0], cells_per_block, grid, partials.data_ptr(),
-        dbg.data_ptr() if dbg is not None else None,
+        *_piece_ptrs(plan, pc, flags, chunk_act, plan.num_blocks,
+                     edge_mask, edge_dst),
+        edge_src.shape[0], plan.num_segments, pc.num_pieces, out.data_ptr(),
+        split.data_ptr(), dbg.data_ptr() if dbg is not None else None,
         _RELAX_CODE[relax_kind], _KIND_CODE[kind],
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_relax_reduce_wl_tiled launch failed: "
                            f"cudaError {rc}")
-    return partials, dbg
-
-
-def _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst, act,
-                     wl: Worklist, num_segments: int, relax_kind: str,
-                     kind: str, with_debug: bool):
-    """Launch K6 and K2's fold on the current stream: K2's cells, each
-    staging the rows of its active edges (``act``) that land in its block.
-    A host plan is copied to the card; a device plan stays there and
-    nothing here waits for the card.  Returns the (num_segments,) inbox
-    partial and, with ``with_debug``, the (2,) int32 [executed cells,
-    staged rows]."""
-    global wl_tiled_launches
-    if gval_m.dim() != 1:
-        raise ValueError("K6 takes a (V,) value table")
-    _check_act(act, edge_src)
-    grid, wl = _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                           wl, num_segments, WL_TILED_CELLS)
-    partials, dbg = _wl_tiled_cells(gval_m, edge_src, edge_w, edge_mask,
-                                    edge_dst, act, wl, grid, relax_kind,
-                                    kind, with_debug, WL_TILED_CELLS)
-    out = _wl_fold(partials, wl, num_segments, kind)
     wl_tiled_launches += 1
     return out, dbg
 
 
-def _wl_tiled_lanes_cells(gval_m, unitw, edge_src, edge_w, edge_dst, act,
-                          wl: Worklist, grid: int, relax_kind: str,
-                          kind: str, with_debug: bool,
-                          cells_per_block: int):
-    """K8 proper, writing the (l_pad, SBLK, Q) partials; ``wl`` must
-    already be on the card and ``grid`` cover its groups of
-    ``cells_per_block`` cells."""
+def _launch_wl_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
+                           edge_dst, act, plan: LaunchPlan, chunk_act,
+                           flags, relax_kind: str, kind: str,
+                           with_debug: bool):
+    """Launch K8 on the current stream: K4's launch (pieces, flags,
+    combine), each cell staging its lane group's columns of the rows of
+    its edges active in some lane (``act``) that land in its block.
+    Returns the (num_segments, Q) inbox partial and, with
+    ``with_debug``, the (2,) int32 [cells run, staged rows] (one row per
+    cell and position, whatever the lane groups)."""
+    global wl_tiled_lanes_launches
+    _check_lane_tables(gval_m, unitw)
+    _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
+                       chunk_act)
+    _check_act(act, edge_src)
+    if gval_m.data_ptr() % 16:
+        raise ValueError("the value table must be 16-byte aligned")
     dev = gval_m.device
+    _check_flags(flags, plan, dev)
     q = gval_m.shape[1]
-    _check_partial_room(wl_lanes_partial_bytes(wl.l_pad, q), dev)
-    partials = torch.empty((wl.l_pad, SBLK, q), dtype=torch.float32,
-                           device=dev)
+    pc = plan_pieces(plan)
+    out = torch.empty((plan.num_segments, q), dtype=torch.float32,
+                      device=dev)
+    split = torch.empty((pc.n_split, SBLK, q), dtype=torch.float32,
+                        device=dev)
     dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
         else None
     rc = _kernel("frr_wl_tiled_lanes_launch")(
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
         edge_dst.data_ptr(), act.data_ptr(), unitw.data_ptr(),
-        wl.wl_i.data_ptr(), wl.wl_j.data_ptr(), wl.nlive.data_ptr(),
-        edge_src.shape[0], gval_m.shape[0], q, cells_per_block, grid,
-        partials.data_ptr(), dbg.data_ptr() if dbg is not None else None,
+        *_piece_ptrs(plan, pc, flags, chunk_act,
+                     plan.num_blocks * _lane_groups(q), edge_mask, edge_dst),
+        edge_src.shape[0], plan.num_segments, pc.num_pieces,
+        gval_m.shape[0], q, out.data_ptr(), split.data_ptr(),
+        dbg.data_ptr() if dbg is not None else None,
         _RELAX_CODE[relax_kind], _KIND_CODE[kind],
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_relax_reduce_wl_tiled_lanes launch "
                            f"failed: cudaError {rc}")
-    return partials, dbg
-
-
-def _launch_wl_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
-                           edge_dst, act, wl: Worklist, num_segments: int,
-                           relax_kind: str, kind: str, with_debug: bool):
-    """Launch K8 and K4's laned fold on the current stream: K4's (cell,
-    lane group) blocks, each cell staging its group's columns of the rows
-    of its edges active in some lane (``act``) that land in its block.
-    Returns the (num_segments, Q) inbox partial and, with ``with_debug``,
-    the (2,) int32 [executed cells, staged rows] (one row per cell and
-    position, whatever the lane groups)."""
-    global wl_tiled_lanes_launches
-    _check_lane_tables(gval_m, unitw)
-    _check_act(act, edge_src)
-    if gval_m.data_ptr() % 16:
-        raise ValueError("the value table must be 16-byte aligned")
-    grid, wl = _wl_on_card(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                           wl, num_segments, WL_TILED_CELLS)
-    partials, dbg = _wl_tiled_lanes_cells(
-        gval_m, unitw, edge_src, edge_w, edge_dst, act, wl, grid,
-        relax_kind, kind, with_debug, WL_TILED_CELLS)
-    out = _wl_lanes_fold(partials, wl, num_segments, kind)
     wl_tiled_lanes_launches += 1
     return out, dbg
 
@@ -1552,7 +1666,8 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     ``smem_budget_bytes``), or a given worklist's own: pinned runs K1
     (dense) / K2 (worklist), tiled K5 / K6.  Min results are
     bit-identical across launches; K5's sums are K1's and K6's are K2's,
-    and K2's differ from K1's by reassociation only.
+    and K2's are K1's where no segment block is split into pieces, else
+    differ by reassociation only.
 
     CUDA tensors launch the kernels; CPU tensors run the plain versions.
     """
@@ -1569,26 +1684,23 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     if worklist is None and grid_mode == "worklist":
         worklist = _launch_worklist(gchg, edge_src, edge_mask, edge_dst,
                                     num_segments, path, vblk)
-    need_plan = worklist is None and (
-        dev == "cuda" or with_debug or grid_mode == "device_worklist"
-        or tiled)
+    wl_launch = worklist is not None or grid_mode == "device_worklist"
+    need_plan = dev == "cuda" or (worklist is None and (
+        with_debug or grid_mode == "device_worklist" or tiled))
     if need_plan and plan is None:
         plan = plan_launch(edge_src, edge_mask, edge_dst, num_segments, v)
     act = _active_edges(edge_src, edge_mask, gchg)
     chunk_act, count = _chunk_tables(edge_src, edge_mask, gchg, act)
-    if worklist is None and grid_mode == "device_worklist":
-        worklist = _compact_live_cells(plan, chunk_act,
-                                       device_worklist_pad(plan), path, vblk)
     if dev == "cuda":
         gval_m = _masked_value_tables(gval, gchg, identity)
-        if worklist is not None and tiled:
+        flags = _card_flags(worklist, plan, num_segments)
+        if wl_launch and tiled:
             out, dbg = _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask,
-                                        edge_dst, act, worklist,
-                                        num_segments, relax_kind, kind,
-                                        with_debug)
-        elif worklist is not None:
+                                        edge_dst, act, plan, chunk_act,
+                                        flags, relax_kind, kind, with_debug)
+        elif wl_launch:
             out, dbg = _launch_wl(gval_m, edge_src, edge_w, edge_mask,
-                                  edge_dst, worklist, num_segments,
+                                  edge_dst, plan, chunk_act, flags,
                                   relax_kind, kind, with_debug)
         elif tiled:
             out, dbg = _launch_tiled(gval_m, edge_src, edge_w, edge_mask,
@@ -1598,7 +1710,11 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
             out, dbg = _launch(gval_m, edge_src, edge_w, edge_mask,
                                edge_dst, plan, chunk_act, relax_kind, kind,
                                with_debug)
-    elif worklist is not None and tiled:
+        return _pack(out, count, dbg, with_count, with_debug)
+    if worklist is None and grid_mode == "device_worklist":
+        worklist = _compact_live_cells(plan, chunk_act,
+                                       device_worklist_pad(plan), path, vblk)
+    if worklist is not None and tiled:
         out, rows = ref.fused_relax_reduce_wl_tiled_ref(
             gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
             worklist.wl_i, worklist.wl_j, worklist.nlive, num_segments,
@@ -1648,12 +1764,13 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
 
     Pinned, the dense launch is K3 and ``worklist=`` (a host plan, from
     the OR-across-lanes frontier) or ``grid_mode='worklist' |
-    'device_worklist'`` runs K4 and its fold; tiled (the (V, Q) table
+    'device_worklist'`` runs K4; tiled (the (V, Q) table
     over the budget, or ``path``/``vblk``), K7 and K8.  There is no lane
     padding: any Q gives the columns its lanes would give alone, and
     residency is judged at Q lanes.  Min results are bit-identical
-    across launches; K7's sums are K3's and K8's are K4's, and K4's
-    differ from K3's by reassociation only.
+    across launches; K7's sums are K3's and K8's are K4's, and K4's are
+    K3's where no segment block is split into pieces, else differ by
+    reassociation only.
 
     CUDA tensors launch the kernels; CPU tensors run the plain versions.
     """
@@ -1678,29 +1795,26 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
     if worklist is None and grid_mode == "worklist":
         worklist = _launch_worklist(gchg, edge_src, edge_mask, edge_dst,
                                     num_segments, path, vblk, q)
-    need_plan = worklist is None and (
-        dev == "cuda" or with_debug or grid_mode == "device_worklist"
-        or tiled)
+    wl_launch = worklist is not None or grid_mode == "device_worklist"
+    need_plan = dev == "cuda" or (worklist is None and (
+        with_debug or grid_mode == "device_worklist" or tiled))
     if need_plan and plan is None:
         plan = plan_launch(edge_src, edge_mask, edge_dst, num_segments, v)
     chunk_act, counts, act = _lane_chunk_tables(
         edge_src, edge_mask, gchg, None if plan is None else plan.src_deg,
         with_act=True)
-    if worklist is None and grid_mode == "device_worklist":
-        worklist = _compact_live_cells(plan, chunk_act,
-                                       device_worklist_pad(plan), path, vblk)
     if dev == "cuda":
         gval_m = _masked_value_tables(gval, gchg, identity)
         unit_u8 = (unitw != 0).to(torch.uint8)
-        if worklist is not None and tiled:
+        flags = _card_flags(worklist, plan, num_segments)
+        if wl_launch and tiled:
             out, dbg = _launch_wl_tiled_lanes(
                 gval_m, unit_u8, edge_src, edge_w, edge_mask, edge_dst, act,
-                worklist, num_segments, relax_kind, kind, with_debug)
-        elif worklist is not None:
+                plan, chunk_act, flags, relax_kind, kind, with_debug)
+        elif wl_launch:
             out, dbg = _launch_wl_lanes(gval_m, unit_u8, edge_src, edge_w,
-                                        edge_mask, edge_dst, worklist,
-                                        num_segments, relax_kind, kind,
-                                        with_debug)
+                                        edge_mask, edge_dst, plan, chunk_act,
+                                        flags, relax_kind, kind, with_debug)
         elif tiled:
             out, dbg = _launch_tiled_lanes(
                 gval_m, unit_u8, edge_src, edge_w, edge_mask, edge_dst, plan,
@@ -1709,7 +1823,11 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
             out, dbg = _launch_lanes(gval_m, unit_u8, edge_src, edge_w,
                                      edge_mask, edge_dst, plan, chunk_act,
                                      relax_kind, kind, with_debug)
-    elif worklist is not None and tiled:
+        return _pack(out, counts, dbg, with_count, with_debug)
+    if worklist is None and grid_mode == "device_worklist":
+        worklist = _compact_live_cells(plan, chunk_act,
+                                       device_worklist_pad(plan), path, vblk)
+    if worklist is not None and tiled:
         out, rows = ref.fused_relax_reduce_wl_tiled_lanes_ref(
             gval, gchg, unitw, edge_src, edge_w, edge_mask, edge_dst,
             worklist.wl_i, worklist.wl_j, worklist.nlive, num_segments,

@@ -52,7 +52,7 @@ def fused_relax_reduce_ref(gval, gchg, edge_src, edge_w, edge_mask,
 def fused_relax_reduce_wl_ref(gval, gchg, edge_src, edge_w, edge_mask,
                               edge_dst, wl_i, wl_j, nlive,
                               num_segments: int, relax_kind: str, kind: str):
-    """Plain version of the worklist launch (kernel K2 and its fold).
+    """Plain version of the worklist launch (kernel K2).
 
     Cell ``c < nlive`` works edge chunk ``wl_j[c]`` against segment block
     ``wl_i[c]``: its (SBLK,) partial combines the chunk's active edges
@@ -157,11 +157,11 @@ def fused_relax_reduce_wl_lanes_ref(gval, gchg, lane_unitw, edge_src,
                                     edge_w, edge_mask, edge_dst, wl_i, wl_j,
                                     nlive, num_segments: int,
                                     relax_kind: str, kind: str):
-    """Plain version of the laned worklist launch (kernel K4 and its
-    fold): the laned oracle over the edges whose (dst block, chunk) cell
-    is one of the first ``nlive`` listed cells — each listed cell folds
-    exactly its chunk's edges into its block, and the partials of
-    distinct cells meet only in the inbox.  Shapes as in
+    """Plain version of the laned worklist launch (kernel K4): the laned
+    oracle over the edges whose (dst block, chunk) cell is one of the
+    first ``nlive`` listed cells — each listed cell folds exactly its
+    chunk's edges into its block, and distinct cells meet only in the
+    inbox.  Shapes as in
     ``fused_relax_reduce_lanes_ref``; ``wl_i``/``wl_j``: (l_pad,) int,
     ``nlive``: (1,) int."""
     in_cell = _listed_edges(edge_dst, wl_i, wl_j, nlive, num_segments)
@@ -219,9 +219,8 @@ def fused_relax_reduce_wl_tiled_ref(gval, gchg, edge_src, edge_w, edge_mask,
                                     edge_dst, wl_i, wl_j, nlive,
                                     num_segments: int, relax_kind: str,
                                     kind: str):
-    """Plain version of the worklist tiled launch (kernel K6 and K2's
-    fold), which stages the rows its cells read and folds them in K2's
-    order: K2's plain version ``fused_relax_reduce_wl_ref`` and K6's
+    """Plain version of the worklist tiled launch (kernel K6), which
+    stages the rows its cells read and folds them in K2's order: K2's plain version ``fused_relax_reduce_wl_ref`` and K6's
     staged-row count over the plan's first ``nlive`` cells
     (``_wl_staged_rows``).  Returns ((num_segments,) partial, int32
     rows)."""
@@ -252,8 +251,8 @@ def fused_relax_reduce_wl_tiled_lanes_ref(gval, gchg, lane_unitw, edge_src,
                                           edge_w, edge_mask, edge_dst, wl_i,
                                           wl_j, nlive, num_segments: int,
                                           relax_kind: str, kind: str):
-    """Plain version of the laned worklist tiled launch (kernel K8 and
-    K4's fold): K4's plain version ``fused_relax_reduce_wl_lanes_ref``
+    """Plain version of the laned worklist tiled launch (kernel K8): K4's
+    plain version ``fused_relax_reduce_wl_lanes_ref``
     and K8's staged-row count over the OR-across-lanes frontier.  Returns
     ((num_segments, Q) partial, int32 rows)."""
     act = edge_mask & gchg.any(dim=1)[edge_src.long()]

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 dense, K2 worklist, K3/K4 their
 lane-batched twins, K5-K8 the tiled twins of K1-K4, K9 the segment
-reduce) against their plain versions, on the card.
+reduce) against their plain versions, on the card, and the worklist
+launches against the dense ones under whole and split pieces.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (the kernel builds from
 ``src/repro_torch/kernels/csrc`` on first use) and skips without one.
@@ -192,6 +193,177 @@ def test_worklist_kernel_counts_launches(dev):
     assert (frr.launches, frr.wl_launches) == (0, 2)
 
 
+# the worklist launches' pieces: a block that is one piece equals the
+# dense launch bit for bit; a split block combines its pieces in order
+ONE_PIECE = 1 << 20
+PIECE_SHAPES = [(500, 2 * EBLK + 13, 2 * SBLK + 5), (5000, 20 * EBLK + 77,
+                                                     3000),
+                (3000, 30 * EBLK, 600)]
+
+
+def _dense_twin(dev, case, nseg, relax, kind, grid_mode, cells,
+                lanes=False):
+    """(worklist launch, dense launch, cells run, planned cells listed)
+    with the launches' pieces at ``cells`` cells."""
+    args = [torch.as_tensor(x, device=dev) for x in case]
+    n_src = 3 if lanes else 2
+    plan = frr.plan_launch(args[n_src], args[n_src + 2], args[n_src + 3],
+                           nseg, case[0].shape[0])
+    launch = frr.fused_relax_reduce_lanes if lanes else frr.fused_relax_reduce
+    old = frr.PIECE_CELLS
+    frr.PIECE_CELLS = cells
+    try:
+        out, dbg = launch(*args, nseg, relax, kind, plan=plan,
+                          with_debug=True, grid_mode=grid_mode)
+        again = launch(*args, nseg, relax, kind, plan=plan,
+                       grid_mode=grid_mode)
+    finally:
+        frr.PIECE_CELLS = old
+    dense = launch(*args, nseg, relax, kind, plan=plan)
+    gchg, src, mask, ids = (case[1], case[n_src], case[n_src + 2],
+                            case[n_src + 3])
+    wl, info = frr.plan_worklist(ids, mask, src, gchg, nseg,
+                                 dst_filter=grid_mode == "worklist")
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)             # bit-repeatable
+    assert int(dbg[0]) == info.cells == int(wl.nlive[0])
+    return out, dense
+
+
+@pytest.mark.parametrize("grid_mode", ["worklist", "device_worklist"])
+@pytest.mark.parametrize("relax,kind", PAIRS)
+@pytest.mark.parametrize("v,e,nseg", PIECE_SHAPES)
+def test_k2_one_piece_equals_k1(dev, v, e, nseg, relax, kind, grid_mode):
+    case = _case(v, e, nseg, 0.3, seed=v + e, negative=kind == "min")
+    out, dense = _dense_twin(dev, case, nseg, relax, kind, grid_mode,
+                             ONE_PIECE)
+    assert torch.equal(out, dense)
+
+
+@pytest.mark.parametrize("cells", [1, 2])
+@pytest.mark.parametrize("grid_mode", ["worklist", "device_worklist"])
+@pytest.mark.parametrize("relax,kind", PAIRS)
+@pytest.mark.parametrize("v,e,nseg", PIECE_SHAPES)
+def test_k2_split_blocks_match_k1(dev, v, e, nseg, relax, kind, grid_mode,
+                                  cells):
+    case = _case(v, e, nseg, 0.3, seed=v + e + 1, negative=kind == "min")
+    out, dense = _dense_twin(dev, case, nseg, relax, kind, grid_mode, cells)
+    if kind == "min":
+        assert torch.equal(out, dense)
+    else:
+        torch.testing.assert_close(out, dense, rtol=1e-5, atol=1e-6)
+
+
+def test_worklist_tables_build_without_host_sync(dev):
+    """A dense launch builds no worklist table; the pieces and batch
+    ranges are built on the card with no host sync (so a device window
+    may be the first to need them) and equal their CPU build."""
+    case = _case(3000, 30 * EBLK, 600, 0.3, seed=11)
+    args = [torch.as_tensor(x, device=dev) for x in case]
+    plan = frr.plan_launch(args[2], args[4], args[5], 600, 3000)
+    frr.fused_relax_reduce(*args, 600, "add_w", "min", plan=plan)
+    assert not plan.scratch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pc = frr.plan_pieces(plan, 2)
+        batches = frr.plan_batches(plan, args[4], args[5])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cpu = [torch.as_tensor(x) for x in case]
+    plan_h = frr.plan_launch(cpu[2], cpu[4], cpu[5], 600, 3000)
+    pc_h = frr.plan_pieces(plan_h, 2)
+    for got, want in zip(pc, pc_h):
+        assert (got == want) if isinstance(got, int) \
+            else torch.equal(got.cpu(), want)
+    assert torch.equal(batches.cpu(), frr.plan_batches(plan_h, cpu[4],
+                                                       cpu[5]))
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+def test_split_blocks_on_two_streams(dev, lanes):
+    """Launches of one plan on two streams at once each take their own
+    arrival tickets and give the launch on one stream bit for bit."""
+    v, e, nseg = PIECE_SHAPES[2]
+    case = (_lane_case(v, e, nseg, 16, 0.3, seed=4) if lanes
+            else _case(v, e, nseg, 0.3, seed=4))
+    args = [torch.as_tensor(x, device=dev) for x in case]
+    n_src = 3 if lanes else 2
+    plan = frr.plan_launch(args[n_src], args[n_src + 2], args[n_src + 3],
+                           nseg, v)
+    launch = frr.fused_relax_reduce_lanes if lanes else frr.fused_relax_reduce
+    old = frr.PIECE_CELLS
+    frr.PIECE_CELLS = 1
+    try:
+        want = launch(*args, nseg, "add_w", "min", plan=plan,
+                      grid_mode="device_worklist")
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        outs = []
+        for _ in range(4):
+            outs.append(launch(*args, nseg, "add_w", "min", plan=plan,
+                               grid_mode="device_worklist"))
+            with torch.cuda.stream(side):
+                outs.append(launch(*args, nseg, "add_w", "min", plan=plan,
+                                   grid_mode="device_worklist"))
+        torch.cuda.current_stream(dev).wait_stream(side)
+    finally:
+        frr.PIECE_CELLS = old
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("cells", [1, 2, ONE_PIECE])
+@pytest.mark.parametrize("grid_mode", ["worklist", "device_worklist"])
+@pytest.mark.parametrize("relax,kind", [("add_w", "min"), ("mul_w", "sum")])
+@pytest.mark.parametrize("q", [1, 5, 33])
+def test_k4_pieces_match_k3(dev, q, relax, kind, grid_mode, cells):
+    """K4 equals K3 bit for bit when every block is one piece; with split
+    blocks min is bit-equal and sum within rtol 1e-5."""
+    case = _lane_case(3000, 30 * EBLK, 600, q, 0.3, seed=q + cells)
+    out, dense = _dense_twin(dev, case, 600, relax, kind, grid_mode, cells,
+                             lanes=True)
+    if kind == "min" or cells == ONE_PIECE:
+        assert torch.equal(out, dense)
+    else:
+        torch.testing.assert_close(out, dense, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("cells", [2, ONE_PIECE])
+@pytest.mark.parametrize("grid_mode", ["worklist", "device_worklist"])
+@pytest.mark.parametrize("q", [None, 5, 33])
+@pytest.mark.parametrize("relax,kind", [("add_w", "min"), ("mul_w", "sum")])
+def test_tiled_worklist_twins_under_pieces(dev, relax, kind, q, grid_mode,
+                                           cells):
+    """K6 equals K2 and K8 equals K4 bit for bit, sum included, under
+    split and whole blocks, with cells and staged rows as planned."""
+    case = _tiled_case(3000, 30 * EBLK, 600, 0.3, 4, q=q)
+    t = [torch.as_tensor(x, device=dev) for x in case]
+    head = t[:2]
+    if q is not None:
+        head.append(torch.as_tensor(np.arange(q) % 2, device=dev))
+    launch = frr.fused_relax_reduce_lanes if q else frr.fused_relax_reduce
+    plan = frr.plan_launch(t[2], t[4], t[5], 600, 3000)
+    gor = case[1].any(axis=1) if q else case[1]
+    _, info = frr.plan_worklist(case[5], case[4], case[2], gor, 600,
+                                num_slots=3000, path="tiled", vblk=1024,
+                                dst_filter=grid_mode == "worklist")
+    old = frr.PIECE_CELLS
+    frr.PIECE_CELLS = cells
+    try:
+        tiled, dbg = launch(*head, *t[2:], 600, relax, kind, plan=plan,
+                            grid_mode=grid_mode, path="tiled", vblk=1024,
+                            with_debug=True)
+        pinned = launch(*head, *t[2:], 600, relax, kind, plan=plan,
+                        grid_mode=grid_mode, path="pinned")
+    finally:
+        frr.PIECE_CELLS = old
+    torch.cuda.synchronize()
+    assert torch.equal(tiled, pinned)
+    assert (int(dbg[0]), int(dbg[1])) == (info.cells, info.staged_rows)
+
+
 def test_device_window_enqueues_without_sync(dev):
     """A device_worklist window enqueues every round without a host
     sync: the whole window runs under sync-debug mode 'error'."""
@@ -347,11 +519,6 @@ def test_lanes_kernels_count_launches(dev):
     fused_relax_reduce_lanes_ref(*args, 90, "add_w", "min")
     assert (frr.lanes_launches, frr.wl_lanes_launches, frr.launches) == \
         (1, 2, 0)
-
-
-def test_k4_partial_room_is_checked(dev):
-    with pytest.raises(RuntimeError, match="bytes"):
-        frr._check_partial_room(1 << 50, dev)
 
 
 @pytest.mark.parametrize("grid_mode", ["dense", "worklist",
