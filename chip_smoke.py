@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --plan-timing [SRC]
+    python3 chip_smoke.py --fold-sweep
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 the ignored ``src/repro_torch/kernels/build/`` (one ``nvcc`` per source,
@@ -16,7 +17,12 @@ started together) and runs, in order:
    unsorted ids and negative weights for min.  Min is bit-equal; sum is
    within rtol 1e-5 / atol 1e-6 (the kernels sum in another order) and
    bit-equal between two runs; counts and executed cells equal the host
-   mirror (K1) or the planner's cells (K2);
+   mirror (K1) or the planner's cells (K2); K2 on flags listing exactly
+   K1's cells equals K1 bit for bit (K1 and K2 share one launch over the
+   plan's pieces), K1 with every block one piece equals K1 in pieces
+   (min bit for bit, sum within rtol 1e-5), and on the small shapes K1,
+   in pieces and one piece a block, equals its order model
+   (``ref.fused_relax_reduce_order``) bit for bit, sum included;
 3. counter gate: BFS and SSSP (dense, worklist, device_worklist) and
    delta-PageRank (auto, device_worklist) on the RMAT scale-8 partition
    under the flight recorder hit ``benchmarks/baselines/counter_gate.json``
@@ -35,19 +41,26 @@ started together) and runs, in order:
    ``_pr_graph(g)`` within rtol 1e-4 / atol 1e-7 of
    ``reference.pagerank``; then every worklist round (BFS, SSSP,
    delta-PageRank) is replayed: K2 from the host plan and the device
-   plan against its plain version and the planner's cell counts, and
-   with every segment block one piece against K1 bit for bit; the host
+   plan against its plain version and the planner's cell counts, K2 on
+   flags listing exactly the round's K1 cells against K1 bit for bit,
+   and K1 one piece a block against K1 in pieces; the host
    planner, K2 alone (host and device plans), the relax phase (both
    plans), K1 on the same round, the plain version and a library call
    are timed against the same byte bound as K1; on the heaviest round K2
    is timed at 4, 8, 16 and 32 cells a piece, the cut's histogram is
-   printed, and ``torch.profiler`` counts the kernels each relax phase
-   (K1, K2 host plan, K2 device plan) puts on the card;
+   printed, ``torch.profiler`` counts the kernels each relax phase
+   (K1, K2 host plan, K2 device plan) puts on the card, and the
+   ``[k1-cell]`` line gives K1 alone on the heaviest dense round and
+   summed over every round phases 4 and 5 replay;
 6. slice-3 path, query lanes, at the same width: first the lane-batched
    kernels K3 (dense) and K4 (worklist, host and device plans) against
    their plain versions (both laned pairings, mixed ``lane_unitw``,
    Q in {1, 5, 16, 33}, ragged sizes, frontier densities 0 / 1% / 100%,
-   a converged lane) and the segment reduce K9 (float32 and bfloat16);
+   a converged lane), K4 on flags listing exactly K3's cells against K3
+   bit for bit, K3 one piece a block against K3 in pieces, and on the
+   small shapes K3 against its order model
+   (``ref.fused_relax_reduce_lanes_order``) bit for bit, sum included;
+   and the segment reduce K9 (float32 and bfloat16);
    then ``apps.batched_queries`` with Q = 16 lanes on the RMAT-18
    partition — BFS from the 8 highest-out-degree vertices, SSSP from the
    next 8 — under ``dense`` (K3), ``worklist`` and ``device_worklist``
@@ -60,11 +73,14 @@ started together) and runs, in order:
    seeds and mixed dampings within rtol 1e-4 / atol 1e-7 of a float64
    power iteration; BFS and SSSP under ``pallas_mode='reduce'`` (K9)
    equal the numpy oracles; and the heaviest rounds replayed to time K3,
-   K4 (host and device plans; also at 4-32 cells a piece, and one piece a
-   block held to K3 bit for bit) and K9 against their plain versions, a
-   library call and the bound — K3 also against 16 solo K1 launches of
-   the same round — with the kernels each laned relax phase puts on the
-   card counted by ``torch.profiler``.
+   K4 (host and device plans; also at 4-32 cells a piece, and on flags
+   listing K3's cells held to K3 bit for bit) and K9 against their plain
+   versions, a library call and the bound — K3 also against 16 solo K1
+   launches of the same round — with the kernels each laned relax phase
+   puts on the card counted by ``torch.profiler``; the ``[k3-fold]``
+   lines give K3 alone summed over the fixpoint's rounds, the laned
+   kernels' blocks resident per SM, and the heaviest piece's edges and
+   runs.
 
 7. slice-4 path, the tiled residency: first the tiled kernels K5 (dense),
    K6 (worklist, host and device plans), K7 (dense lanes) and K8
@@ -101,6 +117,11 @@ fixpoints, with the ``repro_torch`` under ``SRC`` (this checkout's
 ``src`` by default; another checkout's, to set two versions side by
 side), and prints them as one JSON line.
 
+``--fold-sweep`` runs none of the phases either: it builds variants of
+the laned fold (``FOLD_SWEEP``: the window, the gathers in flight, the
+blocks an SM, full-warp lists at Q = 16) and times K3 with each on the
+RMAT-18 Q = 16 rounds, held to the kept build bit for bit.
+
 Any failure raises and the script exits non-zero.  It imports nothing of
 JAX or of the JAX package.  The last lines are the ``kernels`` JSON and
 ``{"ok": true, "device": {...}}``; per-round timings go to
@@ -129,10 +150,9 @@ PLAN_REPS = 10                    # timing reps of --plan-timing
 PR_ITERS = 30            # dense PageRank rounds
 PR_TOL = 5e-10           # delta-PageRank residual tolerance at RMAT-18
 PR_RTOL, PR_ATOL = 1e-4, 1e-7
-KERNELS = ("fused_relax_reduce", "fused_relax_reduce_wl",
-           "fused_relax_reduce_lanes", "fused_relax_reduce_wl_lanes",
-           "segment_combine", "fused_relax_reduce_tiled",
-           "fused_relax_reduce_wl_tiled", "fused_relax_reduce_tiled_lanes",
+# the sources: K1/K2, K3/K4, K9, K5/K6 and K7/K8
+KERNELS = ("fused_relax_reduce_wl", "fused_relax_reduce_wl_lanes",
+           "segment_combine", "fused_relax_reduce_wl_tiled",
            "fused_relax_reduce_wl_tiled_lanes")
 LANES = 16               # the lane slice's batch: 8 BFS + 8 SSSP queries
 PPR_SEEDS = 8            # personalized-PageRank lanes
@@ -231,7 +251,7 @@ def phase_kernel_vs_plain(torch, np, dev):
     shapes = [(17, 7, 3), (1000, 5 * frr.EBLK + 13, 2 * frr.SBLK + 5),
               (30011, 97 * frr.EBLK + 311, 20011)]
     errs = {"K1": 0.0, "K2": 0.0}
-    n = 0
+    n = models = 0
     for relax, kind in (("add_w", "min"), ("add_one", "min"),
                         ("mul_w", "sum")):
         for v, e, nseg in shapes:
@@ -280,12 +300,58 @@ def phase_kernel_vs_plain(torch, np, dev):
                         check(int(dbg[0]) == cells,
                               f"executed cells {int(dbg[0])} != {cells}: "
                               f"{at}")
+                    models += _k1_orders(torch, np, frr, args, case, nseg,
+                                         relax, kind, where,
+                                         model=e < 8 * frr.EBLK)
                     n += 1
     log(f"[kernel] {n} cases x (K1, K2 host plan, K2 device plan): min "
         f"bit-equal, sum max_abs_err K1 {errs['K1']:.3g} K2 "
         f"{errs['K2']:.3g} (rtol 1e-5) and bit-repeatable, counts and "
-        "executed cells equal the host mirror / the planner")
+        "executed cells equal the host mirror / the planner; K2 on flags "
+        "listing K1's cells equals K1 bit for bit, K1 one piece a block "
+        f"equals K1 in pieces (min bit for bit, sum rtol 1e-5); {models} "
+        "cases equal the K1 order model bit for bit, in pieces and one "
+        "piece a block")
     return errs
+
+
+def bits(np, x):
+    """The float32 bit patterns of a tensor or array."""
+    a = x.detach().cpu().numpy() if hasattr(x, "detach") else x
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
+
+
+def _k1_orders(torch, np, frr, args, case, nseg, relax, kind, where,
+               model=True):
+    """K1 (dense, at PIECE_CELLS) against K2 on flags listing exactly its
+    cells (bit for bit: the flags path against the chunk-bit path), and
+    against K1 one piece a block (min bit for bit, sum within rtol 1e-5);
+    with ``model``, both against the K1 order model bit for bit, sum
+    included.  Returns 1 if it checked the order model, else 0."""
+    from repro_torch.kernels.ref import fused_relax_reduce_order
+    identity = math.inf if kind == "min" else 0.0
+    src, w, mask, ids = args[2:]
+    plan = frr.plan_launch(src, mask, ids, nseg, args[0].shape[0])
+    gval_m = frr._masked_value_tables(args[0], args[1], identity)
+    chunk_act, _ = frr._chunk_tables(src, mask, args[1])
+    k1 = frr._launch(gval_m, src, w, mask, ids, plan, chunk_act, relax,
+                     kind, False)[0]
+    k2 = frr._launch_wl(gval_m, src, w, mask, ids, plan, chunk_act,
+                        frr.device_flags(plan, chunk_act), relax, kind,
+                        False)[0]
+    whole = _one_piece(frr, lambda: frr._launch(
+        gval_m, src, w, mask, ids, plan, chunk_act, relax, kind, False)[0])
+    torch.cuda.synchronize()
+    check(torch.equal(k1, k2), f"K2 on K1's cells differs from K1: {where}")
+    _check_out(torch, whole, k1, kind, f"K1 one piece a block: {where}")
+    if not model:
+        return 0
+    for cells, out in ((frr.PIECE_CELLS, k1), (WHOLE_BLOCKS, whole)):
+        want, _ = fused_relax_reduce_order(*case, nseg, relax, kind, cells)
+        check(np.array_equal(bits(np, out), bits(np, want)),
+              f"K1 differs from its order model at {cells} cells a piece: "
+              f"{where}")
+    return 1
 
 
 # --------------------------------------------------------------------------
@@ -554,8 +620,8 @@ def _with_pieces(frr, cells, fn):
 
 
 def _one_piece(frr, fn):
-    """``fn()`` with every segment block one piece: K2/K4/K6/K8 then run
-    K1's/K3's cells in K1's/K3's order, bit for bit."""
+    """``fn()`` with every segment block one piece: no launch then
+    combines pieces through the split buffer."""
     return _with_pieces(frr, WHOLE_BLOCKS, fn)
 
 
@@ -679,8 +745,14 @@ def _replay_rounds(torch, np, dev, app, sem, part, arrays, planner, state,
                                           chunk_act, None, rk, kind, True)
             out1, _ = frr._launch(gval_m, src, w, mask, ids, plan,
                                   chunk_act, rk, kind, False)
-            whole = _one_piece(frr, lambda: frr._launch_wl(
-                gval_m, src, w, mask, ids, plan, chunk_act, flags, rk, kind,
+            # K2 on flags listing exactly K1's cells, and K1 one piece a
+            # block
+            out_f, _ = frr._launch_wl(gval_m, src, w, mask, ids, plan,
+                                      chunk_act,
+                                      frr.device_flags(plan, chunk_act), rk,
+                                      kind, False)
+            whole = _one_piece(frr, lambda: frr._launch(
+                gval_m, src, w, mask, ids, plan, chunk_act, rk, kind,
                 False)[0])
 
             def plain():
@@ -694,8 +766,10 @@ def _replay_rounds(torch, np, dev, app, sem, part, arrays, planner, state,
             err = max(err, _check_out(torch, out, want, kind, at))
             err = max(err, _check_out(torch, out_d, want, kind,
                                       at + " device plan"))
-            check(torch.equal(whole, out1),
-                  f"{at}: one piece a block differs from K1 bit for bit")
+            check(torch.equal(out_f, out1),
+                  f"{at}: K2 on K1's cells differs from K1 bit for bit")
+            _check_out(torch, whole, out1, kind,
+                       f"{at}: K1 one piece a block against K1 in pieces")
             check(int(dbg[0]) == info.cells,
                   f"{at}: executed {int(dbg[0])} cells, planned {info.cells}")
             check(int(dbg_d[0]) == info.dense_live,
@@ -993,7 +1067,7 @@ def phase_lane_kernels_vs_plain(torch, np, dev):
     shapes = [(17, 7, 3), (1000, 5 * frr.EBLK + 13, 2 * frr.SBLK + 5),
               (30011, 97 * frr.EBLK + 311, 20011)]
     errs = {"K3": 0.0, "K4": 0.0, "K9": 0.0}
-    n = 0
+    n = models = 0
     for relax, kind in (("add_w", "min"), ("mul_w", "sum")):
         for q in (1, 5, 16, 33):
             for v, e, nseg in shapes:
@@ -1042,6 +1116,9 @@ def phase_lane_kernels_vs_plain(torch, np, dev):
                         check(int(dbg[0]) == cells,
                               f"executed cells {int(dbg[0])} != {cells}: "
                               f"{at}")
+                    models += _k3_orders(torch, np, frr, args, case, nseg,
+                                         relax, kind, where,
+                                         model=e < 8 * frr.EBLK)
                     n += 1
     rng = np.random.default_rng(0)
     m = 0
@@ -1086,9 +1163,52 @@ def phase_lane_kernels_vs_plain(torch, np, dev):
         f"Q in 1/5/16/33: min bit-equal, sum max_abs_err K3 "
         f"{errs['K3']:.3g} K4 {errs['K4']:.3g} (rtol 1e-5) and "
         "bit-repeatable, per-lane counts and executed cells equal the "
-        f"host mirror / the planner; {m} K9 cases (float32 max_abs_err "
+        "host mirror / the planner; K4 on flags listing K3's cells equals "
+        "K3 bit for bit, K3 one piece a block equals K3 in pieces (min bit "
+        f"for bit, sum rtol 1e-5); {models} cases equal the K3 order model "
+        "bit for bit, in pieces and one piece a block; "
+        f"{m} K9 cases (float32 max_abs_err "
         f"{errs['K9']:.3g}, bfloat16 at bf16 resolution), repeatable")
     return errs
+
+
+def _k3_orders(torch, np, frr, args, case, nseg, relax, kind, where,
+               model=True):
+    """K3 (dense, at PIECE_CELLS) against K4 on flags listing exactly its
+    cells (bit for bit) and against K3 one piece a block (min bit for
+    bit, sum within rtol 1e-5); with ``model``, both against the K3
+    order model bit for bit, sum included.  Returns 1 if it checked the
+    order model, else 0."""
+    from repro_torch.kernels.ref import fused_relax_reduce_lanes_order
+    identity = math.inf if kind == "min" else 0.0
+    gval, gchg, unitw, src, w, mask, ids = args
+    q = gval.shape[1]
+    unit_u8 = (unitw != 0).to(torch.uint8)
+    plan = frr.plan_launch(src, mask, ids, nseg, gval.shape[0])
+    gval_m = frr._masked_value_tables(gval, gchg, identity)
+    chunk_act, _ = frr._lane_chunk_tables(src, mask, gchg, plan.src_deg)
+
+    def k3():
+        return frr._launch_lanes(gval_m, unit_u8, src, w, mask, ids, plan,
+                                 chunk_act, relax, kind, False)[0]
+
+    out = k3()
+    k4 = frr._launch_wl_lanes(gval_m, unit_u8, src, w, mask, ids, plan,
+                              chunk_act, frr.device_flags(plan, chunk_act),
+                              relax, kind, False)[0]
+    whole = _one_piece(frr, k3)
+    torch.cuda.synchronize()
+    check(torch.equal(out, k4), f"K4 on K3's cells differs from K3: {where}")
+    _check_out(torch, whole, out, kind, f"K3 one piece a block: {where}")
+    if not model:
+        return 0
+    for cells, got in ((frr.PIECE_CELLS, out), (WHOLE_BLOCKS, whole)):
+        want, _ = fused_relax_reduce_lanes_order(
+            *case, nseg, relax, kind, cells, frr._halves(q))
+        check(np.array_equal(bits(np, got), bits(np, want)),
+              f"K3 differs from its order model at {cells} cells a piece: "
+              f"{where}")
+    return 1
 
 
 def _lane_round_bound_ms(part, n_active_edges, n_active_pairs, q):
@@ -1166,23 +1286,36 @@ def _heaviest_lane_round(torch, np, dev, part, arrays, queries):
     from repro_torch import exchange
     from repro_torch.core import actions, engine
     from repro_torch.query import lanes
+    from repro_torch.kernels import fused_relax_reduce as frr
     init, unitw = lanes.init_lane_values(part, queries)
     val = torch.as_tensor(init, device=dev)
     unitw = torch.as_tensor(unitw, device=dev)
+    unit_u8 = (unitw != 0).to(torch.uint8)
     chg = (val < math.inf) & arrays.slot_valid[..., None]
     cfg = engine.EngineConfig(use_pallas=True)
-    best, rnd = None, 0
+    plan = arrays.fused_plan
+    edges = (arrays.edge_src_root_flat.reshape(-1),
+             arrays.edge_w.reshape(-1), arrays.edge_mask.reshape(-1),
+             arrays.edge_dst_flat.reshape(-1))
+    best, rnd, k3_ms = None, 0, []
     while bool(chg.any()):
         rnd += 1
+        gval = val.reshape(-1, val.shape[-1])
+        gchg = chg.reshape(-1, chg.shape[-1])
+        gval_m = frr._masked_value_tables(gval, gchg, math.inf)
+        chunk_act, _ = frr._lane_chunk_tables(edges[0], edges[2], gchg,
+                                              plan.src_deg)
+        k3_ms.append(time_ms(torch, lambda: frr._launch_lanes(
+            gval_m, unit_u8, *edges, plan, chunk_act, "add_w", "min",
+            False), reps=5))
         nval, nchg, counts = exchange.fixpoint_round_stacked(
             actions.SSSP, arrays, cfg, part.S, part.R_max, val, chg, unitw)
         pairs = int(counts.sum())
         if best is None or pairs > best[0]:
-            best = (pairs, rnd, val.reshape(-1, val.shape[-1]).clone(),
-                    chg.reshape(-1, chg.shape[-1]).clone())
+            best = (pairs, rnd, gval.clone(), gchg.clone())
         val, chg = nval, nchg
     _, at, gval, gchg = best
-    return gval, gchg, unitw, at, rnd
+    return gval, gchg, unitw, at, rnd, k3_ms
 
 
 def _time_lane_kernels(torch, np, dev, part, arrays, planner, queries):
@@ -1195,7 +1328,7 @@ def _time_lane_kernels(torch, np, dev, part, arrays, planner, queries):
     from repro_torch.kernels.ref import (
         _lane_messages, fused_relax_reduce_lanes_ref,
         fused_relax_reduce_wl_lanes_ref)
-    gval, gchg, unitw, rnd, rounds = _heaviest_lane_round(
+    gval, gchg, unitw, rnd, rounds, k3_ms = _heaviest_lane_round(
         torch, np, dev, part, arrays, queries)
     plan = arrays.fused_plan
     nseg = part.S * part.R_max
@@ -1257,6 +1390,10 @@ def _time_lane_kernels(torch, np, dev, part, arrays, planner, queries):
                   "min"), reps=3),
               k1_solo_ms=time_ms(torch, k1_solo, reps=5))
     k3["batching_gain"] = k3["k1_solo_ms"] / k3["kernel_ms"]
+    k3["round_sum_ms"] = sum(k3_ms)
+    k3["blocks_per_sm"] = {"K3/K4": frr.lane_blocks_per_sm(q),
+                           "K7/K8": frr.lane_blocks_per_sm(q, tiled=True)}
+    k3["hub"] = _hub_piece(np, frr, plan, mask, ids, chunk_act, q)
     if PROFILE:
         _profile(torch, "K3 relax phase", lambda: ops.fused_relax_reduce_lanes(
             gval, gchg, unitw, src, w, mask, ids, nseg, "add_w", "min",
@@ -1274,7 +1411,11 @@ def _time_lane_kernels(torch, np, dev, part, arrays, planner, queries):
 
     out4, dbg4 = launch4(flags, True)
     out4d, dbg4d = launch4(None, True)
-    whole = _one_piece(frr, lambda: launch4(flags)[0])
+    # K4 on flags listing exactly K3's cells, and K3 one piece a block
+    out4f, _ = launch4(frr.device_flags(plan, chunk_act))
+    whole = _one_piece(frr, lambda: frr._launch_lanes(
+        gval_m, unit_u8, src, w, mask, ids, plan, chunk_act, "add_w", "min",
+        False)[0])
     plain4 = fused_relax_reduce_wl_lanes_ref(
         gval, gchg, unitw, src, w, mask, ids, wl_dev.wl_i, wl_dev.wl_j,
         wl_dev.nlive, nseg, "add_w", "min")
@@ -1282,8 +1423,10 @@ def _time_lane_kernels(torch, np, dev, part, arrays, planner, queries):
     check(torch.equal(out4, plain4) and torch.equal(out4, plain)
           and torch.equal(out4d, plain),
           f"K4 round {rnd}: differs from plain")
-    check(torch.equal(whole, out), f"K4 round {rnd}: one piece a block "
+    check(torch.equal(out4f, out), f"K4 round {rnd}: K4 on K3's cells "
           "differs from K3 bit for bit")
+    check(torch.equal(whole, out), f"K3 round {rnd}: one piece a block "
+          "differs from K3 in pieces (min)")
     check(int(dbg4[0]) == info.cells
           and int(dbg4d[0]) == mirror["fused_live"],
           f"K4 round {rnd}: cells {int(dbg4[0])} (device plan "
@@ -1320,6 +1463,42 @@ def _time_lane_kernels(torch, np, dev, part, arrays, planner, queries):
                   gval, gchg, unitw, src, w, mask, ids, wl_dev.wl_i,
                   wl_dev.wl_j, wl_dev.nlive, nseg, "add_w", "min"), reps=3))
     return k3, k4, max_abs_err(torch, out, plain)
+
+
+def _hub_piece(np, frr, plan, mask, ids, chunk_act, q):
+    """The heaviest piece of a laned round: the piece whose run cells
+    hold the most edges of their block, with its edge count, its runs
+    (the (cell, window, list, segment) partials the laned fold writes)
+    and its cells, and the same for the median piece."""
+    from repro_torch.kernels.ref import NWARP, WINDOW
+    mask_h, ids_h = mask.cpu().numpy(), ids.cpu().numpy().astype(np.int64)
+    act_h = chunk_act.cpu().numpy()
+    n_chunks = act_h.shape[0]
+    e = np.nonzero(mask_h)[0]
+    j = e // frr.EBLK
+    e, j = e[act_h[j]], j[act_h[j]]
+    i = ids_h[e] // frr.SBLK
+    blk_ptr = plan.blk_ptr.cpu().numpy().astype(np.int64)
+    keys = np.repeat(np.arange(blk_ptr.shape[0] - 1), np.diff(blk_ptr)) \
+        * n_chunks + plan.blk_chunk.cpu().numpy()
+    cell = np.searchsorted(keys, i * n_chunks + j)
+    pc = frr.plan_pieces(plan)
+    piece = np.searchsorted(pc.piece_ptr.cpu().numpy()[1:], cell,
+                            side="right")
+    per = np.bincount(piece)
+    k = int(np.argmax(per))
+    lists = frr._halves(q) * NWARP
+    pos = e % frr.EBLK
+    run = ((cell * (frr.EBLK // WINDOW) + pos // WINDOW) * lists
+           + pos % WINDOW // (WINDOW // lists)) * frr.SBLK + ids_h[e] \
+        % frr.SBLK
+    sel = piece == k
+    ptr = pc.piece_ptr.cpu().numpy()
+    return {"piece": k, "edges": int(per[k]),
+            "runs": int(np.unique(run[sel]).shape[0]),
+            "cells": int(ptr[k + 1] - ptr[k]),
+            "median_piece_edges": float(np.median(per[per > 0])),
+            "lists_per_window": lists}
 
 
 def _time_segment_kernel(torch, np, dev, part, arrays, root):
@@ -1594,6 +1773,17 @@ def phase_lanes(torch, np, dev, g, part, root, want, part_pr):
         f"{k4['plain_ms']:.4f} ms; split buffer {k4['split_bytes']} B; K4 "
         f"by piece size (host/device plan ms): "
         f"{_sweep_text(k4['piece_sweep'])}")
+    hub = k3["hub"]
+    log(f"[k3-fold] K3 alone ({hub['lists_per_window']} lists a window): "
+        f"heaviest Q={LANES} round {k3['kernel_ms']:.4f} ms; summed over "
+        f"the {k3['rounds']} rounds of the fixpoint "
+        f"{k3['round_sum_ms']:.4f} ms; blocks resident per SM at "
+        f"Q={LANES}: {k3['blocks_per_sm']}")
+    log(f"[k3-fold] heaviest piece of the heaviest round: piece "
+        f"{hub['piece']}, {hub['cells']} cells, {hub['edges']} edges of "
+        f"its block in run cells, {hub['runs']} runs at "
+        f"{hub['lists_per_window']} lists a window (median piece "
+        f"{hub['median_piece_edges']:.0f} edges)")
     log("[lanes] kernels (+ copies) a laned relax phase puts on the card, "
         "by torch.profiler: " + ", ".join(
             f"{k} {v['kernels']} (+{v['copies']})"
@@ -1680,11 +1870,10 @@ def _tiled_check(torch, np, dev, case, nseg, relax, kind, grid_mode, vblk,
         # the dense pinned launch's bits, sum included
         whole = _one_piece(frr, lambda: (run(debug=False)[0], launch(
             *head, *t[2:], nseg, relax, kind, plan=plan,
-            worklist=frr.Worklist(wl.wl_i, wl.wl_j, wl.nlive))))
-        dense = launch(*head, *t[2:], nseg, relax, kind, plan=plan,
-                       path="pinned")
+            worklist=frr.Worklist(wl.wl_i, wl.wl_j, wl.nlive)), launch(
+            *head, *t[2:], nseg, relax, kind, plan=plan, path="pinned")))
         check(torch.equal(whole[0], whole[1])
-              and torch.equal(whole[0], dense),
+              and torch.equal(whole[0], whole[2]),
               f"{name}/{twin} one piece a block differ from the dense "
               f"launch: {grid_mode} {relax}/{kind} q={q}")
     oracle = (ref.fused_relax_reduce_lanes_ref if laned
@@ -1944,7 +2133,7 @@ def _time_tiled_lane_kernels(torch, np, dev, part, arrays, queries):
     from repro_torch.kernels import fused_relax_reduce as frr
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ref import _lane_messages
-    gval, gchg, unitw, rnd, rounds = _heaviest_lane_round(
+    gval, gchg, unitw, rnd, rounds, k3_ms = _heaviest_lane_round(
         torch, np, dev, part, arrays, queries)
     plan = arrays.fused_plan
     nseg = v = part.S * part.R_max
@@ -2282,6 +2471,122 @@ def phase_tiled(torch, np, dev, g, part, root, want, part_pr, want_conv):
     return launches, {"K5": err, "K6": err, "K7": err_l, "K8": err_l}, report
 
 
+# --fold-sweep: the laned fold's constants, each changed alone in a copy
+# of csrc (file, text, replacement); "full-warp lists" keeps the sources
+# and runs a list a warp at Q = 16
+FOLD_SWEEP = {
+    "kept": [],
+    "window 128": [("frr_lanes.cuh", "WINDOW = 256;", "WINDOW = 128;")],
+    "4 gathers a list": [("frr_lanes.cuh", "GATHER_DEPTH = 8;",
+                          "GATHER_DEPTH = 4;")],
+    "16 gathers a list": [("frr_lanes.cuh", "GATHER_DEPTH = 8;",
+                           "GATHER_DEPTH = 16;")],
+    "4 blocks an SM": [("fused_relax_reduce_wl_lanes.cu",
+                        "BLOCKS_PER_SM = 5;", "BLOCKS_PER_SM = 4;")],
+    "6 blocks an SM": [("fused_relax_reduce_wl_lanes.cu",
+                        "BLOCKS_PER_SM = 5;", "BLOCKS_PER_SM = 6;")],
+    "full-warp lists": [],
+}
+
+
+def fold_sweep() -> int:
+    """``--fold-sweep``: K3 alone on the RMAT-18 Q = 16 lane fixpoint's
+    rounds (the heaviest, and summed over all of them; device ms from CUDA
+    events, two passes in turns) for each variant of ``FOLD_SWEEP``, each
+    built with ``nvcc`` from a copy of ``csrc`` under ``chip_smoke_out``
+    and held to the kept build bit for bit on every round (min); prints
+    the card and one JSON line."""
+    import ctypes
+    import shutil
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch import exchange
+    from repro_torch.core import actions, engine
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.query import lanes
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    name = "fused_relax_reduce_wl_lanes"
+    libs, jobs = {}, []
+    for key, subs in FOLD_SWEEP.items():
+        d = OUT.parent / "fold_sweep" / key.replace(" ", "_")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(_build.CSRC, d)
+        for file, a, b in subs:
+            text = (d / file).read_text()
+            check(a in text, f"{key}: {a!r} is not in {file}")
+            (d / file).write_text(text.replace(a, b))
+        libs[key] = d / f"lib{name}.so"
+        jobs.append(subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(libs[key]),
+             str(d / f"{name}.cu")]))
+    check(all(j.wait(timeout=600) == 0 for j in jobs), "a variant's build")
+    g, part, _, _ = rmat18(np)
+    arrays = engine.DeviceArrays.from_partition(part, dev)
+    plan = arrays.fused_plan
+    edges = (arrays.edge_src_root_flat.reshape(-1),
+             arrays.edge_w.reshape(-1), arrays.edge_mask.reshape(-1),
+             arrays.edge_dst_flat.reshape(-1))
+    deg = np.argsort(-g.out_degrees(), kind="stable")
+    roots = [int(v) for v in deg[:LANES]]
+    queries = [("bfs", r) for r in roots[:LANES // 2]] + \
+        [("sssp", r) for r in roots[LANES // 2:]]
+    init, unitw = lanes.init_lane_values(part, queries)
+    val = torch.as_tensor(init, device=dev)
+    unitw = torch.as_tensor(unitw, device=dev)
+    unit_u8 = (unitw != 0).to(torch.uint8)
+    chg = (val < math.inf) & arrays.slot_valid[..., None]
+    cfg = engine.EngineConfig(use_pallas=True)
+    rounds, pairs = [], []
+    while bool(chg.any()):
+        gchg = chg.reshape(-1, LANES)
+        chunk_act, counts = frr._lane_chunk_tables(edges[0], edges[2], gchg,
+                                                   plan.src_deg)
+        rounds.append((frr._masked_value_tables(
+            val.reshape(-1, LANES), gchg, math.inf), chunk_act))
+        pairs.append(int(counts.sum()))
+        val, chg, _ = exchange.fixpoint_round_stacked(
+            actions.SSSP, arrays, cfg, part.S, part.R_max, val, chg, unitw)
+    heavy = pairs.index(max(pairs))        # the most active (edge, lane)
+    halves = frr._halves
+
+    def k3(r):
+        return frr._launch_lanes(r[0], unit_u8, *edges, plan, r[1], "add_w",
+                                 "min", False)[0]
+
+    out, want = {}, None
+    for _ in range(2):
+        for key in FOLD_SWEEP:
+            frr._libs[name] = ctypes.CDLL(str(libs[key]))
+            frr._fns.pop("frr_wl_lanes_launch", None)
+            frr._halves = (lambda q: 1) if key == "full-warp lists" \
+                else halves
+            try:
+                got = [k3(r) for r in rounds]
+                if want is None:
+                    want = got
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"{key}: K3 differs from the kept build")
+                ms = [time_ms(torch, lambda r=r: k3(r), reps=10)
+                      for r in rounds]
+            finally:
+                frr._halves = halves
+            out.setdefault(key, []).append(
+                {"heaviest_ms": ms[heavy], "sum_ms": sum(ms)})
+    print(smi)
+    print(json.dumps({"fold_sweep": out, "rounds": len(rounds),
+                      "heaviest_round": heavy + 1}))
+    return 0
+
+
 def plan_timing(src) -> int:
     """``--plan-timing``: wall ms (synced, median, min and max over
     ``PLAN_REPS``) of the launch plan's build, the device arrays' upload
@@ -2303,7 +2608,7 @@ def plan_timing(src) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    _build.build_all(("fused_relax_reduce",))
+    _build.build_all(p.stem for p in _build.CSRC.glob("*.cu"))
     g, part, root, want = rmat18(np)
 
     def wall(fn, reps=PLAN_REPS):
@@ -2345,6 +2650,19 @@ def plan_timing(src) -> int:
     return 0
 
 
+def _k1_sums(report, report2):
+    """K1 alone on the heaviest dense round and summed over every round
+    that phases 4 and 5 replay; logged and returned."""
+    ms = [r["kernel_ms"] for r in report["per_round"]] \
+        + [r["k1_ms"] for r in report2["per_round"]]
+    out = {"heaviest_ms": report["heaviest"]["kernel_ms"],
+           "sum_ms": sum(ms), "rounds": len(ms)}
+    log(f"[k1-cell] K1 alone (global-load cell): heaviest dense round "
+        f"{out['heaviest_ms']:.4f} ms; summed over the {len(ms)} replayed "
+        f"rounds of phases 4-5 {out['sum_ms']:.4f} ms")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2367,6 +2685,7 @@ def main() -> int:
                                                want)
     launches2, err2, report2, part_pr, want_conv = phase_slice2(
         torch, np, dev, g, part, root, want)
+    report["k1_sums"] = _k1_sums(report, report2)
     errs3 = phase_lane_kernels_vs_plain(torch, np, dev)
     launches3, err3, report3 = phase_lanes(torch, np, dev, g, part, root,
                                            want, part_pr)
@@ -2387,7 +2706,7 @@ def main() -> int:
     kernels = {"kernels": [{
         "name": "fused_relax_reduce",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_relax_reduce.cu",
+        "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:323",
         "launches": k1_launches + launches2["K1"],
         "max_abs_err": max(err, errs["K1"]),
@@ -2418,7 +2737,7 @@ def main() -> int:
     }, {
         "name": "fused_relax_reduce_lanes",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_lanes.cu",
+        "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl_lanes.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:391",
         "launches": launches3["K3"],
         "max_abs_err": max(err3["K3"], errs3["K3"]),
@@ -2467,12 +2786,13 @@ def main() -> int:
              ("K7", "fused_relax_reduce_tiled_lanes", 553),
              ("K8", "fused_relax_reduce_wl_tiled_lanes", 744))
     for key, name, line in tiled:
+        cu = name if "_wl_" in name else name.replace("_tiled", "_wl_tiled")
         check(launches4[key] > 0, f"{key} was never launched on the path")
         row = report4[key.lower()]
         kernels["kernels"].append({
             "name": name,
             "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{cu}.cu",
             "replaces": f"src/repro/kernels/fused_relax_reduce.py:{line}",
             "launches": launches4[key],
             "max_abs_err": max(err4[key], errs4[key]),
@@ -2501,4 +2821,6 @@ if __name__ == "__main__":
         rest = sys.argv[sys.argv.index("--plan-timing") + 1:]
         sys.exit(plan_timing(pathlib.Path(rest[0]).resolve() if rest
                              else SRC))
+    if "--fold-sweep" in sys.argv[1:]:
+        sys.exit(fold_sweep())
     sys.exit(main())

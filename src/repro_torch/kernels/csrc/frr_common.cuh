@@ -1,7 +1,7 @@
 // Shared pieces of the fused relax + reduce kernels (K1, K2) and the
 // segment reduce (K9): the launch constants, the relax and combine of each
-// pairing, and the warp fold of one edge chunk's messages into per-warp
-// shared-memory accumulators.
+// pairing, the warp fold of one edge chunk's messages into per-warp
+// shared-memory accumulators, and the piece launch that K1-K8 share.
 //
 // The fold.  A thread block of NWARP warps takes one EBLK-edge chunk;
 // warp k takes the chunk's 32-edge batches k, k + NWARP, ...  Inside a
@@ -136,17 +136,6 @@ __device__ __forceinline__ void fold_edges(
                   num_edges, seg0);
 }
 
-// The relax fold of K1 and K2: `gval` is the frontier-masked value table.
-template <int RELAX, int KIND>
-__device__ __forceinline__ void fold_chunk(
-    float (*acc)[SBLK], float (*msg_s)[32], const float* __restrict__ gval,
-    const int32_t* __restrict__ src, const float* __restrict__ w,
-    const uint8_t* __restrict__ mask, const int32_t* __restrict__ ids, int j,
-    int num_edges, int seg0) {
-  fold_edges<KIND>(acc, msg_s, RelaxMsg<RELAX>{gval, src, w, mask}, ids, j,
-                   num_edges, seg0);
-}
-
 // Segment t of the block: the NWARP accumulators folded in warp order.
 template <int KIND>
 __device__ __forceinline__ float fold_warps(float (*acc)[SBLK], int t) {
@@ -156,21 +145,23 @@ __device__ __forceinline__ float fold_warps(float (*acc)[SBLK], int t) {
 }
 
 // ---------------------------------------------------------------------
-// The worklist launches (K2, K4, K6, K8): a thread block per piece
+// The piece launches (K1-K8): thread blocks over pieces
 // ---------------------------------------------------------------------
 //
 // The Python side (piece_tables) cuts each segment block's planned cells
 // (blk_chunk, i-major: chunks ascending) into pieces of at most
-// PIECE_CELLS consecutive cells, on a plan's first worklist launch, with
-// no host sync: the grid is a bound known on the host, and a thread block
-// past the real pieces (piece_blk -1) returns at once.  A thread block
-// takes one piece, walks its cells in order, runs those the round lists
-// and carries one accumulator across them.  A block that is one piece
-// writes the inbox itself.  The pieces of a split block each write their
-// partial to a row of the split buffer (rows consecutive, in piece
-// order), then take a ticket; the piece that arrives last folds the rows
-// in piece order into the inbox and resets the ticket for the next
-// launch.  No float atomics, so a sum repeats bit for bit.
+// PIECE_CELLS consecutive cells, on a plan's first launch, with no host
+// sync: the piece count is a bound known on the host, and a piece past
+// the real ones (piece_blk -1) is never run.  A thread block takes a
+// piece, walks its cells in order, runs those the round lists (a
+// worklist's flag bytes, or for a dense launch and a device plan the
+// cells whose chunk frontier bit is set) and carries one accumulator
+// across them.  A block that is one piece writes the inbox itself.  The
+// pieces of a split block each write their partial to a row of the split
+// buffer (rows consecutive, in piece order), then take a ticket; the
+// piece that arrives last folds the rows in piece order into the inbox
+// and resets the ticket for the next launch.  No float atomics, so a sum
+// repeats bit for bit, and no thread block waits on another.
 
 struct Pieces {
   const int32_t* piece_lo;    // (n_pieces,) a piece's first cell position
@@ -180,12 +171,12 @@ struct Pieces {
   const int32_t* blk_piece;   // (n_blocks + 1,) a block's pieces
   const int32_t* blk_chunk;   // (n_cells,) a cell's chunk
   const uint8_t* cell_batch;  // (n_cells, 2) [first, last + 1) batches
-  const uint8_t* flags;       // (n_cells,) listed cells; null: device plan
+  const uint8_t* flags;       // (n_cells,) listed cells; null: chunk bits
   const uint8_t* chunk_act;   // (n_chunks,) chunk frontier bits
   int32_t* tickets;           // arrivals per (block, lane group), zero
 
-  // Whether the round runs cell p: a host plan's flag, or for a device
-  // plan (no flags) its chunk's frontier bit.  Block-uniform.
+  // Whether the round runs cell p: a host plan's flag, or (no flags: a
+  // dense launch, a device plan) its chunk's frontier bit.  Block-uniform.
   __device__ __forceinline__ bool live(int p) const {
     return flags != nullptr ? flags[p] != 0 : chunk_act[blk_chunk[p]] != 0;
   }
@@ -251,6 +242,46 @@ __device__ __forceinline__ void finish_piece(
       r = combine<KIND>(r, __ldcg(rows + static_cast<size_t>(s) * SBLK + t));
     if (seg0 + t < num_segments) out[seg0 + t] = r;
   }
+}
+
+// Run body(k, i) for this thread block's piece k = blockIdx.x, of
+// segment block i, unless k is past the real pieces.
+template <class Body>
+__device__ __forceinline__ void run_piece(const Pieces& pc, Body&& body) {
+  const int k = blockIdx.x;
+  const int i = pc.piece_blk[k];
+  if (i >= 0) body(k, i);
+}
+
+// Launch a piece kernel, one thread block per piece and lane group, with
+// `smem` bytes of dynamic shared memory, first raising the kernel's
+// dynamic limit to it (static and dynamic shared memory together may pass
+// the default 48 KB only with that opt-in).  Returns the launch's
+// cudaError_t.
+template <class... KArgs, class... Args>
+inline int launch_pieces(void (*kernel)(KArgs...), int num_pieces,
+                         int groups, size_t smem, cudaStream_t stream,
+                         Args... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(num_pieces, groups), THREADS, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of `kernel` resident on one SM with `smem` bytes of dynamic
+// shared memory (after the opt-in), or -cudaError_t.
+template <class... KArgs>
+inline int blocks_per_sm(void (*kernel)(KArgs...), size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
+  return e == cudaSuccess ? per_sm : -static_cast<int>(e);
 }
 
 }  // namespace frr

@@ -16,13 +16,14 @@
 //   holds for an inactive source.  K1's fold then reads the slot where K1
 //   reads the table (StagedMsg), so the result is K1's (K2's) bit for bit.
 //
-//   K7, K8 (laned): a cell runs in two pieces of EBLK / 2 positions, one
-//   position a thread.  A piece is staged as K3 stages a chunk, with a
+//   K7, K8 (laned): a cell runs in two halves of EBLK / 2 positions, one
+//   position a thread.  A half is staged as K3 stages a chunk, with a
 //   position dead in every lane (the OR flags `act`) dropped (key -1) and
-//   src[k] = k, the position's row in the piece's row buffer, the source
+//   src[k] = k, the position's row in the half's row buffer, the source
 //   row going to `row_src`; the block then copies its lane group's
-//   columns of each kept row.  K3's fold_lane_list reads the rows by
-//   position (StagedRows), so the result is K3's (K4's) bit for bit.
+//   columns of each kept row.  K3's fold_lane_runs reads the rows by
+//   position (StagedRows) in K3's windows, so the result is K3's (K4's)
+//   bit for bit.
 //
 // A copy never reads past the table's last row: staged sources are
 // valid edges' sources, which plan_launch checks are in range.
@@ -128,34 +129,13 @@ __device__ __forceinline__ int stage_rows(float* slot,
 }
 
 // ---------------------------------------------------------------------
-// K7, K8: a cell's rows staged in two pieces
+// K7, K8: a cell's rows staged in two halves
 // ---------------------------------------------------------------------
 
-constexpr int HALF = EBLK / 2;            // positions of a piece
-static_assert(HALF == THREADS, "a thread stages one position of a piece");
+constexpr int HALF = EBLK / 2;            // positions of a half
+static_assert(HALF == THREADS, "a thread stages one position of a half");
 
-// One position's edge, loaded into registers a piece ahead of its stage.
-struct EdgeRegs {
-  int id, s;
-  float w;
-  bool act;
-};
-
-__device__ __forceinline__ EdgeRegs load_edge(
-    const int32_t* __restrict__ src, const float* __restrict__ w,
-    const uint8_t* __restrict__ act, const int32_t* __restrict__ ids,
-    int e, int num_edges) {
-  EdgeRegs x{0, 0, 0.0f, false};
-  if (e < num_edges) {
-    x.id = __ldg(ids + e);
-    x.s = __ldg(src + e);
-    x.w = __ldg(w + e);
-    x.act = __ldg(act + e) != 0;
-  }
-  return x;
-}
-
-// K3's stage of this thread's position k (in piece half k / HALF) for
+// K3's stage of this thread's position k (in half k / HALF) for
 // segments [seg0, seg0 + SBLK), with a dead position dropped, src[k] = k
 // and the source row in row_src[k].  Returns 1 if it keeps a row.
 __device__ __forceinline__ int stage_position(LaneStage& st,
@@ -163,7 +143,7 @@ __device__ __forceinline__ int stage_position(LaneStage& st,
                                               const EdgeRegs& x, int k,
                                               int num_slots, int seg0) {
   const int local = x.id - seg0;
-  const bool keep = x.act && local >= 0 && local < SBLK && x.s < num_slots;
+  const bool keep = x.on && local >= 0 && local < SBLK && x.s < num_slots;
   st.key[k] = keep ? local : -1;
   st.src[k] = k;
   st.w[k] = keep ? x.w : 0.0f;
@@ -198,38 +178,20 @@ __device__ __forceinline__ void copy_rows(float* buf, const LaneStage& st,
   }
 }
 
-using HalfPos = RangePos;         // the positions of one piece
-
-struct StagedRows {               // this thread's lane of a staged row
-  const float* buf;               // the piece's row buffer
-  int k0;                         // the piece's first position
+struct StagedRows {               // lane column c of a staged row
+  const float* buf;               // the half's row buffer
+  int k0;                         // the half's first position
   int lw;
-  int t;
-  __device__ __forceinline__ float operator()(int k) const {
-    return buf[(k - k0) * lw + t];
+  __device__ __forceinline__ float operator()(int k, int c) const {
+    return buf[(k - k0) * lw + c];
   }
 };
 
-// Shared memory of a laned row buffer: two pieces of HALF rows of
+// Shared memory of a laned row buffer: two halves of HALF rows of
 // min(Q, LGRP) floats.
 inline size_t lane_row_smem(int Q) {
   return 2 * static_cast<size_t>(HALF) * (Q < LGRP ? Q : LGRP) *
          sizeof(float);
-}
-
-// Launch `kernel` with `smem` bytes of dynamic shared memory, first
-// raising the kernel's dynamic limit to it: static and dynamic shared
-// memory together may pass the default 48 KB only with that opt-in.
-// Returns the launch's cudaError_t.
-template <class... KArgs, class... Args>
-inline int launch_with_smem(void (*kernel)(KArgs...), dim3 grid, dim3 block,
-                            size_t smem, cudaStream_t stream, Args... args) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, block, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace frr

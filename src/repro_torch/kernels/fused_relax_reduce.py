@@ -7,11 +7,11 @@ One engine round's relax phase,
     msg     = where(active, relax(src_val, w), identity)
     inbox   = segment_reduce(msg, edge_dst)   # min or sum
 
-runs as one CUDA kernel (``csrc/fused_relax_reduce.cu``) that never
-writes a per-edge array to device memory.  The frontier mask is folded
-into the value table before launch (``_masked_value_tables``): inactive
-sources read as the absorbing identity, ``relax(identity, w) ==
-identity`` for every supported pairing, so the kernel gathers one table.
+runs as one CUDA kernel launch that never writes a per-edge array to
+device memory.  The frontier mask is folded into the value table before
+launch (``_masked_value_tables``): inactive sources read as the absorbing
+identity, ``relax(identity, w) == identity`` for every supported pairing,
+so the kernel gathers one table.
 
 Blocking keeps the reference's ``EBLK``-edge chunks and ``SBLK``-wide
 segment blocks, and its two skips:
@@ -19,50 +19,52 @@ segment blocks, and its two skips:
 1. **Sorted-range skip** — edges are sorted by destination within each
    shard, so chunk *j* covers ids ``[lo_j, hi_j]``.  ``plan_launch``
    lists, once per partition, the chunks whose range meets each segment
-   block (a CSR, ``LaunchPlan``); one thread block per segment block walks
-   only its list.
+   block: the planned cells (a CSR, ``LaunchPlan``).
 2. **Frontier chunk skip** — ``chunk_act[j]`` says whether any valid edge
    of chunk *j* has a changed source this round (``_chunk_tables``, torch
-   ops, which also yield the active-edge message count).  A block skips a
-   dead chunk without reading its edges.
+   ops, which also yield the active-edge message count).  A dead chunk's
+   edges are never read.
 
-So the kernel executes exactly the TPU grid's live (block, chunk) cells;
-``with_debug`` returns its own count of them, and ``fused_grid_cells``
-mirrors that count on the host.
+**One launch shape for every kernel** (``csrc/frr_common.cuh``).  The
+first launch of a plan cuts each segment block's planned cells into
+pieces of at most ``PIECE_CELLS`` consecutive cells (``plan_pieces``)
+and finds each cell's batch range, the 32-edge batches of its chunk that
+hold a valid edge of its block (``plan_batches``), with no host sync,
+and keeps both on the plan.  A thread block takes one piece, walks its
+cells in chunk order, runs the cells of the round, folds only a cell's
+batch range and keeps one accumulator for the piece.  A block that is
+one piece writes the inbox; the pieces of a split block write their
+partials to a small buffer, and the last to arrive folds them in piece
+order, so sums repeat bit for bit.  The dense launch (kernel K1,
+``csrc/fused_relax_reduce_wl.cu``) runs the planned cells whose chunk is
+live: exactly the TPU grid's live (block, chunk) cells, which
+``with_debug`` counts and ``fused_grid_cells`` mirrors on the host.
 
 **Worklist launches** (``grid_mode='worklist' | 'device_worklist'``, or
-an explicit ``worklist=``) run the same math over the cells a worklist
-lists (``csrc/fused_relax_reduce_wl.cu``, kernel K2), in one launch with
-no partials per cell.  The first worklist launch of a plan cuts each
-segment block's planned cells into pieces of at most ``PIECE_CELLS``
-consecutive cells (``plan_pieces``) and finds each cell's batch range
-(``plan_batches``), with no host sync, and keeps both on the plan (a
-plan that only ever runs dense launches builds neither); a thread block
-takes one piece, walks its cells in chunk order, skips the cells the
-round does not list, folds only the 32-edge batches of a cell that hold
-edges of its block, and keeps one accumulator for the piece.  A
-block that is one piece writes the inbox (bit for bit K1's result on the
-same cells); the pieces of a split block write their partials to a small
-buffer, and the last to arrive folds them in piece order.  Which cells
-are listed is a flag byte per planned cell: the host planner
+an explicit ``worklist=``) run K1's launch over the cells a worklist
+lists (kernel K2): a flag byte per planned cell.  The host planner
 (``WorklistPlanner``, numpy, with the reference's dst filter that drops
 cells holding no active edge of their block) fills them and the launch
 uploads them in one copy; a device plan (``grid_mode='device_worklist'``)
-needs none, as the kernel reads each cell's chunk frontier bit; a
-worklist given as ``wl_i``/``wl_j``/``nlive`` alone is mapped onto them
-on the card (``worklist_flags``).  ``Worklist`` keeps the reference's
-j-major ``wl_i``/``wl_j``/``nlive``; ``build_device_worklist`` still
-compacts them on the device (no host sync; its length is static: the
-power of two above the launch plan's cell count).
+needs none, as the kernel reads each cell's chunk frontier bit (K1's
+cells); a worklist given as ``wl_i``/``wl_j``/``nlive`` alone is mapped
+onto them on the card (``worklist_flags``).  On the same cells K2's bits
+are K1's.  ``Worklist`` keeps the reference's j-major
+``wl_i``/``wl_j``/``nlive``; ``build_device_worklist`` still compacts
+them on the device (no host sync; its length is static: the power of two
+above the launch plan's cell count).
 
 **Lane-batched launches** (``fused_relax_reduce_lanes``) run the same
-math over a (V, Q) table of query lanes that share one edge set: kernel
-K3 (``csrc/fused_relax_reduce_lanes.cu``) for the dense launch and K4
-(``csrc/fused_relax_reduce_wl_lanes.cu``) for worklists (the same pieces
-and flags).  The chunk frontier bit is the OR across lanes, the message
-counts are per lane, and plans are made from the OR-across-lanes
-frontier: ``WorklistPlanner``, ``plan_worklist``, ``build_device_worklist``
-and ``fused_grid_cells`` accept a (V, Q) frontier and OR it.
+math over a (V, Q) table of query lanes that share one edge set: kernels
+K3 (dense) and K4 (worklist), one launch
+(``csrc/fused_relax_reduce_wl_lanes.cu``) over the same pieces with a
+lane-group grid axis.  Their cell spreads a cell's edges over every warp
+of the block and has the owners of each (segment, lane) combine the
+warps' partials in position order (``csrc/frr_lanes.cuh``).  The chunk
+frontier bit is the OR across lanes, the message counts are per lane,
+and plans are made from the OR-across-lanes frontier:
+``WorklistPlanner``, ``plan_worklist``, ``build_device_worklist`` and
+``fused_grid_cells`` accept a (V, Q) frontier and OR it.
 
 **Residency** (``select_kernel_path``): a value table whose padded
 bytes exceed the budget (``vmem_budget_bytes``, the ``REPRO_VMEM_BUDGET``
@@ -71,14 +73,15 @@ kernels K5 (dense), K6 (worklist), K7 (dense lanes) and K8 (worklist
 lanes), sharing ``csrc/frr_tiles.cuh``.  Each live cell copies with
 ``cp.async`` only the source rows it reads (its active edges' sources,
 from the (E,) active flags) into a shared-memory row buffer indexed by
-chunk position, and folds them with its pinned twin's own fold; K6 and
-K8 run K2's and K4's launch (the same pieces, flags and combine).  K5
-and K6 equal K1 and K2, K7 and K8 equal K3 and K4, bit for bit, sum
-included.  No tiled launch builds a tile table; the reference's tile
-lists, copy schedule and copy counts stay as a mirror off the launch
-path (``_chunk_tile_tables``, ``tile_schedule``, ``plan(...,
-tile_lists=True)``, ``dense_mirror(..., tile_lists=True)``).  The
-default budget keeps every table the card can hold on the pinned
+chunk position, and folds them with its pinned twin's own fold; K5/K6
+run one launch (``csrc/fused_relax_reduce_wl_tiled.cu``) and K7/K8
+another (``..._wl_tiled_lanes.cu``), K1's launch shape with the same
+pieces, flags and combine.  K5 and K6 equal K1 and K2, K7 and K8 equal
+K3 and K4, bit for bit, sum included.  No tiled launch builds a tile
+table; the reference's tile lists, copy schedule and copy counts stay as
+a mirror off the launch path (``_chunk_tile_tables``, ``tile_schedule``,
+``plan(..., tile_lists=True)``, ``dense_mirror(..., tile_lists=True)``).
+The default budget keeps every table the card can hold on the pinned
 kernels K1–K4; a budget set through the config or the env var, or
 ``path=``/``vblk=``, reaches the tiled ones.
 
@@ -88,7 +91,8 @@ their tiled forms) and ``fused_relax_reduce_lanes`` theirs; on a CUDA
 tensor they launch the kernels, or raise.  ``launches``,
 ``wl_launches``, ``lanes_launches``, ``wl_lanes_launches``,
 ``tiled_launches``, ``wl_tiled_launches``, ``tiled_lanes_launches`` and
-``wl_tiled_lanes_launches`` count K1–K8 launches.
+``wl_tiled_lanes_launches`` count K1–K8 launches, each kernel apart
+where two share a CUDA kernel.
 """
 from __future__ import annotations
 
@@ -109,8 +113,9 @@ SBLK = 256   # segment-axis block (matches csrc/frr_common.cuh)
 
 WL_PAD = 8      # host worklists are padded to >= this many cells and then
                 # to a power of two, as the reference pads its launches
-PIECE_CELLS = 8        # planned cells a worklist launch's block takes at
-                       # most (PERF.md: the sweep over 4, 8, 16 and 32)
+PIECE_CELLS = 8        # planned cells a launch's block takes at most
+                       # (PERF.md: the sweep over 4, 8, 16 and 32)
+
 
 RELAX_KINDS = tuple(RELAX_FNS)
 
@@ -289,9 +294,9 @@ def _check_pair(relax_kind: str, kind: str):
 
 
 class PieceTables(typing.NamedTuple):
-    """How the worklist launches (K2, K4, K6, K8) cut the segment blocks'
-    planned cells into pieces of at most ``cells`` consecutive cells of
-    the i-major list (``LaunchPlan.blk_chunk``), one thread block each.
+    """How the launches (K1-K8) cut the segment blocks' planned cells
+    into pieces of at most ``cells`` consecutive cells of the i-major
+    list (``LaunchPlan.blk_chunk``), one thread block each.
     A block with no planned cell is one empty piece, so every segment is
     written.  The pieces of block ``i`` are ``blk_piece[i]:blk_piece[i +
     1]``, piece ``k`` holds cell positions ``piece_ptr[k]:piece_ptr[k +
@@ -301,9 +306,8 @@ class PieceTables(typing.NamedTuple):
     The tables are built on the card with no host sync, so their lengths
     are bounds known on the host: ``num_pieces`` (the launch's grid) is
     ``n_blocks + n_cells // cells``, never fewer than the real pieces,
-    which come first; a piece past them has ``piece_blk`` -1 and its
-    thread block returns at once.  ``n_split`` (the split buffer's rows)
-    is the same bound."""
+    which come first; a piece past them has ``piece_blk`` -1 and is never
+    run.  ``n_split`` (the split buffer's rows) is the same bound."""
 
     piece_ptr: torch.Tensor   # (n_pieces + 1,) int32
     piece_blk: torch.Tensor   # (n_pieces,) int32
@@ -324,7 +328,7 @@ class LaunchPlan(typing.NamedTuple):
     i-major.  ``cell_i``/``cell_j`` list the same (block, chunk) cells
     j-major (chunk ascending, then block), the order worklists keep, and
     ``cell_order[p]`` is the j-major index of i-major cell ``p``.
-    ``scratch`` keeps what the worklist launches build on first use: the
+    ``scratch`` keeps what the launches build on first use: the
     cells' batch ranges (``plan_batches``), the cuts of the blocks' cells
     into pieces (``plan_pieces``) and the arrival tickets, one set per
     CUDA stream (``_tickets``: right while the launches on a stream run
@@ -455,8 +459,8 @@ def _tickets(plan: LaunchPlan, n: int, stream: int):
     """The plan's (n,) int32 arrival tickets for launches on ``stream``
     (a ``cuda_stream`` handle), made once per size and stream.  They are
     zero between launches: the piece of a split block that arrives last
-    resets its block's ticket.  That holds because the worklist launches
-    on one stream run one after another and each runs to its end (a
+    resets its block's ticket.  That holds because the launches on one
+    stream run one after another and each runs to its end (a
     kernel that faults leaves the CUDA context unusable); launches on
     another stream get tickets of their own."""
     key = ("tickets", n, stream)
@@ -643,35 +647,29 @@ def _executed_cells(plan: LaunchPlan, chunk_act):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {   # C entry point -> (library, argument types)
-    "frr_launch": ("fused_relax_reduce",
-                   [_P] * 8 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P]),
     "frr_wl_launch": ("fused_relax_reduce_wl",
                       [_P] * 15 + [_I] * 3 + [_P] * 3 + [_I] * 2 + [_P]),
-    "frr_lanes_launch": ("fused_relax_reduce_lanes",
-                         [_P] * 9 + [_I] * 4 + [_P] * 2 + [_I] * 2 + [_P]),
     "frr_wl_lanes_launch": ("fused_relax_reduce_wl_lanes",
-                            [_P] * 16 + [_I] * 4 + [_P] * 3 + [_I] * 2
+                            [_P] * 16 + [_I] * 4 + [_P] * 3 + [_I] * 3
                             + [_P]),
+    "frr_wl_lanes_blocks_per_sm": ("fused_relax_reduce_wl_lanes", [_I] * 2),
     "segment_combine_launch": ("segment_combine",
                                [_P] * 4 + [_I] * 3 + [_P] * 2 + [_I] * 2
                                + [_P]),
-    "frr_tiled_launch": ("fused_relax_reduce_tiled",
-                         [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P]),
     "frr_wl_tiled_launch": ("fused_relax_reduce_wl_tiled",
                             [_P] * 16 + [_I] * 3 + [_P] * 3 + [_I] * 2
                             + [_P]),
-    "frr_tiled_lanes_launch": ("fused_relax_reduce_tiled_lanes",
-                               [_P] * 9 + [_I] * 5 + [_P] * 2 + [_I] * 2
-                               + [_P]),
     "frr_wl_tiled_lanes_launch": ("fused_relax_reduce_wl_tiled_lanes",
                                   [_P] * 16 + [_I] * 5 + [_P] * 3
-                                  + [_I] * 2 + [_P]),
+                                  + [_I] * 3 + [_P]),
+    "frr_wl_tiled_lanes_blocks_per_sm": ("fused_relax_reduce_wl_tiled_lanes",
+                                         [_I] * 2),
 }
 _fns: dict = {}
 _libs: dict = {}
 
 
-def _kernel(entry: str = "frr_launch"):
+def _kernel(entry: str):
     """The bound C entry point, its library built and loaded on first
     use."""
     if entry not in _fns:
@@ -728,30 +726,15 @@ def _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst,
 
 def _launch(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan: LaunchPlan,
             chunk_act, relax_kind: str, kind: str, with_debug: bool):
-    """Launch the CUDA kernel on the current stream.  Returns the
-    (num_segments,) partial and, with ``with_debug``, the (1,) int32
-    executed-cell counter.  Raises on any launch error."""
+    """Launch K1 on the current stream: the piece launch over the planned
+    cells whose chunk is live (``_launch_pieces`` with no flags).
+    Returns the (num_segments,) partial and, with ``with_debug``, the
+    (1,) int32 executed-cell counter.  Raises on any launch error."""
     global launches
-    if gval_m.dim() != 1:
-        raise ValueError("K1 takes a (V,) value table")
-    _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
-                       chunk_act)
-    out = torch.empty(plan.num_segments, dtype=torch.float32,
-                      device=gval_m.device)
-    dbg = (torch.zeros(1, dtype=torch.int32, device=gval_m.device)
-           if with_debug else None)
-    stream = torch.cuda.current_stream(gval_m.device).cuda_stream
-    rc = _kernel("frr_launch")(
-        gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
-        edge_mask.data_ptr(), edge_dst.data_ptr(), plan.blk_ptr.data_ptr(),
-        plan.blk_chunk.data_ptr(), chunk_act.data_ptr(), edge_src.shape[0],
-        plan.num_segments, plan.num_blocks, out.data_ptr(),
-        dbg.data_ptr() if dbg is not None else None,
-        _RELAX_CODE[relax_kind], _KIND_CODE[kind], stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_relax_reduce launch failed: cudaError {rc}")
+    res = _launch_pieces(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
+                         chunk_act, None, relax_kind, kind, with_debug)
     launches += 1
-    return out, dbg
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1289,7 +1272,7 @@ def _card_flags(wl: Worklist | None, plan: LaunchPlan, num_segments: int):
 
 
 # --------------------------------------------------------------------------
-# K2 and K4: the worklist launches on the card
+# K1-K4: the pinned piece launches on the card
 # --------------------------------------------------------------------------
 
 def _check_flags(flags, plan: LaunchPlan, dev):
@@ -1303,7 +1286,7 @@ def _check_flags(flags, plan: LaunchPlan, dev):
 
 def _piece_ptrs(plan: LaunchPlan, pc: PieceTables, flags, chunk_act,
                 n_tickets: int, edge_mask, edge_dst):
-    """The ten piece-table pointers a worklist launch takes, in the C
+    """The ten piece-table pointers a piece launch takes, in the C
     entry points' order: piece begin / end, block, split slot, a block's
     pieces, the cells' chunks and batch ranges (of the plan's edges
     ``edge_mask``/``edge_dst``), the flags (null for a device plan), the
@@ -1318,19 +1301,18 @@ def _piece_ptrs(plan: LaunchPlan, pc: PieceTables, flags, chunk_act,
                 chunk_act.device).cuda_stream).data_ptr()]
 
 
-def _launch_wl(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-               plan: LaunchPlan, chunk_act, flags, relax_kind: str,
-               kind: str, with_debug: bool):
-    """Launch K2 on the current stream: one block per piece of ``plan``
-    (``PIECE_CELLS``), running the cells ``flags`` lists ((num_cells,)
-    uint8 on the card, i-major), or with ``flags=None`` (a device plan)
-    the planned cells whose chunk is live.  Nothing here waits for the
-    card.  Returns the (num_segments,) inbox partial and, with
-    ``with_debug``, the (1,) int32 count of cells run.  Raises on any
-    launch error."""
-    global wl_launches
+def _launch_pieces(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                   plan: LaunchPlan, chunk_act, flags, relax_kind: str,
+                   kind: str, with_debug: bool):
+    """The piece launch of K1 and K2 on the current stream: one block per
+    piece of ``plan`` (``PIECE_CELLS``), running the cells ``flags``
+    lists ((num_cells,) uint8 on the card, i-major), or with
+    ``flags=None`` (a dense launch, a device plan) the planned cells
+    whose chunk is live.  Nothing here waits for the card.  Returns the
+    (num_segments,) inbox partial and, with ``with_debug``, the (1,)
+    int32 count of cells run.  Raises on any launch error."""
     if gval_m.dim() != 1:
-        raise ValueError("K2 takes a (V,) value table")
+        raise ValueError("K1 and K2 take a (V,) value table")
     _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
                        chunk_act)
     dev = gval_m.device
@@ -1352,10 +1334,22 @@ def _launch_wl(gval_m, edge_src, edge_w, edge_mask, edge_dst,
             dbg.data_ptr() if dbg is not None else None,
             _RELAX_CODE[relax_kind], _KIND_CODE[kind], stream)
         if rc != 0:
-            raise RuntimeError(f"fused_relax_reduce_wl launch failed: "
+            raise RuntimeError(f"fused_relax_reduce piece launch failed: "
                                f"cudaError {rc}")
-    wl_launches += 1
     return out, dbg
+
+
+def _launch_wl(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+               plan: LaunchPlan, chunk_act, flags, relax_kind: str,
+               kind: str, with_debug: bool):
+    """Launch K2 on the current stream: ``_launch_pieces`` over the cells
+    ``flags`` lists, or with ``flags=None`` (a device plan) K1's cells.
+    Returns as ``_launch_pieces``."""
+    global wl_launches
+    res = _launch_pieces(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
+                         chunk_act, flags, relax_kind, kind, with_debug)
+    wl_launches += 1
+    return res
 
 
 def _check_lane_tables(gval_m, unitw):
@@ -1372,51 +1366,26 @@ def _check_lane_tables(gval_m, unitw):
         raise ValueError(f"lane count {q} outside [1, {2**31 // SBLK})")
 
 
-def _launch_lanes(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
-                  plan: LaunchPlan, chunk_act, relax_kind: str, kind: str,
-                  with_debug: bool):
-    """Launch K3 on the current stream: one block per (segment block,
-    group of 32 lanes).  Returns the (num_segments, Q) partial
-    and, with ``with_debug``, the (1,) int32 executed-cell counter.
-    Raises on any launch error."""
-    global lanes_launches
-    _check_lane_tables(gval_m, unitw)
-    _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
-                       chunk_act)
-    q = gval_m.shape[1]
-    dev = gval_m.device
-    out = torch.empty((plan.num_segments, q), dtype=torch.float32,
-                      device=dev)
-    dbg = torch.zeros(1, dtype=torch.int32, device=dev) if with_debug \
-        else None
-    rc = _kernel("frr_lanes_launch")(
-        gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
-        edge_mask.data_ptr(), edge_dst.data_ptr(), unitw.data_ptr(),
-        plan.blk_ptr.data_ptr(), plan.blk_chunk.data_ptr(),
-        chunk_act.data_ptr(), edge_src.shape[0], plan.num_segments,
-        plan.num_blocks, q, out.data_ptr(),
-        dbg.data_ptr() if dbg is not None else None,
-        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_relax_reduce_lanes launch failed: "
-                           f"cudaError {rc}")
-    lanes_launches += 1
-    return out, dbg
-
-
 def _lane_groups(q: int) -> int:
     return -(-q // LGRP)
 
 
-def _launch_wl_lanes(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
-                     plan: LaunchPlan, chunk_act, flags, relax_kind: str,
-                     kind: str, with_debug: bool):
-    """Launch K4 on the current stream: K2's pieces and flags with K3's
-    cell, one block per (piece, group of 32 lanes).  Returns the
+def _halves(q: int) -> int:
+    """Lists a warp of the laned fold at ``q`` lanes: 2, one a half-warp,
+    when a lane group holds at most 16 lanes (no thread idles); else 1,
+    one a warp (PERF.md: the half-warp form ran about 11% faster at Q =
+    16)."""
+    return 2 if q <= 16 else 1
+
+
+def _launch_lane_pieces(gval_m, unitw, edge_src, edge_w, edge_mask,
+                        edge_dst, plan: LaunchPlan, chunk_act, flags,
+                        relax_kind: str, kind: str, with_debug: bool):
+    """The piece launch of K3 and K4 on the current stream: K1's pieces
+    and cells (``flags``, or None: those whose chunk is live) with the
+    laned cell, one block per (piece, group of 32 lanes).  Returns the
     (num_segments, Q) inbox partial and, with ``with_debug``, the (1,)
     int32 count of cells run."""
-    global wl_lanes_launches
     _check_lane_tables(gval_m, unitw)
     _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
                        chunk_act)
@@ -1438,13 +1407,41 @@ def _launch_wl_lanes(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
         edge_src.shape[0], plan.num_segments, pc.num_pieces, q,
         out.data_ptr(), split.data_ptr(),
         dbg.data_ptr() if dbg is not None else None,
-        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
+        _RELAX_CODE[relax_kind], _KIND_CODE[kind], _halves(q),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_relax_reduce_wl_lanes launch failed: "
+        raise RuntimeError(f"fused_relax_reduce_lanes piece launch failed: "
                            f"cudaError {rc}")
-    wl_lanes_launches += 1
     return out, dbg
+
+
+def _launch_lanes(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
+                  plan: LaunchPlan, chunk_act, relax_kind: str, kind: str,
+                  with_debug: bool):
+    """Launch K3 on the current stream: ``_launch_lane_pieces`` over the
+    planned cells whose chunk is live (the OR across lanes).  Returns
+    the (num_segments, Q) partial and, with ``with_debug``, the (1,)
+    int32 executed-cell counter.  Raises on any launch error."""
+    global lanes_launches
+    res = _launch_lane_pieces(gval_m, unitw, edge_src, edge_w, edge_mask,
+                              edge_dst, plan, chunk_act, None, relax_kind,
+                              kind, with_debug)
+    lanes_launches += 1
+    return res
+
+
+def _launch_wl_lanes(gval_m, unitw, edge_src, edge_w, edge_mask, edge_dst,
+                     plan: LaunchPlan, chunk_act, flags, relax_kind: str,
+                     kind: str, with_debug: bool):
+    """Launch K4 on the current stream: ``_launch_lane_pieces`` over the
+    cells ``flags`` lists, or with ``flags=None`` (a device plan) K3's
+    cells.  Returns as ``_launch_lane_pieces``."""
+    global wl_lanes_launches
+    res = _launch_lane_pieces(gval_m, unitw, edge_src, edge_w, edge_mask,
+                              edge_dst, plan, chunk_act, flags, relax_kind,
+                              kind, with_debug)
+    wl_lanes_launches += 1
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1459,90 +1456,18 @@ def _check_act(act, edge_src):
                          f"bool on {edge_src.device}")
 
 
-def _launch_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst,
-                  plan: LaunchPlan, chunk_act, act, relax_kind: str,
-                  kind: str, with_debug: bool):
-    """Launch K5 on the current stream: K1's blocks and cells, each live
-    cell staging the rows of its active edges (``act``, from
-    ``_active_edges``) that land in its block.  Returns the
-    (num_segments,) partial and, with ``with_debug``, the (2,) int32
-    [executed cells, staged rows].  Raises on any launch error."""
-    global tiled_launches
+def _launch_tiled_pieces(gval_m, edge_src, edge_w, edge_mask, edge_dst, act,
+                         plan: LaunchPlan, chunk_act, flags, relax_kind: str,
+                         kind: str, with_debug: bool):
+    """The piece launch of K5 and K6 on the current stream: K1's and K2's
+    launch (pieces, the cells ``flags`` lists or, with None, those whose
+    chunk is live, the combine), each cell staging the rows of its active
+    edges (``act``, from ``_active_edges``) that land in its block.
+    Nothing here waits for the card.  Returns the (num_segments,) inbox
+    partial and, with ``with_debug``, the (2,) int32 [cells run, staged
+    rows]."""
     if gval_m.dim() != 1:
-        raise ValueError("K5 takes a (V,) value table")
-    _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
-                       chunk_act)
-    _check_act(act, edge_src)
-    dev = gval_m.device
-    out = torch.empty(plan.num_segments, dtype=torch.float32, device=dev)
-    dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
-        else None
-    rc = _kernel("frr_tiled_launch")(
-        gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
-        edge_mask.data_ptr(), edge_dst.data_ptr(), act.data_ptr(),
-        plan.blk_ptr.data_ptr(), plan.blk_chunk.data_ptr(),
-        chunk_act.data_ptr(), edge_src.shape[0], plan.num_segments,
-        plan.num_blocks, out.data_ptr(),
-        dbg.data_ptr() if dbg is not None else None,
-        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_relax_reduce_tiled launch failed: "
-                           f"cudaError {rc}")
-    tiled_launches += 1
-    return out, dbg
-
-
-def _launch_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
-                        edge_dst, plan: LaunchPlan, chunk_act, act,
-                        relax_kind: str, kind: str, with_debug: bool):
-    """Launch K7 on the current stream: K3's (segment block, lane group)
-    blocks, each live cell staging its group's columns of the rows of its
-    edges active in some lane (``act``, the OR-across-lanes flags of
-    ``_lane_chunk_tables``) that land in its block.  Returns the
-    (num_segments, Q) partial and, with ``with_debug``, the (2,) int32
-    [executed cells, staged rows] (one row per cell and position,
-    whatever the lane groups)."""
-    global tiled_lanes_launches
-    _check_lane_tables(gval_m, unitw)
-    _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
-                       chunk_act)
-    _check_act(act, edge_src)
-    if gval_m.data_ptr() % 16:
-        raise ValueError("the value table must be 16-byte aligned")
-    q = gval_m.shape[1]
-    dev = gval_m.device
-    out = torch.empty((plan.num_segments, q), dtype=torch.float32,
-                      device=dev)
-    dbg = torch.zeros(2, dtype=torch.int32, device=dev) if with_debug \
-        else None
-    rc = _kernel("frr_tiled_lanes_launch")(
-        gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
-        edge_dst.data_ptr(), act.data_ptr(), unitw.data_ptr(),
-        plan.blk_ptr.data_ptr(), plan.blk_chunk.data_ptr(),
-        chunk_act.data_ptr(), edge_src.shape[0], plan.num_segments,
-        plan.num_blocks, gval_m.shape[0], q, out.data_ptr(),
-        dbg.data_ptr() if dbg is not None else None,
-        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_relax_reduce_tiled_lanes launch failed: "
-                           f"cudaError {rc}")
-    tiled_lanes_launches += 1
-    return out, dbg
-
-
-def _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst, act,
-                     plan: LaunchPlan, chunk_act, flags, relax_kind: str,
-                     kind: str, with_debug: bool):
-    """Launch K6 on the current stream: K2's launch (pieces, flags,
-    combine), each cell staging the rows of its active edges (``act``)
-    that land in its block.  Nothing here waits for the card.  Returns
-    the (num_segments,) inbox partial and, with ``with_debug``, the (2,)
-    int32 [cells run, staged rows]."""
-    global wl_tiled_launches
-    if gval_m.dim() != 1:
-        raise ValueError("K6 takes a (V,) value table")
+        raise ValueError("K5 and K6 take a (V,) value table")
     _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
                        chunk_act)
     _check_act(act, edge_src)
@@ -1563,23 +1488,51 @@ def _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst, act,
         _RELAX_CODE[relax_kind], _KIND_CODE[kind],
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_relax_reduce_wl_tiled launch failed: "
+        raise RuntimeError(f"fused_relax_reduce_tiled piece launch failed: "
                            f"cudaError {rc}")
-    wl_tiled_launches += 1
     return out, dbg
 
 
-def _launch_wl_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
-                           edge_dst, act, plan: LaunchPlan, chunk_act,
-                           flags, relax_kind: str, kind: str,
-                           with_debug: bool):
-    """Launch K8 on the current stream: K4's launch (pieces, flags,
-    combine), each cell staging its lane group's columns of the rows of
-    its edges active in some lane (``act``) that land in its block.
-    Returns the (num_segments, Q) inbox partial and, with
+def _launch_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst,
+                  plan: LaunchPlan, chunk_act, act, relax_kind: str,
+                  kind: str, with_debug: bool):
+    """Launch K5 on the current stream: ``_launch_tiled_pieces`` over K1's
+    cells.  Returns the (num_segments,) partial and, with
+    ``with_debug``, the (2,) int32 [executed cells, staged rows].
+    Raises on any launch error."""
+    global tiled_launches
+    res = _launch_tiled_pieces(gval_m, edge_src, edge_w, edge_mask,
+                               edge_dst, act, plan, chunk_act, None,
+                               relax_kind, kind, with_debug)
+    tiled_launches += 1
+    return res
+
+
+def _launch_wl_tiled(gval_m, edge_src, edge_w, edge_mask, edge_dst, act,
+                     plan: LaunchPlan, chunk_act, flags, relax_kind: str,
+                     kind: str, with_debug: bool):
+    """Launch K6 on the current stream: ``_launch_tiled_pieces`` over the
+    cells ``flags`` lists (None: a device plan).  Returns as
+    ``_launch_tiled_pieces``."""
+    global wl_tiled_launches
+    res = _launch_tiled_pieces(gval_m, edge_src, edge_w, edge_mask,
+                               edge_dst, act, plan, chunk_act, flags,
+                               relax_kind, kind, with_debug)
+    wl_tiled_launches += 1
+    return res
+
+
+def _launch_tiled_lane_pieces(gval_m, unitw, edge_src, edge_w, edge_mask,
+                              edge_dst, act, plan: LaunchPlan, chunk_act,
+                              flags, relax_kind: str, kind: str,
+                              with_debug: bool):
+    """The piece launch of K7 and K8 on the current stream: K3's and K4's
+    launch (pieces, cells, combine), each cell staging its lane group's
+    columns of the rows of its edges active in some lane (``act``, the
+    OR-across-lanes flags of ``_lane_chunk_tables``) that land in its
+    block.  Returns the (num_segments, Q) inbox partial and, with
     ``with_debug``, the (2,) int32 [cells run, staged rows] (one row per
     cell and position, whatever the lane groups)."""
-    global wl_tiled_lanes_launches
     _check_lane_tables(gval_m, unitw)
     _check_launch_args(gval_m, edge_src, edge_w, edge_mask, edge_dst, plan,
                        chunk_act)
@@ -1604,13 +1557,53 @@ def _launch_wl_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
         edge_src.shape[0], plan.num_segments, pc.num_pieces,
         gval_m.shape[0], q, out.data_ptr(), split.data_ptr(),
         dbg.data_ptr() if dbg is not None else None,
-        _RELAX_CODE[relax_kind], _KIND_CODE[kind],
+        _RELAX_CODE[relax_kind], _KIND_CODE[kind], _halves(q),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_relax_reduce_wl_tiled_lanes launch "
+        raise RuntimeError(f"fused_relax_reduce_tiled_lanes piece launch "
                            f"failed: cudaError {rc}")
-    wl_tiled_lanes_launches += 1
     return out, dbg
+
+
+def _launch_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
+                        edge_dst, plan: LaunchPlan, chunk_act, act,
+                        relax_kind: str, kind: str, with_debug: bool):
+    """Launch K7 on the current stream: ``_launch_tiled_lane_pieces`` over
+    K3's cells.  Returns as it does."""
+    global tiled_lanes_launches
+    res = _launch_tiled_lane_pieces(gval_m, unitw, edge_src, edge_w,
+                                    edge_mask, edge_dst, act, plan,
+                                    chunk_act, None, relax_kind, kind,
+                                    with_debug)
+    tiled_lanes_launches += 1
+    return res
+
+
+def _launch_wl_tiled_lanes(gval_m, unitw, edge_src, edge_w, edge_mask,
+                           edge_dst, act, plan: LaunchPlan, chunk_act,
+                           flags, relax_kind: str, kind: str,
+                           with_debug: bool):
+    """Launch K8 on the current stream: ``_launch_tiled_lane_pieces`` over
+    the cells ``flags`` lists (None: a device plan).  Returns as it
+    does."""
+    global wl_tiled_lanes_launches
+    res = _launch_tiled_lane_pieces(gval_m, unitw, edge_src, edge_w,
+                                    edge_mask, edge_dst, act, plan,
+                                    chunk_act, flags, relax_kind, kind,
+                                    with_debug)
+    wl_tiled_lanes_launches += 1
+    return res
+
+
+def lane_blocks_per_sm(q: int, tiled: bool = False) -> int:
+    """Thread blocks of the laned piece kernel (K3/K4, or K7/K8 with
+    ``tiled``) resident on one SM of the current card at ``q`` lanes, by
+    the CUDA occupancy calculator."""
+    n = _kernel("frr_wl_tiled_lanes_blocks_per_sm" if tiled
+                else "frr_wl_lanes_blocks_per_sm")(int(q), _halves(q))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {-n}")
+    return n
 
 
 def _pack(out, count, dbg, with_count: bool, with_debug: bool):
@@ -1665,9 +1658,9 @@ def fused_relax_reduce(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
     ``select_kernel_path`` (``vmem_budget_bytes``, ``path``, ``vblk``,
     ``smem_budget_bytes``), or a given worklist's own: pinned runs K1
     (dense) / K2 (worklist), tiled K5 / K6.  Min results are
-    bit-identical across launches; K5's sums are K1's and K6's are K2's,
-    and K2's are K1's where no segment block is split into pieces, else
-    differ by reassociation only.
+    bit-identical across launches; K5's sums are K1's, K6's are K2's,
+    and K2's are K1's (the cells a worklist drops add only the
+    identity); the plain version sums in another order.
 
     CUDA tensors launch the kernels; CPU tensors run the plain versions.
     """
@@ -1768,9 +1761,8 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
     over the budget, or ``path``/``vblk``), K7 and K8.  There is no lane
     padding: any Q gives the columns its lanes would give alone, and
     residency is judged at Q lanes.  Min results are bit-identical
-    across launches; K7's sums are K3's and K8's are K4's, and K4's are
-    K3's where no segment block is split into pieces, else differ by
-    reassociation only.
+    across launches; K7's sums are K3's, K8's are K4's, and K4's are
+    K3's; the plain version sums in another order.
 
     CUDA tensors launch the kernels; CPU tensors run the plain versions.
     """

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core.actions import RELAX_FNS
@@ -261,3 +262,191 @@ def fused_relax_reduce_wl_tiled_lanes_ref(gval, gchg, lane_unitw, edge_src,
                                             wl_i, wl_j, nlive, num_segments,
                                             relax_kind, kind),
             _wl_staged_rows(act, edge_dst, wl_i, wl_j, nlive, num_segments))
+
+
+# --------------------------------------------------------------------------
+# order models: the kernels' combine order, one float32 operation at a
+# time (numpy), so that a kernel's sums can be held to it bit for bit
+# --------------------------------------------------------------------------
+
+NWARP = 8          # warps a thread block (csrc/frr_common.cuh)
+WINDOW = 256       # chunk positions a laned fold window (csrc/frr_lanes.cuh)
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def piece_walk(edge_src, edge_mask, edge_dst, gchg, num_segments: int,
+               cells: int):
+    """The cells a piece launch runs on the chunk frontier bits (K1, K3,
+    K5, K7), built with numpy from the edges alone: for each segment
+    block, its planned cells (the chunks, ascending, whose valid-edge id
+    range meets it) cut into pieces of at most ``cells``, and for each
+    planned cell its chunk, whether it runs (its chunk holds a valid
+    edge with a source in the frontier, OR'd across lanes for a (V, Q)
+    one) and its batch range (the 32-edge batches holding a valid edge
+    of its block, (0, 0) for none).  Returns a list over blocks of lists
+    of pieces, each a list of (chunk, runs, batch_lo, batch_hi)."""
+    from repro_torch.kernels.fused_relax_reduce import EBLK, SBLK
+    src, mask, ids = _np(edge_src), _np(edge_mask).astype(bool), \
+        _np(edge_dst).astype(np.int64)
+    chg = _np(gchg)
+    chg = chg.any(axis=1) if chg.ndim == 2 else chg.astype(bool)
+    e = ids.shape[0]
+    n_chunks = max(-(-e // EBLK), 1)
+    n_blk = max(-(-num_segments // SBLK), 1)
+    planned = [[] for _ in range(n_blk)]
+    for j in range(n_chunks):
+        sl = slice(j * EBLK, min((j + 1) * EBLK, e))
+        valid = mask[sl]
+        if not valid.any():
+            continue
+        blocks = ids[sl] // SBLK
+        live = bool((valid & chg[src[sl]]).any())
+        pos = np.nonzero(valid)[0]
+        for i in range(int(ids[sl][valid].min()) // SBLK,
+                       min(int(ids[sl][valid].max()) // SBLK, n_blk - 1) + 1):
+            b = pos[blocks[pos] == i] // 32
+            lo, hi = (int(b.min()), int(b.max()) + 1) if b.size else (0, 0)
+            planned[i].append((j, live, lo, hi))
+    return [[cl[k:k + cells] for k in range(0, len(cl), cells)] or [[]]
+            for cl in planned]
+
+
+def _combine_np(kind):
+    return np.minimum if kind == "min" else np.add
+
+
+def _finish_pieces(rows, combine):
+    """A block's inbox rows from its pieces' partials, in piece order."""
+    r = rows[0]
+    for x in rows[1:]:
+        r = combine(r, x)
+    return r
+
+
+def fused_relax_reduce_order(gval, gchg, edge_src, edge_w, edge_mask,
+                             edge_dst, num_segments: int, relax_kind: str,
+                             kind: str, cells: int):
+    """Order model of K1 (and of K2 and K5 on K1's cells): the inbox
+    partial with every combine in the kernel's order, in float32.  Per
+    piece (``piece_walk`` at ``cells``), NWARP accumulators of SBLK;
+    each run cell's batches b in order, batch b on warp b % NWARP; in a
+    batch the messages of one segment folded in lane order, then into
+    the warp's accumulator; a piece's segment the warps folded in warp
+    order; a split block's pieces folded in piece order.  Returns
+    ((num_segments,) float32 array, executed cells)."""
+    from repro_torch.kernels.fused_relax_reduce import EBLK, SBLK
+    ident = np.float32(math.inf if kind == "min" else 0.0)
+    comb = _combine_np(kind)
+    src, w, mask, ids = (_np(edge_src).astype(np.int64),
+                         _np(edge_w).astype(np.float32),
+                         _np(edge_mask).astype(bool),
+                         _np(edge_dst).astype(np.int64))
+    gval_m = np.where(_np(gchg).astype(bool), _np(gval).astype(np.float32),
+                      ident).astype(np.float32)
+    e = ids.shape[0]
+    out = np.full(max(-(-num_segments // SBLK), 1) * SBLK, ident,
+                  dtype=np.float32)
+    executed = 0
+    for i, pieces in enumerate(piece_walk(src, mask, ids, gchg,
+                                          num_segments, cells)):
+        rows = []
+        for piece in pieces:
+            acc = np.full((NWARP, SBLK), ident, dtype=np.float32)
+            for j, live, b_lo, b_hi in piece:
+                executed += live
+                if not live:
+                    continue
+                for b in range(b_lo, b_hi):
+                    warp = b % NWARP
+                    groups = {}                     # first lane's order
+                    for lane in range(32):
+                        k = j * EBLK + b * 32 + lane
+                        if k >= e or not mask[k]:
+                            continue
+                        local = ids[k] - i * SBLK
+                        if not 0 <= local < SBLK:
+                            continue
+                        v = gval_m[src[k]]
+                        m = (v + np.float32(1.0) if relax_kind == "add_one"
+                             else v + w[k] if relax_kind == "add_w"
+                             else v * w[k])
+                        groups[local] = m if local not in groups \
+                            else comb(groups[local], m)
+                    for local, r in groups.items():
+                        acc[warp, local] = comb(acc[warp, local], r)
+            r = acc[0].copy()
+            for k in range(1, NWARP):
+                r = comb(r, acc[k])
+            rows.append(r)
+        out[i * SBLK:(i + 1) * SBLK] = _finish_pieces(rows, comb)
+    return out[:num_segments], executed
+
+
+def fused_relax_reduce_lanes_order(gval, gchg, lane_unitw, edge_src, edge_w,
+                                   edge_mask, edge_dst, num_segments: int,
+                                   relax_kind: str, kind: str, cells: int,
+                                   halves: int):
+    """Order model of K3 (and of K4, K7 and K8 on K3's cells): the
+    (num_segments, Q) inbox partial with every combine in the kernel's
+    order, in float32.  Per piece (``piece_walk`` at ``cells``) an
+    (SBLK, Q) accumulator; each run cell's batch range [k_lo, k_hi) in
+    windows of WINDOW chunk positions aligned to the chunk; a window cut
+    into ``halves`` * NWARP lists of consecutive positions; in a list
+    each segment's messages folded in position order from the identity
+    into one partial, and the partials taken into the accumulator list
+    after list; a split block's pieces folded in piece order.  Returns
+    ((num_segments, Q) float32 array, executed cells)."""
+    from repro_torch.kernels.fused_relax_reduce import EBLK, SBLK
+    ident = np.float32(math.inf if kind == "min" else 0.0)
+    comb = _combine_np(kind)
+    src, w, mask, ids = (_np(edge_src).astype(np.int64),
+                         _np(edge_w).astype(np.float32),
+                         _np(edge_mask).astype(bool),
+                         _np(edge_dst).astype(np.int64))
+    val = _np(gval).astype(np.float32)
+    gval_m = np.where(_np(gchg).astype(bool), val, ident).astype(np.float32)
+    q = val.shape[1]
+    unit = _np(lane_unitw).reshape(q) != 0
+    e = ids.shape[0]
+    lists = halves * NWARP
+    length = WINDOW // lists
+    out = np.full((max(-(-num_segments // SBLK), 1) * SBLK, q), ident,
+                  dtype=np.float32)
+    executed = 0
+    for i, pieces in enumerate(piece_walk(src, mask, ids, gchg,
+                                          num_segments, cells)):
+        rows = []
+        for piece in pieces:
+            acc = np.full((SBLK, q), ident, dtype=np.float32)
+            for j, live, b_lo, b_hi in piece:
+                executed += live
+                k_lo, k_hi = 32 * b_lo, 32 * b_hi
+                if not live or k_lo == k_hi:
+                    continue
+                for wb in range(k_lo - k_lo % WINDOW, k_hi, WINDOW):
+                    for lst in range(lists):
+                        part = {}
+                        for k in range(wb + lst * length,
+                                       wb + (lst + 1) * length):
+                            x = j * EBLK + k
+                            if not k_lo <= k < k_hi or x >= e \
+                                    or not mask[x]:
+                                continue
+                            local = ids[x] - i * SBLK
+                            if not 0 <= local < SBLK:
+                                continue
+                            v = gval_m[src[x]]
+                            m = (v * w[x] if relax_kind == "mul_w" else
+                                 v + np.where(unit, np.float32(1.0), w[x])
+                                 .astype(np.float32))
+                            part[local] = comb(part.get(
+                                local, np.full(q, ident, np.float32)), m)
+                        for local, r in part.items():
+                            acc[local] = comb(acc[local], r)
+            rows.append(acc)
+        out[i * SBLK:(i + 1) * SBLK] = _finish_pieces(rows, comb)
+    return out[:num_segments], executed

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 dense, K2 worklist, K3/K4 their
 lane-batched twins, K5-K8 the tiled twins of K1-K4, K9 the segment
-reduce) against their plain versions, on the card, and the worklist
-launches against the dense ones under whole and split pieces.
+reduce) against their plain versions and the dense ones against their
+order models, on the card, and the worklist launches against the dense
+ones on the same pieces, whole and split.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (the kernel builds from
 ``src/repro_torch/kernels/csrc`` on first use) and skips without one.
@@ -26,7 +27,8 @@ from repro_torch.kernels import fused_relax_reduce as frr  # noqa: E402
 from repro_torch.kernels import rhizome_segment_reduce as rsr  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    fused_relax_reduce_lanes_ref, fused_relax_reduce_ref,
+    fused_relax_reduce_lanes_order, fused_relax_reduce_lanes_ref,
+    fused_relax_reduce_order, fused_relax_reduce_ref,
     fused_relax_reduce_wl_lanes_ref, fused_relax_reduce_wl_ref,
     segment_combine_ref,
 )
@@ -193,8 +195,8 @@ def test_worklist_kernel_counts_launches(dev):
     assert (frr.launches, frr.wl_launches) == (0, 2)
 
 
-# the worklist launches' pieces: a block that is one piece equals the
-# dense launch bit for bit; a split block combines its pieces in order
+# the worklist launches run the dense launch's pieces: on the same pieces
+# they equal it bit for bit, whole blocks or split
 ONE_PIECE = 1 << 20
 PIECE_SHAPES = [(500, 2 * EBLK + 13, 2 * SBLK + 5), (5000, 20 * EBLK + 77,
                                                      3000),
@@ -203,8 +205,8 @@ PIECE_SHAPES = [(500, 2 * EBLK + 13, 2 * SBLK + 5), (5000, 20 * EBLK + 77,
 
 def _dense_twin(dev, case, nseg, relax, kind, grid_mode, cells,
                 lanes=False):
-    """(worklist launch, dense launch, cells run, planned cells listed)
-    with the launches' pieces at ``cells`` cells."""
+    """(worklist launch, dense launch), both with the launches' pieces at
+    ``cells`` cells; checks the cells run and that sums repeat."""
     args = [torch.as_tensor(x, device=dev) for x in case]
     n_src = 3 if lanes else 2
     plan = frr.plan_launch(args[n_src], args[n_src + 2], args[n_src + 3],
@@ -217,9 +219,9 @@ def _dense_twin(dev, case, nseg, relax, kind, grid_mode, cells,
                           with_debug=True, grid_mode=grid_mode)
         again = launch(*args, nseg, relax, kind, plan=plan,
                        grid_mode=grid_mode)
+        dense = launch(*args, nseg, relax, kind, plan=plan)
     finally:
         frr.PIECE_CELLS = old
-    dense = launch(*args, nseg, relax, kind, plan=plan)
     gchg, src, mask, ids = (case[1], case[n_src], case[n_src + 2],
                             case[n_src + 3])
     wl, info = frr.plan_worklist(ids, mask, src, gchg, nseg,
@@ -248,21 +250,21 @@ def test_k2_split_blocks_match_k1(dev, v, e, nseg, relax, kind, grid_mode,
                                   cells):
     case = _case(v, e, nseg, 0.3, seed=v + e + 1, negative=kind == "min")
     out, dense = _dense_twin(dev, case, nseg, relax, kind, grid_mode, cells)
-    if kind == "min":
-        assert torch.equal(out, dense)
-    else:
-        torch.testing.assert_close(out, dense, rtol=1e-5, atol=1e-6)
+    # a cell the host plan drops adds only the identity
+    assert torch.equal(out, dense)
 
 
 def test_worklist_tables_build_without_host_sync(dev):
-    """A dense launch builds no worklist table; the pieces and batch
-    ranges are built on the card with no host sync (so a device window
-    may be the first to need them) and equal their CPU build."""
+    """A plan's first launch, dense included, builds its pieces and batch
+    ranges; they are built on the card with no host sync (so a device
+    window may be the first to need them) and equal their CPU build."""
     case = _case(3000, 30 * EBLK, 600, 0.3, seed=11)
     args = [torch.as_tensor(x, device=dev) for x in case]
     plan = frr.plan_launch(args[2], args[4], args[5], 600, 3000)
-    frr.fused_relax_reduce(*args, 600, "add_w", "min", plan=plan)
     assert not plan.scratch
+    frr.fused_relax_reduce(*args, 600, "add_w", "min", plan=plan)
+    assert ("pieces", frr.PIECE_CELLS) in plan.scratch \
+        and "batches" in plan.scratch
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -319,15 +321,11 @@ def test_split_blocks_on_two_streams(dev, lanes):
 @pytest.mark.parametrize("relax,kind", [("add_w", "min"), ("mul_w", "sum")])
 @pytest.mark.parametrize("q", [1, 5, 33])
 def test_k4_pieces_match_k3(dev, q, relax, kind, grid_mode, cells):
-    """K4 equals K3 bit for bit when every block is one piece; with split
-    blocks min is bit-equal and sum within rtol 1e-5."""
+    """K4 equals K3 bit for bit on the same pieces, whole or split."""
     case = _lane_case(3000, 30 * EBLK, 600, q, 0.3, seed=q + cells)
     out, dense = _dense_twin(dev, case, 600, relax, kind, grid_mode, cells,
                              lanes=True)
-    if kind == "min" or cells == ONE_PIECE:
-        assert torch.equal(out, dense)
-    else:
-        torch.testing.assert_close(out, dense, rtol=1e-5, atol=1e-6)
+    assert torch.equal(out, dense)
 
 
 @pytest.mark.parametrize("cells", [2, ONE_PIECE])
@@ -830,3 +828,88 @@ def test_engine_over_budget_on_card_matches_oracle(dev, app, oracle,
                                                     grid_mode=grid_mode),
                             device=dev)
     assert [int(x) for x in stats] == [int(x) for x in pstats]
+
+
+# --------------------------------------------------------------------------
+# the dense piece launches against their order models, and the tiled
+# twins against them, bit for bit, sum included
+# --------------------------------------------------------------------------
+
+ORDER_SHAPES = [(17, 7, 3), (500, 2 * EBLK + 13, 2 * SBLK + 5),
+                (3000, 8 * EBLK + 77, 600)]
+
+
+def _bits(x):
+    a = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
+
+
+def _with_cells(cells, fn):
+    old = frr.PIECE_CELLS
+    frr.PIECE_CELLS = cells
+    try:
+        return fn()
+    finally:
+        frr.PIECE_CELLS = old
+
+
+@pytest.mark.parametrize("cells", [1, 2, ONE_PIECE])
+@pytest.mark.parametrize("sorted_ids", [True, False])
+@pytest.mark.parametrize("relax,kind", PAIRS)
+@pytest.mark.parametrize("v,e,nseg", ORDER_SHAPES)
+def test_k1_equals_order_model(dev, v, e, nseg, relax, kind, sorted_ids,
+                               cells):
+    case = _case(v, e, nseg, 0.4, seed=v + cells, sorted_ids=sorted_ids,
+                 negative=kind == "min")
+    args = [torch.as_tensor(x, device=dev) for x in case]
+    out, dbg = _with_cells(cells, lambda: frr.fused_relax_reduce(
+        *args, nseg, relax, kind, with_debug=True))
+    want, executed = fused_relax_reduce_order(*case, nseg, relax, kind,
+                                              cells)
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits(out), _bits(want))
+    assert int(dbg[0]) == executed
+
+
+@pytest.mark.parametrize("cells", [2, ONE_PIECE])
+@pytest.mark.parametrize("sorted_ids", [True, False])
+@pytest.mark.parametrize("relax,kind", LANE_PAIRS)
+@pytest.mark.parametrize("q", [1, 5, 16, 33])
+def test_k3_equals_order_model(dev, q, relax, kind, sorted_ids, cells):
+    case = _lane_case(3000, 8 * EBLK + 77, 600, q, 0.4, seed=q + cells,
+                      sorted_ids=sorted_ids)
+    args = [torch.as_tensor(x, device=dev) for x in case]
+    out, dbg = _with_cells(cells, lambda: frr.fused_relax_reduce_lanes(
+        *args, 600, relax, kind, with_debug=True))
+    want, executed = fused_relax_reduce_lanes_order(
+        *case, 600, relax, kind, cells, frr._halves(q))
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits(out), _bits(want))
+    assert int(dbg[0]) == executed
+
+
+@pytest.mark.parametrize("cells", [2, ONE_PIECE])
+@pytest.mark.parametrize("q", [None, 5, 16, 33])
+@pytest.mark.parametrize("relax,kind", LANE_PAIRS)
+def test_dense_tiled_equal_pinned(dev, relax, kind, q, cells):
+    """K5 equals K1 and K7 equals K3 bit for bit, sum included, whole
+    blocks or split, and both equal the order model."""
+    case = _tiled_case(3000, 30 * EBLK, 600, 0.3, 4, q=q)
+    t = [torch.as_tensor(x, device=dev) for x in case]
+    head = t[:2]
+    if q is not None:
+        unitw = np.arange(q) % 2
+        head.append(torch.as_tensor(unitw, device=dev))
+    launch = frr.fused_relax_reduce_lanes if q else frr.fused_relax_reduce
+    plan = frr.plan_launch(t[2], t[4], t[5], 600, 3000)
+    tiled, pinned = _with_cells(cells, lambda: (
+        launch(*head, *t[2:], 600, relax, kind, plan=plan, path="tiled",
+               vblk=1024),
+        launch(*head, *t[2:], 600, relax, kind, plan=plan, path="pinned")))
+    want, _ = (fused_relax_reduce_lanes_order(
+        *case[:2], unitw, *case[2:], 600, relax, kind, cells,
+        frr._halves(q)) if q else fused_relax_reduce_order(
+            *case, 600, relax, kind, cells))
+    torch.cuda.synchronize()
+    assert torch.equal(tiled, pinned)
+    assert np.array_equal(_bits(tiled), _bits(want))
