@@ -60,7 +60,10 @@ started together) and runs, in order:
    bit for bit, K3 one piece a block against K3 in pieces, and on the
    small shapes K3 against its order model
    (``ref.fused_relax_reduce_lanes_order``) bit for bit, sum included;
-   and the segment reduce K9 (float32 and bfloat16);
+   and the segment reduce K9 (float32 and bfloat16) against its plain
+   version and, at its cut and one piece a block, its order model
+   (``ref.segment_combine_order``) bit for bit, with the cells, pieces
+   and edges it counts equal to its plan's tables;
    then ``apps.batched_queries`` with Q = 16 lanes on the RMAT-18
    partition — BFS from the 8 highest-out-degree vertices, SSSP from the
    next 8 — under ``dense`` (K3), ``worklist`` and ``device_worklist``
@@ -72,15 +75,27 @@ started together) and runs, in order:
    ``run_ppr_delta_lanes`` (``auto`` and ``device_worklist``, K4) with 8
    seeds and mixed dampings within rtol 1e-4 / atol 1e-7 of a float64
    power iteration; BFS and SSSP under ``pallas_mode='reduce'`` (K9)
-   equal the numpy oracles; and the heaviest rounds replayed to time K3,
-   K4 (host and device plans; also at 4-32 cells a piece, and on flags
-   listing K3's cells held to K3 bit for bit) and K9 against their plain
-   versions, a library call and the bound — K3 also against 16 solo K1
-   launches of the same round — with the kernels each laned relax phase
-   puts on the card counted by ``torch.profiler``; the ``[k3-fold]``
-   lines give K3 alone summed over the fixpoint's rounds, the laned
-   kernels' blocks resident per SM, and the heaviest piece's edges and
-   runs.
+   equal the numpy oracles, and PageRank under it (30 rounds, K9's sum)
+   is within rtol 1e-4 / atol 1e-7 of the float64 oracle, one K9 launch
+   a round; and the heaviest rounds replayed to time K3, K4 (host and
+   device plans; also at 4-32 cells a piece, and on flags listing K3's
+   cells held to K3 bit for bit) and K9 against their plain versions, a
+   library call and the bound — K3 also against 16 solo K1 launches of
+   the same round — with the kernels each laned relax phase puts on the
+   card counted by ``torch.profiler``; the ``[k3-fold]`` lines give K3
+   alone summed over the fixpoint's rounds, the laned kernels' blocks
+   resident per SM, and the heaviest piece's edges and runs.  K9 is held
+   to its order model bit for bit on the heaviest min round and on a
+   PageRank round (sum), and timed there through its wrapper, with
+   prepared launches (``_k9_raw``: device time, the wrapper's host time
+   left out) and against ``scatter_reduce_`` amin / ``index_add_``; the
+   ``[k9]`` lines give its pieces and the ids and messages its warps
+   load, both counted on the card (``with_debug``) and held to the
+   plan's tables, ``[k9-trace]`` the K9 kernels ``torch.profiler`` sees
+   in traces of 20 launches started three ways (a scheduled trace must
+   see all 20), and ``[k9-cell]`` its time at 4-32 cells a piece on the
+   heaviest round, summed over the 13 BFS/SSSP rounds and on the
+   PageRank round.
 
 7. slice-4 path, the tiled residency: first the tiled kernels K5 (dense),
    K6 (worklist, host and device plans), K7 (dense lanes) and K8
@@ -112,8 +127,10 @@ time by operator.
 ``--plan-timing`` runs none of the phases: it times, on the RMAT-18
 partition, the launch plan's build (``plan_launch`` as the engine calls
 it, and, where the package builds them apart, the tables a plan's first
-worklist launch adds), the device arrays' upload and the dense BFS/SSSP
-fixpoints, with the ``repro_torch`` under ``SRC`` (this checkout's
+piece launch adds, K1's and K9's), the device arrays' upload and the
+BFS/SSSP fixpoints under ``pallas_mode`` 'fused' and 'reduce' (whole,
+and their rounds alone on built arrays), with the ``repro_torch`` under
+``SRC`` (this checkout's
 ``src`` by default; another checkout's, to set two versions side by
 side), and prints them as one JSON line.
 
@@ -1035,7 +1052,7 @@ def phase_slice2(torch, np, dev, g, part, root, want):
         f"ms, K1 {prr['k1_ms']:.4f} ms, plain {prr['plain_ms']:.4f} ms, "
         f"index_add_ {prr['library_ms']:.4f} ms, bound "
         f"{prr['bound_ms']:.4f} ms")
-    return launches, err, report, part_pr, want_conv
+    return launches, err, report, part_pr, want_pr, want_conv
 
 
 # --------------------------------------------------------------------------
@@ -1063,7 +1080,7 @@ def phase_lane_kernels_vs_plain(torch, np, dev):
     from repro_torch.kernels import rhizome_segment_reduce as rsr
     from repro_torch.kernels.ref import (
         fused_relax_reduce_lanes_ref, fused_relax_reduce_wl_lanes_ref,
-        segment_combine_ref)
+        segment_combine_order, segment_combine_ref)
     shapes = [(17, 7, 3), (1000, 5 * frr.EBLK + 13, 2 * frr.SBLK + 5),
               (30011, 97 * frr.EBLK + 311, 20011)]
     errs = {"K3": 0.0, "K4": 0.0, "K9": 0.0}
@@ -1158,6 +1175,18 @@ def phase_lane_kernels_vs_plain(torch, np, dev):
                     check(torch.equal(out, rsr.segment_combine(
                         d, i, nseg, kind)), f"differs between runs: {at}")
                     check(int(dbg[0]) == cells, f"K9 cells: {at}")
+                    check(dbg.tolist() == rsr.launch_counts(
+                        rsr.plan_segments(i, nseg), i).tolist(),
+                          f"K9 pieces and edges loaded: {at}")
+                    # the order model, at the kept cut and one piece a block
+                    for cut in (rsr.PIECE_CELLS, WHOLE_BLOCKS):
+                        got = _k9_cut(rsr, cut, lambda: rsr.segment_combine(
+                            d, i, nseg, kind))
+                        model, _ = segment_combine_order(d, i, nseg, kind,
+                                                         cut)
+                        check(_k9_bits(torch, got, model),
+                              f"K9 differs from its order model at "
+                              f"{cut} cells a piece: {at}")
                     m += 1
     log(f"[lanes] {n} laned cases x (K3, K4 host plan, K4 device plan), "
         f"Q in 1/5/16/33: min bit-equal, sum max_abs_err K3 "
@@ -1168,8 +1197,26 @@ def phase_lane_kernels_vs_plain(torch, np, dev):
         f"for bit, sum rtol 1e-5); {models} cases equal the K3 order model "
         "bit for bit, in pieces and one piece a block; "
         f"{m} K9 cases (float32 max_abs_err "
-        f"{errs['K9']:.3g}, bfloat16 at bf16 resolution), repeatable")
+        f"{errs['K9']:.3g}, bfloat16 at bf16 resolution), repeatable, "
+        f"equal to the K9 order model bit for bit at {rsr.PIECE_CELLS} "
+        "cells a piece and one piece a block")
     return errs
+
+
+def _k9_cut(rsr, cells, fn):
+    """``fn()`` with K9's pieces at ``cells`` cells."""
+    old = rsr.PIECE_CELLS
+    rsr.PIECE_CELLS = cells
+    try:
+        return fn()
+    finally:
+        rsr.PIECE_CELLS = old
+
+
+def _k9_bits(torch, got, model):
+    """K9's output equals its order model's float32 result rounded once
+    to the output's dtype, bit for bit."""
+    return torch.equal(got.cpu(), torch.from_numpy(model).to(got.dtype))
 
 
 def _k3_orders(torch, np, frr, args, case, nseg, relax, kind, where,
@@ -1501,24 +1548,108 @@ def _hub_piece(np, frr, plan, mask, ids, chunk_act, q):
             "lists_per_window": lists}
 
 
-def _time_segment_kernel(torch, np, dev, part, arrays, root):
-    """Replay the ``pallas_mode='reduce'`` BFS and SSSP fixpoints and time
-    K9 on the round with the most active edges, beside its plain version,
-    ``scatter_reduce_`` amin and the bound."""
+K9_SWEEP = (4, 8, 12, 16, 24, 32)  # K9's cells a piece, timed on its rounds
+
+
+def _k9_raw(torch, frr, rsr, data, ids, plan, kind):
+    """A call that launches K9 on ``data`` at the current cut
+    with every argument made beforehand (no checks, no allocation, no
+    count), for timing: its host cost, one ctypes call, is well under the
+    kernel's, so back-to-back calls keep the card busy and ``time_ms``
+    reads device time.  Raises if a launch fails."""
+    dev = data.device
+    pc = frr.plan_pieces(plan, rsr.PIECE_CELLS)
+    out = torch.empty(plan.num_segments, dtype=data.dtype, device=dev)
+    split = torch.empty((pc.n_split, frr.SBLK), dtype=torch.float32,
+                        device=dev)
+    args = (data.data_ptr(), ids.data_ptr(),
+            *frr._piece_ptrs(plan, pc, None, None, plan.num_blocks, ids),
+            data.shape[0], plan.num_segments, pc.num_pieces, out.data_ptr(),
+            split.data_ptr(), None, frr._KIND_CODE[kind],
+            rsr._DTYPE_CODE[data.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    fn = frr._kernel("segment_combine_launch")
+
+    def call(keep=(out, split, pc)):
+        check(fn(*args) == 0, "K9 launch failed")
+    return call
+
+
+def _k9_trace(torch, launch, reps=20):
+    """K9's kernels in ``torch.profiler`` traces of ``reps`` calls of
+    ``launch`` three ways, in this order: the trace started and given
+    0.2 s before the calls (``settled``), started right before them
+    (``bare``), and recorded in the third step of a wait/warm-up/active
+    schedule (``scheduled``).  Each: the count of
+    ``segment_combine_kernel`` events and their mean device time (us)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def k9(prof):
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and "segment_combine_kernel" in e.name]
+        return {"kernels": len(us),
+                "mean_us": statistics.fmean(us) if us else None}
+
+    def calls():
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    out = {"reps": reps}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+        calls()
+    out["settled"] = k9(prof)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        calls()
+    out["bare"] = k9(prof)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(3):
+            calls()
+            prof.step()
+    out["scheduled"] = k9(prof)
+    return out
+
+
+def _segment_messages(torch, sem, arrays, val, chg):
+    """The (E,) messages ``pallas_mode='reduce'`` hands K9 for one round:
+    relaxed, with the identity where the edge is masked or its source is
+    not in the frontier."""
+    src = arrays.edge_src_root_flat.reshape(-1).long()
+    gval, gchg = val.reshape(-1), chg.reshape(-1)
+    active = arrays.edge_mask.reshape(-1) & gchg[src]
+    msg = torch.where(active, sem.relax(gval[src],
+                                        arrays.edge_w.reshape(-1)),
+                      sem.identity)
+    return msg, int(active.sum())
+
+
+def _time_segment_kernel(torch, np, dev, part, arrays, root, part_pr):
+    """Replay the ``pallas_mode='reduce'`` BFS and SSSP fixpoints and one
+    dense PageRank round on ``part_pr`` (every round has the same active
+    edges), hold K9 to its order model on the heaviest min round and the
+    PageRank round bit for bit, and time it beside its plain version, its
+    library call (``scatter_reduce_`` amin, ``index_add_``) and the bound;
+    the ``[k9-cell]`` sweep times it at each piece size, summed
+    over the 13 min rounds."""
     from repro_torch import exchange
     from repro_torch.core import actions, engine
+    from repro_torch.kernels import fused_relax_reduce as frr
     from repro_torch.kernels import ops
     from repro_torch.kernels import rhizome_segment_reduce as rsr
-    from repro_torch.kernels.ref import segment_combine_ref
+    from repro_torch.kernels.ref import (segment_combine_order,
+                                         segment_combine_ref)
     cfg = engine.EngineConfig(use_pallas=True, pallas_mode="reduce")
     nseg = part.S * part.R_max
     plan = arrays.fused_plan
-    src = arrays.edge_src_root_flat.reshape(-1).long()
-    w = arrays.edge_w.reshape(-1)
     mask = arrays.edge_mask.reshape(-1)
     ids = arrays.edge_dst_flat.reshape(-1)
     ids_long = ids.long()
-    best = None
+    rounds = []
     for sem in (actions.BFS, actions.SSSP):
         val = torch.as_tensor(engine.init_values(part, sem, {root: 0.0}),
                               device=dev)
@@ -1526,37 +1657,110 @@ def _time_segment_kernel(torch, np, dev, part, arrays, root):
         rnd = 0
         while bool(chg.any()):
             rnd += 1
-            gval, gchg = val.reshape(-1), chg.reshape(-1)
-            active = mask & gchg[src]
-            n = int(active.sum())
-            if best is None or n > best[0]:
-                msg = torch.where(active, sem.relax(gval[src], w), math.inf)
-                best = (n, sem.name, rnd, msg)
+            msg, n = _segment_messages(torch, sem, arrays, val, chg)
+            rounds.append((n, sem.name, rnd, msg))
             val, chg, _ = exchange.fixpoint_round_stacked(
                 sem, arrays, cfg, part.S, part.R_max, val, chg)
-    n, app, rnd, msg = best
+    n, app, rnd, msg = max(rounds, key=lambda r: r[0])
+    t0 = time.perf_counter()
+    model, walked = segment_combine_order(msg, ids, nseg, "min",
+                                          rsr.PIECE_CELLS, edge_mask=mask)
+    model_s = time.perf_counter() - t0
     out, dbg = rsr._launch(msg, ids, plan, "min", True)
     plain = segment_combine_ref(msg, ids, nseg, "min")
     torch.cuda.synchronize()
     check(torch.equal(out, plain), f"K9 {app} round {rnd}: differs")
-    check(int(dbg[0]) == plan.num_cells, f"K9 {app} round {rnd}: cells")
+    check(_k9_bits(torch, out, model),
+          f"K9 {app} round {rnd}: differs from its order model")
+    check(int(dbg[0]) == plan.num_cells == walked,
+          f"K9 {app} round {rnd}: cells")
+    check(dbg.tolist() == rsr.launch_counts(plan, ids).tolist(),
+          f"K9 {app} round {rnd}: pieces and edges loaded")
+    _, pieces, loaded = dbg.tolist()
     e = msg.shape[0]
     bound, bound_by = _segment_bound_ms(e, nseg)
+    launch = lambda m=msg: rsr._launch(m, ids, plan, "min", False)  # noqa
+
+    def raw(m=msg):
+        return _k9_raw(torch, frr, rsr, m, ids, plan, "min")
+
+    def raw_rounds():
+        calls = [raw(m) for _, _, _, m in rounds]
+        return lambda: [c() for c in calls]
     row = {"app": app, "round": rnd, "active_edges": n, "edges": e,
-           "cells": plan.num_cells, "bound_ms": bound, "bound_by": bound_by,
+           "cells": plan.num_cells, "pieces": pieces,
+           "cells_per_piece": rsr.PIECE_CELLS, "edges_loaded": loaded,
+           "bound_ms": bound, "bound_by": bound_by,
+           "model_s": model_s,
            "ms": time_ms(torch, lambda: ops.segment_combine(
                msg, ids, nseg, "min", plan=plan)),
-           "kernel_ms": time_ms(torch, lambda: rsr._launch(
-               msg, ids, plan, "min", False)),
+           "kernel_ms": time_ms(torch, launch),
+           "raw_ms": time_ms(torch, raw()),
+           "round_sum_ms": time_ms(torch, raw_rounds()),
            "plain_ms": time_ms(torch, lambda: segment_combine_ref(
                msg, ids, nseg, "min"), reps=5),
-           "library_ms": time_ms(torch, lambda: torch.full(
-               (nseg,), math.inf, device=dev).scatter_reduce_(
-                   0, ids_long, msg, "amin", include_self=True), reps=5)}
-    return row, max_abs_err(torch, out, plain)
+           "library_ms": _library_ms(torch, "min", ids_long, msg, nseg),
+           "trace": _k9_trace(torch, launch)}
+    tr = row["trace"]["scheduled"]
+    check(tr["kernels"] == row["trace"]["reps"],
+          f"K9 {app} round {rnd}: a scheduled trace of "
+          f"{row['trace']['reps']} launches saw {tr['kernels']} K9 kernels")
+
+    # the PageRank round: K9's sum form, held to the order model
+    arrays_pr = engine.DeviceArrays.from_partition(part_pr, dev)
+    pr = actions.PAGERANK
+    val = torch.where(arrays_pr.slot_valid, 1.0 / part_pr.n, 0.0)
+    msg_pr, n_pr = _segment_messages(torch, pr, arrays_pr, val,
+                                     arrays_pr.slot_valid)
+    plan_pr = arrays_pr.fused_plan
+    mask_pr = arrays_pr.edge_mask.reshape(-1)
+    ids_pr = arrays_pr.edge_dst_flat.reshape(-1)
+    nseg_pr = part_pr.S * part_pr.R_max
+    model_pr, _ = segment_combine_order(msg_pr, ids_pr, nseg_pr, "sum",
+                                        rsr.PIECE_CELLS, edge_mask=mask_pr)
+    out_pr = rsr._launch(msg_pr, ids_pr, plan_pr, "sum", False)[0]
+    plain_pr = segment_combine_ref(msg_pr, ids_pr, nseg_pr, "sum")
+    torch.cuda.synchronize()
+    check(_k9_bits(torch, out_pr, model_pr),
+          "K9 pagerank round: differs from its order model")
+    check(torch.allclose(out_pr, plain_pr, rtol=1e-5, atol=1e-7),
+          "K9 pagerank round: off its plain version")
+    launch_pr = lambda: rsr._launch(msg_pr, ids_pr, plan_pr,  # noqa: E731
+                                    "sum", False)
+    bound_pr, by_pr = _segment_bound_ms(msg_pr.shape[0], nseg_pr)
+    row_pr = {"active_edges": n_pr, "edges": msg_pr.shape[0],
+              "cells": plan_pr.num_cells, "bound_ms": bound_pr,
+              "bound_by": by_pr,
+              "max_abs_err": max_abs_err(torch, out_pr, plain_pr),
+              "ms": time_ms(torch, lambda: ops.segment_combine(
+                  msg_pr, ids_pr, nseg_pr, "sum", plan=plan_pr)),
+              "kernel_ms": time_ms(torch, launch_pr),
+              "raw_ms": time_ms(torch, _k9_raw(
+                  torch, frr, rsr, msg_pr, ids_pr, plan_pr, "sum")),
+              "plain_ms": time_ms(torch, lambda: segment_combine_ref(
+                  msg_pr, ids_pr, nseg_pr, "sum"), reps=5),
+              "library_ms": _library_ms(torch, "sum", ids_pr.long(), msg_pr,
+                                        nseg_pr)}
+
+    # [k9-cell]: each piece size on the heaviest round, summed
+    # over the min rounds and on the PageRank round (raw launches)
+    sweep = {}
+    for cells in K9_SWEEP:
+        def timed(cells=cells):
+            got = launch()[0]
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain), f"K9 at {cells} cells a piece: "
+                  "differs")
+            return {"heaviest_ms": time_ms(torch, raw()),
+                    "sum_ms": time_ms(torch, raw_rounds()),
+                    "pagerank_ms": time_ms(torch, _k9_raw(
+                        torch, frr, rsr, msg_pr, ids_pr, plan_pr, "sum"))}
+        sweep[cells] = _k9_cut(rsr, cells, timed)
+    row.update(sweep=sweep, rounds=len(rounds))
+    return row, row_pr, max_abs_err(torch, out, plain)
 
 
-def phase_lanes(torch, np, dev, g, part, root, want, part_pr):
+def phase_lanes(torch, np, dev, g, part, root, want, part_pr, want_pr):
     from repro_torch import apps, exchange, obs
     from repro_torch.apps.cc import _symmetrized_zero_weight
     from repro_torch.core import actions, engine
@@ -1749,14 +1953,27 @@ def phase_lanes(torch, np, dev, g, part, root, want, part_pr):
         log(f"[lanes] {name} pallas_mode='reduce': equal to the oracle; "
             f"{int(stats.iterations)} rounds, {row['k9']} K9 launches, "
             f"wall {row['wall_s']:.3f} s")
+    (got, _), row = drive("pagerank_reduce", "pagerank", lambda: apps.pagerank(
+        g, iters=PR_ITERS, part=part_pr, cfg=cfg_r))
+    diff = float(np.abs(got - want_pr).max())
+    check(np.allclose(got, want_pr, rtol=PR_RTOL, atol=PR_ATOL),
+          f"pagerank reduce off the oracle by {diff}")
+    check(row["k9"] == PR_ITERS and row["k1"] == 0,
+          f"pagerank reduce: {row['k9']} K9 launches for {PR_ITERS} rounds")
+    row["max_abs_diff"] = diff
+    log(f"[lanes] pagerank pallas_mode='reduce': {PR_ITERS} rounds within "
+        f"rtol {PR_RTOL} / atol {PR_ATOL} of the float64 oracle (max |diff| "
+        f"{diff:.3g}), {row['k9']} K9 launches (sum), wall "
+        f"{row['wall_s']:.3f} s")
 
     # replay the heaviest rounds for timings
     planner = engine.launch_planner(part, engine.EngineConfig(
         use_pallas=True, grid_mode="worklist"), q_pad=LANES)
     k3, k4, err = _time_lane_kernels(torch, np, dev, part, arrays, planner,
                                      queries)
-    k9, err9 = _time_segment_kernel(torch, np, dev, part, arrays, root)
-    report.update(k3=k3, k4=k4, k9=k9)
+    k9, k9_sum, err9 = _time_segment_kernel(torch, np, dev, part, arrays,
+                                            root, part_pr)
+    report.update(k3=k3, k4=k4, k9=k9, k9_sum=k9_sum)
     log(f"[lanes] heaviest Q={LANES} round (round {k3['round']} of "
         f"{k3['rounds']}: {k3['active_edges']} active edges, "
         f"{k3['active_pairs']} active (edge, lane) pairs): K3 relax phase "
@@ -1793,6 +2010,33 @@ def phase_lanes(torch, np, dev, g, part, root, want, part_pr):
         f"{k9['ms']:.4f} ms (kernel alone {k9['kernel_ms']:.4f} ms), plain "
         f"{k9['plain_ms']:.4f} ms, scatter_reduce_ amin "
         f"{k9['library_ms']:.4f} ms, bound {k9['bound_ms']:.4f} ms")
+    log(f"[k9] same round: {k9['cells']} cells in {k9['pieces']} pieces of "
+        f"at most {k9['cells_per_piece']} (4 warps a block), "
+        f"equal to the order model bit for bit (model "
+        f"{k9['model_s']:.1f} s on the host); raw launches "
+        f"{k9['raw_ms']:.4f} ms; its warps loaded {k9['edges_loaded']} "
+        f"ids and messages ({k9['edges_loaded'] * 8} B, counted on the "
+        f"card; the bound reads {k9['edges']}, {k9['edges'] * 8} B); "
+        f"summed over the {k9['rounds']} min rounds "
+        f"{k9['round_sum_ms']:.4f} ms (raw launches)")
+    tr = k9["trace"]
+    log(f"[k9-trace] torch.profiler over {tr['reps']} wrapper launches of "
+        "the same round, K9 kernels seen and their mean device time: "
+        + ", ".join(f"{w} {tr[w]['kernels']} ("
+                    + (f"{tr[w]['mean_us']:.2f} us" if tr[w]['mean_us']
+                       else "none") + ")"
+                    for w in ("settled", "bare", "scheduled"))
+        + f"; raw launches {1e3 * k9['raw_ms']:.2f} us")
+    log(f"[k9] pagerank reduce round ({k9_sum['active_edges']} active "
+        f"edges, sum): equal to the order model bit for bit; K9 "
+        f"{k9_sum['ms']:.4f} ms (kernel alone {k9_sum['kernel_ms']:.4f} ms, "
+        f"raw launches {k9_sum['raw_ms']:.4f} ms), plain "
+        f"{k9_sum['plain_ms']:.4f} ms, index_add_ "
+        f"{k9_sum['library_ms']:.4f} ms, bound {k9_sum['bound_ms']:.4f} ms")
+    log("[k9-cell] K9 ms (raw launches) by cells a piece (heaviest min "
+        "round / summed over the min rounds / pagerank round): " + ", ".join(
+            f"P={k} {v['heaviest_ms']:.4f}/{v['sum_ms']:.4f}/"
+            f"{v['pagerank_ms']:.4f}" for k, v in k9["sweep"].items()))
     return launches, {"K3": err, "K4": err, "K9": err9}, report
 
 
@@ -2589,10 +2833,13 @@ def fold_sweep() -> int:
 
 def plan_timing(src) -> int:
     """``--plan-timing``: wall ms (synced, median, min and max over
-    ``PLAN_REPS``) of the launch plan's build, the device arrays' upload
-    and the dense BFS/SSSP fixpoints (set-up included, as phase 4 times
-    them), each after one warm-up call, with the ``repro_torch`` under ``src``;
-    prints the card and one JSON line."""
+    ``PLAN_REPS``) of the launch plan's build, the tables a plan's first
+    piece launch adds (K1's and, where it has its own cut, K9's), the
+    device arrays' upload, and the BFS/SSSP fixpoints under the fused
+    (K1) and the reduce (K9) composition, set-up included as phases 4
+    and 6 time them, and their rounds alone on built arrays, each after
+    one warm-up call, with the ``repro_torch`` under ``src``; prints the
+    card and one JSON line."""
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2638,13 +2885,33 @@ def plan_timing(src) -> int:
         out["worklist_tables_ms"] = wall(lambda: (
             frr.piece_tables(plan.blk_ptr, plan.num_cells, frr.PIECE_CELLS),
             frr.cell_batches(plan, mask_f, dst_f)))
-    cfg = engine.EngineConfig(use_pallas=True)
-    for name, app in (("bfs", apps.bfs), ("sssp", apps.sssp)):
-        got, _, _ = app(g, root, part=part, cfg=cfg)
-        check(np.array_equal(got, want[name]),
-              f"{name} differs from the numpy oracle")
-        out[f"{name}_fixpoint_ms"] = wall(
-            lambda app=app: app(g, root, part=part, cfg=cfg))
+    from repro_torch.kernels import rhizome_segment_reduce as rsr
+    if hasattr(rsr, "PIECE_CELLS"):       # K9's pieces, on its first launch
+        plan = arrays.fused_plan
+        out["k9_tables_ms"] = wall(lambda: (
+            frr.piece_tables(plan.blk_ptr, plan.num_cells, rsr.PIECE_CELLS),
+            frr.cell_batches(plan, mask_f, dst_f)))
+    from repro_torch import exchange
+    from repro_torch.core import actions
+    for mode in ("fused", "reduce"):
+        cfg = engine.EngineConfig(use_pallas=True, pallas_mode=mode)
+        tag = "" if mode == "fused" else "_reduce"
+        for name, app, sem in (("bfs", apps.bfs, actions.BFS),
+                               ("sssp", apps.sssp, actions.SSSP)):
+            got, _, _ = app(g, root, part=part, cfg=cfg)
+            check(np.array_equal(got, want[name]),
+                  f"{name} {mode} differs from the numpy oracle")
+            out[f"{name}{tag}_fixpoint_ms"] = wall(
+                lambda app=app: app(g, root, part=part, cfg=cfg))
+
+            def rounds(sem=sem):  # the fixpoint's rounds on built arrays
+                val = torch.as_tensor(
+                    engine.init_values(part, sem, {root: 0.0}), device=dev)
+                chg = (val == 0) & arrays.slot_valid
+                while bool(chg.any()):
+                    val, chg, _ = exchange.fixpoint_round_stacked(
+                        sem, arrays, cfg, part.S, part.R_max, val, chg)
+            out[f"{name}{tag}_rounds_ms"] = wall(rounds)
     print(smi)
     print(json.dumps({"plan_timing": out}))
     return 0
@@ -2683,12 +2950,12 @@ def main() -> int:
     g, part, root, want = rmat18(np)
     k1_launches, err, report = phase_main_path(torch, np, dev, g, part, root,
                                                want)
-    launches2, err2, report2, part_pr, want_conv = phase_slice2(
+    launches2, err2, report2, part_pr, want_pr, want_conv = phase_slice2(
         torch, np, dev, g, part, root, want)
     report["k1_sums"] = _k1_sums(report, report2)
     errs3 = phase_lane_kernels_vs_plain(torch, np, dev)
     launches3, err3, report3 = phase_lanes(torch, np, dev, g, part, root,
-                                           want, part_pr)
+                                           want, part_pr, want_pr)
     t_tiled = time.perf_counter()
     errs4 = phase_tiled_kernels_vs_plain(torch, np, dev)
     launches4, err4, report4 = phase_tiled(torch, np, dev, g, part, root,
@@ -2697,6 +2964,7 @@ def main() -> int:
     log(f"[tiled] phase 7: {report4['phase_s']:.1f} s")
     heavy, heavy2 = report["heaviest"], report2["heaviest"]
     k3, k4, k9 = report3["k3"], report3["k4"], report3["k9"]
+    k9_sum = report3["k9_sum"]
 
     report.update(slice2=report2, slice3=report3, slice4=report4,
                   device=smi, build_s=build_s,
@@ -2779,6 +3047,11 @@ def main() -> int:
         "bound_by": k9["bound_by"],
         "library_ms": k9["library_ms"],
         "kernel_ms": k9["kernel_ms"],
+        "raw_ms": k9["raw_ms"],
+        "sum_kernel_ms": k9_sum["kernel_ms"],
+        "sum_raw_ms": k9_sum["raw_ms"],
+        "sum_library_ms": k9_sum["library_ms"],
+        "sum_max_abs_err": k9_sum["max_abs_err"],
         "checked": True,
     }]}
     tiled = (("K5", "fused_relax_reduce_tiled", 502),

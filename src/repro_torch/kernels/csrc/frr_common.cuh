@@ -1,18 +1,20 @@
-// Shared pieces of the fused relax + reduce kernels (K1, K2) and the
-// segment reduce (K9): the launch constants, the relax and combine of each
-// pairing, the warp fold of one edge chunk's messages into per-warp
-// shared-memory accumulators, and the piece launch that K1-K8 share.
+// Shared pieces of the piece kernels K1-K9: the launch constants, the
+// relax and combine of each pairing, the warp fold of a cell's batches
+// into per-warp shared-memory accumulators (K1, K2, K5, K6), and the
+// piece launch that K1-K9 share.  The segment reduce K9 takes the
+// constants, the combine, the piece launch, `finish_piece` and
+// `from_float` from here; its fold is its own (segment_combine.cu).
 //
-// The fold.  A thread block of NWARP warps takes one EBLK-edge chunk;
-// warp k takes the chunk's 32-edge batches k, k + NWARP, ...  Inside a
-// batch, lanes that hit the same segment of the block are grouped with
-// __match_any_sync; the lowest lane of a group folds the group in lane
-// order and updates its warp's (SBLK,) accumulator.  `fold_warps` then
-// folds the NWARP accumulators of one segment in warp order.  No atomics
-// touch a value, so a sum is the same from run to run and a min is exact
-// in any order.
+// The fold.  Warp k of a block of NWARP warps takes a cell's 32-edge
+// batches b with b % NWARP == k.  Inside a batch, lanes that hit the
+// same segment of the block are grouped with __match_any_sync; the
+// lowest lane of a group folds the group in lane order and updates its
+// warp's (SBLK,) accumulator.  `fold_warps` then folds the NWARP
+// accumulators of one segment in warp order.  No atomics touch a value,
+// so a sum is the same from run to run and a min is exact in any order.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -112,53 +114,45 @@ __device__ __forceinline__ void fold_range(
   }
 }
 
-// fold_range over every batch: warp k takes batches k, k + NWARP, ...
-template <int KIND, class Msg, class Edges>
-__device__ __forceinline__ void fold_list(
-    float (*acc)[SBLK], float (*msg_s)[32], const Msg& msg,
-    const int32_t* __restrict__ ids, const Edges& edges, int n,
-    int num_edges, int seg0) {
-  fold_range<KIND>(acc, msg_s, msg, ids, edges, 0, (n + 31) / 32, n,
-                   num_edges, seg0);
-}
-
 struct ChunkEdges {               // the EBLK edges of one chunk, in order
   int e0;
   __device__ __forceinline__ int operator()(int k) const { return e0 + k; }
 };
 
-// Fold edge chunk `j`'s messages to segments [seg0, seg0 + SBLK).
-template <int KIND, class Msg>
-__device__ __forceinline__ void fold_edges(
-    float (*acc)[SBLK], float (*msg_s)[32], const Msg& msg,
-    const int32_t* __restrict__ ids, int j, int num_edges, int seg0) {
-  fold_list<KIND>(acc, msg_s, msg, ids, ChunkEdges{j * EBLK}, EBLK,
-                  num_edges, seg0);
-}
-
-// Segment t of the block: the NWARP accumulators folded in warp order.
-template <int KIND>
+// Segment t of the block: the NW accumulators folded in warp order.
+template <int KIND, int NW = NWARP>
 __device__ __forceinline__ float fold_warps(float (*acc)[SBLK], int t) {
   float r = acc[0][t];
-  for (int k = 1; k < NWARP; ++k) r = combine<KIND>(r, acc[k][t]);
+  for (int k = 1; k < NW; ++k) r = combine<KIND>(r, acc[k][t]);
   return r;
 }
 
+// A segment's float32 total in the inbox's type, rounded once.
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 // ---------------------------------------------------------------------
-// The piece launches (K1-K8): thread blocks over pieces
+// The piece launches (K1-K9): thread blocks over pieces
 // ---------------------------------------------------------------------
 //
 // The Python side (piece_tables) cuts each segment block's planned cells
 // (blk_chunk, i-major: chunks ascending) into pieces of at most
-// PIECE_CELLS consecutive cells, on a plan's first launch, with no host
-// sync: the piece count is a bound known on the host, and a piece past
-// the real ones (piece_blk -1) is never run.  A thread block takes a
-// piece, walks its cells in order, runs those the round lists (a
-// worklist's flag bytes, or for a dense launch and a device plan the
-// cells whose chunk frontier bit is set) and carries one accumulator
-// across them.  A block that is one piece writes the inbox itself.  The
-// pieces of a split block each write their partial to a row of the split
-// buffer (rows consecutive, in piece order), then take a ticket; the
+// PIECE_CELLS consecutive cells (K9: its own cut), on a plan's first
+// launch, with no host sync: the piece count is a bound known on the
+// host, and a piece past the real ones (piece_blk -1) is never run.  A
+// thread block takes a piece, walks its cells in order, runs those the
+// round lists (a worklist's flag bytes, or for a dense launch and a
+// device plan the cells whose chunk frontier bit is set; K9 runs every
+// cell and reads neither) and carries one accumulator across them.  A
+// block that is one piece writes the inbox itself.  The pieces of a split
+// block each write their partial to a row of the split buffer (rows
+// consecutive, in piece order), then take a ticket; the
 // piece that arrives last folds the rows in piece order into the inbox
 // and resets the ticket for the next launch.  No float atomics, so a sum
 // repeats bit for bit, and no thread block waits on another.
@@ -172,7 +166,7 @@ struct Pieces {
   const int32_t* blk_chunk;   // (n_cells,) a cell's chunk
   const uint8_t* cell_batch;  // (n_cells, 2) [first, last + 1) batches
   const uint8_t* flags;       // (n_cells,) listed cells; null: chunk bits
-  const uint8_t* chunk_act;   // (n_chunks,) chunk frontier bits
+  const uint8_t* chunk_act;   // (n_chunks,) chunk frontier bits (K9: null)
   int32_t* tickets;           // arrivals per (block, lane group), zero
 
   // Whether the round runs cell p: a host plan's flag, or (no flags: a
@@ -215,32 +209,36 @@ __device__ __forceinline__ bool arrive_last(int32_t* ticket, int n) {
   return last;
 }
 
-// Finish piece k of segment block i (K2, K6): the block's inbox when it
-// is one piece, else the piece's row of `split` and, in the last piece to
-// arrive, the rows folded in piece order.  `acc` must be whole (the
-// caller syncs).
-template <int KIND>
+// Finish piece k of segment block i (K1, K2, K5, K6, K9) in a block of NW
+// warps: the block's inbox when it is one piece, else the piece's float32
+// row of `split` and, in the last piece to arrive, the rows folded in
+// piece order.  The inbox has type T (float32, or K9's bfloat16), each
+// segment rounded once.  `acc` must be whole (the caller syncs).
+template <int KIND, int NW = NWARP, typename T>
 __device__ __forceinline__ void finish_piece(
     float (*acc)[SBLK], const Pieces& pc, int k, int i, int num_segments,
-    float* __restrict__ out, float* __restrict__ split) {
+    T* __restrict__ out, float* __restrict__ split) {
+  constexpr int NT = NW * 32;
   const int seg0 = i * SBLK;
   const int slot = pc.piece_slot[k];
   if (slot < 0) {
-    for (int t = threadIdx.x; t < SBLK; t += THREADS)
-      if (seg0 + t < num_segments) out[seg0 + t] = fold_warps<KIND>(acc, t);
+    for (int t = threadIdx.x; t < SBLK; t += NT)
+      if (seg0 + t < num_segments)
+        out[seg0 + t] = from_float<T>(fold_warps<KIND, NW>(acc, t));
     return;
   }
-  for (int t = threadIdx.x; t < SBLK; t += THREADS)
-    split[static_cast<size_t>(slot) * SBLK + t] = fold_warps<KIND>(acc, t);
+  for (int t = threadIdx.x; t < SBLK; t += NT)
+    split[static_cast<size_t>(slot) * SBLK + t] =
+        fold_warps<KIND, NW>(acc, t);
   const int k0 = pc.blk_piece[i];
   const int n = pc.blk_piece[i + 1] - k0;
   if (!arrive_last(pc.tickets + i, n)) return;
   const float* rows = split + static_cast<size_t>(pc.piece_slot[k0]) * SBLK;
-  for (int t = threadIdx.x; t < SBLK; t += THREADS) {
+  for (int t = threadIdx.x; t < SBLK; t += NT) {
     float r = __ldcg(rows + t);
     for (int s = 1; s < n; ++s)
       r = combine<KIND>(r, __ldcg(rows + static_cast<size_t>(s) * SBLK + t));
-    if (seg0 + t < num_segments) out[seg0 + t] = r;
+    if (seg0 + t < num_segments) out[seg0 + t] = from_float<T>(r);
   }
 }
 

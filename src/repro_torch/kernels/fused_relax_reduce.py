@@ -113,8 +113,9 @@ SBLK = 256   # segment-axis block (matches csrc/frr_common.cuh)
 
 WL_PAD = 8      # host worklists are padded to >= this many cells and then
                 # to a power of two, as the reference pads its launches
-PIECE_CELLS = 8        # planned cells a launch's block takes at most
-                       # (PERF.md: the sweep over 4, 8, 16 and 32)
+PIECE_CELLS = 8        # planned cells a K1-K8 block takes at most
+                       # (PERF.md: the sweep over 4, 8, 16 and 32; K9
+                       # has its own cut, rhizome_segment_reduce.py)
 
 
 RELAX_KINDS = tuple(RELAX_FNS)
@@ -334,7 +335,8 @@ class LaunchPlan(typing.NamedTuple):
     CUDA stream (``_tickets``: right while the launches on a stream run
     in order).  ``src_deg`` is each slot's count of valid out-edges (the
     laned launches' per-lane message counts come from it); a
-    segment-reduce plan has none."""
+    segment-reduce plan has none.  ``edge_mask`` is the (E,) bool mask
+    that built the plan: the batch ranges follow it."""
 
     blk_ptr: torch.Tensor     # (n_sblk + 1,) int32
     blk_chunk: torch.Tensor   # (launch cells,) int32, i-major
@@ -346,6 +348,7 @@ class LaunchPlan(typing.NamedTuple):
     src_deg: torch.Tensor | None = None   # (num_slots,) int32
     cell_order: torch.Tensor | None = None   # (launch cells,) int64
     scratch: dict | None = None
+    edge_mask: torch.Tensor | None = None    # (E,) bool
 
     @property
     def num_blocks(self) -> int:
@@ -447,11 +450,14 @@ def plan_pieces(plan: LaunchPlan, cells: int | None = None) -> PieceTables:
     return plan.scratch[key]
 
 
-def plan_batches(plan: LaunchPlan, edge_mask, edge_dst):
-    """``cell_batches`` of ``plan`` (whose edges these are), made on first
-    use with no host sync and kept in its ``scratch``."""
+def plan_batches(plan: LaunchPlan, edge_dst):
+    """``cell_batches`` of ``plan`` (whose edges' destinations these are)
+    under the mask that built it (``plan.edge_mask``), made on first use
+    with no host sync and kept in its ``scratch``: K1-K8 and K9 on one
+    plan share them."""
     if "batches" not in plan.scratch:
-        plan.scratch["batches"] = cell_batches(plan, edge_mask, edge_dst)
+        plan.scratch["batches"] = cell_batches(plan, plan.edge_mask,
+                                               edge_dst)
     return plan.scratch["batches"]
 
 
@@ -511,7 +517,7 @@ def plan_launch(edge_src, edge_mask, edge_dst, num_segments: int,
                       e, num_segments, num_slots,
                       None if edge_src is None
                       else _src_degrees(edge_src, edge_mask, num_slots),
-                      order, {})
+                      order, {}, edge_mask)
 
 
 def _masked_value_tables(gval, gchg, identity):
@@ -654,7 +660,7 @@ _SIGNATURES = {   # C entry point -> (library, argument types)
                             + [_P]),
     "frr_wl_lanes_blocks_per_sm": ("fused_relax_reduce_wl_lanes", [_I] * 2),
     "segment_combine_launch": ("segment_combine",
-                               [_P] * 4 + [_I] * 3 + [_P] * 2 + [_I] * 2
+                               [_P] * 12 + [_I] * 3 + [_P] * 3 + [_I] * 2
                                + [_P]),
     "frr_wl_tiled_launch": ("fused_relax_reduce_wl_tiled",
                             [_P] * 16 + [_I] * 3 + [_P] * 3 + [_I] * 2
@@ -1285,20 +1291,22 @@ def _check_flags(flags, plan: LaunchPlan, dev):
 
 
 def _piece_ptrs(plan: LaunchPlan, pc: PieceTables, flags, chunk_act,
-                n_tickets: int, edge_mask, edge_dst):
+                n_tickets: int, edge_dst):
     """The ten piece-table pointers a piece launch takes, in the C
     entry points' order: piece begin / end, block, split slot, a block's
-    pieces, the cells' chunks and batch ranges (of the plan's edges
-    ``edge_mask``/``edge_dst``), the flags (null for a device plan), the
-    chunk frontier bits and the arrival tickets."""
+    pieces, the cells' chunks and batch ranges (of the plan's edges,
+    whose destinations ``edge_dst`` are), the flags (null for a device
+    plan), the
+    chunk frontier bits (null for K9, which runs every cell) and the
+    arrival tickets."""
     return [pc.piece_ptr.data_ptr(), pc.piece_ptr[1:].data_ptr(),
             pc.piece_blk.data_ptr(), pc.piece_slot.data_ptr(),
             pc.blk_piece.data_ptr(), plan.blk_chunk.data_ptr(),
-            plan_batches(plan, edge_mask, edge_dst).data_ptr(),
+            plan_batches(plan, edge_dst).data_ptr(),
             None if flags is None else flags.data_ptr(),
-            chunk_act.data_ptr(),
+            None if chunk_act is None else chunk_act.data_ptr(),
             _tickets(plan, n_tickets, torch.cuda.current_stream(
-                chunk_act.device).cuda_stream).data_ptr()]
+                plan.blk_ptr.device).cuda_stream).data_ptr()]
 
 
 def _launch_pieces(gval_m, edge_src, edge_w, edge_mask, edge_dst,
@@ -1328,7 +1336,7 @@ def _launch_pieces(gval_m, edge_src, edge_w, edge_mask, edge_dst,
             gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
             edge_mask.data_ptr(), edge_dst.data_ptr(),
             *_piece_ptrs(plan, pc, flags, chunk_act, plan.num_blocks,
-                         edge_mask, edge_dst),
+                         edge_dst),
             edge_src.shape[0], plan.num_segments, pc.num_pieces,
             out.data_ptr(), split.data_ptr(),
             dbg.data_ptr() if dbg is not None else None,
@@ -1403,7 +1411,7 @@ def _launch_lane_pieces(gval_m, unitw, edge_src, edge_w, edge_mask,
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
         edge_mask.data_ptr(), edge_dst.data_ptr(), unitw.data_ptr(),
         *_piece_ptrs(plan, pc, flags, chunk_act,
-                     plan.num_blocks * _lane_groups(q), edge_mask, edge_dst),
+                     plan.num_blocks * _lane_groups(q), edge_dst),
         edge_src.shape[0], plan.num_segments, pc.num_pieces, q,
         out.data_ptr(), split.data_ptr(),
         dbg.data_ptr() if dbg is not None else None,
@@ -1482,7 +1490,7 @@ def _launch_tiled_pieces(gval_m, edge_src, edge_w, edge_mask, edge_dst, act,
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
         edge_mask.data_ptr(), edge_dst.data_ptr(), act.data_ptr(),
         *_piece_ptrs(plan, pc, flags, chunk_act, plan.num_blocks,
-                     edge_mask, edge_dst),
+                     edge_dst),
         edge_src.shape[0], plan.num_segments, pc.num_pieces, out.data_ptr(),
         split.data_ptr(), dbg.data_ptr() if dbg is not None else None,
         _RELAX_CODE[relax_kind], _KIND_CODE[kind],
@@ -1553,7 +1561,7 @@ def _launch_tiled_lane_pieces(gval_m, unitw, edge_src, edge_w, edge_mask,
         gval_m.data_ptr(), edge_src.data_ptr(), edge_w.data_ptr(),
         edge_dst.data_ptr(), act.data_ptr(), unitw.data_ptr(),
         *_piece_ptrs(plan, pc, flags, chunk_act,
-                     plan.num_blocks * _lane_groups(q), edge_mask, edge_dst),
+                     plan.num_blocks * _lane_groups(q), edge_dst),
         edge_src.shape[0], plan.num_segments, pc.num_pieces,
         gval_m.shape[0], q, out.data_ptr(), split.data_ptr(),
         dbg.data_ptr() if dbg is not None else None,

@@ -450,3 +450,168 @@ def fused_relax_reduce_lanes_order(gval, gchg, lane_unitw, edge_src, edge_w,
             rows.append(acc)
         out[i * SBLK:(i + 1) * SBLK] = _finish_pieces(rows, comb)
     return out[:num_segments], executed
+
+
+UNIT = 128         # edges a K9 warp folds at once (csrc/segment_combine.cu)
+SEG_NWARP = 4      # warps a K9 block (csrc/segment_combine.cu)
+
+
+def _fold_groups(gid, vals, comb, ident=None):
+    """Fold ``vals`` (along axis 0) within each run of equal ``gid``
+    (non-decreasing), in order: from the run's first value, or from
+    ``ident`` when given.  Returns (the runs' first indices, their
+    folds)."""
+    n = gid.shape[0]
+    starts = np.flatnonzero(np.r_[True, gid[1:] != gid[:-1]]) if n \
+        else np.zeros(0, np.int64)
+    lens = np.diff(np.r_[starts, n])
+    if ident is None:
+        out, r0 = vals[starts].copy(), 1
+    else:
+        out, r0 = np.full((starts.shape[0],) + vals.shape[1:], ident,
+                          np.float32), 0
+    for r in range(r0, int(lens.max(initial=0))):
+        sel = lens > r
+        out[sel] = comb(out[sel], vals[starts[sel] + r])
+    return starts, out
+
+
+def segment_combine_order(data, segment_ids, num_segments: int, kind: str,
+                          cells: int, edge_mask=None):
+    """Order model of K9: the (num_segments,) segment reduce with every
+    combine in the kernel's order, in float32 (numpy, vectorized over the
+    kernel's units).  Per piece (``piece_walk`` at ``cells`` under
+    ``edge_mask``, every cell run) SEG_NWARP accumulators of SBLK; each
+    cell's batch range cut into units of UNIT edges from its first batch,
+    the piece's units counted over its cells in order, unit u on warp
+    u % SEG_NWARP; lane l of a unit holds its edges 4l .. 4l + 3 (those past
+    the range or the edges do not count), keyed by segment in the block
+    (-1 below, SBLK above).  A unit whose keys do not decrease: each
+    lane's runs folded in order, a run inside a lane taken whole, the
+    lanes' last runs carried by a segmented Hillis-Steele scan (lane l
+    takes lane l - d's partial at step d when their last keys agree), a
+    lane's first run completed with its predecessor's scan value; any
+    other unit: for each of the four edges of a lane in turn, each
+    segment's lanes folded in lane order.  Each unit's totals are taken
+    into its warp's accumulator in unit order; a piece's segment the
+    warps folded in warp order; a split block's pieces folded in piece
+    order.  ``data`` is float32 or bfloat16 (taken exactly as float32);
+    the kernel rounds the result once to the input type.  Returns
+    ((num_segments,) float32 array, cells walked)."""
+    from repro_torch.kernels.fused_relax_reduce import EBLK, SBLK
+    if isinstance(data, torch.Tensor):
+        data = data.detach().float().cpu().numpy()
+    d = np.asarray(data, np.float32)
+    ids = _np(segment_ids).astype(np.int64)
+    e = ids.shape[0]
+    mask = np.ones(e, bool) if edge_mask is None \
+        else _np(edge_mask).astype(bool)
+    ident = np.float32(math.inf if kind == "min" else 0.0)
+    comb = _combine_np(kind)
+    warps = SEG_NWARP
+    walk = piece_walk(np.zeros(e, np.int64), mask, ids, np.ones(1, bool),
+                      num_segments, cells)
+    # the cells in launch order: piece, first position, end, first unit
+    c_piece, c_lo, c_end, c_u0, c_nu, piece_blk = [], [], [], [], [], []
+    for i, pieces in enumerate(walk):
+        for piece in pieces:
+            u0 = 0
+            for j, _, lo, hi in piece:
+                n_u = (hi - lo + 3) // 4
+                c_piece.append(len(piece_blk))
+                c_lo.append(j * EBLK + 32 * lo)
+                c_end.append(min(j * EBLK + 32 * hi, e))
+                c_u0.append(u0)
+                c_nu.append(n_u)
+                u0 += n_u
+            piece_blk.append(i)
+    walked = len(c_piece)
+    c_nu = np.asarray(c_nu, np.int64)
+    cell = np.repeat(np.arange(walked), c_nu)
+    m_in = np.arange(cell.shape[0]) - np.repeat(np.cumsum(c_nu) - c_nu, c_nu)
+    u_piece = np.asarray(c_piece, np.int64)[cell]
+    u_seq = np.asarray(c_u0, np.int64)[cell] + m_in
+    u_warp = u_seq % warps
+    u_blk = np.asarray(piece_blk, np.int64)[u_piece]
+    pos = (np.asarray(c_lo, np.int64)[cell] + UNIT * m_in)[:, None] \
+        + np.arange(UNIT)
+    valid = pos < np.asarray(c_end, np.int64)[cell][:, None]
+    at = np.where(valid, pos, 0)
+    local = ids[at] - u_blk[:, None] * SBLK
+    key = np.where(valid, np.where(local < 0, -1,
+                                   np.where(local < SBLK, local, SBLK)),
+                   SBLK).reshape(-1, 32, 4)
+    msg = np.where(valid, d[at], ident).astype(np.float32).reshape(-1, 32, 4)
+    up = (key[:, :, 0] <= key[:, :, 1]) & (key[:, :, 1] <= key[:, :, 2]) \
+        & (key[:, :, 2] <= key[:, :, 3])
+    up[:, 1:] &= key[:, :-1, 3] <= key[:, 1:, 0]
+    srt = up.all(axis=1)
+    in_blk = lambda k: (k >= 0) & (k < SBLK)  # noqa: E731
+    cu, ck, cs, cv = [], [], [], []          # unit, key, sub-order, value
+
+    def emit(units, keys, vals, sub):
+        cu.append(units)
+        ck.append(keys)
+        cs.append(np.full(units.shape[0], sub, np.int64))
+        cv.append(vals.astype(np.float32))
+
+    # sorted units: runs in the lane, the scan over the lanes' last runs
+    us = np.flatnonzero(srt)
+    k, v = key[us], msg[us]
+    rows = np.broadcast_to(us[:, None], k.shape[:2])
+    r, head = v[:, :, 0].copy(), v[:, :, 0].copy()
+    for t in range(1, 4):
+        same = k[:, :, t] == k[:, :, t - 1]
+        is_head = ~same & (k[:, :, t - 1] == k[:, :, 0])
+        head = np.where(is_head, r, head)
+        mid = ~same & ~is_head & in_blk(k[:, :, t - 1])
+        emit(rows[mid], k[:, :, t - 1][mid], r[mid], 0)
+        r = np.where(same, comb(r, v[:, :, t]), v[:, :, t])
+    k0, k3 = k[:, :, 0], k[:, :, 3]
+    s = r
+    for dd in (1, 2, 4, 8, 16):
+        su = np.full_like(s, ident)
+        su[:, dd:] = s[:, :-dd]
+        ku = np.full_like(k3, -2)
+        ku[:, dd:] = k3[:, :-dd]
+        s = np.where(ku == k3, comb(su, s), s)
+    s_prev = np.full_like(s, ident)
+    s_prev[:, 1:] = s[:, :-1]
+    prev3 = np.full_like(k3, -2)
+    prev3[:, 1:] = k3[:, :-1]
+    next0 = np.full_like(k0, -2)
+    next0[:, :-1] = k0[:, 1:]
+    hsel = (k0 != k3) & in_blk(k0)
+    hv = np.where(prev3 == k0, comb(s_prev, head), head)
+    emit(rows[hsel], k0[hsel], hv[hsel], 0)
+    tsel = (next0 != k3) & in_blk(k3)
+    emit(rows[tsel], k3[tsel], s[tsel], 0)
+
+    # other units: each segment's lanes in lane order, edge by edge
+    uq = np.flatnonzero(~srt)
+    for t in range(4):
+        kt, vt = key[uq, :, t], msg[uq, :, t]
+        uu, ll = np.nonzero(in_blk(kt))
+        kk = kt[uu, ll]
+        o = np.lexsort((ll, kk, uu))
+        g = (uu[o] * (SBLK + 1) + kk[o])
+        starts, folds = _fold_groups(g, vt[uu, ll][o], comb)
+        emit(uq[uu[o][starts]], kk[o][starts], folds, t)
+
+    # each warp's accumulator: the units' totals in unit order
+    cu, ck, cs, cv = (np.concatenate(x) for x in (cu, ck, cs, cv))
+    n_pieces = len(piece_blk)
+    acc = np.full((n_pieces, warps, SBLK), ident, np.float32)
+    if cu.size:
+        cp, cw, cq = u_piece[cu], u_warp[cu], u_seq[cu]
+        o = np.lexsort((cs, cq, ck, cw, cp))
+        g = (cp[o] * warps + cw[o]) * SBLK + ck[o]
+        starts, folds = _fold_groups(g, cv[o], comb, ident)
+        acc.reshape(-1)[g[starts]] = folds
+    rows = acc[:, 0].copy()
+    for w in range(1, warps):
+        rows = comb(rows, acc[:, w])
+    starts, blocks = _fold_groups(np.asarray(piece_blk), rows, comb)
+    out = np.full((len(walk), SBLK), ident, np.float32)
+    out[np.asarray(piece_blk)[starts]] = blocks
+    return out.reshape(-1)[:num_segments], walked

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 dense, K2 worklist, K3/K4 their
 lane-batched twins, K5-K8 the tiled twins of K1-K4, K9 the segment
-reduce) against their plain versions and the dense ones against their
-order models, on the card, and the worklist launches against the dense
+reduce) against their plain versions and the dense ones and K9 against
+their order models, on the card, and the worklist launches against the dense
 ones on the same pieces, whole and split.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (the kernel builds from
@@ -269,7 +269,7 @@ def test_worklist_tables_build_without_host_sync(dev):
     torch.cuda.set_sync_debug_mode("error")
     try:
         pc = frr.plan_pieces(plan, 2)
-        batches = frr.plan_batches(plan, args[4], args[5])
+        batches = frr.plan_batches(plan, args[5])
     finally:
         torch.cuda.set_sync_debug_mode(0)
     cpu = [torch.as_tensor(x) for x in case]
@@ -278,8 +278,7 @@ def test_worklist_tables_build_without_host_sync(dev):
     for got, want in zip(pc, pc_h):
         assert (got == want) if isinstance(got, int) \
             else torch.equal(got.cpu(), want)
-    assert torch.equal(batches.cpu(), frr.plan_batches(plan_h, cpu[4],
-                                                       cpu[5]))
+    assert torch.equal(batches.cpu(), frr.plan_batches(plan_h, cpu[5]))
 
 
 @pytest.mark.parametrize("lanes", [False, True])
@@ -569,10 +568,31 @@ SEG_SHAPES = [(1, 1), (7, 3), (100, 17), (EBLK, SBLK), (EBLK + 1, SBLK + 1),
               (200_000, 30_011)]
 
 
+def _k9_cut(cells, fn):
+    """``fn()`` with K9's pieces at ``cells`` cells."""
+    old = rsr.PIECE_CELLS
+    rsr.PIECE_CELLS = cells
+    try:
+        return fn()
+    finally:
+        rsr.PIECE_CELLS = old
+
+
+def _bits_equal(got, want_f32):
+    """``got`` (the kernel's output) equals the order model's float32
+    result rounded once to ``got``'s dtype, bit for bit."""
+    want = torch.from_numpy(want_f32).to(got.dtype)
+    return torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("sorted_ids", [True, False])
 @pytest.mark.parametrize("kind", ["min", "sum"])
 @pytest.mark.parametrize("e,nseg", SEG_SHAPES)
 def test_segment_combine_matches_plain(dev, e, nseg, kind, sorted_ids):
+    """K9 at the default cut and one piece a block equals its order
+    model bit for bit (float32 and bfloat16, sums included) and its plain
+    version (min bit for bit, sum within rtol 1e-5), and walks the plan's
+    cells, runs its pieces and loads the edges of its batch ranges."""
     rng = np.random.default_rng(e + nseg)
     data = torch.as_tensor(rng.uniform(-10, 10, e).astype(np.float32),
                            device=dev)
@@ -580,27 +600,79 @@ def test_segment_combine_matches_plain(dev, e, nseg, kind, sorted_ids):
     if sorted_ids:
         ids = np.sort(ids)
     ids = torch.as_tensor(ids, device=dev)
-    rsr.launches = 0
-    got, cells = rsr.segment_combine(data, ids, nseg, kind, with_debug=True)
     want = segment_combine_ref(data, ids, nseg, kind)
-    torch.cuda.synchronize()
-    assert rsr.launches == 1
-    if kind == "min":
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        assert torch.equal(got, rsr.segment_combine(data, ids, nseg, kind))
-    assert int(cells[0]) == rsr.plan_segments(ids, nseg).num_cells
-    for dtype in (torch.bfloat16,):
-        got_bf = rsr.segment_combine(data.to(dtype), ids, nseg, kind)
-        want_bf = segment_combine_ref(data.to(dtype).float(), ids, nseg,
-                                      kind).to(dtype)
-        assert got_bf.dtype == dtype
+    for cells in (rsr.PIECE_CELLS, ONE_PIECE):
+        rsr.launches = 0
+        got, walked = _k9_cut(cells, lambda: rsr.segment_combine(
+            data, ids, nseg, kind, with_debug=True))
+        torch.cuda.synchronize()
+        assert rsr.launches == 1
+        if kind == "min":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            assert torch.equal(got, _k9_cut(cells, lambda: rsr.segment_combine(
+                data, ids, nseg, kind)))
+        model, n_cells = ref.segment_combine_order(data, ids, nseg, kind,
+                                                   cells)
+        assert _bits_equal(got, model)
+        assert int(walked[0]) == n_cells \
+            == rsr.plan_segments(ids, nseg).num_cells
+        assert walked.tolist() == _k9_cut(cells, lambda: rsr.launch_counts(
+            rsr.plan_segments(ids, nseg), ids)).tolist()
+        got_bf = _k9_cut(cells, lambda: rsr.segment_combine(
+            data.to(torch.bfloat16), ids, nseg, kind))
+        assert got_bf.dtype == torch.bfloat16
+        model_bf, _ = ref.segment_combine_order(data.to(torch.bfloat16), ids,
+                                                nseg, kind, cells)
+        assert _bits_equal(got_bf, model_bf)
+        want_bf = segment_combine_ref(data.to(torch.bfloat16).float(), ids,
+                                      nseg, kind).to(torch.bfloat16)
         if kind == "min":
             assert torch.equal(got_bf, want_bf)
         else:
             torch.testing.assert_close(got_bf.float(), want_bf.float(),
                                        rtol=8e-2, atol=0.5)
+
+
+@pytest.mark.parametrize("cells", [2, ONE_PIECE])
+@pytest.mark.parametrize("kind", ["min", "sum"])
+def test_segment_combine_masked_plan(dev, kind, cells):
+    """K9 on a plan built under a mask (masked edges carry the identity,
+    their ids outside their chunk's planned blocks) equals its order model
+    under that mask bit for bit, and counts the cells, pieces and edges
+    the plan's tables give."""
+    e, nseg = 40 * EBLK + 77, 60 * SBLK + 3
+    rng = np.random.default_rng(cells)
+    data = rng.uniform(0.0, 10.0, e).astype(np.float32)
+    ids = np.sort(rng.integers(0, nseg, e)).astype(np.int32)
+    mask = rng.random(e) < 0.8
+    ids = np.where(mask, ids, rng.integers(0, nseg, e)).astype(np.int32)
+    data = np.where(mask, data, np.inf if kind == "min" else 0.0) \
+        .astype(np.float32)
+    t = [torch.as_tensor(x, device=dev) for x in (data, ids, mask)]
+    plan = rsr.plan_segments(t[1], nseg, t[2])
+    got, walked = _k9_cut(cells, lambda: rsr.segment_combine(
+        t[0], t[1], nseg, kind, plan=plan, with_debug=True))
+    model, n_cells = ref.segment_combine_order(data, ids, nseg, kind, cells,
+                                               edge_mask=mask)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, model)
+    assert int(walked[0]) == n_cells == plan.num_cells
+    assert walked.tolist() == _k9_cut(
+        cells, lambda: rsr.launch_counts(plan, t[1])).tolist()
+
+
+@pytest.mark.parametrize("which", ["data", "segment_ids"])
+def test_segment_combine_misaligned_raises(dev, which):
+    """A tensor off its vector loads' alignment raises; nothing falls
+    back to a scalar path."""
+    data = torch.rand(2 * EBLK + 1, device=dev)
+    ids = torch.zeros(2 * EBLK + 1, dtype=torch.int32, device=dev)
+    args = {"data": data[:-1], "segment_ids": ids[:-1]}
+    args[which] = (data if which == "data" else ids)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        rsr.segment_combine(args["data"], args["segment_ids"], 7, "min")
 
 
 @pytest.mark.parametrize("app,oracle", [(bfs, reference.bfs_levels),

@@ -71,7 +71,7 @@ def test_piece_walk_matches_launch_tables(v, e, nseg, frac, sorted_ids,
     t = [torch.as_tensor(x) for x in (src, mask, ids, gchg)]
     plan = frr.plan_launch(t[0], t[1], t[2], nseg, v)
     pc = frr.plan_pieces(plan, cells)
-    batches = frr.plan_batches(plan, t[1], t[2]).numpy()
+    batches = frr.plan_batches(plan, t[2]).numpy()
     blk_chunk = plan.blk_chunk.numpy()
     piece_ptr = pc.piece_ptr.numpy()
     p = 0

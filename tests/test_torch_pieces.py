@@ -92,9 +92,8 @@ def test_batch_ranges_match_numpy(v, e, nseg, sorted_ids):
                 if j * EBLK + k < ids.shape[0] and mask[j * EBLK + k]
                 and ids[j * EBLK + k] // SBLK == i]
         want.append((min(hits), max(hits) + 1) if hits else (0, 0))
-    got_t = frr.plan_batches(plan, torch.as_tensor(mask),
-                             torch.as_tensor(ids))
-    assert frr.plan_batches(plan, None, None) is got_t    # kept on the plan
+    got_t = frr.plan_batches(plan, torch.as_tensor(ids))
+    assert frr.plan_batches(plan, None) is got_t    # kept on the plan
     got = got_t.numpy()
     assert got.dtype == np.uint8
     np.testing.assert_array_equal(got.reshape(-1, 2),

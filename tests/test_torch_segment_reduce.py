@@ -7,6 +7,12 @@ within rtol 1e-5 / atol 1e-6: the two sum in different orders), and in
 bfloat16 at bf16 resolution; BFS and SSSP under
 ``EngineConfig(use_pallas=True, pallas_mode='reduce')`` give the
 reference's values and ``RunStats`` exactly.
+
+K9's order model (``ref.segment_combine_order``, which
+``tests/test_torch_cuda.py`` holds the kernel to bit for bit) equals the
+plain version and the reference's kernel on the same shapes, in
+bfloat16, and on a plan built under a mask whose masked edges lie
+outside their chunk's planned range: its batch ranges follow that mask.
 """
 import dataclasses
 
@@ -25,7 +31,8 @@ from repro.kernels.rhizome_segment_reduce import segment_combine_pallas  # noqa:
 from repro_torch import apps, exchange, interop  # noqa: E402
 from repro_torch.core import actions, engine  # noqa: E402
 from repro_torch.graph import generators, reference  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import fused_relax_reduce as frr  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rhizome_segment_reduce as rsr  # noqa: E402
 
 EBLK, SBLK = rsr.EBLK, rsr.SBLK
@@ -81,6 +88,165 @@ def test_segment_combine_bf16(kind):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref_bf, np.float32),
                                rtol=8e-2, atol=0.5)
+
+
+def _close(got, want, kind):
+    if kind == "min":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("cells", [rsr.PIECE_CELLS, 1])
+@pytest.mark.parametrize("sorted_ids", [True, False])
+@pytest.mark.parametrize("e,nseg", SHAPES)
+@pytest.mark.parametrize("kind", ["min", "sum"])
+def test_order_model_matches_reference(kind, e, nseg, sorted_ids, cells):
+    """K9's order model, at the kept cut and one cell a piece (every
+    block of several cells split), against the plain version and the
+    reference's kernel in interpret mode; it walks the plan's cells."""
+    data, ids = _case(e, nseg, sorted_ids, seed=e * 7 + nseg)
+    got, walked = ref.segment_combine_order(data, ids, nseg, kind, cells)
+    assert got.dtype == np.float32
+    want = segment_combine_pallas(jnp.asarray(data), jnp.asarray(ids), nseg,
+                                  kind, interpret=True)
+    _close(got, np.asarray(want), kind)
+    plain = ref.segment_combine_ref(torch.as_tensor(data),
+                                    torch.as_tensor(ids), nseg, kind)
+    _close(got, plain.numpy(), kind)
+    assert walked == rsr.plan_segments(torch.as_tensor(ids), nseg).num_cells
+
+
+@pytest.mark.parametrize("kind", ["min", "sum"])
+def test_order_model_bf16(kind):
+    """bfloat16 messages are taken exactly as float32 and the total is
+    rounded once: min exact, sum within the float32 tolerance of the plain
+    version before rounding, and at bf16 resolution of the reference's
+    bf16 kernel after it."""
+    data, ids = _case(3 * EBLK + 77, 300, True, seed=2)
+    data_bf = torch.as_tensor(data).to(torch.bfloat16)
+    got, _ = ref.segment_combine_order(data_bf, ids, 300, kind,
+                                       rsr.PIECE_CELLS)
+    plain = ref.segment_combine_ref(data_bf.float(), torch.as_tensor(ids),
+                                    300, kind)
+    _close(got, plain.numpy(), kind)
+    got_bf = torch.from_numpy(got).to(torch.bfloat16)
+    want_bf = ops.segment_combine(data_bf, torch.as_tensor(ids), 300, kind)
+    if kind == "min":
+        assert torch.equal(got_bf, want_bf)
+    ref_bf = segment_combine_pallas(
+        jnp.asarray(data).astype(jnp.bfloat16), jnp.asarray(ids), 300, kind,
+        interpret=True)
+    np.testing.assert_allclose(got_bf.float().numpy(),
+                               np.asarray(ref_bf, np.float32),
+                               rtol=8e-2, atol=0.5)
+
+
+def _walk_counts(walk, e):
+    """[cells, pieces, edges loaded] of a launch over ``walk``
+    (``ref.piece_walk``): every cell's batch range, cut at the last of
+    the ``e`` edges, is loaded once."""
+    cells = [c for pieces in walk for piece in pieces for c in piece]
+    loaded = sum(max(min(j * EBLK + 32 * hi, e) - j * EBLK - 32 * lo, 0)
+                 for j, _, lo, hi in cells)
+    return [len(cells), sum(len(pieces) for pieces in walk), loaded]
+
+
+@pytest.mark.parametrize("cells", [rsr.PIECE_CELLS, 1])
+@pytest.mark.parametrize("sorted_ids", [True, False])
+@pytest.mark.parametrize("e,nseg", SHAPES)
+def test_debug_counts_match_the_walk(e, nseg, sorted_ids, cells):
+    """``with_debug``'s [cells, pieces, edges loaded], from the plan's
+    tables, equal a numpy walk of the edges."""
+    data, ids = _case(e, nseg, sorted_ids, seed=e + nseg)
+    walk = ref.piece_walk(np.zeros_like(ids), np.ones(e, bool), ids,
+                          np.ones(1, bool), nseg, cells)
+    old = rsr.PIECE_CELLS
+    rsr.PIECE_CELLS = cells
+    try:
+        _, dbg = rsr.segment_combine(torch.as_tensor(data),
+                                     torch.as_tensor(ids), nseg, "min",
+                                     with_debug=True)
+    finally:
+        rsr.PIECE_CELLS = old
+    assert dbg.dtype == torch.int32
+    assert dbg.tolist() == _walk_counts(walk, e)
+
+
+def _masked_case(kind, seed):
+    """Sorted ids with a fifth of the edges masked; a masked edge carries
+    the identity and an id drawn anywhere, mostly outside its chunk's
+    planned blocks."""
+    e, nseg = 6 * EBLK + 41, 9 * SBLK + 3
+    rng = np.random.default_rng(seed)
+    data = rng.uniform(0.0, 10.0, e).astype(np.float32)
+    ids = np.sort(rng.integers(0, nseg, e)).astype(np.int32)
+    mask = rng.random(e) < 0.8
+    ids = np.where(mask, ids, rng.integers(0, nseg, e)).astype(np.int32)
+    data = np.where(mask, data, np.inf if kind == "min" else 0.0)
+    return data.astype(np.float32), ids, mask, nseg
+
+
+@pytest.mark.parametrize("cells", [rsr.PIECE_CELLS, 1])
+@pytest.mark.parametrize("kind", ["min", "sum"])
+def test_masked_plan_batch_ranges_follow_mask(kind, cells):
+    data, ids, mask, nseg = _masked_case(kind, seed=5 + cells)
+    t_ids, t_mask = torch.as_tensor(ids), torch.as_tensor(mask)
+    plan = frr.plan_launch(None, t_mask, t_ids, nseg, 0)
+    # the case is the one that needs the mask: masked edges whose block
+    # lies outside their chunk's planned blocks
+    walk = ref.piece_walk(np.zeros_like(ids), mask, ids, np.ones(1, bool),
+                          nseg, cells)
+    planned = {(i, j) for i, pieces in enumerate(walk)
+               for piece in pieces for j, _, _, _ in piece}
+    pos = np.flatnonzero(~mask)
+    assert any((ids[k] // SBLK, k // EBLK) not in planned for k in pos)
+    # the plan's batch ranges, built under its mask, are the walk's
+    ranges = [(j, lo, hi) for pieces in walk for piece in pieces
+              for j, _, lo, hi in piece]
+    assert plan.edge_mask is t_mask
+    batches = frr.plan_batches(plan, t_ids).numpy()
+    assert [(int(j), int(lo), int(hi)) for j, (lo, hi)
+            in zip(plan.blk_chunk.numpy(), batches)] == ranges
+    got, walked = ref.segment_combine_order(data, ids, nseg, kind, cells,
+                                            edge_mask=mask)
+    assert walked == plan.num_cells
+    plain = ref.segment_combine_ref(torch.as_tensor(data), t_ids, nseg, kind)
+    _close(got, plain.numpy(), kind)
+    want = segment_combine_pallas(jnp.asarray(data), jnp.asarray(ids), nseg,
+                                  kind, interpret=True)
+    _close(got, np.asarray(want), kind)
+    old = rsr.PIECE_CELLS
+    rsr.PIECE_CELLS = cells
+    try:
+        out, dbg = rsr.segment_combine(torch.as_tensor(data), t_ids, nseg,
+                                       kind, plan=plan, with_debug=True)
+    finally:
+        rsr.PIECE_CELLS = old
+    _close(out.numpy(), plain.numpy(), kind)
+    assert dbg.tolist() == _walk_counts(walk, ids.shape[0])
+
+
+def test_reduce_mode_passes_the_plans_mask(monkeypatch):
+    """The exchange hands K9 the engine's launch plan, which keeps the
+    mask that built it."""
+    _, _, _, _, part = _both()
+    arrays = engine.DeviceArrays.from_partition(part, "cpu")
+    cfg = engine.EngineConfig(use_pallas=True, pallas_mode="reduce")
+    seen = []
+    real = ops.segment_combine
+
+    def spy(*args, **kw):
+        seen.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ops, "segment_combine", spy)
+    n = part.S * part.R_max
+    val = torch.zeros(n)
+    exchange.stacked_dense_inbox(actions.SSSP, arrays, cfg, val, val == 0, n)
+    assert len(seen) == 1 and seen[0]["plan"] is arrays.fused_plan
+    assert torch.equal(arrays.fused_plan.edge_mask,
+                       arrays.edge_mask.reshape(-1))
 
 
 @pytest.mark.parametrize("kind", ["min", "sum"])
