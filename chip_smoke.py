@@ -120,6 +120,39 @@ started together) and runs, in order:
    the pinned twin's library call and byte bound, and the rows the
    kernels stage.
 
+8. slice-10 path, the compact targeted exchange and the query server,
+   at the same width.  8a: BFS and SSSP under ``exchange='compact'`` with
+   ``dense`` (K1), ``worklist`` and ``device_worklist`` (K2) launches
+   equal the oracles, with rounds, messages and pruned counts equal to
+   the dense exchange's; PageRank (30 rounds) and delta-PageRank
+   (``device_worklist``) within tolerance of the float64 oracle; BFS
+   under ``pallas_mode='reduce'`` (K9 on the compact plan); Q = 16 lanes
+   (K3 dense, K4 device plan) bit-equal to the dense exchange's lanes,
+   ``LaneStats.exchanged`` = live lane-rounds x S*S*P_t; SSSP under a
+   512 KiB budget (K5, K6) equal to the pinned run; then the heaviest
+   compact rounds replayed to hold K1, K2, K3 and K9 on the compact plan
+   to their plain versions (min bit for bit, sum on a PageRank round
+   within rtol 1e-5 / atol 1e-6) and time each against the same kernel
+   on the dense plan of the round, its byte bound (the compact inbox
+   counted in), its library call, with the inbox scatter's cost at
+   Q = 16 (``[compact]``, ``[compact-kernel]``).  8b: a ``QueryServer``
+   (16 min lanes, 8 PPR lanes) on the PageRank partition answers one
+   stream (16 BFS, 8 SSSP, 8 reachability, then 8 PPR, in four waves
+   between ticks) three ways (``SERVE_RUNS``: dense exchange and
+   ``device_worklist`` at 8 rounds a tick, compact and
+   ``device_worklist`` at 8, compact and ``dense`` at 1): every min
+   result equals its solo run bit for bit (the root's BFS equals the
+   numpy oracle), PPR within tolerance of the float64
+   oracle, rounds and messages equal across the runs (the PPR pool needs
+   the PageRank weights, so the root's SSSP is held to Dijkstra on them
+   within rtol 1e-5, as the reference's server test holds it); requests per
+   second, latency p50/p99, ms a tick, host reads a tick and occupancy
+   are printed (``[serve]``); three ticks under CUDA's sync-debug mode
+   'warn' show each synchronizing call is one of the server's counted
+   host reads; four ticks under ``torch.profiler`` give the device's
+   busy share and the kernels by device time (``[serve-profile]``); and
+   an overload run gives its typed statuses.
+
 ``--profile`` also traces one replayed lane round's relax phase (K3 and
 K4 host-plan launches) with ``torch.profiler`` and prints its device
 time by operator.
@@ -146,6 +179,7 @@ JAX or of the JAX package.  The last lines are the ``kernels`` JSON and
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import pathlib
@@ -433,17 +467,20 @@ def phase_counter_gate(np, dev):
 # phase 4: the slice-1 path at RMAT-18
 # --------------------------------------------------------------------------
 
-def _round_bound_ms(part, relax_kind, n_active):
+def _round_bound_ms(part, relax_kind, n_active, nseg=None):
     """Least time for one round's fused relax+reduce: every valid edge's
     source id and mask must be read to find the active edges, each active
     edge's destination id (and weight, unless the relax ignores it), the
-    value table and frontier once, and the inbox written once; the
-    arithmetic (a relax and a combine per active edge) is far below the
-    float32 rate.  Returns (ms, "bytes" | "operations")."""
+    value table and frontier once, and the ``nseg``-segment inbox
+    (default S*R_max, the dense exchange's) written once; the arithmetic
+    (a relax and a combine per active edge) is far below the float32
+    rate.  Returns (ms, "bytes" | "operations")."""
     e = part.S * part.E_max
     v = part.S * part.R_max
+    nseg = v if nseg is None else nseg
     per_active = 4 + (0 if relax_kind == "add_one" else 4)
-    nbytes = e * (4 + 1) + n_active * per_active + v * (4 + 1) + v * 4 + 4
+    nbytes = e * (4 + 1) + n_active * per_active + v * (4 + 1) + nseg * 4 \
+        + 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2 * n_active / F32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
@@ -1258,17 +1295,19 @@ def _k3_orders(torch, np, frr, args, case, nseg, relax, kind, where,
     return 1
 
 
-def _lane_round_bound_ms(part, n_active_edges, n_active_pairs, q):
+def _lane_round_bound_ms(part, n_active_edges, n_active_pairs, q,
+                         nseg=None):
     """Least time for one laned round's fused relax+reduce: every edge's
     source id and mask read to find the active edges, each edge active in
     some lane's destination id and weight, the (V, Q) value table and
-    frontier once, the (num_segments, Q) inbox and (Q,) counts written
-    once; a relax and a combine per active (edge, lane) pair at the
-    float32 rate.  Returns (ms, "bytes" | "operations")."""
+    frontier once, the (nseg, Q) inbox (default nseg = S*R_max) and (Q,)
+    counts written once; a relax and a combine per active (edge, lane)
+    pair at the float32 rate.  Returns (ms, "bytes" | "operations")."""
     e = part.S * part.E_max
     v = part.S * part.R_max
+    nseg = v if nseg is None else nseg
     nbytes = e * (4 + 1) + n_active_edges * (4 + 4) + v * q * (4 + 1) \
-        + v * q * 4 + q * 4
+        + nseg * q * 4 + q * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2 * n_active_pairs / F32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
@@ -2715,6 +2754,776 @@ def phase_tiled(torch, np, dev, g, part, root, want, part_pr, want_conv):
     return launches, {"K5": err, "K6": err, "K7": err_l, "K8": err_l}, report
 
 
+# --------------------------------------------------------------------------
+# phase 8: the compact targeted exchange (8a) and the query server (8b)
+# --------------------------------------------------------------------------
+
+# each kernel's launch counter: (module, attribute)
+_COUNTERS = {"K1": ("frr", "launches"), "K2": ("frr", "wl_launches"),
+             "K3": ("frr", "lanes_launches"),
+             "K4": ("frr", "wl_lanes_launches"),
+             "K5": ("frr", "tiled_launches"),
+             "K6": ("frr", "wl_tiled_launches"),
+             "K7": ("frr", "tiled_lanes_launches"),
+             "K8": ("frr", "wl_tiled_lanes_launches"),
+             "K9": ("rsr", "launches")}
+SERVE_LANES, SERVE_PPR_LANES = 16, 8
+SERVE_PPR_DAMPINGS = (0.85, 0.7)
+# the delta rounds prune residuals below tol; at 1e-8 what they leave
+# exceeds atol 1e-7 against the float64 oracle (7.6e-7 on the H100), so
+# the stream asks 1e-10, phase 6's delta-PPR tolerance
+SERVE_PPR_TOL = 1e-10
+# (exchange, grid_mode, tick_rounds) of the three serving runs
+SERVE_RUNS = (("dense", "device_worklist", 8),
+              ("compact", "device_worklist", 8),
+              ("compact", "dense", 1))
+
+
+def _run_counter(torch, report, launches):
+    """``drive(key, run, call)``: run ``call`` with every kernel's launch
+    count set to 0 just before it and read just after (added to
+    ``launches``), and the engine's dispatch / host-sync counters of
+    ``run`` read around it; returns (result, row)."""
+    from repro_torch import obs
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import rhizome_segment_reduce as rsr
+    mods = {"frr": frr, "rsr": rsr}
+    reg = obs.registry()
+
+    def drive(key, run, call):
+        d = reg.counter("engine_dispatches_total").labels(run=run)
+        h = reg.counter("engine_host_syncs_total").labels(run=run)
+        d0, h0 = d.value, h.value
+        for mod, attr in _COUNTERS.values():
+            setattr(mods[mod], attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        row = {"wall_s": time.perf_counter() - t0,
+               "dispatches": d.value - d0, "host_syncs": h.value - h0}
+        for k, (mod, attr) in _COUNTERS.items():
+            row[k] = getattr(mods[mod], attr)
+            launches[k] += row[k]
+        report["runs"][key] = row
+        return res, row
+
+    return drive
+
+
+def _plan_shape(frr, plan):
+    """Blocks, cells and real pieces of a launch plan."""
+    pc = frr.plan_pieces(plan)
+    return {"segments": plan.num_segments, "blocks": plan.num_blocks,
+            "cells": plan.num_cells,
+            "pieces": int((pc.piece_blk >= 0).sum()),
+            "split_rows": pc.n_split}
+
+
+def _heaviest(step, state, count):
+    """Replay a fixpoint with ``step(state) -> (state, active count)``
+    until ``count(state)`` is 0; returns (the entering state of the round
+    with the most active edges (or pairs), its round, rounds run)."""
+    best, rnd = None, 0
+    while count(state):
+        rnd += 1
+        nxt, n = step(state)
+        n = int(n)
+        if best is None or n > best[0]:
+            best = (n, rnd, state)
+        state = nxt
+    return best[2], best[1], rnd
+
+
+def _compact_kernels(torch, np, dev, part, part_pr, root):
+    """Replay the heaviest compact round and hold K1, K2 (device plan),
+    K3 and K9 on the compact plan to their plain versions — min bit for
+    bit, sum (PageRank round: K1 mul_w/sum and K9's sum) within rtol 1e-5
+    / atol 1e-6 — and time each against the same kernel on the dense plan
+    of that round, its byte bound (the compact inbox written counted in),
+    and its library call; also the inbox scatter's cost."""
+    from repro_torch import exchange
+    from repro_torch.core import actions, engine
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rhizome_segment_reduce as rsr
+    from repro_torch.kernels.ref import (fused_relax_reduce_ref,
+                                         segment_combine_ref)
+
+    out = {}
+    arrays = engine.DeviceArrays.from_partition(part, dev)
+    cfg = engine.EngineConfig(use_pallas=True, exchange="compact")
+    S, R_max = part.S, part.R_max
+    nseg_c, nseg_d = S * S * part.P_t, S * R_max
+    cplan, dplan = arrays.compact.plan, arrays.fused_plan
+    cids, dids = arrays.compact.ids, arrays.edge_dst_flat.reshape(-1)
+    src = arrays.edge_src_root_flat.reshape(-1)
+    w = arrays.edge_w.reshape(-1)
+    mask = arrays.edge_mask.reshape(-1)
+    err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K9": 0.0}
+
+    # the heaviest SSSP round on the compact exchange
+    sem = actions.SSSP
+    v0 = torch.as_tensor(engine.init_values(part, sem, {root: 0.0}),
+                         device=dev)
+    c0 = (v0 < math.inf) & arrays.slot_valid
+
+    def step(st):
+        val, chg, n = exchange.fixpoint_round_stacked(
+            sem, arrays, cfg, S, R_max, *st)
+        return (val, chg), n
+
+    (val, chg), rnd, rounds = _heaviest(step, (v0, c0),
+                                        lambda st: bool(st[1].any()))
+    gval, gchg = val.reshape(-1), chg.reshape(-1)
+    gval_m = frr._masked_value_tables(gval, gchg, math.inf)
+    chunk_act, count = frr._chunk_tables(src, mask, gchg)
+    n_active = int(count)
+    for name, launch in (
+            ("K1", lambda plan, ids, dbg=False: frr._launch(
+                gval_m, src, w, mask, ids, plan, chunk_act, "add_w", "min",
+                dbg)),
+            ("K2", lambda plan, ids, dbg=False: frr._launch_wl(
+                gval_m, src, w, mask, ids, plan, chunk_act, None, "add_w",
+                "min", dbg))):
+        got, _ = launch(cplan, cids)
+        plain = fused_relax_reduce_ref(gval, gchg, src, w, mask, cids,
+                                       nseg_c, "add_w", "min")
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), f"{name} on the compact plan differs "
+              f"from its plain version (SSSP round {rnd})")
+        err[name] = max(err[name], max_abs_err(torch, got, plain))
+        bound, by = _round_bound_ms(part, "add_w", n_active, nseg_c)
+        out[name.lower()] = {
+            "round": rnd, "rounds": rounds, "active_edges": n_active,
+            "kernel_ms": time_ms(torch, lambda: launch(cplan, cids)),
+            "dense_plan_kernel_ms": time_ms(torch, lambda: launch(dplan,
+                                                                  dids)),
+            "ms": time_ms(torch, lambda: ops.fused_relax_reduce(
+                gval, gchg, src, w, mask, cids, nseg_c, "add_w", "min",
+                plan=cplan, grid_mode="dense" if name == "K1"
+                else "device_worklist")),
+            "plain_ms": time_ms(torch, lambda: fused_relax_reduce_ref(
+                gval, gchg, src, w, mask, cids, nseg_c, "add_w", "min"),
+                reps=5),
+            "bound_ms": bound, "bound_by": by,
+            "dense_bound_ms": _round_bound_ms(part, "add_w", n_active)[0]}
+    active = mask & gchg[src.long()]
+    msg = torch.where(active, gval[src.long()] + w,
+                      torch.tensor(math.inf, device=dev))
+    lib = _library_ms(torch, "min", cids.long(), msg, nseg_c)
+    out["k1"]["library_ms"] = out["k2"]["library_ms"] = lib
+    # K9 on the compact plan, min (this round) and sum (a PageRank round)
+    got = rsr.segment_combine(msg, cids, nseg_c, "min", plan=cplan)
+    plain = segment_combine_ref(msg, cids, nseg_c, "min")
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain), "K9 on the compact plan differs from its "
+          f"plain version (SSSP round {rnd})")
+    err["K9"] = max_abs_err(torch, got, plain)
+    e = msg.shape[0]
+    out["k9"] = {
+        "round": rnd, "messages": e,
+        "kernel_ms": time_ms(torch, lambda: rsr._launch(
+            msg, cids, cplan, "min", False)),
+        "dense_plan_kernel_ms": time_ms(torch, lambda: rsr._launch(
+            msg, dids, dplan, "min", False)),
+        "ms": time_ms(torch, lambda: ops.segment_combine(
+            msg, cids, nseg_c, "min", plan=cplan)),
+        "plain_ms": time_ms(torch, lambda: segment_combine_ref(
+            msg, cids, nseg_c, "min"), reps=5),
+        "library_ms": lib}
+    out["k9"]["bound_ms"], out["k9"]["bound_by"] = _segment_bound_ms(
+        e, nseg_c)
+    out["k9"]["dense_bound_ms"] = _segment_bound_ms(e, nseg_d)[0]
+
+    arr_pr = engine.DeviceArrays.from_partition(part_pr, dev)
+    cplan_pr, cids_pr = arr_pr.compact.plan, arr_pr.compact.ids
+    src_p = arr_pr.edge_src_root_flat.reshape(-1)
+    w_p = arr_pr.edge_w.reshape(-1)
+    mask_p = arr_pr.edge_mask.reshape(-1)
+    pv = torch.where(arr_pr.slot_valid, 1.0 / part_pr.n, 0.0).reshape(-1)
+    pc = arr_pr.slot_valid.reshape(-1)
+    nseg_p = part_pr.S * part_pr.S * part_pr.P_t
+    got = ops.fused_relax_reduce(pv, pc, src_p, w_p, mask_p, cids_pr, nseg_p,
+                                 "mul_w", "sum", plan=cplan_pr)[0]
+    plain = fused_relax_reduce_ref(pv, pc, src_p, w_p, mask_p, cids_pr,
+                                   nseg_p, "mul_w", "sum")
+    pmsg = torch.where(mask_p & pc[src_p.long()], pv[src_p.long()] * w_p,
+                       torch.zeros((), device=dev))
+    got9 = rsr.segment_combine(pmsg, cids_pr, nseg_p, "sum", plan=cplan_pr)
+    plain9 = segment_combine_ref(pmsg, cids_pr, nseg_p, "sum")
+    torch.cuda.synchronize()
+    for name, a, b in (("K1", got, plain), ("K9", got9, plain9)):
+        check(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+              f"{name} sum on the compact plan off its plain version by "
+              f"{max_abs_err(torch, a, b)}")
+        err[name] = max(err[name], max_abs_err(torch, a, b))
+    out["k9"]["sum_kernel_ms"] = time_ms(torch, lambda: rsr._launch(
+        pmsg, cids_pr, cplan_pr, "sum", False))
+    out["k9"]["sum_library_ms"] = _library_ms(torch, "sum", cids_pr.long(),
+                                              pmsg, nseg_p)
+
+    return out, err, arrays
+
+
+def _compact_lane_kernel(torch, np, dev, part, arrays, queries, out, err):
+    """K3 on the compact plan at the heaviest Q = 16 compact round, held
+    to its plain version bit for bit and timed against K3 on the dense
+    plan of the round, its bound (the 144 MB laned compact inbox counted
+    in) and ``index_reduce_``; and the inbox scatter's cost at Q = 16
+    (one scatter a source in source order, the repeatable sum) against
+    one ``index_add_`` over all sources."""
+    from repro_torch import exchange
+    from repro_torch.core import actions, engine
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (_lane_messages,
+                                         fused_relax_reduce_lanes_ref)
+    from repro_torch.query import lanes
+    S, R_max = part.S, part.R_max
+    nseg_c = S * S * part.P_t
+    cfg = engine.EngineConfig(use_pallas=True, exchange="compact")
+    cplan, dplan = arrays.compact.plan, arrays.fused_plan
+    cids, dids = arrays.compact.ids, arrays.edge_dst_flat.reshape(-1)
+    src = arrays.edge_src_root_flat.reshape(-1)
+    w = arrays.edge_w.reshape(-1)
+    mask = arrays.edge_mask.reshape(-1)
+    init, unitw = lanes.init_lane_values(part, queries)
+    v0 = torch.as_tensor(init, device=dev)
+    unitw = torch.as_tensor(unitw, device=dev)
+    c0 = (v0 < math.inf) & arrays.slot_valid[..., None]
+
+    def step(st):
+        val, chg, n = exchange.fixpoint_round_stacked(
+            actions.SSSP, arrays, cfg, S, R_max, *st, unitw)
+        return (val, chg), n.sum()
+
+    (val, chg), rnd, rounds = _heaviest(step, (v0, c0),
+                                        lambda st: bool(st[1].any()))
+    q = val.shape[-1]
+    gval, gchg = val.reshape(-1, q), chg.reshape(-1, q)
+    gval_m = frr._masked_value_tables(gval, gchg, math.inf)
+    unit_u8 = (unitw != 0).to(torch.uint8)
+    chunk_act, counts = frr._lane_chunk_tables(src, mask, gchg,
+                                               cplan.src_deg)
+    dchunk_act, _ = frr._lane_chunk_tables(src, mask, gchg, dplan.src_deg)
+
+    def launch(plan, ids, act):
+        return frr._launch_lanes(gval_m, unit_u8, src, w, mask, ids, plan,
+                                 act, "add_w", "min", False)[0]
+
+    got = launch(cplan, cids, chunk_act)
+    plain = fused_relax_reduce_lanes_ref(gval, gchg, unitw, src, w, mask,
+                                         cids, nseg_c, "add_w", "min")
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain), "K3 on the compact plan differs from its "
+          f"plain version (Q = {q} round {rnd})")
+    err["K3"] = max_abs_err(torch, got, plain)
+    n_edges = int((mask & gchg.any(dim=1)[src.long()]).sum())
+    n_pairs = int(counts.sum())
+    bound, by = _lane_round_bound_ms(part, n_edges, n_pairs, q, nseg_c)
+    msg = _lane_messages(gval, gchg, unitw, src, w, mask, "add_w", "min")
+    cids_long = cids.long()
+    out["k3"] = {
+        "round": rnd, "rounds": rounds, "lanes": q,
+        "active_edges": n_edges, "active_pairs": n_pairs,
+        "kernel_ms": time_ms(torch, lambda: launch(cplan, cids, chunk_act)),
+        "dense_plan_kernel_ms": time_ms(torch, lambda: launch(
+            dplan, dids, dchunk_act)),
+        "ms": time_ms(torch, lambda: ops.fused_relax_reduce_lanes(
+            gval, gchg, unitw, src, w, mask, cids, nseg_c, "add_w", "min",
+            plan=cplan)),
+        "plain_ms": time_ms(torch, lambda: fused_relax_reduce_lanes_ref(
+            gval, gchg, unitw, src, w, mask, cids, nseg_c, "add_w", "min"),
+            reps=3),
+        "library_ms": time_ms(torch, lambda: torch.full(
+            (nseg_c, q), math.inf, device=dev).index_reduce_(
+                0, cids_long, msg, "amin", include_self=True), reps=5),
+        "bound_ms": bound, "bound_by": by,
+        "dense_bound_ms": _lane_round_bound_ms(part, n_edges, n_pairs,
+                                               q)[0],
+        "inbox_bytes": nseg_c * q * 4}
+
+    # the inbox scatter at Q = 16: sum in source order, and min
+    part_sum = torch.rand((S, S, part.P_t, q), device=dev)
+    smap, index = arrays.inbox_slot_map, arrays.compact.inbox_index
+    scat = {"contributions": int((smap < R_max).sum())}
+    for sem in (actions.PAGERANK, actions.SSSP):
+        def scatter(sem=sem):
+            return exchange.scatter_inbox(sem, part_sum.transpose(0, 1),
+                                          smap, R_max, index)
+        a, b = scatter(), scatter()
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"scatter_inbox ({sem.segment}) does not "
+              "repeat bit for bit")
+        scat[sem.segment] = time_ms(torch, scatter, reps=10)
+    flat_idx = index.reshape(-1)
+    scat["one_index_add"] = time_ms(torch, lambda: torch.zeros(
+        (S * (R_max + 1), q), device=dev).index_add_(
+            0, flat_idx, part_sum.reshape(-1, q)), reps=10)
+    scat["collapse_min"] = time_ms(torch, lambda: exchange.stacked_collapse(
+        actions.SSSP, arrays, cfg, val), reps=10)
+    out["k3"]["scatter"] = scat
+
+
+def phase_compact(torch, np, dev, g, part, root, want, part_pr, want_pr,
+                  want_conv):
+    """8a: BFS / SSSP / PageRank / delta-PageRank / reduce / lanes / tiled
+    under ``exchange='compact'`` at RMAT-18, held to the oracles and to
+    the dense-exchange runs' counters; then the kernels on the compact
+    plan (``_compact_kernels``, ``_compact_lane_kernel``)."""
+    from repro_torch import apps
+    from repro_torch.core import engine
+    from repro_torch.kernels import fused_relax_reduce as frr
+
+    report = {"runs": {}}
+    launches = {k: 0 for k in _COUNTERS}
+    drive = _run_counter(torch, report, launches)
+    arrays = engine.DeviceArrays.from_partition(part, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cplan = arrays.compact.plan
+    torch.cuda.synchronize()
+    plan_ms = 1e3 * (time.perf_counter() - t0)
+    win = part.S * part.P_t
+    shapes = {"compact": _plan_shape(frr, cplan),
+              "dense": _plan_shape(frr, arrays.fused_plan)}
+    straddle = sum(1 for i in range(cplan.num_blocks)
+                   if (i * frr.SBLK) // win
+                   != min((i + 1) * frr.SBLK - 1, part.S * win - 1) // win)
+    report.update(P_t=part.P_t, R_rz_max=part.R_rz_max, plans=shapes,
+                  compact_plan_ms=plan_ms, straddling_blocks=straddle)
+    log(f"[compact] S={part.S} R_max={part.R_max} P_t={part.P_t} "
+        f"R_rz_max={part.R_rz_max}; a source window is S*P_t = {win} "
+        f"segments ({win % frr.SBLK} past a block edge: {straddle} blocks "
+        f"straddle two windows); compact plan (built in {plan_ms:.1f} ms, "
+        f"on first use): {shapes['compact']}; dense plan: {shapes['dense']}")
+
+    # BFS and SSSP under the three launch shapes, dense vs compact
+    for grid in ("dense", "worklist", "device_worklist"):
+        for name in ("bfs", "sssp"):
+            runs = {}
+            for exch in ("dense", "compact"):
+                cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid,
+                                          exchange=exch)
+                (got, st, _), row = drive(
+                    f"{name}_{grid}_{exch}", name,
+                    lambda: getattr(apps, name)(g, root, part=part, cfg=cfg))
+                check(np.array_equal(got, want[name]),
+                      f"{name} {grid} {exch} differs from the oracle at "
+                      f"{int((got != want[name]).sum())} vertices")
+                row.update(rounds=int(st.iterations),
+                           messages=int(st.messages),
+                           pruned=int(st.pruned_actions))
+                runs[exch] = row
+            c, d = runs["compact"], runs["dense"]
+            check((c["rounds"], c["messages"], c["pruned"])
+                  == (d["rounds"], d["messages"], d["pruned"]),
+                  f"{name} {grid}: compact rounds/messages/pruned "
+                  f"{c['rounds']}/{c['messages']}/{c['pruned']}, dense "
+                  f"{d['rounds']}/{d['messages']}/{d['pruned']}")
+            key = "K1" if grid == "dense" else "K2"
+            check(c[key] > 0 and c[key] == d[key],
+                  f"{name} {grid}: {key} launches compact {c[key]}, "
+                  f"dense {d[key]}")
+            log(f"[compact] {name} {grid}: equal to the oracle; rounds "
+                f"{c['rounds']}, messages {c['messages']}, pruned "
+                f"{c['pruned']} as on the dense exchange; {key} launches "
+                f"{c[key]}; fixpoint wall {c['wall_s']:.3f} s (dense "
+                f"exchange {d['wall_s']:.3f} s, setup included)")
+
+    # PageRank (30 rounds, K1's sum) and delta-PageRank (device plan)
+    cfg = engine.EngineConfig(use_pallas=True, exchange="compact")
+    (got, _), row = drive("pagerank", "pagerank", lambda: apps.pagerank(
+        g, iters=PR_ITERS, part=part_pr, cfg=cfg))
+    row["max_abs_diff"] = float(np.abs(got - want_pr).max())
+    check(np.allclose(got, want_pr, rtol=PR_RTOL, atol=PR_ATOL)
+          and row["K1"] == PR_ITERS,
+          f"compact pagerank off the oracle by {row['max_abs_diff']} "
+          f"({row['K1']} K1 launches)")
+    log(f"[compact] pagerank: {PR_ITERS} rounds within rtol {PR_RTOL} / "
+        f"atol {PR_ATOL} of the oracle (max |diff| "
+        f"{row['max_abs_diff']:.3g}), {row['K1']} K1 launches, wall "
+        f"{row['wall_s']:.3f} s")
+    cfg = engine.EngineConfig(use_pallas=True, exchange="compact",
+                              grid_mode="device_worklist")
+    (got, st, _), row = drive(
+        "pagerank_delta", "pagerank_delta", lambda: apps.pagerank_delta(
+            g, tol=PR_TOL, part=part_pr, cfg=cfg))
+    row.update(rounds=int(st.iterations), messages=int(st.messages),
+               max_abs_diff=float(np.abs(got - want_conv).max()))
+    check(np.allclose(got, want_conv, rtol=PR_RTOL, atol=PR_ATOL)
+          and row["K2"] >= row["rounds"],
+          f"compact pagerank_delta off the oracle by {row['max_abs_diff']}")
+    log(f"[compact] pagerank_delta device_worklist: {row['rounds']} rounds "
+        f"within rtol {PR_RTOL} / atol {PR_ATOL} of the oracle (max |diff| "
+        f"{row['max_abs_diff']:.3g}), {row['K2']} K2 launches, "
+        f"{row['host_syncs']} host syncs, wall {row['wall_s']:.3f} s")
+
+    # BFS under pallas_mode='reduce': K9 on the compact plan
+    cfg = engine.EngineConfig(use_pallas=True, pallas_mode="reduce",
+                              exchange="compact")
+    (got, st, _), row = drive("bfs_reduce", "bfs", lambda: apps.bfs(
+        g, root, part=part, cfg=cfg))
+    check(np.array_equal(got, want["bfs"])
+          and row["K9"] == int(st.iterations),
+          f"compact reduce bfs: {row['K9']} K9 launches, "
+          f"{int((got != want['bfs']).sum())} vertices off the oracle")
+    log(f"[compact] bfs reduce: equal to the oracle; {row['K9']} K9 "
+        f"launches, wall {row['wall_s']:.3f} s")
+
+    # Q = 16 lanes: every lane equal to the dense-exchange lane
+    deg = np.argsort(-g.out_degrees(), kind="stable")
+    roots = [int(v) for v in deg[:LANES]]
+    queries = [("bfs", r) for r in roots[:LANES // 2]] + \
+        [("sssp", r) for r in roots[LANES // 2:]]
+    vol = part.S * part.S * part.P_t
+    for grid, key in (("dense", "K3"), ("device_worklist", "K4")):
+        res = {}
+        for exch in ("dense", "compact"):
+            cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid,
+                                      exchange=exch)
+            (vals, st, _), row = drive(
+                f"lanes_{grid}_{exch}", "lanes_min",
+                lambda: apps.batched_queries(g, queries, part=part,
+                                             cfg=cfg))
+            res[exch] = (vals, st, row)
+        (vc, sc, rc), (vd, sd, rd) = res["compact"], res["dense"]
+        for q in range(LANES):
+            check(np.array_equal(vc[q], vd[q]),
+                  f"lane {q} {grid}: compact differs from the dense "
+                  f"exchange at {int((vc[q] != vd[q]).sum())} vertices")
+        check(sc.rounds.tolist() == sd.rounds.tolist()
+              and sc.messages.tolist() == sd.messages.tolist(),
+              f"lanes {grid}: compact rounds/messages differ from dense")
+        check((sc.exchanged == sc.rounds * vol).all().item(),
+              f"lanes {grid}: exchanged is not live lane-rounds x S*S*P_t")
+        check(rc[key] > 0, f"lanes {grid}: {key} never launched")
+        log(f"[compact] Q={LANES} lanes {grid}: every lane bit-equal to the "
+            f"dense exchange's, rounds and messages equal; exchanged "
+            f"{int(sc.exchanged.sum())} = live lane-rounds x {vol} (dense "
+            f"{int(sd.exchanged.sum())}); {key} launches {rc[key]}; wall "
+            f"{rc['wall_s']:.3f} s (dense exchange {rd['wall_s']:.3f} s)")
+
+    # the tiled path (K5, K6) on the compact ids against the pinned run
+    for grid, key in (("dense", "K5"), ("device_worklist", "K6")):
+        cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid,
+                                  exchange="compact",
+                                  vmem_budget_bytes=TILED_BUDGET)
+        (got, st, _), row = drive(f"sssp_tiled_{grid}", "sssp",
+                                  lambda: apps.sssp(g, root, part=part,
+                                                    cfg=cfg))
+        pinned = report["runs"][f"sssp_{grid}_compact"]
+        check(np.array_equal(got, want["sssp"]) and row[key] > 0
+              and int(st.iterations) == pinned["rounds"]
+              and int(st.messages) == pinned["messages"],
+              f"compact tiled sssp {grid}: {row[key]} {key} launches")
+        log(f"[compact] sssp tiled ({TILED_BUDGET} B budget) {grid}: equal "
+            f"to the pinned run and the oracle; {row[key]} {key} launches")
+
+    out, err, arrays = _compact_kernels(torch, np, dev, part, part_pr, root)
+    _compact_lane_kernel(torch, np, dev, part, arrays, queries, out, err)
+    report.update(out)
+    for k in ("k1", "k2", "k9"):
+        r = out[k]
+        log(f"[compact-kernel] {k.upper()} on the compact plan, heaviest "
+            f"SSSP round {r['round']}: {r['kernel_ms']:.4f} ms (dense plan, "
+            f"same round {r['dense_plan_kernel_ms']:.4f}); relax phase "
+            f"{r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms (dense "
+            f"{r['dense_bound_ms']:.4f}); plain {r['plain_ms']:.4f} ms; "
+            f"library {r['library_ms']:.4f} ms")
+    r = out["k9"]
+    log(f"[compact-kernel] K9 sum on the compact plan (PageRank round): "
+        f"{r['sum_kernel_ms']:.4f} ms, index_add_ {r['sum_library_ms']:.4f} "
+        f"ms")
+    r = out["k3"]
+    log(f"[compact-kernel] K3 on the compact plan, heaviest Q={r['lanes']} "
+        f"round {r['round']} ({r['active_pairs']} active pairs): "
+        f"{r['kernel_ms']:.4f} ms (dense plan {r['dense_plan_kernel_ms']:.4f})"
+        f"; relax phase {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+        f"(inbox {r['inbox_bytes']} B; dense {r['dense_bound_ms']:.4f}); "
+        f"plain {r['plain_ms']:.4f} ms; index_reduce_ amin "
+        f"{r['library_ms']:.4f} ms")
+    s = r["scatter"]
+    log(f"[compact-kernel] inbox scatter at Q={r['lanes']} "
+        f"({s['contributions']} (source, target, slot) contributions): "
+        f"sum, an index_add_ a source in source order {s['sum']:.4f} ms; "
+        f"min, one scatter_reduce_ amin {s['min']:.4f} ms; one index_add_ "
+        f"over all sources (float atomics, no fixed order) "
+        f"{s['one_index_add']:.4f} ms; compact collapse (min) "
+        f"{s['collapse_min']:.4f} ms")
+    return launches, err, report
+
+
+def _percentile(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(math.ceil(p / 100 * len(xs))) - 1)]
+
+
+def phase_serving(torch, np, dev, g, part_pr, want):
+    """8b: one request stream (16 BFS, 8 SSSP, 8 reachability, then 8 PPR,
+    in four waves submitted between ticks) through a ``QueryServer`` on
+    the PageRank partition of RMAT-18, three ways (``SERVE_RUNS``):
+    every min result equal to its solo run bit for bit (the root's BFS
+    equal to the numpy oracle, its SSSP within rtol 1e-5 of Dijkstra's
+    float64 oracle on the 1/out-degree weights, as the reference's server
+    test holds it), PPR within tolerance of the float64 oracle, rounds and
+    messages equal across the runs; then the overload run's typed
+    statuses.  The PPR pool needs the PageRank weights, so the server
+    serves that partition."""
+    from repro_torch import apps, query, serve
+    from repro_torch.apps.pagerank import _pr_graph
+    from repro_torch.core import engine
+    from repro_torch.graph import reference
+    from repro_torch.query.lanes import UNREACHED
+
+    report = {"runs": {}}
+    launches = {k: 0 for k in _COUNTERS}
+    drive = _run_counter(torch, report, launches)
+    g_pr = _pr_graph(g)
+    deg = np.argsort(-g.out_degrees(), kind="stable")
+    root = int(deg[0])
+    waves = [[("bfs", int(v)) for v in deg[:16]],
+             [("sssp", int(v)) for v in [deg[0], *deg[17:24]]],
+             [("reachability", int(v)) for v in deg[24:32]],
+             [("ppr", int(v), SERVE_PPR_DAMPINGS[i % 2])
+              for i, v in enumerate(deg[:SERVE_PPR_LANES])]]
+    t0 = time.perf_counter()
+    cfg1 = engine.EngineConfig(use_pallas=True)
+    solo = {}
+    for kind, v in [r for w in waves[:3] for r in w]:
+        app = apps.sssp if kind == "sssp" else apps.bfs
+        if (app, v) not in solo:
+            got, st, _ = app(g_pr, v, part=part_pr, cfg=cfg1)
+            solo[(app, v)] = (got, int(st.iterations), int(st.messages))
+    # the 1/out-degree weights are not integers, so SSSP meets Dijkstra's
+    # float64 oracle within the reference server test's rtol 1e-5
+    want_sssp = reference.sssp_dijkstra(g_pr, root)
+    got_sssp = solo[(apps.sssp, root)][0]
+    fin = np.isfinite(want_sssp)
+    check(np.array_equal(solo[(apps.bfs, root)][0], want["bfs"]),
+          "solo BFS on the PageRank partition differs from the oracle")
+    check(np.array_equal(np.isfinite(got_sssp), fin)
+          and np.allclose(got_sssp[fin], want_sssp[fin], rtol=1e-5),
+          "solo SSSP on the PageRank partition off Dijkstra's oracle")
+    seeds = [r[1] for r in waves[3]]
+    want_ppr = _ppr_oracle(torch, np, g, seeds,
+                           [r[2] for r in waves[3]], dev)
+    log(f"[serve] {len(solo)} solo runs, the root's SSSP oracle on the "
+        f"PageRank weights and the float64 PPR oracle: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    per_run = {}
+    for exch, grid, k in SERVE_RUNS:
+        cfg = engine.EngineConfig(use_pallas=True, exchange=exch,
+                                  grid_mode=grid)
+        t0 = time.perf_counter()
+        srv = query.QueryServer(part_pr, n_lanes=SERVE_LANES,
+                                ppr_lanes=SERVE_PPR_LANES, cfg=cfg,
+                                tick_rounds=k)
+        setup_s = time.perf_counter() - t0
+        qids = {}
+
+        def stream(srv=srv, qids=qids):
+            for i, wave in enumerate(waves):
+                for req in wave:
+                    kw = ({"damping": req[2], "tol": SERVE_PPR_TOL}
+                          if req[0] == "ppr" else {})
+                    qids[srv.submit(req[0], req[1], **kw)] = req
+                if i < len(waves) - 1:
+                    srv.step()
+            return srv.run()
+
+        key = f"{exch}_{grid}_k{k}"
+        syncs0 = srv.host_syncs
+        res, row = drive(f"serve_{key}", "server_min", stream)
+        check(len(res) == 40 and all(r.status == "ok"
+                                     for r in res.values()),
+              f"serve {key}: {len(res)} results, statuses "
+              f"{sorted({r.status for r in res.values()})}")
+        vol = srv.min_pool.exchange_volume
+        for qid, req in qids.items():
+            r = res[qid]
+            check(r.exchanged == r.rounds * vol, f"serve {key} q{qid}: "
+                  "exchanged is not rounds x the exchange volume")
+            if req[0] == "ppr":
+                col = want_ppr[:, seeds.index(req[1])]
+                check(np.allclose(r.values, col, rtol=PR_RTOL,
+                                  atol=PR_ATOL),
+                      f"serve {key} ppr {req[1]}: off the oracle by "
+                      f"{float(np.abs(r.values - col).max())}")
+                continue
+            app = apps.sssp if req[0] == "sssp" else apps.bfs
+            sv, sr, sm = solo[(app, req[1])]
+            if req[0] == "reachability":
+                sv = sv != UNREACHED
+            check(np.array_equal(r.values, sv) and r.rounds == sr
+                  and r.messages == sm,
+                  f"serve {key} {req[0]} {req[1]}: differs from its solo "
+                  f"run (rounds {r.rounds}/{sr}, messages {r.messages}/{sm})")
+        lat = [r.latency_s * 1e3 for r in res.values()]
+        lat_t = [r.completed_tick - r.submitted_tick for r in res.values()]
+        summary = {
+            "setup_s": setup_s, "wall_s": row["wall_s"],
+            "requests_per_s": len(res) / row["wall_s"],
+            "ticks": srv.tick, "rounds_driven": srv.rounds_driven,
+            "ms_per_tick": 1e3 * row["wall_s"] / srv.tick,
+            "latency_ms_p50": _percentile(lat, 50),
+            "latency_ms_p99": _percentile(lat, 99),
+            "latency_ticks_p50": _percentile(lat_t, 50),
+            "latency_ticks_p99": _percentile(lat_t, 99),
+            "host_syncs": srv.host_syncs - syncs0,
+            "host_syncs_per_tick": (srv.host_syncs - syncs0) / srv.tick,
+            "occupancy": srv.occupancy(),
+            "launches": {kk: row[kk] for kk in ("K3", "K4") if row[kk]},
+            "trace": {qid: (r.rounds, r.messages)
+                      for qid, r in res.items()}}
+        lane_key = "K4" if grid == "device_worklist" else "K3"
+        other = "K3" if lane_key == "K4" else "K4"
+        check(row[lane_key] > 0 and row[other] == 0,
+              f"serve {key}: K3 {row['K3']} / K4 {row['K4']} launches")
+        per_run[key] = summary
+        log(f"[serve] {key}: 40 requests answered, min results equal to "
+            f"their solo runs, PPR within tolerance; {srv.tick} ticks, "
+            f"{srv.rounds_driven} pool rounds; {summary['requests_per_s']:.1f}"
+            f" requests/s, latency p50/p99 {summary['latency_ms_p50']:.1f}/"
+            f"{summary['latency_ms_p99']:.1f} ms "
+            f"({summary['latency_ticks_p50']}/"
+            f"{summary['latency_ticks_p99']} ticks), "
+            f"{summary['ms_per_tick']:.2f} ms a tick, "
+            f"{summary['host_syncs_per_tick']:.2f} host reads a tick, mean "
+            f"occupancy {summary['occupancy']:.3f}; {lane_key} launches "
+            f"{row[lane_key]}; server set-up {setup_s:.3f} s")
+    traces = [s.pop("trace") for s in per_run.values()]
+    check(all(t == traces[0] for t in traces),
+          "rounds and messages differ between the serving runs")
+    report["serve"] = per_run
+
+    # host reads of a tick, counted by CUDA's sync-debug warnings
+    import warnings
+    srv = query.QueryServer(part_pr, n_lanes=SERVE_LANES,
+                            ppr_lanes=SERVE_PPR_LANES,
+                            cfg=engine.EngineConfig(use_pallas=True,
+                                                    exchange="compact"))
+    for kind, v in waves[0][:4] + [(r[0], r[1]) for r in waves[3][:2]]:
+        srv.submit(kind, v)
+    srv.step()
+    torch.cuda.synchronize()
+    before = srv.host_syncs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(3):
+                srv.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    reads = srv.host_syncs - before
+    check(len(syncs) == reads,
+          f"3 ticks: {len(syncs)} synchronizing CUDA calls, {reads} host "
+          f"reads counted: " + "; ".join(
+              sorted({str(w.message)[:120] for w in syncs})))
+    report["tick_syncs"] = {"ticks": 3, "syncs": len(syncs)}
+    log(f"[serve] 3 ticks under sync-debug mode 'warn': {len(syncs)} "
+        f"synchronizing calls, each one of the server's {reads} counted "
+        "host reads (live flags, then counts with exit flags, then a "
+        "retiring lane's values)")
+
+    # where a tick's time goes: torch.profiler over four ticks
+    srv = query.QueryServer(part_pr, n_lanes=SERVE_LANES,
+                            ppr_lanes=SERVE_PPR_LANES,
+                            cfg=engine.EngineConfig(use_pallas=True,
+                                                    exchange="compact"))
+    for req in waves[0] + waves[3]:
+        srv.submit(req[0], req[1])
+    prof = _tick_profile(torch, srv)
+    report["tick_profile"] = prof
+    log(f"[serve-profile] {prof['ticks']} ticks of 16 BFS + 8 PPR lanes "
+        f"(compact, dense, 1 round a tick), under torch.profiler: wall "
+        f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms "
+        f"({prof['busy']:.1%}), {prof['kernels']} kernels and copies; by "
+        "device time: " + "; ".join(f"{n} {ms:.3f} ms x{c}"
+                             for n, ms, c in prof["top"]))
+
+    # the overload run: typed statuses
+    clock = _FakeClock()
+    srv = query.QueryServer(
+        part_pr, n_lanes=SERVE_LANES, clock=clock,
+        cfg=engine.EngineConfig(use_pallas=True, exchange="compact"),
+        serve=serve.ServeConfig(
+            max_queue=8, overload_policy="reject",
+            faults=serve.FaultPlan(lane_failures=((1, "min", 1),))))
+    got = overload_run(srv, clock, [int(v) for v in deg[:10]])
+    check(got == OVERLOAD_STATUSES and srv.counters[
+        "injected_lane_failures"] == 1,
+          f"overload run: statuses {got}")
+    report["overload"] = got
+    log(f"[serve] overload run (queue 8, 'reject', a 1 s deadline, a lane "
+        f"failure): statuses {got}")
+    return launches, report
+
+
+def _tick_profile(torch, srv, ticks=4, top=10):
+    """Wall and device time of ``ticks`` server ticks, recorded in the
+    third step of a wait/warm-up/active ``torch.profiler`` schedule (an
+    unscheduled trace can drop kernels, PERF.md §7; the steps before it
+    are ticks too): the device's busy share, the kernels launched and
+    the ``top`` kernels and copies by device time (name cut to 60
+    characters, ms, calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for step in range(3):
+            t0 = time.perf_counter()
+            for _ in range(ticks if step == 2 else 1):
+                srv.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+            by_name[e.name][1] += 1
+    device_ms = sum(ms for ms, _ in by_name.values())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return {"ticks": ticks, "wall_ms": 1e3 * wall, "device_ms": device_ms,
+            "busy": device_ms / (1e3 * wall),
+            "kernels": sum(c for _, c in by_name.values()),
+            "top": [(n[:60], ms, c) for n, (ms, c) in rows[:top]]}
+
+
+class _FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+# the overload run's statuses by qid: its deadline, its lane failure, six
+# answered, two rejected at a full queue (tests/test_torch_server.py runs
+# the same stream on the CPU against the reference)
+OVERLOAD_STATUSES = {0: "deadline_expired", 1: "lane_failed",
+                     2: "ok", 3: "ok", 4: "ok", 5: "ok", 6: "ok", 7: "ok",
+                     8: "rejected", 9: "rejected"}
+
+
+def overload_run(srv, clock, roots):
+    """Ten BFS requests (the first with a 1 s deadline) into a server
+    with an 8-deep 'reject' queue; one tick, the clock moved to 5 s, then
+    drained.  Returns {qid: status}."""
+    for i, r in enumerate(roots):
+        srv.submit("bfs", r, deadline_s=1.0 if i == 0 else None)
+    srv.step()
+    clock.t = 5.0
+    return {qid: res.status for qid, res in sorted(srv.run().items())}
+
+
 # --fold-sweep: the laned fold's constants, each changed alone in a copy
 # of csrc (file, text, replacement); "full-warp lists" keeps the sources
 # and runs a list a warp at Q = 16
@@ -2962,11 +3771,21 @@ def main() -> int:
                                            want, part_pr, want_conv)
     report4["phase_s"] = time.perf_counter() - t_tiled
     log(f"[tiled] phase 7: {report4['phase_s']:.1f} s")
+    t8 = time.perf_counter()
+    launches8, err8, report8 = phase_compact(
+        torch, np, dev, g, part, root, want, part_pr, want_pr, want_conv)
+    launches8b, report8b = phase_serving(torch, np, dev, g, part_pr, want)
+    for k, n in launches8b.items():
+        launches8[k] += n
+    report8.update(serving=report8b,
+                   phase_s=time.perf_counter() - t8)
+    log(f"[compact] phase 8: {report8['phase_s']:.1f} s")
     heavy, heavy2 = report["heaviest"], report2["heaviest"]
     k3, k4, k9 = report3["k3"], report3["k4"], report3["k9"]
     k9_sum = report3["k9_sum"]
 
     report.update(slice2=report2, slice3=report3, slice4=report4,
+                  slice10=report8,
                   device=smi, build_s=build_s,
                   total_s=time.perf_counter() - t_start)
     OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -2976,8 +3795,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:323",
-        "launches": k1_launches + launches2["K1"],
-        "max_abs_err": max(err, errs["K1"]),
+        "launches": k1_launches + launches2["K1"] + launches8["K1"],
+        "max_abs_err": max(err, errs["K1"], err8["K1"]),
         "ms": heavy["ms"],
         "plain_ms": heavy["plain_ms"],
         "bound_ms": heavy["bound_ms"],
@@ -2991,8 +3810,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:613",
-        "launches": launches2["K2"],
-        "max_abs_err": max(err2, errs["K2"]),
+        "launches": launches2["K2"] + launches8["K2"],
+        "max_abs_err": max(err2, errs["K2"], err8["K2"]),
         "ms": heavy2["ms"],
         "plain_ms": heavy2["plain_ms"],
         "bound_ms": heavy2["bound_ms"],
@@ -3007,8 +3826,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl_lanes.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:391",
-        "launches": launches3["K3"],
-        "max_abs_err": max(err3["K3"], errs3["K3"]),
+        "launches": launches3["K3"] + launches8["K3"],
+        "max_abs_err": max(err3["K3"], errs3["K3"], err8["K3"]),
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
@@ -3023,7 +3842,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl_lanes.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:639",
-        "launches": launches3["K4"],
+        "launches": launches3["K4"] + launches8["K4"],
         "max_abs_err": max(err3["K4"], errs3["K4"]),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
@@ -3039,8 +3858,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_combine.cu",
         "replaces": "src/repro/kernels/rhizome_segment_reduce.py:39",
-        "launches": launches3["K9"],
-        "max_abs_err": max(err3["K9"], errs3["K9"]),
+        "launches": launches3["K9"] + launches8["K9"],
+        "max_abs_err": max(err3["K9"], errs3["K9"], err8["K9"]),
         "ms": k9["ms"],
         "plain_ms": k9["plain_ms"],
         "bound_ms": k9["bound_ms"],
@@ -3058,6 +3877,12 @@ def main() -> int:
              ("K6", "fused_relax_reduce_wl_tiled", 703),
              ("K7", "fused_relax_reduce_tiled_lanes", 553),
              ("K8", "fused_relax_reduce_wl_tiled_lanes", 744))
+    for row, key in zip(kernels["kernels"], ("k1", "k2", "k3", None, "k9")):
+        if key is not None:
+            c8 = report8[key]
+            row["compact"] = {f: c8[f] for f in (
+                "kernel_ms", "dense_plan_kernel_ms", "ms", "plain_ms",
+                "bound_ms", "library_ms") if f in c8}
     for key, name, line in tiled:
         cu = name if "_wl_" in name else name.replace("_tiled", "_wl_tiled")
         check(launches4[key] > 0, f"{key} was never launched on the path")
@@ -3067,7 +3892,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{cu}.cu",
             "replaces": f"src/repro/kernels/fused_relax_reduce.py:{line}",
-            "launches": launches4[key],
+            "launches": launches4[key] + launches8[key],
             "max_abs_err": max(err4[key], errs4[key]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

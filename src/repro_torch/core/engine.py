@@ -7,11 +7,11 @@ drain: diffusions generated in round k are evaluated in round k+1 against
 the newest vertex state, so stale diffusions are *subsumed* exactly as the
 paper's lazy-diffuse pruning does.
 
-The per-round math — relax, dense exchange, rhizome collapse — lives in
-the exchange layer (``repro_torch.exchange``); this module runs the
-rounds: it owns the fixpoint loop, the termination check and the Fig-6
-stats bookkeeping.  ``run_stacked`` keeps all shards stacked ``(S, …)``
-on one device.
+The per-round math — relax, dense or compact targeted exchange, rhizome
+collapse — lives in the exchange layer (``repro_torch.exchange``); this
+module runs the rounds: it owns the fixpoint loop, the termination check
+and the Fig-6 stats bookkeeping.  ``run_stacked`` keeps all shards
+stacked ``(S, …)`` on one device.
 
 With ``EngineConfig.use_pallas`` the relax phase of every round runs
 through the hand-written fused kernels (``kernels.fused_relax_reduce``)
@@ -29,6 +29,7 @@ path runs its kernel's plain version.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import typing
 
 import numpy as np
@@ -44,8 +45,10 @@ from repro_torch.kernels import fused_relax_reduce as frr
 class EngineConfig:
     """Engine options, with the reference's fields, defaults and checks.
 
-    The path this port has not reached, ``exchange='compact'``, raises
-    ``NotImplementedError`` when a run would take it.
+    ``exchange='compact'`` ships per-source (target, distinct-slot)
+    partials instead of the dense global inbox: the fused relax launches
+    over offset compact ids (``S*S*P_t`` segments, ``DeviceArrays.
+    compact``), and only rhizome slots take part in the collapse.
     ``pallas_mode='reduce'`` relaxes with torch ops and reduces with the
     segment-reduce kernel K9 (unlaned runs only, as in the reference).
     ``vmem_budget_bytes`` decides the value table's residency, as in the
@@ -135,9 +138,68 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+class CompactTables:
+    """The compact exchange's device tables of one partition, made on
+    first use and kept, so a dense run never uploads or plans them: the
+    reference's five compact fields, where the inbox scatter puts each
+    contribution (``exchange.inbox_index``), the offset ids the stacked
+    launch reduces over (``edge_dst_compact + s*S*P_t`` on source shard
+    s: each source gets a disjoint window of ``S*P_t`` segments) and that
+    launch's plan (``S*S*P_t`` segments over the ``S*R_max`` slots).  A
+    masked padding edge's id is its window's lowest; the plan keeps the
+    mask, so its chunk ranges skip it."""
+
+    def __init__(self, part: Partition, put, edge_src, edge_mask):
+        self._part, self._put = part, put
+        self._src, self._mask = edge_src, edge_mask
+
+    @functools.cached_property
+    def edge_dst_compact(self):        # (S, E_max) int32 -> [0, S*P_t)
+        return self._put(self._part.edge_dst_compact, torch.int32)
+
+    @functools.cached_property
+    def inbox_slot_map(self):          # (S_tgt, S_src, P_t) int32, R_max pad
+        return self._put(self._part.inbox_slot_map, torch.int32)
+
+    @functools.cached_property
+    def rz_local(self):                # (S, R_rz_max) int32, R_max pad
+        return self._put(self._part.rz_local, torch.int32)
+
+    @functools.cached_property
+    def rz_sibling_idx(self):          # (S, R_rz_max, K) int32
+        return self._put(self._part.rz_sibling_idx, torch.int32)
+
+    @functools.cached_property
+    def rz_sibling_mask(self):         # (S, R_rz_max, K) bool
+        return self._put(self._part.rz_sibling_mask, torch.bool)
+
+    @functools.cached_property
+    def inbox_index(self):             # exchange.inbox_index of the map
+        return exchange.inbox_index(self.inbox_slot_map, self._part.R_max)
+
+    @functools.cached_property
+    def ids(self):                     # (S*E_max,) int32 offset ids
+        part = self._part
+        dst = self.edge_dst_compact
+        offs = torch.arange(part.S, dtype=torch.int32, device=dst.device) \
+            * (part.S * part.P_t)
+        return (dst + offs[:, None]).reshape(-1)
+
+    @functools.cached_property
+    def plan(self) -> frr.LaunchPlan:
+        part = self._part
+        return frr.plan_launch(self._src.reshape(-1),
+                               self._mask.reshape(-1), self.ids,
+                               part.S * part.S * part.P_t,
+                               part.S * part.R_max)
+
+
 class DeviceArrays(typing.NamedTuple):
     """Static per-shard tensors, stacked with leading dim S, plus the
-    fused kernel's launch plan over the flattened dense edge stack."""
+    fused kernel's launch plan over the flattened dense edge stack.  The
+    reference's compact fields (``edge_dst_compact``, ``inbox_slot_map``,
+    ``rz_local``, ``rz_sibling_idx``, ``rz_sibling_mask``) are read
+    through ``compact``, which uploads them on first use."""
 
     edge_src_root_flat: torch.Tensor  # (S, E_max) int32
     edge_dst_flat: torch.Tensor       # (S, E_max) int32 (sorted per shard)
@@ -147,6 +209,7 @@ class DeviceArrays(typing.NamedTuple):
     sibling_mask: torch.Tensor        # (S, R_max, K) bool
     slot_valid: torch.Tensor          # (S, R_max) bool
     fused_plan: frr.LaunchPlan        # block -> edge-chunk lists
+    compact: CompactTables            # the compact exchange's tables
 
     @classmethod
     def from_partition(cls, part: Partition, device=None) -> "DeviceArrays":
@@ -171,7 +234,33 @@ class DeviceArrays(typing.NamedTuple):
             sibling_mask=put(part.sibling_mask, torch.bool),
             slot_valid=put(part.slot_vertex >= 0, torch.bool),
             fused_plan=plan,
+            compact=CompactTables(part, put, src, mask),
         )
+
+    @property
+    def edge_dst_compact(self):
+        return self.compact.edge_dst_compact
+
+    @property
+    def inbox_slot_map(self):
+        return self.compact.inbox_slot_map
+
+    @property
+    def rz_local(self):
+        return self.compact.rz_local
+
+    @property
+    def rz_sibling_idx(self):
+        return self.compact.rz_sibling_idx
+
+    @property
+    def rz_sibling_mask(self):
+        return self.compact.rz_sibling_mask
+
+    def launch_plan(self, cfg) -> frr.LaunchPlan:
+        """The fused launch's plan under ``cfg.exchange``."""
+        return self.compact.plan if cfg.exchange == "compact" \
+            else self.fused_plan
 
 
 class RunStats(typing.NamedTuple):
@@ -193,22 +282,31 @@ WORKLIST_AUTO_THRESHOLD = 0.25
 
 
 def launch_planner(part: Partition, cfg: EngineConfig, q_pad: int = 1):
-    """Host-side ``WorklistPlanner`` for the stacked fused launch: the
-    dense exchange flattens ``edge_dst_flat`` over ``S*R_max`` segments.
-    Its residency is the launch's: ``select_kernel_path`` of the
-    (S*R_max, q_pad) table against ``cfg.vmem_budget_bytes``, so a laned
-    launch passes its lane count ``q_pad`` (which also prices the
-    staged rows)."""
-    exchange.check_ported(cfg)
-    num_slots = part.S * part.R_max
-    n_chunks = frr._round_up(part.edge_dst_flat.size, frr.EBLK) // frr.EBLK
+    """Host-side ``WorklistPlanner`` for the stacked fused launch under
+    ``cfg``, mirroring the launch ``relax`` makes: the dense exchange
+    flattens ``edge_dst_flat`` over ``S*R_max`` segments; the compact one
+    offsets ``edge_dst_compact`` into per-source-shard windows over
+    ``S*S*P_t`` (``CompactTables.ids``).  Its residency is the launch's:
+    ``select_kernel_path`` of the (S*R_max, q_pad) table against
+    ``cfg.vmem_budget_bytes``, so a laned launch passes its lane count
+    ``q_pad`` (which also prices the staged rows)."""
+    S, R_max = part.S, part.R_max
+    num_slots = S * R_max
+    if cfg.exchange == "compact":
+        offs = (np.arange(S, dtype=np.int64) * (S * part.P_t))[:, None]
+        ids = np.asarray(part.edge_dst_compact) + offs
+        num_segments = S * S * part.P_t
+    else:
+        ids = np.asarray(part.edge_dst_flat)
+        num_segments = num_slots
+    n_chunks = frr._round_up(ids.size, frr.EBLK) // frr.EBLK
     path, vblk = frr.select_kernel_path(
         num_slots, q_pad, cfg.vmem_budget_bytes, n_chunks=n_chunks,
         smem_budget_bytes=cfg.smem_budget_bytes)
     return frr.WorklistPlanner(
-        part.edge_dst_flat, part.edge_mask, part.edge_src_root_flat,
-        num_slots, num_slots=num_slots, path=path, vblk=vblk,
-        lane_width=q_pad, smem_budget_bytes=cfg.smem_budget_bytes)
+        ids, part.edge_mask, part.edge_src_root_flat, num_segments,
+        num_slots=num_slots, path=path, vblk=vblk, lane_width=q_pad,
+        smem_budget_bytes=cfg.smem_budget_bytes)
 
 
 def plan_round_worklist(planner, cfg: EngineConfig, gchg,
@@ -282,7 +380,6 @@ def run_stacked(sem: Semiring, part: Partition, init_val,
             "run_stacked drives monotone min-semiring fixpoints; the "
             "collapse of a combined candidate is only sound there — use "
             "run_pagerank_stacked for counted sum-semiring rounds")
-    exchange.check_ported(cfg)
     dev = resolve_device(device)
     arrays = DeviceArrays.from_partition(part, dev)
     val = torch.as_tensor(init_val, dtype=torch.float32, device=dev)
@@ -451,7 +548,8 @@ def _run_device_windows(run, part, arrays, cfg, max_rounds, window, state,
     which are no-ops.  Returns (state, ``RunStats``)."""
     rec = obs.get_recorder()
     planner = launch_planner(part, cfg) if rec is not None else None
-    l_pad = frr.device_worklist_pad(arrays.fused_plan)
+    l_pad = (frr.device_worklist_pad(arrays.launch_plan(cfg))
+             if rec is not None else 0)
     it = msgs = work_total = pruned = windows = 0
     live_exit = True
     while it < max_rounds and live_exit:
@@ -515,7 +613,6 @@ def run_pagerank_stacked(part: Partition, damping: float, iters: int,
     (S, R_max) scores on ``device``."""
     from repro_torch.core.actions import PAGERANK as sem
 
-    exchange.check_ported(cfg)
     dev = resolve_device(device)
     arrays = DeviceArrays.from_partition(part, dev)
     base = (1.0 - damping) / part.n
@@ -565,7 +662,6 @@ def run_pagerank_delta(part: Partition, damping: float = 0.85,
     ``init_rank`` / ``init_delta`` warm-start the accumulation."""
     from repro_torch.core.actions import PAGERANK as sem
 
-    exchange.check_ported(cfg)
     dev = resolve_device(device)
     arrays = DeviceArrays.from_partition(part, dev)
     S, R_max = part.S, part.R_max

@@ -14,8 +14,13 @@ import torch
 
 from repro_torch.core.actions import Semiring
 from repro_torch.exchange.primitives import (
-    check_ported, collapse, stacked_dense_inbox,
+    collapse, compact_collapse, scatter_inbox, stacked_compact_partial,
+    stacked_dense_inbox,
 )
+
+
+def axis_tuple(axis_names):
+    return axis_names if isinstance(axis_names, tuple) else (axis_names,)
 
 
 def _flat(table):
@@ -29,11 +34,23 @@ def _flat(table):
 
 def stacked_inbox(sem: Semiring, arrays, cfg, S: int, R_max: int,
                   gval, gchg, lane_unitw=None, worklist=None):
-    """Relax + dense exchange on the stacked layout: one reduced global
-    inbox.  ``worklist`` is a host-planned sparse launch for the fused
-    relax (``core.engine.launch_planner``).  Returns the ((S, R_max[, Q])
-    inbox, message count — a scalar, or (Q,) per lane)."""
-    check_ported(cfg)
+    """Relax + exchange on the stacked layout.
+
+    Dense: one reduced global inbox.  Compact: per-source (target,
+    distinct-slot) partials, read target-major in place of the real
+    all-to-all and scatter-combined per target (``scatter_inbox``).
+    ``worklist`` is a host-planned sparse launch for the fused relax,
+    planned against this exchange's launch (``core.engine.
+    launch_planner``).  Returns the ((S, R_max[, Q]) inbox, message count
+    — a scalar, or (Q,) per lane)."""
+    if cfg.exchange == "compact":
+        P_t = arrays.inbox_slot_map.shape[-1]
+        partial, counts = stacked_compact_partial(
+            sem, arrays, cfg, S, P_t, gval, gchg, lane_unitw, worklist)
+        inbox = scatter_inbox(sem, partial.transpose(0, 1),
+                              arrays.inbox_slot_map, R_max,
+                              arrays.compact.inbox_index)
+        return inbox, counts
     flat, counts = stacked_dense_inbox(sem, arrays, cfg, gval, gchg,
                                        S * R_max, lane_unitw, worklist)
     return flat.reshape((S, R_max) + tuple(flat.shape[1:])), counts
@@ -41,8 +58,12 @@ def stacked_inbox(sem: Semiring, arrays, cfg, S: int, R_max: int,
 
 def stacked_collapse(sem: Semiring, arrays, cfg, table):
     """Eager rhizome collapse of a stacked (S, R_max[, Q]) table: the
-    dense sibling collapse."""
-    check_ported(cfg)
+    dense sibling collapse, or the compact rhizome-only gather/scatter."""
+    if cfg.exchange == "compact":
+        rz = arrays.rz_local
+        return compact_collapse(sem, table, rz, arrays.rz_sibling_idx,
+                                arrays.rz_sibling_mask, _flat,
+                                table.shape[1], rz.shape[-1])
     return collapse(sem, _flat(table), arrays.sibling_flat,
                     arrays.sibling_mask)
 
@@ -177,3 +198,39 @@ def shard_message_mirror(edge_mask, edge_src_root_flat, gchg):
     srcs = np.asarray(edge_src_root_flat)
     g = np.asarray(gchg).reshape(-1)
     return (mask & g[srcs]).sum(axis=tuple(range(1, mask.ndim)))
+
+
+def expected_round_messages(edge_mask, edge_src_root_flat, gchg,
+                            laned: bool = False) -> int:
+    """The exact message total a clean round on frontier ``gchg`` must
+    report: ``shard_message_mirror`` summed over shards (the resilient
+    runner's inbox-integrity check: a round whose count falls short or
+    overshoots it lost or duplicated an inbox).  With ``laned=True`` the
+    trailing axis of ``gchg`` is the lane axis Q and the expectation sums
+    over lanes, as the laned relax counts."""
+    g = np.asarray(gchg)
+    if not laned:
+        return int(shard_message_mirror(edge_mask, edge_src_root_flat,
+                                        g).sum())
+    gq = g.reshape(-1, g.shape[-1])
+    return int(sum(shard_message_mirror(edge_mask, edge_src_root_flat,
+                                        gq[:, q]).sum()
+                   for q in range(gq.shape[1])))
+
+
+def mask_shard_frontier(chg, shard: int):
+    """Frontier ``chg`` ((S, R_max[, Q]), a tensor or an array) with shard
+    ``shard``'s rows forced False: a dropped inbox, that shard's outgoing
+    messages lost for one round.  Returns a new table; the caller keeps
+    the original for a retry."""
+    if isinstance(chg, torch.Tensor):
+        out = chg.clone()
+        out[shard] = False
+        return out
+    return _mask_np(chg, shard)
+
+
+def _mask_np(chg, shard: int):
+    out = np.array(chg, copy=True)
+    out[shard] = False
+    return out

@@ -26,9 +26,9 @@ window.  ``engine_dispatches_total`` / ``engine_host_syncs_total`` (runs
 ``lanes_min`` and ``ppr_delta_lanes``) count exactly that.  Per-lane
 statistics stay on the device.
 
-The sharded runners are ROADMAP Queue 1 item 10; the compact exchange is
-item 4.  Entry points take ``device`` (``None`` means CUDA and raises
-without it).
+Every runner takes the dense or the compact exchange (``cfg.exchange``).
+The sharded runners are ROADMAP Queue 1 item 10.  Entry points take
+``device`` (``None`` means CUDA and raises without it).
 """
 from __future__ import annotations
 
@@ -92,7 +92,6 @@ def _check_cfg(cfg: EngineConfig):
         raise ValueError(
             "lane-batched Pallas execution is fused-only (the pre-fusion "
             "'reduce' composition has no laned form)")
-    exchange.check_ported(cfg)
 
 
 def _check_min(sem: Semiring):
@@ -107,10 +106,10 @@ def _check_min(sem: Semiring):
             "sum semirings run as make_ppr_round counted rounds")
 
 
-def _volume(part: Partition) -> int:
-    """Entries that transit the dense exchange per round, per live lane:
-    every shard ships its (S, R_max) rows of the global inbox."""
-    return part.S * part.S * part.R_max
+def _volume(part: Partition, cfg: EngineConfig) -> int:
+    """Entries that transit the exchange per round, per live lane
+    (``exchange.exchange_volume``: S*S*R_max dense, S*S*P_t compact)."""
+    return exchange.exchange_volume(part.S, part.R_max, part.P_t, cfg)
 
 
 def _lane_vector(x, q: int, dtype, device):
@@ -187,7 +186,7 @@ def make_stacked_lanes_fn(part: Partition,
     dev = engine.resolve_device(device)
     arrays = DeviceArrays.from_partition(part, dev)
     S, R_max = part.S, part.R_max
-    vol = _volume(part)
+    vol = _volume(part, cfg)
 
     def fn(init_val, lane_unitw, init_chg, lane_budget=None):
         val = torch.as_tensor(init_val, dtype=torch.float32, device=dev)
@@ -343,7 +342,7 @@ def run_ppr_lanes(part: Partition, seeds, dampings,
          for s in seeds], axis=-1).astype(np.float32), device=dev)
     arrays = DeviceArrays.from_partition(part, dev)
     round_fn = make_ppr_round(part, cfg, arrays)
-    vol = _volume(part)
+    vol = _volume(part, cfg)
     n_slots = arrays.slot_valid.sum()
     damp = torch.as_tensor(dampings, device=dev)
     live = torch.ones(q, dtype=torch.bool, device=dev)
@@ -409,7 +408,7 @@ def run_ppr_delta_lanes(part: Partition, seeds, dampings,
     round_fn = make_ppr_delta_round(part, cfg, arrays)
     planner = engine.launch_planner(part, cfg, q_pad=q) \
         if cfg.wants_worklist else None
-    vol = _volume(part)
+    vol = _volume(part, cfg)
     damp = torch.as_tensor(dampings, device=dev)
     tol_t = torch.as_tensor(tols, device=dev)
     sv = arrays.slot_valid[..., None]

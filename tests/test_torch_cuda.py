@@ -985,3 +985,141 @@ def test_dense_tiled_equal_pinned(dev, relax, kind, q, cells):
     torch.cuda.synchronize()
     assert torch.equal(tiled, pinned)
     assert np.array_equal(_bits(tiled), _bits(want))
+
+
+# --------------------------------------------------------------------------
+# the compact targeted exchange and the query server on the card
+# --------------------------------------------------------------------------
+
+def _compact_case(dev, scale=9, shards=8):
+    """A partition whose source windows (S*P_t segments) straddle segment
+    blocks and whose shards end in masked padding edges, on the card."""
+    g = generators.rmat(scale, edge_factor=6, seed=1) \
+        .with_random_weights(seed=1)
+    part = build_partition(g, PartitionConfig(num_shards=shards,
+                                              rpvo_max=4))
+    assert (part.S * part.P_t) % SBLK and (~part.edge_mask).any()
+    arrays = engine.DeviceArrays.from_partition(part, dev)
+    return g, part, arrays
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.05, 1.0])
+@pytest.mark.parametrize("relax,kind", PAIRS)
+def test_compact_plan_k1_k2_k9_match_plain(dev, relax, kind, frac):
+    g, part, arrays = _compact_case(dev)
+    plan, ids = arrays.compact.plan, arrays.compact.ids
+    n = part.S * part.S * part.P_t
+    rng = np.random.default_rng(3)
+    v = part.S * part.R_max
+    gval = torch.as_tensor(rng.uniform(0, 3, v).astype(np.float32),
+                           device=dev)
+    gchg = torch.as_tensor(rng.random(v) < frac, device=dev)
+    src = arrays.edge_src_root_flat.reshape(-1)
+    w = arrays.edge_w.reshape(-1)
+    mask = arrays.edge_mask.reshape(-1)
+    want = fused_relax_reduce_ref(gval, gchg, src, w, mask, ids, n, relax,
+                                  kind)
+    outs = [frr.fused_relax_reduce(gval, gchg, src, w, mask, ids, n, relax,
+                                   kind, plan=plan, grid_mode=gm)
+            for gm in ("dense", "device_worklist")]
+    active = mask & gchg[src.long()]
+    ident = torch.tensor(float("inf") if kind == "min" else 0.0,
+                         device=dev)
+    sv = gval[src.long()]
+    msg = torch.where(active, actions.RELAX_FNS[relax](sv, w), ident)
+    outs.append(rsr.segment_combine(msg, ids, n, kind, plan=plan))
+    torch.cuda.synchronize()
+    for out in outs:
+        if kind == "min":
+            assert torch.equal(out, want)
+        else:
+            torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(outs[0], outs[1])          # K2 = K1, sum included
+
+
+@pytest.mark.parametrize("q", [1, 16])
+def test_compact_plan_k3_matches_plain(dev, q):
+    g, part, arrays = _compact_case(dev)
+    plan, ids = arrays.compact.plan, arrays.compact.ids
+    n = part.S * part.S * part.P_t
+    rng = np.random.default_rng(4)
+    v = part.S * part.R_max
+    gval = torch.as_tensor(rng.uniform(0, 3, (v, q)).astype(np.float32),
+                           device=dev)
+    gchg = torch.as_tensor(rng.random((v, q)) < 0.1, device=dev)
+    unitw = torch.as_tensor((np.arange(q) % 2).astype(np.int32), device=dev)
+    src = arrays.edge_src_root_flat.reshape(-1)
+    w = arrays.edge_w.reshape(-1)
+    mask = arrays.edge_mask.reshape(-1)
+    want = fused_relax_reduce_lanes_ref(gval, gchg, unitw, src, w, mask, ids,
+                                        n, "add_w", "min")
+    for gm in ("dense", "device_worklist"):
+        out = frr.fused_relax_reduce_lanes(gval, gchg, unitw, src, w, mask,
+                                           ids, n, "add_w", "min",
+                                           plan=plan, grid_mode=gm)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("grid_mode", ["dense", "worklist",
+                                       "device_worklist"])
+def test_compact_fixpoints_match_oracles(dev, grid_mode):
+    g, part, _ = _compact_case(dev)
+    root = int(np.argmax(g.out_degrees()))
+    for app, want in ((bfs, reference.bfs_levels(g, root)),
+                      (sssp, reference.sssp_dijkstra(g, root))):
+        cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid_mode)
+        got, st, _ = app(g, root, part=part, cfg=cfg)
+        got_c, st_c, _ = app(g, root, part=part, cfg=engine.EngineConfig(
+            use_pallas=True, grid_mode=grid_mode, exchange="compact"))
+        np.testing.assert_array_equal(got_c, want)
+        assert [int(x) for x in st_c] == [int(x) for x in st]
+
+
+def test_compact_sum_scatter_repeats_bit_for_bit(dev):
+    g, part, arrays = _compact_case(dev)
+    rng = np.random.default_rng(6)
+    part_sum = torch.as_tensor(rng.random((part.S, part.S, part.P_t, 16))
+                               .astype(np.float32), device=dev)
+    runs = [exchange.scatter_inbox(actions.PAGERANK,
+                                   part_sum.transpose(0, 1),
+                                   arrays.inbox_slot_map, part.R_max)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    cpu = exchange.scatter_inbox(actions.PAGERANK,
+                                 part_sum.cpu().transpose(0, 1),
+                                 arrays.inbox_slot_map.cpu(), part.R_max)
+    assert torch.equal(runs[0].cpu(), cpu)
+
+
+@pytest.mark.parametrize("exch,grid_mode,tick_rounds", [
+    ("dense", "device_worklist", 4), ("compact", "device_worklist", 4),
+    ("compact", "dense", 1)])
+def test_query_server_on_the_card(dev, exch, grid_mode, tick_rounds):
+    """A small request stream on the card: every min result equals its
+    solo run, the counts of each request equal across configurations."""
+    from repro_torch.query import QueryServer
+    g, part, _ = _compact_case(dev)
+    deg = np.argsort(-g.out_degrees(), kind="stable")
+    srv = QueryServer(part, n_lanes=4, ppr_lanes=0, tick_rounds=tick_rounds,
+                      cfg=engine.EngineConfig(use_pallas=True, exchange=exch,
+                                              grid_mode=grid_mode))
+    reqs = [("bfs", int(deg[0])), ("sssp", int(deg[1])),
+            ("reachability", int(deg[2])), ("bfs", int(deg[3])),
+            ("sssp", int(deg[4])), ("bfs", int(deg[5]))]
+    qids = [srv.submit(k, v) for k, v in reqs[:4]]
+    srv.step()
+    qids += [srv.submit(k, v) for k, v in reqs[4:]]
+    res = srv.run()
+    cfg1 = engine.EngineConfig(use_pallas=True)
+    for qid, (kind, v) in zip(qids, reqs):
+        app = sssp if kind == "sssp" else bfs
+        want, st, _ = app(g, v, part=part, cfg=cfg1)
+        if kind == "reachability":
+            want = want != lanes.UNREACHED
+        r = res[qid]
+        assert r.status == "ok"
+        np.testing.assert_array_equal(r.values, want)
+        assert (r.rounds, r.messages) == (int(st.iterations),
+                                          int(st.messages))

@@ -223,15 +223,19 @@ def test_engine_config_fields_and_defaults_match_reference():
     ("bfs_reduce", "K9"),
     ("pagerank_delta_compact", "Queue 1 item 4"),
     ("pagerank_reduce", "K9"),
+    ("server_mesh", "Queue 1 item 10"),
+    ("server_apply_mutation", "Queue 1 item 8"),
     ("pagerank_mesh", "Queue 1 item 10"),
     ("bfs_mesh", "Queue 1 item 10"),
     ("sssp_mesh", "Queue 1 item 10"),
 ] + [(name, "Queue 1 item 10") for name in SHARDED_ENGINE_FNS])
 def test_unported_options_raise(case, item):
     """Options the port lacks raise, naming the ROADMAP item that brings
-    them.  ``pallas_mode='reduce'`` has come since (kernel K9): its cases
-    now run and equal the reference (``test_torch_segment_reduce.py``
-    holds the path in full).  The sharded entry points take the
+    them.  ``pallas_mode='reduce'`` (kernel K9) and ``exchange='compact'``
+    have come since: their cases now run and equal the reference
+    (``test_torch_segment_reduce.py`` and ``test_torch_compact.py`` hold
+    the paths in full).  ``QueryServer`` refuses ``mesh=`` (item 10) and
+    ``apply_mutation`` (item 8).  The sharded entry points take the
     reference's parameters and call form (``mesh=`` on the apps, the six
     sharded engine functions) and raise for item 10."""
     g_ref, g, root, part_ref, part = _both("rmat8", 4, 1)
@@ -259,6 +263,32 @@ def test_unported_options_raise(case, item):
         assert got == want + ["device"]
     compact = engine.EngineConfig(exchange="compact")
     reduce = engine.EngineConfig(use_pallas=True, pallas_mode="reduce")
+    if case.endswith("_compact"):
+        ref_cfg = ref_engine.EngineConfig(exchange="compact")
+        if case == "bfs_compact":
+            want, want_stats, _ = ref_apps.bfs(g_ref, root, part=part_ref,
+                                               cfg=ref_cfg)
+            got, stats, _ = apps.bfs(g, root, part=part, cfg=compact,
+                                     device="cpu")
+            np.testing.assert_array_equal(got, want)
+        else:
+            want, want_stats, _ = ref_apps.pagerank_delta(
+                g_ref, num_shards=4, cfg=ref_cfg)
+            got, stats, _ = apps.pagerank_delta(g, num_shards=4,
+                                                cfg=compact, device="cpu")
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7)
+        assert _stats(stats) == _stats(want_stats)
+        return
+    if case.startswith("server"):
+        from repro_torch.query import QueryServer
+        if case == "server_mesh":
+            with pytest.raises(NotImplementedError, match=item):
+                QueryServer(part, n_lanes=1, mesh=mesh, device="cpu")
+        else:
+            srv = QueryServer(part, n_lanes=1, device="cpu")
+            with pytest.raises(NotImplementedError, match=item):
+                srv.apply_mutation(part)
+        return
     if item == "K9":
         ref_cfg = ref_engine.EngineConfig(use_pallas=True,
                                           pallas_mode="reduce")
@@ -275,14 +305,6 @@ def test_unported_options_raise(case, item):
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7)
         return
     calls = {
-        "bfs_compact": lambda: apps.bfs(g, root, part=part, cfg=compact,
-                                        device="cpu"),
-        "bfs_reduce": lambda: apps.bfs(g, root, part=part, cfg=reduce,
-                                       device="cpu"),
-        "pagerank_delta_compact": lambda: apps.pagerank_delta(
-            g, part=part, cfg=compact, device="cpu"),
-        "pagerank_reduce": lambda: apps.pagerank(g, part=part, cfg=reduce,
-                                                 device="cpu"),
         "pagerank_mesh": lambda: apps.pagerank(g, part=part, mesh=object(),
                                                device="cpu"),
         # the reference's call form (tests/test_engine_sharded.py)

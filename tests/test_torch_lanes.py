@@ -299,9 +299,18 @@ def test_lane_runner_rejects_unsupported_configs():
         lanes.run_stacked_lanes(part, init, sem=actions.BFS, device="cpu")
     with pytest.raises(ValueError, match=r"\(S, R_max, Q\)"):
         lanes.run_stacked_lanes(part, init[..., 0], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        lanes.run_stacked_lanes(part, init, device="cpu",
-                                cfg=engine.EngineConfig(exchange="compact"))
+    # the compact exchange runs now, as the reference's does
+    part_ref = ref_partition.build_partition(
+        ref_generators.ring(16), ref_partition.PartitionConfig(num_shards=2))
+    seeded, unitw = lanes.init_lane_values(part, [("bfs", 0), ("sssp", 3)])
+    want, want_stats = ref_lanes.run_stacked_lanes(
+        part_ref, seeded, unitw,
+        cfg=ref_engine.EngineConfig(exchange="compact"))
+    got, stats = lanes.run_stacked_lanes(
+        part, seeded, unitw, device="cpu",
+        cfg=engine.EngineConfig(exchange="compact"))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert _lane_stats(stats) == _lane_stats(want_stats)
     for name in ("run_sharded_lanes", "make_sharded_lanes_fn",
                  "make_sharded_min_round", "make_sharded_ppr_round",
                  "make_sharded_ppr_delta_round"):
