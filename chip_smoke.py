@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --plan-timing [SRC]
     python3 chip_smoke.py --fold-sweep
+    python3 chip_smoke.py --trace-drops
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 the ignored ``src/repro_torch/kernels/build/`` (one ``nvcc`` per source,
@@ -26,7 +27,11 @@ started together) and runs, in order:
 3. counter gate: BFS and SSSP (dense, worklist, device_worklist) and
    delta-PageRank (auto, device_worklist) on the RMAT scale-8 partition
    under the flight recorder hit ``benchmarks/baselines/counter_gate.json``
-   exactly;
+   exactly, and so do the gate's streaming schedule (a
+   ``StreamingGraph`` tracking BFS and SSSP through two commits, K1:
+   the six ``stream_*`` legs) and its kill-and-restore leg
+   (``run_resilient`` with a real ``CheckpointManager``:
+   ``resilient_kill_restore``);
 4. slice-1 path: ``apps.bfs`` and ``apps.sssp`` with K1 on an RMAT-18
    partition (edge factor 16, seed 7, 16 shards, rpvo_max 4) equal the
    numpy oracles exactly, with one K1 launch per round; then every round
@@ -92,10 +97,12 @@ started together) and runs, in order:
    ``[k9]`` lines give its pieces and the ids and messages its warps
    load, both counted on the card (``with_debug``) and held to the
    plan's tables, ``[k9-trace]`` the K9 kernels ``torch.profiler`` sees
-   in traces of 20 launches started three ways (a scheduled trace must
-   see all 20), and ``[k9-cell]`` its time at 4-32 cells a piece on the
-   heaviest round, summed over the 13 BFS/SSSP rounds and on the
-   PageRank round.
+   in traces of 20 launches started three ways (the scheduled one, its
+   launches 0.05 s inside its window on both sides, must see all 20)
+   and the launches each holds no kernel record of, and
+   ``[k9-cell]`` its time at
+   4-32 cells a piece on the heaviest round, summed over the 13
+   BFS/SSSP rounds and on the PageRank round.
 
 7. slice-4 path, the tiled residency: first the tiled kernels K5 (dense),
    K6 (worklist, host and device plans), K7 (dense lanes) and K8
@@ -153,6 +160,26 @@ started together) and runs, in order:
    busy share and the kernels by device time (``[serve-profile]``); and
    an overload run gives its typed statuses.
 
+9. slice-11 path, streaming mutation and recovery, at RMAT-18
+   (``phase_mutation``): ``StreamingGraph``s under ``dense`` (K1) and
+   ``device_worklist`` (K2) track BFS/SSSP from the root and
+   delta-PageRank through a 1% insert batch (41,882 edges) and 4,096
+   inserts + 8 deletes; after each commit BFS/SSSP equal the numpy
+   oracles and a cold fixpoint on the spliced partition bit for bit, with
+   fewer warm messages than cold, and PageRank is within rtol 1e-4 /
+   atol 1e-7 of the float64 oracle; ``runner='lanes'`` (K3) on the same
+   schedule equals them bit for bit; a ``QueryServer`` (16 lanes,
+   ``device_worklist``: K4) bound to the dense graph answers 48
+   BFS/SSSP requests across three commits (insert-only with lanes in
+   flight, one with deletes, one more insert-only), each answer equal to
+   a solo run on the partition it finished on; ``StackedTask`` (SSSP,
+   K1), ``PagerankTask`` (K2) and ``LanesTask`` (Q = 16, K3) under a
+   fault and a real ``CheckpointManager`` equal their uninterrupted
+   runs.  It prints each commit's split (splice, maintenance, the
+   server's swap), warm against cold rounds and messages, requests/s,
+   host reads a tick and the checkpoint write and restore times
+   (``[mutation]``).
+
 ``--profile`` also traces one replayed lane round's relax phase (K3 and
 K4 host-plan launches) with ``torch.profiler`` and prints its device
 time by operator.
@@ -191,6 +218,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT = ROOT / "chip_smoke_out" / "chip_smoke.json"
+GATE = ROOT / "benchmarks" / "baselines" / "counter_gate.json"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -212,6 +240,7 @@ PPR_DELTA_TOL = 1e-10    # delta-PPR residual tolerance at RMAT-18
 TILED_BUDGET = 512 * 2**10        # under the RMAT-18 table's 1,068,032 B
 TILED_LANE_BUDGET = 8 * 2**20     # under the Q = 16 table's 17,088,512 B
 TILED_REPS = 3                    # timing reps of the tiled kernels
+TRACE_MARGIN_S = 0.05             # idle host time around traced launches
 
 
 def check(cond, msg):
@@ -420,21 +449,108 @@ def _gate_totals(rounds, run):
                 *(r.shard_messages for r in rs))]}
 
 
+def _gate_graph(np, gate):
+    """The gate's weighted RMAT graph, its partition and root."""
+    from repro_torch.core.partition import PartitionConfig, build_partition
+    from repro_torch.graph import generators
+    gg = gate["graph"]
+    g = generators.rmat(gg["scale"], edge_factor=gg["edge_factor"],
+                        seed=gg["seed"])
+    gw = g.with_random_weights(seed=gg["seed"])
+    part = build_partition(gw, PartitionConfig(num_shards=4, rpvo_max=4))
+    return g, gw, part, int(np.argmax(g.out_degrees()))
+
+
+def stream_gate_legs(np, dev, gate):
+    """The gate's streaming schedule (``benchmarks/counter_gate.py``)
+    through the port on ``dev``: BFS and SSSP tracked by a
+    ``StreamingGraph`` (K1, dense), two commits of 16 random inserts, the
+    second with 8 deletes.  Returns the six ``stream_*`` legs."""
+    from repro_torch import obs
+    from repro_torch.core import engine
+    from repro_torch.core.partition import PartitionConfig
+    from repro_torch.core.streaming import StreamingGraph
+    _, gw, _, root = _gate_graph(np, gate)
+    sg = StreamingGraph(gw, PartitionConfig(num_shards=4, rpvo_max=4),
+                        cfg=engine.EngineConfig(use_pallas=True),
+                        device=dev)
+    sg.track("bfs", root)
+    sg.track("sssp", root)
+    rng = np.random.default_rng(gate["graph"]["seed"])
+    out = {}
+    with obs.recording() as rec:
+        for batch in range(2):
+            s = rng.integers(0, gw.n, 16).astype(np.int32)
+            d = rng.integers(0, gw.n, 16).astype(np.int32)
+            w = rng.integers(1, 10, 16).astype(np.float32)
+            sg.insert_edges(s, d, w)
+            if batch == 1:
+                idx = rng.choice(sg.g.num_edges, 8, replace=False)
+                sg.delete_edges(sg.g.src[idx], sg.g.dst[idx])
+            info = sg.commit()
+            for name in ("bfs", "sssp"):
+                row = _gate_totals(rec.rounds, name)
+                ms = info.maint[(name, root)]
+                row.update(maint_messages=ms.messages, seeds=ms.seeds,
+                           invalidated=ms.invalidated)
+                out[f"stream_{name}_batch{batch}"] = row
+            sp = info.splices["base"]
+            out[f"stream_splice_batch{batch}"] = {
+                "shards_rebuilt": sp.shards_rebuilt,
+                "replicas_added": sp.replicas_added,
+                "replicas_moved": sp.replicas_moved,
+                "affected_edges": sp.affected_edges}
+            rec.rounds.clear()
+    return out
+
+
+def resilient_gate_leg(np, dev, gate):
+    """The gate's kill-and-restore leg through the port on ``dev``: SSSP
+    (K1, dense) under ``run_resilient`` with ``checkpoint_every=2``, a
+    shard killed at round 3 and restored through a ``CheckpointManager``
+    in a temporary directory; totals against an uninterrupted run."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import actions, engine
+    from repro_torch.core.resilient import StackedTask, run_resilient
+    from repro_torch.runtime.chaos import ChaosEvent, ChaosPlan
+    _, _, part, root = _gate_graph(np, gate)
+    init = engine.init_values(part, actions.SSSP, {root: 0.0})
+    base_val, base = engine.run_stacked(
+        actions.SSSP, part, init, engine.EngineConfig(use_pallas=True),
+        device=dev)
+    plan = ChaosPlan(events=(ChaosEvent(round=3, kind="kill_shard",
+                                        shard=1),))
+    with tempfile.TemporaryDirectory() as d:
+        got, stats, report = run_resilient(
+            StackedTask(actions.SSSP, part, init,
+                        engine.EngineConfig(use_pallas=True,
+                                            checkpoint_every=2),
+                        device=dev),
+            chaos=plan, manager=CheckpointManager(d))
+    totals = [int(x) for x in (stats.iterations, stats.messages,
+                               stats.work_actions)]
+    return {"resilient_kill_restore": {
+        "status": report.status, "faults": len(report.faults),
+        "restores": report.restores, "rounds_lost": report.rounds_lost,
+        "checkpoints_written": report.checkpoints_written,
+        "rounds": totals[0], "messages": totals[1], "work": totals[2],
+        "equal_uninterrupted": bool(
+            totals == [int(x) for x in (base.iterations, base.messages,
+                                        base.work_actions)]
+            and torch.equal(got, base_val))}}
+
+
 def phase_counter_gate(np, dev):
     from repro_torch import obs
     from repro_torch.apps.pagerank import _pr_graph
     from repro_torch.core import actions, engine
     from repro_torch.core.partition import PartitionConfig, build_partition
-    from repro_torch.graph import generators
-    gate = json.loads(
-        (ROOT / "benchmarks" / "baselines" / "counter_gate.json").read_text())
-    gg = gate["graph"]
-    g = generators.rmat(gg["scale"], edge_factor=gg["edge_factor"],
-                        seed=gg["seed"])
-    root = int(np.argmax(g.out_degrees()))
-    pcfg = PartitionConfig(num_shards=4, rpvo_max=4)
-    part = build_partition(g.with_random_weights(seed=gg["seed"]), pcfg)
-    part_pr = build_partition(_pr_graph(g), pcfg)
+    gate = json.loads(GATE.read_text())
+    g, _, part, root = _gate_graph(np, gate)
+    part_pr = build_partition(_pr_graph(g), PartitionConfig(
+        num_shards=4, rpvo_max=4))
     fields = ("rounds", "messages", "pruned", "shard_messages",
               "frontier_first", "cells")
     legs = [(f"{sem.name}_{grid}", sem.name, grid,
@@ -461,6 +577,20 @@ def phase_counter_gate(np, dev):
         log(f"[gate] {leg}: rounds {got['rounds']}, messages "
             f"{got['messages']}, pruned {got['pruned']}, cells "
             f"{got['cells']} — equal to counter_gate.json")
+    t0 = time.perf_counter()
+    legs = stream_gate_legs(np, dev, gate)
+    legs.update(resilient_gate_leg(np, dev, gate))
+    for leg, got in legs.items():
+        want = gate["runs"][leg]
+        for f, v in got.items():
+            check(v == want[f],
+                  f"counter gate {leg}.{f}: {v} != {want[f]}")
+    log(f"[gate] {', '.join(legs)}: every field equal to "
+        f"counter_gate.json (stream_bfs_batch0: "
+        f"{legs['stream_bfs_batch0']['messages']} messages, "
+        f"{legs['stream_bfs_batch0']['seeds']} seeds; "
+        f"resilient_kill_restore: {legs['resilient_kill_restore']}) "
+        f"in {time.perf_counter() - t0:.1f} s")
 
 
 # --------------------------------------------------------------------------
@@ -1619,8 +1749,12 @@ def _k9_trace(torch, launch, reps=20):
     ``launch`` three ways, in this order: the trace started and given
     0.2 s before the calls (``settled``), started right before them
     (``bare``), and recorded in the third step of a wait/warm-up/active
-    schedule (``scheduled``).  Each: the count of
-    ``segment_combine_kernel`` events and their mean device time (us)."""
+    schedule, each step's launches ``TRACE_MARGIN_S`` inside its window
+    on both sides (``scheduled``: the card's kernel records are stamped
+    up to a few ms off the host's clock, and the trace drops those it
+    places before its window; ``--trace-drops``, PERF.md §6).  Each:
+    ``_trace_record`` and the mean device time (us) of its
+    ``segment_combine_kernel`` events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1628,7 +1762,7 @@ def _k9_trace(torch, launch, reps=20):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA
               and "segment_combine_kernel" in e.name]
-        return {"kernels": len(us),
+        return {**_trace_record(prof),
                 "mean_us": statistics.fmean(us) if us else None}
 
     def calls():
@@ -1648,7 +1782,9 @@ def _k9_trace(torch, launch, reps=20):
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=1)) as prof:
         for _ in range(3):
+            time.sleep(TRACE_MARGIN_S)
             calls()
+            time.sleep(TRACE_MARGIN_S)
             prof.step()
     out["scheduled"] = k9(prof)
     return out
@@ -1743,7 +1879,9 @@ def _time_segment_kernel(torch, np, dev, part, arrays, root, part_pr):
     tr = row["trace"]["scheduled"]
     check(tr["kernels"] == row["trace"]["reps"],
           f"K9 {app} round {rnd}: a scheduled trace of "
-          f"{row['trace']['reps']} launches saw {tr['kernels']} K9 kernels")
+          f"{row['trace']['reps']} launches saw {tr['kernels']} K9 kernels "
+          f"(it holds {tr['launches']} launches, none recorded on the card "
+          f"at launch-order positions {tr['missing']})")
 
     # the PageRank round: K9's sum form, held to the order model
     arrays_pr = engine.DeviceArrays.from_partition(part_pr, dev)
@@ -2065,7 +2203,13 @@ def phase_lanes(torch, np, dev, g, part, root, want, part_pr, want_pr):
                     + (f"{tr[w]['mean_us']:.2f} us" if tr[w]['mean_us']
                        else "none") + ")"
                     for w in ("settled", "bare", "scheduled"))
-        + f"; raw launches {1e3 * k9['raw_ms']:.2f} us")
+        + "; launches held without a kernel record, by launch-order "
+        "position: "
+        + ", ".join(f"{w} {tr[w]['missing']} of {tr[w]['launches']} "
+                    f"(least lag {tr[w]['min_lag_us']} us)"
+                    for w in ("settled", "bare", "scheduled"))
+        + "; raw launches "
+        f"{1e3 * k9['raw_ms']:.2f} us")
     log(f"[k9] pagerank reduce round ({k9_sum['active_edges']} active "
         f"edges, sum): equal to the order model bit for bit; K9 "
         f"{k9_sum['ms']:.4f} ms (kernel alone {k9_sum['kernel_ms']:.4f} ms, "
@@ -3465,6 +3609,518 @@ def phase_serving(torch, np, dev, g, part_pr, want):
     return launches, report
 
 
+# --------------------------------------------------------------------------
+# phase 9: streaming mutation and crash-safe fixpoints at RMAT-18
+# --------------------------------------------------------------------------
+
+MUT_BATCH1 = 41882           # a 1% insert batch (of 4,188,283 edges)
+MUT_BATCH2, MUT_DELETES = 4096, 8
+MUT_BATCH3 = 1024            # the serving run's third, insert-only commit
+MUT_LANES = 16               # the served min lanes and LanesTask's Q
+MUT_CKPT_EVERY = 2
+MUT_TICKS = 10               # ticks after a commit: a wave's lanes end
+
+
+def _mutation_batches(np, g):
+    """Phase 9's three commits, from the seed: (inserts, deletes) each;
+    inserted weights 1-9, deleted pairs drawn from the graph's edges."""
+    rng = np.random.default_rng(SEED)
+
+    def inserts(k):
+        return (rng.integers(0, g.n, k).astype(np.int32),
+                rng.integers(0, g.n, k).astype(np.int32),
+                rng.integers(1, 10, k).astype(np.float32))
+
+    first, second = inserts(MUT_BATCH1), inserts(MUT_BATCH2)
+    idx = rng.choice(g.num_edges, MUT_DELETES, replace=False)
+    dels = (g.src[idx].copy(), g.dst[idx].copy())
+    return [(first, None), (second, dels), (inserts(MUT_BATCH3), None)]
+
+
+def _buffer(sg, batch):
+    ins, dels = batch
+    sg.insert_edges(*ins)
+    if dels is not None:
+        sg.delete_edges(*dels)
+
+
+def _snapshot(sg):
+    """What a check needs of a StreamingGraph after a commit, kept before
+    the next one: the graph, the base partition and the values."""
+    return {"g": sg.g, "part": sg.view("base").part,
+            "pr_part": (sg.view("pr").part if ("pagerank", None)
+                        in sg.tracked else None),
+            "vals": {k: st["vals"].copy() for k, st in sg.tracked.items()},
+            "split": dict(sg.commit_seconds),
+            "fixpoint_s": dict(sg.fixpoint_seconds)}
+
+
+def _oracles(g, root, iters):
+    """The numpy oracles of one graph (BFS levels, Dijkstra, float64
+    PageRank) and their seconds, made in a worker process while the main
+    one splices and drives the card."""
+    from repro_torch.graph import reference
+    t0 = time.perf_counter()
+    out = {"bfs": reference.bfs_levels(g, root),
+           "sssp": reference.sssp_dijkstra(g, root),
+           "pr": reference.pagerank(g, 0.85, iters)}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _timed_manager(directory):
+    """A port ``CheckpointManager`` whose writer's whole write (the
+    ``.npy`` files, crc-32s, manifest fsync, rename and GC, on the
+    writer thread) is timed: ``write_s`` sums it, ``writes`` counts it."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Timed(CheckpointManager):
+        write_s, writes = 0.0, 0
+
+        def _write(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = super()._write(*args, **kwargs)
+            self.write_s += time.perf_counter() - t0
+            self.writes += 1
+            return out
+    return Timed(directory)
+
+
+def _conv_iters():
+    it = math.ceil(math.log(1e-6) / math.log(0.85))
+    return it + 1 if 0.85 ** it >= 1e-6 else it
+
+
+def _check_maintained(torch, np, dev, sg_cfg, snap, info, root, oracle,
+                      name, k):
+    """One commit of a tracked StreamingGraph: BFS/SSSP equal the numpy
+    oracles on the new graph and a cold port fixpoint on the spliced
+    partition bit for bit, with fewer warm messages than cold; PageRank
+    within tolerance of the float64 oracle, with fewer warm messages than
+    a cold delta-PageRank on the spliced view.  Each cold fixpoint is
+    timed alone (synced, on arrays uploaded before the clock starts) as
+    the commit timed its warm one.  Returns the log row."""
+    from repro_torch.core import actions, engine
+    from repro_torch.query.lanes import UNREACHED
+    part, vals = snap["part"], snap["vals"]
+    warm_s = snap["fixpoint_s"]
+    row = {"split_s": snap["split"], "laned": "lanes" in warm_s,
+           "maint": {}}
+    lv = vals[("bfs", root)]
+    levels = np.where(np.isfinite(lv), lv, 0).astype(np.int64)
+    levels[~np.isfinite(lv)] = UNREACHED
+    check(np.array_equal(levels, oracle["bfs"]),
+          f"{name} commit {k}: BFS differs from the numpy oracle")
+    dist, want = vals[("sssp", root)], oracle["sssp"]
+    fin = np.isfinite(want)
+    check(np.array_equal(np.isfinite(dist), fin)
+          and np.array_equal(dist[fin], want[fin].astype(np.float32)),
+          f"{name} commit {k}: SSSP differs from the numpy oracle")
+    arrays = engine.DeviceArrays.from_partition(part, dev)
+    for app, sem in (("bfs", actions.BFS), ("sssp", actions.SSSP)):
+        init = engine.init_values(part, sem, {root: 0.0})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val, st = engine.run_stacked(sem, part, init, sg_cfg, device=dev,
+                                     arrays=arrays)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        check(np.array_equal(engine.vertex_values(part, val),
+                             vals[(app, root)]),
+              f"{name} commit {k}: warm {app} differs from a cold "
+              "fixpoint on the spliced partition")
+        ms = info.maint[(app, root)]
+        check(ms.messages < int(st.messages),
+              f"{name} commit {k}: warm {app} sent {ms.messages} "
+              f"messages, cold {int(st.messages)}")
+        row["maint"][app] = {
+            "warm_rounds": ms.rounds, "warm_messages": ms.messages,
+            "seeds": ms.seeds, "invalidated": ms.invalidated,
+            "cold_rounds": int(st.iterations),
+            "cold_messages": int(st.messages), "cold_s": cold_s,
+            "warm_s": warm_s.get((app, root), warm_s.get("lanes"))}
+    if ("pagerank", None) in vals:
+        got = vals[("pagerank", None)]
+        diff = float(np.abs(got - oracle["pr"]).max())
+        check(np.allclose(got, oracle["pr"], rtol=PR_RTOL, atol=PR_ATOL),
+              f"{name} commit {k}: PageRank off the oracle by {diff}")
+        ms = info.maint[("pagerank", None)]
+        arrays_pr = engine.DeviceArrays.from_partition(snap["pr_part"], dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = engine.run_pagerank_delta(snap["pr_part"], 0.85, PR_TOL,
+                                          sg_cfg, device=dev,
+                                          arrays=arrays_pr)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        check(ms.messages < int(st.messages),
+              f"{name} commit {k}: warm PageRank sent {ms.messages} "
+              f"messages, cold {int(st.messages)}")
+        row["maint"]["pagerank"] = {
+            "warm_rounds": ms.rounds, "warm_messages": ms.messages,
+            "seeds": ms.seeds, "max_abs_diff": diff,
+            "cold_rounds": int(st.iterations),
+            "cold_messages": int(st.messages), "cold_s": cold_s,
+            "warm_s": warm_s[("pagerank", None)]}
+    return row
+
+
+def _log_commit(name, k, row, info):
+    sp = info.splices["base"]
+    m = row["maint"]
+    shared = " (one laned fixpoint)" if row["laned"] else ""
+    parts = [f"{app} warm {v['warm_rounds']} rounds / {v['warm_messages']} "
+             f"messages in {v['warm_s']:.4f} s{shared} against cold "
+             f"{v['cold_rounds']} / {v['cold_messages']} in "
+             f"{v['cold_s']:.4f} s" for app, v in m.items()]
+    if "pagerank" in m:
+        parts.append(
+            f"PageRank max |diff| {m['pagerank']['max_abs_diff']:.3g}")
+    s = row["split_s"]
+    log(f"[mutation] {name} commit {k} (+{info.inserted} -{info.deleted}, "
+        f"{sp.shards_rebuilt} shards rebuilt, {info.replicas_added} "
+        f"replicas added, R_max {row['r_max']}): splice {s['splice']:.2f} "
+        f"s, maintenance {s['maintain']:.3f} s = prepare "
+        f"{s['prepare']:.3f} + upload {s['upload']:.4f} + fixpoints "
+        f"{s['fixpoint']:.4f} s, servers {s['servers']:.3f} s; "
+        + "; ".join(parts))
+
+
+def phase_mutation(torch, np, dev, g, part, root, part_pr):
+    """9: streaming mutation and recovery at RMAT-18 (phase 4's graph).
+
+    a. ``StreamingGraph``s under ``dense`` (K1; BFS/SSSP from the root
+       and delta-PageRank, tol ``PR_TOL``) and ``device_worklist`` (K2;
+       BFS/SSSP) go through a 1% insert batch and 4,096 inserts + 8
+       deletes; after each commit BFS/SSSP equal the numpy oracles (made
+       in a worker process meanwhile) and a cold port fixpoint on the
+       spliced partition bit for bit, with fewer warm messages than
+       cold, PageRank within tolerance of the float64 oracle; each warm
+       fixpoint is timed beside its cold one, and the commit's wall time
+       split into splice, prepare, upload, fixpoints and servers.
+    b. ``runner='lanes'`` (K3) on the same schedule: values equal 9a's.
+    c. A ``QueryServer`` (16 min lanes, ``device_worklist``: K4) bound to
+       9a's dense graph answers three waves of 16 BFS/SSSP requests
+       across three commits (insert-only while lanes are in flight, one
+       with deletes, one more insert-only): every answer equals a solo
+       run on the partition it finished on.
+    d. ``run_resilient`` under a real ``CheckpointManager``:
+       ``StackedTask`` (SSSP, K1, a shard killed at round 3),
+       ``PagerankTask`` (K2 device plan, a corrupted tile) and
+       ``LanesTask`` (Q = 16, K3, a shard killed) equal their
+       uninterrupted runs; the checkpoint writes are timed on the
+       caller's thread and on the writer's."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch import query
+    from repro_torch.core import actions, engine
+    from repro_torch.core.partition import PartitionConfig
+    from repro_torch.core.resilient import (LanesTask, PagerankTask,
+                                            StackedTask, run_resilient)
+    from repro_torch.core.streaming import StreamingGraph
+    from repro_torch.query import lanes as L
+    from repro_torch.runtime.chaos import ChaosEvent, ChaosPlan
+
+    t_phase = time.perf_counter()
+    report = {"runs": {}, "commits": {}}
+    launches = {k: 0 for k in _COUNTERS}
+    drive = _run_counter(torch, report, launches)
+    batches = _mutation_batches(np, g)
+    pcfg = PartitionConfig(num_shards=SHARDS, rpvo_max=RPVO_MAX)
+    pool = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    pending, oracles = {}, {}
+
+    def oracle(k):
+        if k not in oracles:
+            t0 = time.perf_counter()
+            oracles[k] = pending.pop(k).result()
+            log(f"[mutation] numpy oracles after commit {k}: "
+                f"{oracles[k]['s']:.1f} s in a worker process (waited "
+                f"{time.perf_counter() - t0:.1f} s for them)")
+        return oracles[k]
+
+    def track(sg, apps):
+        for app in apps:
+            if app == "pagerank":
+                sg.track(app, tol=PR_TOL)
+            else:
+                sg.track(app, root)
+        return sg
+
+    # ---- 9a/9c: the dense graph, a server bound to it, three commits
+    cfg_dense = engine.EngineConfig(use_pallas=True)
+    cfg_dwl = engine.EngineConfig(use_pallas=True,
+                                  grid_mode="device_worklist")
+    sga, row = drive("stream_dense_track", "stream", lambda: track(
+        StreamingGraph(g, pcfg, cfg=cfg_dense, device=dev),
+        ("bfs", "sssp", "pagerank")))
+    log(f"[mutation] dense StreamingGraph built and tracking BFS, SSSP and "
+        f"PageRank (cutoff {sga.pcfg.indegree_cutoff}): "
+        f"{row['wall_s']:.1f} s")
+    srv = query.QueryServer(sga.view("base").part, n_lanes=MUT_LANES,
+                            cfg=cfg_dwl, device=dev)
+    sga.bind_server(srv)
+    deg = np.argsort(-g.out_degrees(), kind="stable")
+    waves = [[("bfs" if i % 2 == 0 else "sssp", int(deg[i]))
+              for i in range(16)],
+             [("bfs" if i % 2 == 0 else "sssp", int(deg[i]))
+              for i in range(16, 32)],
+             [("sssp" if i % 2 == 0 else "bfs", int(deg[i]))
+              for i in range(16)]]
+    qids, finished_on, snaps_a, infos_a = {}, {}, {0: None}, {}
+    serve_s = [0.0]
+    in_flight = []
+
+    def ticks(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            srv.step()
+        torch.cuda.synchronize()
+        serve_s[0] += time.perf_counter() - t0
+
+    def settle(k):
+        for q in srv.results:
+            finished_on.setdefault(q, k)
+
+    def submit(wave):
+        for kind, v in wave:
+            qids[srv.submit(kind, v)] = (kind, v)
+
+    def commit(k):
+        settle(k - 1)
+        in_flight.append(sum(r is not None for r in srv.min_pool.reqs))
+        _buffer(sga, batches[k - 1])
+        infos_a[k] = sga.commit()
+        snaps_a[k] = _snapshot(sga)
+        if k < 3:
+            pending[k] = pool.submit(_oracles, sga.g, root, _conv_iters())
+        serve_s[0] += sga.commit_seconds["servers"]
+
+    def stream():
+        parts = {0: sga.view("base").part}
+        submit(waves[0])
+        ticks(2)                        # wave 0 in flight
+        commit(1)                       # insert-only: warm continue
+        ticks(MUT_TICKS)                # wave 0 ends on partition 1
+        submit(waves[1])
+        ticks(2)
+        commit(2)                       # deletes: the lanes restart
+        ticks(MUT_TICKS)                # wave 1 ends on partition 2
+        submit(waves[2])
+        ticks(2)
+        commit(3)                       # insert-only again
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.run()
+        torch.cuda.synchronize()
+        serve_s[0] += time.perf_counter() - t0
+        settle(3)
+        return parts
+
+    syncs0, tick0 = srv.host_syncs, srv.tick
+    with pool:
+        parts0, row = drive("stream_dense_serving", "server_min", stream)
+        for k in (1, 2):
+            oracle(k)
+    check(row["K1"] > 0 and row["K4"] > 0,
+          f"dense stream with serving: K1 {row['K1']} / K4 {row['K4']}")
+    check(srv.counters["mutations"] == 3, "the server saw "
+          f"{srv.counters['mutations']} mutations")
+    check(in_flight[0] > 0, "no lane was in flight at the first commit")
+    parts_by_commit = {0: parts0[0], **{k: snaps_a[k]["part"]
+                                        for k in (1, 2, 3)}}
+    for k in (1, 2):
+        r = _check_maintained(torch, np, dev, cfg_dense, snaps_a[k],
+                              infos_a[k], root, oracle(k), "dense", k)
+        r.update(r_max=snaps_a[k]["part"].R_max)
+        report["commits"][f"dense_{k}"] = r
+        _log_commit("dense", k, r, infos_a[k])
+    # the third commit: held to cold fixpoints (no oracle needed)
+    snap = snaps_a[3]
+    for app, sem in (("bfs", actions.BFS), ("sssp", actions.SSSP)):
+        val, _ = engine.run_stacked(
+            sem, snap["part"], engine.init_values(snap["part"], sem,
+                                                  {root: 0.0}),
+            cfg_dense, device=dev)
+        check(np.array_equal(engine.vertex_values(snap["part"], val),
+                             snap["vals"][(app, root)]),
+              f"dense commit 3: warm {app} differs from a cold fixpoint")
+    sp = snap["split"]
+    log(f"[mutation] dense commit 3 (+{infos_a[3].inserted}): splice "
+        f"{sp['splice']:.2f} s, maintenance {sp['maintain']:.3f} s = "
+        f"prepare {sp['prepare']:.3f} + upload {sp['upload']:.4f} + "
+        f"fixpoints {sp['fixpoint']:.4f} s, servers {sp['servers']:.3f} s; "
+        "BFS/SSSP equal cold fixpoints")
+
+    # every served answer equals a solo run on its partition
+    solo = {}
+    results = srv.results
+    check(len(results) == 48 and all(r.status == "ok"
+                                      for r in results.values()),
+          f"served {len(results)} results, statuses "
+          f"{sorted({r.status for r in results.values()})}")
+    for q, (kind, v) in qids.items():
+        p = finished_on[q]
+        if (p, kind, v) not in solo:
+            sem = actions.BFS if kind == "bfs" else actions.SSSP
+            pp = parts_by_commit[p]
+            val, _ = engine.run_stacked(
+                sem, pp, engine.init_values(pp, sem, {v: 0.0}), cfg_dense,
+                device=dev)
+            solo[(p, kind, v)] = L.decode_min_values(
+                engine.vertex_values(pp, val), kind)
+        check(np.array_equal(results[q].values, solo[(p, kind, v)]),
+              f"served {kind} from {v} (finished after commit {p}) "
+              "differs from its solo run")
+    ticks_n = srv.tick - tick0
+    serve_row = {
+        "requests": len(results), "wall_s": serve_s[0],
+        "requests_per_s": len(results) / serve_s[0], "ticks": ticks_n,
+        "host_syncs_per_tick": (srv.host_syncs - syncs0) / ticks_n,
+        "ms_per_commit": [1e3 * snaps_a[k]["split"]["servers"]
+                          for k in (1, 2, 3)],
+        "in_flight_at_commit": in_flight,
+        "finished_after_commit": [sum(1 for q in qids if finished_on[q] == k)
+                                  for k in range(4)],
+        "K4": row["K4"]}
+    report["serving"] = serve_row
+    log(f"[mutation] serving: 48 requests across 3 commits "
+        f"({in_flight} lanes in flight at the commits; finished after "
+        f"commits 0-3: {serve_row['finished_after_commit']}), every answer "
+        f"equal to its solo run on its partition; "
+        f"{serve_row['requests_per_s']:.1f} requests/s over "
+        f"{serve_s[0]:.2f} s of ticks and swaps, {ticks_n} ticks, "
+        f"{serve_row['host_syncs_per_tick']:.2f} host reads a tick, "
+        "apply_mutation " + ", ".join(
+            f"{x:.1f}" for x in serve_row["ms_per_commit"]) + " ms; K4 "
+        f"launches {row['K4']}")
+
+    # ---- 9a: the device_worklist graph; 9b: the lanes runner.  Neither
+    # tracks PageRank: its pr view would splice each batch once more, and
+    # K2's warm delta-PageRank is held on the CPU tests and 9d's card run
+    for name, runner, cfg, apps, lane in (
+            ("device_worklist", "stacked", cfg_dwl, ("bfs", "sssp"), "K2"),
+            ("lanes", "lanes", cfg_dense, ("bfs", "sssp"), "K3")):
+        sg, row = drive(f"stream_{name}_track", "stream", lambda: track(
+            StreamingGraph(g, pcfg, cfg=cfg, runner=runner, device=dev),
+            apps))
+        for k in (1, 2):
+            _buffer(sg, batches[k - 1])
+            info, row = drive(f"stream_{name}_commit{k}", "stream",
+                              sg.commit)
+            check(row[lane] > 0, f"{name} commit {k}: no {lane} launch")
+            snap = _snapshot(sg)
+            for key, v in snap["vals"].items():
+                want = snaps_a[k]["vals"][key]
+                check(np.array_equal(v, want) if key[0] != "pagerank"
+                      else np.allclose(v, want, rtol=PR_RTOL, atol=PR_ATOL),
+                      f"{name} commit {k}: {key} differs from the dense "
+                      "graph's")
+            r = _check_maintained(torch, np, dev, cfg, snap, info, root,
+                                  oracle(k), name, k)
+            r.update(r_max=snap["part"].R_max,
+                     launches={kk: row[kk] for kk in _COUNTERS if row[kk]})
+            report["commits"][f"{name}_{k}"] = r
+            _log_commit(name, k, r, info)
+
+    # ---- 9d: recovery under real checkpoint managers
+    rec_rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        init = engine.init_values(part, actions.SSSP, {root: 0.0})
+        roots16 = [int(v) for v in deg[:MUT_LANES]]
+        q_init, unitw = L.init_lane_values(
+            part, [("bfs" if i < 8 else "sssp", v)
+                   for i, v in enumerate(roots16)])
+        cases = (
+            ("stacked_sssp", lambda: StackedTask(
+                actions.SSSP, part, init, engine.EngineConfig(
+                    use_pallas=True, checkpoint_every=MUT_CKPT_EVERY),
+                device=dev), dict(round=3, kind="kill_shard", shard=1)),
+            ("pagerank", lambda: PagerankTask(
+                part_pr, 0.85, PR_TOL, engine.EngineConfig(
+                    use_pallas=True, grid_mode="device_worklist",
+                    checkpoint_every=MUT_CKPT_EVERY), device=dev),
+             dict(round=3, kind="corrupt_tile", shard=2)),
+            ("lanes", lambda: LanesTask(
+                part, q_init, unitw, engine.EngineConfig(
+                    use_pallas=True, checkpoint_every=MUT_CKPT_EVERY),
+                device=dev), dict(round=3, kind="kill_shard", shard=1)))
+        for name, make, event in cases:
+            clean, _ = drive(f"resilient_{name}_clean", name,
+                             lambda: run_resilient(make()))
+            manager = _timed_manager(f"{d}/{name}")
+            (got, stats, rep), row = drive(
+                f"resilient_{name}", name, lambda: run_resilient(
+                    make(), chaos=ChaosPlan(events=(ChaosEvent(**event),)),
+                    manager=manager))
+            want, want_stats, _ = clean
+            check(rep.status == "recovered" and rep.restores >= 1
+                  and rep.checkpoints_written > 0,
+                  f"resilient {name}: {rep}")
+            check([int(x) for x in stats] == [int(x) for x in want_stats],
+                  f"resilient {name}: RunStats {list(map(int, stats))} != "
+                  f"uninterrupted {list(map(int, want_stats))}")
+            if name == "pagerank":
+                check(torch.allclose(got, want, rtol=PR_RTOL, atol=PR_ATOL),
+                      f"resilient {name}: off the uninterrupted run")
+                eng, est = engine.run_pagerank_delta(
+                    part_pr, 0.85, PR_TOL, engine.EngineConfig(
+                        use_pallas=True, grid_mode="device_worklist"),
+                    device=dev)
+                check(torch.allclose(got, eng, rtol=PR_RTOL, atol=PR_ATOL),
+                      f"resilient {name}: off run_pagerank_delta")
+            else:
+                check(torch.equal(got, want),
+                      f"resilient {name}: values differ from the "
+                      "uninterrupted run")
+                if name == "stacked_sssp":
+                    eng, est = engine.run_stacked(
+                        actions.SSSP, part, init,
+                        engine.EngineConfig(use_pallas=True), device=dev)
+                else:
+                    eng, est = L.run_stacked_lanes(
+                        part, q_init, unitw,
+                        engine.EngineConfig(use_pallas=True), device=dev)
+                check(torch.equal(got, eng),
+                      f"resilient {name}: differs from the plain runner")
+            rec_rows[name] = {
+                "rounds": int(stats.iterations),
+                "messages": int(stats.messages),
+                "faults": len(rep.faults), "restores": rep.restores,
+                "rounds_lost": rep.rounds_lost,
+                "checkpoints_written": rep.checkpoints_written,
+                "checkpoint_write_ms": 1e3 * rep.checkpoint_write_s,
+                "writer_ms": 1e3 * manager.write_s,
+                "writer_writes": manager.writes,
+                "restore_ms": 1e3 * rep.recovery_s,
+                "wall_s": row["wall_s"],
+                "launches": {kk: row[kk] for kk in _COUNTERS if row[kk]}}
+            log(f"[mutation] resilient {name}: {event['kind']} at round 3 "
+                f"recovered ({rep.restores} restore, {rep.rounds_lost} "
+                f"rounds lost, {rep.checkpoints_written} checkpoints); "
+                f"values and RunStats equal the uninterrupted run "
+                f"({int(stats.iterations)} rounds, {int(stats.messages)} "
+                f"messages); checkpoint writes "
+                f"{rec_rows[name]['checkpoint_write_ms']:.1f} ms in all on "
+                f"the caller's thread (host copy and hand-off), "
+                f"{rec_rows[name]['writer_ms']:.1f} ms on the writer's "
+                f"({manager.writes} writes: files, crc-32s, fsync, "
+                f"rename), restore {rec_rows[name]['restore_ms']:.1f} ms, "
+                "wall "
+                f"{row['wall_s']:.2f} s; launches "
+                f"{rec_rows[name]['launches']}")
+    report["resilient"] = rec_rows
+    for k in ("K1", "K2", "K3", "K4"):
+        check(launches[k] > 0, f"phase 9 launched no {k}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mutation] phase 9: {report['phase_s']:.1f} s; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches, report
+
+
 def _tick_profile(torch, srv, ticks=4, top=10):
     """Wall and device time of ``ticks`` server ticks, recorded in the
     third step of a wait/warm-up/active ``torch.profiler`` schedule (an
@@ -3540,6 +4196,157 @@ FOLD_SWEEP = {
                         "BLOCKS_PER_SM = 5;", "BLOCKS_PER_SM = 6;")],
     "full-warp lists": [],
 }
+
+
+TRACE_DROP_TRACES = 20   # traces of each way --trace-drops takes
+
+
+def _trace_record(prof, name="segment_combine_kernel"):
+    """What a finished ``torch.profiler`` trace holds of its launches:
+    ``kernels``, the kernel records on the card whose name holds
+    ``name``; ``launches``, the launch calls it holds; ``missing``, the
+    launch-order positions of those it holds no kernel record of;
+    ``first_launch_us``, the first launch call after the trace's start;
+    ``min_lag_us``, the least time from a launch call to its recorded
+    kernel's start (the two clocks' disagreement shows as a negative
+    lag)."""
+    from torch.autograd import DeviceType
+    res = prof.profiler.kineto_results
+    ev = res.events()
+    kern = {e.correlation_id(): e for e in ev
+            if e.device_type() == DeviceType.CUDA}
+    seq = [(t, kern.get(c)) for t, c in sorted(
+        (e.start_ns(), e.correlation_id()) for e in ev
+        if e.device_type() != DeviceType.CUDA
+        and "LaunchKernel" in e.name())]
+    lags = [(k.start_ns() - t) / 1e3 for t, k in seq if k is not None]
+    return {"kernels": sum(1 for e in kern.values() if name in e.name()),
+            "launches": len(seq),
+            "missing": [i for i, (_, k) in enumerate(seq) if k is None],
+            "first_launch_us": ((seq[0][0] - res.trace_start_ns()) / 1e3
+                                if seq else None),
+            "min_lag_us": min(lags) if lags else None}
+
+
+def trace_drops() -> int:
+    """``--trace-drops``: where ``torch.profiler`` loses K9's kernel
+    records.  K9 on the RMAT-18 BFS round with the most active edges
+    (``pallas_mode='reduce'``), 20 wrapper launches a trace, traced
+    ``TRACE_DROP_TRACES`` times in turns each way: ``bare`` (started
+    right before the launches), ``settled`` (0.2 s inside the trace
+    first), ``scheduled`` (the third step of a wait/warm-up/active
+    schedule, as phase 6 traces), ``scheduled_lead`` (the same with a
+    sync and 0.05 s before each step's launches), ``scheduled_tail``
+    (0.05 s after each step's sync) and ``scheduled_sentinel`` (20
+    launches of a one-element ``add_`` right before each step's K9
+    launches, with no sync between).  For each trace its
+    ``_trace_record``.  All of it twice: in a
+    process that has traced nothing else (``fresh``), then after one
+    CPU + CUDA trace of the same launches, as phases 5 and 6 take before
+    phase 6's K9 traces (``primed``).  Prints the card and one JSON
+    line."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch import exchange
+    from repro_torch.core import actions, engine
+    from repro_torch.core.partition import PartitionConfig, build_partition
+    from repro_torch.graph import generators
+    from repro_torch.kernels import rhizome_segment_reduce as rsr
+    dev = torch.device("cuda")
+    smi, _ = phase_device()
+    g = generators.rmat(RMAT_SCALE, edge_factor=EDGE_FACTOR,
+                        seed=SEED).with_random_weights(seed=SEED)
+    part = build_partition(g, PartitionConfig(num_shards=SHARDS,
+                                              rpvo_max=RPVO_MAX))
+    root = int(np.argmax(g.out_degrees()))
+    arrays = engine.DeviceArrays.from_partition(part, dev)
+    cfg = engine.EngineConfig(use_pallas=True, pallas_mode="reduce")
+    sem = actions.BFS
+    val = torch.as_tensor(engine.init_values(part, sem, {root: 0.0}),
+                          device=dev)
+    chg = (val == 0) & arrays.slot_valid
+    rounds = []
+    while bool(chg.any()):
+        rounds.append(_segment_messages(torch, sem, arrays, val, chg))
+        val, chg, _ = exchange.fixpoint_round_stacked(
+            sem, arrays, cfg, part.S, part.R_max, val, chg)
+    msg, active = max(rounds, key=lambda r: r[1])
+    ids = arrays.edge_dst_flat.reshape(-1)
+    reps = 20
+
+    def calls():
+        for _ in range(reps):
+            rsr._launch(msg, ids, arrays.fused_plan, "min", False)
+        torch.cuda.synchronize()
+    calls()
+    act = [ProfilerActivity.CUDA]
+
+    def unscheduled(lead, tail):
+        with profile(activities=act) as prof:
+            torch.cuda.synchronize()
+            time.sleep(lead)
+            calls()
+            time.sleep(tail)
+        return prof
+
+    one = torch.zeros(1, device=dev)
+
+    def scheduled(lead=0.0, tail=0.0, sentinels=0):
+        with profile(activities=act, schedule=schedule(
+                wait=1, warmup=1, active=1)) as prof:
+            for _ in range(3):
+                if lead:
+                    torch.cuda.synchronize()
+                    time.sleep(lead)
+                for _ in range(sentinels):
+                    one.add_(1.0)
+                calls()
+                time.sleep(tail)
+                prof.step()
+        return prof
+    ways = {"bare": lambda: unscheduled(0.0, 0.0),
+            "settled": lambda: unscheduled(0.2, 0.0),
+            "scheduled": scheduled,
+            "scheduled_lead": lambda: scheduled(lead=0.05),
+            "scheduled_tail": lambda: scheduled(tail=0.05),
+            "scheduled_sentinel": lambda: scheduled(sentinels=reps)}
+    out, summary = {}, {}
+    for history in ("fresh", "primed"):
+        if history == "primed":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]):
+                calls()
+        for _ in range(TRACE_DROP_TRACES):
+            for w, run in ways.items():
+                out.setdefault(f"{history} {w}", []).append(
+                    _trace_record(run()))
+    for w, t in out.items():
+        summary[w] = s = {
+            "traces": len(t),
+            "short": sum(1 for x in t if x["kernels"] < reps),
+            "k9": [x["kernels"] for x in t],
+            "missing_at": sorted(collections.Counter(
+                i for x in t for i in x["missing"]).items()),
+            "short_traces": [x for x in t if x["kernels"] < reps],
+            "min_lag_us": min((x["min_lag_us"] for x in t
+                               if x["min_lag_us"] is not None),
+                              default=None)}
+        log(f"[trace-drops] {w}: {s['short']} of {s['traces']} traces saw "
+            f"fewer than {reps} K9 kernels {s['k9']}; launches without a "
+            f"kernel record, by launch-order position: {s['missing_at']}; "
+            f"least launch-to-kernel lag {s['min_lag_us']} us; the short "
+            "ones: "
+            + json.dumps([{k: v for k, v in x.items() if k != "missing"}
+                          for x in s["short_traces"]]))
+    print(smi)
+    print(json.dumps({"trace_drops": {"reps": reps, "active_edges": active,
+                                      "summary": summary, "traces": out}}))
+    return 0
 
 
 def fold_sweep() -> int:
@@ -3780,12 +4587,14 @@ def main() -> int:
     report8.update(serving=report8b,
                    phase_s=time.perf_counter() - t8)
     log(f"[compact] phase 8: {report8['phase_s']:.1f} s")
+    launches9, report9 = phase_mutation(torch, np, dev, g, part, root,
+                                        part_pr)
     heavy, heavy2 = report["heaviest"], report2["heaviest"]
     k3, k4, k9 = report3["k3"], report3["k4"], report3["k9"]
     k9_sum = report3["k9_sum"]
 
     report.update(slice2=report2, slice3=report3, slice4=report4,
-                  slice10=report8,
+                  slice10=report8, slice11=report9,
                   device=smi, build_s=build_s,
                   total_s=time.perf_counter() - t_start)
     OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -3795,7 +4604,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:323",
-        "launches": k1_launches + launches2["K1"] + launches8["K1"],
+        "launches": k1_launches + launches2["K1"] + launches8["K1"]
+        + launches9["K1"],
         "max_abs_err": max(err, errs["K1"], err8["K1"]),
         "ms": heavy["ms"],
         "plain_ms": heavy["plain_ms"],
@@ -3810,7 +4620,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:613",
-        "launches": launches2["K2"] + launches8["K2"],
+        "launches": launches2["K2"] + launches8["K2"] + launches9["K2"],
         "max_abs_err": max(err2, errs["K2"], err8["K2"]),
         "ms": heavy2["ms"],
         "plain_ms": heavy2["plain_ms"],
@@ -3826,7 +4636,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl_lanes.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:391",
-        "launches": launches3["K3"] + launches8["K3"],
+        "launches": launches3["K3"] + launches8["K3"] + launches9["K3"],
         "max_abs_err": max(err3["K3"], errs3["K3"], err8["K3"]),
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
@@ -3842,7 +4652,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl_lanes.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:639",
-        "launches": launches3["K4"] + launches8["K4"],
+        "launches": launches3["K4"] + launches8["K4"] + launches9["K4"],
         "max_abs_err": max(err3["K4"], errs3["K4"]),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
@@ -3858,7 +4668,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_combine.cu",
         "replaces": "src/repro/kernels/rhizome_segment_reduce.py:39",
-        "launches": launches3["K9"] + launches8["K9"],
+        "launches": launches3["K9"] + launches8["K9"] + launches9["K9"],
         "max_abs_err": max(err3["K9"], errs3["K9"], err8["K9"]),
         "ms": k9["ms"],
         "plain_ms": k9["plain_ms"],
@@ -3892,7 +4702,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{cu}.cu",
             "replaces": f"src/repro/kernels/fused_relax_reduce.py:{line}",
-            "launches": launches4[key] + launches8[key],
+            "launches": launches4[key] + launches8[key] + launches9[key],
             "max_abs_err": max(err4[key], errs4[key]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -3921,4 +4731,6 @@ if __name__ == "__main__":
                              else SRC))
     if "--fold-sweep" in sys.argv[1:]:
         sys.exit(fold_sweep())
+    if "--trace-drops" in sys.argv[1:]:
+        sys.exit(trace_drops())
     sys.exit(main())

@@ -60,7 +60,10 @@ class EngineConfig:
     instead of K1-K4.
     ``smem_budget_bytes`` arms the index-table guard (a warning, and a
     wider tile on the tiled path), as in the reference.
-    ``checkpoint_every`` is validated but not acted on yet."""
+    ``checkpoint_every=K`` makes the resilient runner
+    (``core.resilient.run_resilient``) hand its state to a checkpoint
+    manager every K rounds; the plain runners ignore it, as in the
+    reference."""
 
     collapse: str = "eager"      # 'eager' | 'deferred' (min-semirings only)
     exchange: str = "dense"      # 'dense' | 'compact' (targeted messages)
@@ -362,7 +365,7 @@ def _obs_record_round(rec, run, part, cfg, planner, rnd, gchg, frontier,
 
 def run_stacked(sem: Semiring, part: Partition, init_val,
                 cfg: EngineConfig = EngineConfig(), init_changed=None,
-                device=None):
+                device=None, arrays=None):
     """Single-device stacked execution. ``init_val``: (S, R_max) float32.
     ``init_changed`` (optional bool (S, R_max)) seeds the first frontier —
     used by incremental recompute to re-diffuse only mutation sites.
@@ -373,15 +376,17 @@ def run_stacked(sem: Semiring, part: Partition, init_val,
     plan the worklist); under 'device_worklist' rounds are enqueued in
     windows of ``cfg.device_window`` with one host read per window.
     ``engine_dispatches_total`` / ``engine_host_syncs_total`` count
-    exactly that.  Returns ((S, R_max) values, ``RunStats``) as tensors
-    on ``device``."""
+    exactly that.  ``arrays``: ``DeviceArrays.from_partition(part)``
+    when the caller has uploaded it already (``None``: uploaded here).
+    Returns ((S, R_max) values, ``RunStats``) as tensors on ``device``."""
     if sem.segment != "min":
         raise ValueError(
             "run_stacked drives monotone min-semiring fixpoints; the "
             "collapse of a combined candidate is only sound there — use "
             "run_pagerank_stacked for counted sum-semiring rounds")
     dev = resolve_device(device)
-    arrays = DeviceArrays.from_partition(part, dev)
+    if arrays is None:
+        arrays = DeviceArrays.from_partition(part, dev)
     val = torch.as_tensor(init_val, dtype=torch.float32, device=dev)
     if init_changed is not None:
         chg = torch.as_tensor(init_changed, dtype=torch.bool, device=dev) \
@@ -587,6 +592,15 @@ def _run_device_windows(run, part, arrays, cfg, max_rounds, window, state,
                            diffusions=mk(work_total))
 
 
+def _host_stats(it, msgs, work, pruned, device=None) -> RunStats:
+    """``RunStats`` of host-side totals, as int64 tensors on ``device``
+    (the resilient runner's accounting)."""
+    mk = lambda x: torch.tensor(x, dtype=torch.int64, device=device)  # noqa: E731,E501
+    return RunStats(iterations=mk(it), messages=mk(msgs),
+                    work_actions=mk(work), pruned_actions=mk(pruned),
+                    diffusions=mk(work))
+
+
 def _count_dispatches(run: str, dispatches: int, host_syncs: int):
     """Registry accounting for the dispatch/host-sync columns: batches
     of launches a fixpoint enqueued (a round each on host-driven loops, a
@@ -644,7 +658,8 @@ def _tol_table(part: Partition, tol, device):
 def run_pagerank_delta(part: Partition, damping: float = 0.85,
                        tol=1e-6, cfg: EngineConfig = EngineConfig(),
                        max_rounds: int = 256,
-                       init_rank=None, init_delta=None, device=None):
+                       init_rank=None, init_delta=None, device=None,
+                       arrays=None):
     """Stacked **delta-PageRank**: push-based residual propagation with
     per-vertex pruning.
 
@@ -659,11 +674,13 @@ def run_pagerank_delta(part: Partition, damping: float = 0.85,
     ``cfg.device_window`` rounds under 'device_worklist'.  Returns
     ((S, R_max) ranks, RunStats: messages delivered, slots whose residual
     stayed live (work), deliveries pruned below tolerance).
-    ``init_rank`` / ``init_delta`` warm-start the accumulation."""
+    ``init_rank`` / ``init_delta`` warm-start the accumulation;
+    ``arrays`` as in ``run_stacked``."""
     from repro_torch.core.actions import PAGERANK as sem
 
     dev = resolve_device(device)
-    arrays = DeviceArrays.from_partition(part, dev)
+    if arrays is None:
+        arrays = DeviceArrays.from_partition(part, dev)
     S, R_max = part.S, part.R_max
     base = (1.0 - damping) / part.n
     tol_t = _tol_table(part, tol, dev)

@@ -28,6 +28,7 @@ engine (`repro_torch.core.engine`).
 from __future__ import annotations
 
 import dataclasses
+import heapq
 
 import numpy as np
 
@@ -166,6 +167,22 @@ def _hash_mod(seed: int, tag: int, key, sub, mod: int) -> np.ndarray:
     return (h % np.uint64(max(mod, 1))).astype(np.int64)
 
 
+def _stable_argsort(keys: np.ndarray, bound: int) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")`` for integer keys in
+    ``[0, bound)``, the same permutation, by 16-bit passes least
+    significant first (numpy sorts 8- and 16-bit keys stably by radix)."""
+    keys = np.asarray(keys)
+    if bound <= 1 << 8:
+        return np.argsort(keys.astype(np.uint8), kind="stable")
+    if bound <= 1 << 16:
+        return np.argsort(keys.astype(np.uint16), kind="stable")
+    if bound > 1 << 32:
+        return np.argsort(keys, kind="stable")
+    order = np.argsort((keys & 0xFFFF).astype(np.uint16), kind="stable")
+    return order[np.argsort((keys[order] >> 16).astype(np.uint16),
+                            kind="stable")]
+
+
 # ---------------------------------------------------------------------------
 # placement: global assignment arrays (pure, vectorized)
 # ---------------------------------------------------------------------------
@@ -231,7 +248,7 @@ def _placement(g: COOGraph, cfg: PartitionConfig) -> _Placement:
     ).astype(np.int64)
 
     # slots: order replicas per shard
-    order = np.argsort(rep_shard, kind="stable")
+    order = _stable_argsort(rep_shard, S)
     rep_slot = np.zeros(R_total, dtype=np.int64)
     counts = np.bincount(rep_shard, minlength=S)
     starts = np.zeros(S + 1, dtype=np.int64)
@@ -242,7 +259,7 @@ def _placement(g: COOGraph, cfg: PartitionConfig) -> _Placement:
     root_flat = rep_flat[first_rid[:-1]] if n else np.zeros(0, np.int64)
 
     # ---- 3. in-edge -> replica assignment (cycling every cutoff_chunk) ----
-    dst_order = np.argsort(g.dst, kind="stable")
+    dst_order = _stable_argsort(g.dst, n)
     in_rank = np.zeros(E, dtype=np.int64)
     dst_counts = np.bincount(g.dst, minlength=n)
     dst_starts = np.zeros(n + 1, dtype=np.int64)
@@ -252,7 +269,7 @@ def _placement(g: COOGraph, cfg: PartitionConfig) -> _Placement:
     edge_dst_rid = first_rid[g.dst] + dst_rep_index  # global replica id per edge
 
     # ---- 4. out-edge chunking (RPVO ghosts) + allocation ----
-    src_order = np.argsort(g.src, kind="stable")
+    src_order = _stable_argsort(g.src, n)
     out_rank = np.zeros(E, dtype=np.int64)
     src_counts = np.bincount(g.src, minlength=n)
     src_starts = np.zeros(n + 1, dtype=np.int64)
@@ -292,13 +309,16 @@ def _placement(g: COOGraph, cfg: PartitionConfig) -> _Placement:
         # NOTE: globally load-dependent, so splice_partition falls back to
         # rebuilding every shard row under this allocator.
         chunk_sizes = np.bincount(chunk_id_of_edge, minlength=n_chunks)
-        load = np.zeros(S, dtype=np.int64)
         chunk_shard = np.zeros(n_chunks, dtype=np.int64)
         csort = np.argsort(-chunk_sizes, kind="stable")
-        for c in csort:
-            s = int(np.argmin(load))
-            chunk_shard[c] = s
-            load[s] += chunk_sizes[c]
+        # the least-loaded shard, lowest id first on a tie (np.argmin's)
+        heap = [(0, s) for s in range(S)]
+        picks = []
+        for size in chunk_sizes[csort].tolist():
+            ld, s = heapq.heappop(heap)
+            picks.append(s)
+            heapq.heappush(heap, (ld + size, s))
+        chunk_shard[csort] = picks
     else:
         raise ValueError(f"unknown ghost_alloc {cfg.ghost_alloc!r}")
     chunk_shard = chunk_shard.astype(np.int64)
@@ -307,7 +327,7 @@ def _placement(g: COOGraph, cfg: PartitionConfig) -> _Placement:
     e_counts = np.bincount(edge_shard, minlength=S)
     e_starts = np.zeros(S + 1, dtype=np.int64)
     np.cumsum(e_counts, out=e_starts[1:])
-    shard_sort = np.argsort(edge_shard, kind="stable")
+    shard_sort = _stable_argsort(edge_shard, S)
     E_max = max(int(e_counts.max()) if E else 1, 1)
 
     return _Placement(
@@ -365,7 +385,7 @@ def _assemble(g: COOGraph, cfg: PartitionConfig, pl: _Placement,
         if rebuild[s]:
             es = pl.shard_sort[pl.e_starts[s]: pl.e_starts[s + 1]]
             dflat = pl.rep_flat[pl.edge_dst_rid[es]]
-            local_order = np.argsort(dflat, kind="stable")
+            local_order = _stable_argsort(dflat, S * R_max)
             es = es[local_order]
             edge_src_root_flat[s, :k] = pl.root_flat[g.src[es]]
             edge_dst_flat[s, :k] = pl.rep_flat[pl.edge_dst_rid[es]]

@@ -1200,9 +1200,15 @@ def worklist_flags(plan: LaunchPlan, wl_i, wl_j, nlive):
     return out[:n][plan.cell_order]
 
 
-def device_worklist_pad(plan: LaunchPlan) -> int:
-    """Static length of a device-compacted worklist for ``plan``."""
-    return _wl_pad_len(plan.num_cells)
+def device_worklist_pad(plan, num_segments: int | None = None) -> int:
+    """Static length of a device-compacted worklist.  ``(plan)``: the
+    port's, over ``plan``'s cells (the cells whose ranges meet).
+    ``(num_edges, num_segments)``: the reference's, over the full
+    (segment block, chunk) grid, pow2-padded."""
+    if isinstance(plan, LaunchPlan):
+        return _wl_pad_len(plan.num_cells)
+    n_i = _round_up(num_segments, SBLK) // SBLK
+    return _wl_pad_len(n_i * (_round_up(int(plan), EBLK) // EBLK))
 
 
 def _compact_live_cells(plan: LaunchPlan, chunk_act, l_pad: int,
@@ -1857,27 +1863,61 @@ def fused_relax_reduce_lanes(gval, gchg, lane_unitw, edge_src, edge_w,
 # host-side launch mirror (grid-cell accounting)
 # --------------------------------------------------------------------------
 
+def _unfused_mirror(edge_dst, seg0) -> dict:
+    """The reference's unfused composition: S per-shard segment-reduce
+    launches over (S, E_max) ids, every in-shard position valid (padding
+    ids widen chunk ranges), range skip only.  Returns its grid size
+    (``total_unfused``) and the cells whose range meets (``range_live``)."""
+    S, E_max = edge_dst.shape
+    ep = _round_up(E_max, EBLK)
+    ids = np.zeros((S, ep), np.int64)
+    ids[:, :E_max] = edge_dst
+    valid = np.zeros(ep, bool)
+    valid[:E_max] = True
+    idc = ids.reshape(S, ep // EBLK, EBLK)
+    v = valid.reshape(ep // EBLK, EBLK)[None, :, :]
+    lo = np.where(v, idc, np.iinfo(np.int64).max).min(axis=-1)
+    hi = np.where(v, idc, -1).max(axis=-1)                   # (S, n_j)
+    inter = (hi[:, None, :] >= seg0[None, :, :]) \
+        & (lo[:, None, :] < seg0[None, :, :] + SBLK)         # (S, n_i, n_j)
+    return {"total_unfused": int(inter.size),
+            "range_live": int(inter.sum())}
+
+
 def fused_grid_cells(edge_dst, edge_mask, edge_src, gchg,
                      num_segments: int, vblk: int | None = None,
-                     lane_width: int = 1) -> dict:
-    """Host-side mirror of the fused launch over an edge stack.
+                     lane_width: int = 1, grid_mode: str = "dense",
+                     pad_to: int = WL_PAD, dst_filter: bool = True) -> dict:
+    """Host-side mirror of the fused launch over an edge stack, with the
+    reference's keys and call form.
 
     Edge arrays are (S, E_max) host arrays, or 1-D for a single flat
     launch; ``gchg`` is the (V,) frontier, or a (V, Q) lane frontier,
     OR'd across lanes (the laned launches skip on the OR).  Returns
     ``total_fused`` (the reference's dense (segment block, chunk) grid),
-    ``launch_cells`` (the (block, chunk) pairs whose range meets, which
-    this port's blocks walk) and ``fused_live`` (those whose chunk is
-    frontier-live: the cells the kernel executes, equal to its
-    ``with_debug`` count and to the reference grid's live cells).
+    ``fused_live`` (its cells whose chunk is frontier-live: the cells the
+    kernel executes, equal to its ``with_debug`` count), the reference's
+    unfused mirror (``total_unfused``, ``range_live``), and the port's
+    own ``launch_cells`` (the (block, chunk) pairs whose range meets,
+    which this port's blocks walk).
 
     With ``vblk`` it also mirrors the tiled launch: ``fused_staged_rows``
     (the rows K5/K7 stage, equal to their count) and ``staged_bytes``
     (rows x lane_width x 4), and the reference's tile accounting:
     ``chunk_ntiles`` (the distinct active-source tiles of each chunk),
     ``fused_tile_dmas`` (tile copies when each live cell copies its
-    chunk's tiles, equal to the reference kernel's count) and
-    ``dma_bytes`` (copies x vblk x lane_width x 4)."""
+    chunk's tiles, equal to the reference kernel's count), ``dma_bytes``
+    (copies x vblk x lane_width x 4) and ``smem_table_bytes``.
+
+    ``grid_mode='worklist'`` adds the host worklist's mirror (the
+    planner's, with ``pad_to`` and ``dst_filter``): ``wl_cells``,
+    ``wl_launched``, ``wl_tile_dmas``, ``wl_tile_needed``,
+    ``wl_dma_bytes`` and ``smem_table_bytes``.  ``'device_worklist'``
+    adds the same keys for a device plan: its cells are the dense grid's
+    live ones and its tile copies the chunks' lists summed over them;
+    ``wl_launched`` is this port's static device list
+    (``device_worklist_pad`` of the launch's plan), not the reference's
+    full-grid length."""
     num_slots = np.asarray(gchg).shape[0]
     tiled = vblk is not None
     planner = WorklistPlanner(edge_dst, edge_mask, edge_src, num_segments,
@@ -1885,12 +1925,97 @@ def fused_grid_cells(edge_dst, edge_mask, edge_src, gchg,
                               path="tiled" if tiled else "pinned",
                               vblk=vblk, lane_width=lane_width)
     d = planner.dense_mirror(gchg, tile_lists=tiled)
+    seg0 = np.arange(planner.n_i)[:, None] * SBLK
     out = {"total_fused": planner.total_cells,
-           "launch_cells": d["launched"], "fused_live": d["cells"]}
+           "launch_cells": d["launched"], "fused_live": d["cells"],
+           **_unfused_mirror(np.atleast_2d(np.asarray(edge_dst)), seg0)}
     if tiled:
         out["chunk_ntiles"] = d["chunk_ntiles"].tolist()
         out["fused_tile_dmas"] = d["tile_dmas"]
         out["dma_bytes"] = d["dma_bytes"]
         out["fused_staged_rows"] = d["staged_rows"]
         out["staged_bytes"] = d["staged_bytes"]
+    if grid_mode == "worklist":
+        _, info = planner.plan(gchg, pad_to=pad_to, dst_filter=dst_filter,
+                               tile_lists=tiled)
+        out.update(wl_cells=info.cells, wl_launched=info.launched,
+                   wl_tile_dmas=info.tile_dmas,
+                   wl_tile_needed=info.tile_needed,
+                   wl_dma_bytes=info.dma_bytes,
+                   smem_table_bytes=info.smem_table_bytes)
+    elif grid_mode == "device_worklist":
+        l_pad = _wl_pad_len(planner.launch_cells)
+        out.update(wl_cells=d["cells"], wl_launched=l_pad,
+                   wl_tile_dmas=d["tile_dmas"], wl_tile_needed=d["tile_dmas"],
+                   wl_dma_bytes=d["dma_bytes"],
+                   smem_table_bytes=smem_table_bytes(
+                       planner.n_chunks, planner.t_max, l_pad))
+    elif tiled:
+        out["smem_table_bytes"] = smem_table_bytes(planner.n_chunks,
+                                                   planner.t_max)
     return out
+
+
+# --------------------------------------------------------------------------
+# the reference's entry-point names
+# --------------------------------------------------------------------------
+
+def _tensors(*xs, device=None):
+    """``xs`` as tensors: arrays that are not tensors go on ``device``,
+    else on the device of the first tensor among ``xs``, else on CUDA
+    (``engine.resolve_device``, which raises when there is no card)."""
+    from repro_torch.core.engine import resolve_device
+    if device is None:
+        device = next((x.device for x in xs if isinstance(x, torch.Tensor)),
+                      None)
+    dev = resolve_device(device)
+    return [x if isinstance(x, torch.Tensor)
+            else torch.as_tensor(np.asarray(x), device=dev) for x in xs]
+
+
+def fused_relax_reduce_pallas(gval, gchg, edge_src, edge_w, edge_mask,
+                              edge_dst, num_segments: int, relax_kind: str,
+                              kind: str, interpret: bool = True,
+                              with_count: bool = False,
+                              vmem_budget_bytes=None, path=None, vblk=None,
+                              with_debug: bool = False,
+                              grid_mode: str = "dense", worklist=None,
+                              smem_budget_bytes=None, device=None):
+    """``fused_relax_reduce`` in the reference's positional order.
+    ``interpret`` is accepted and ignored: a CUDA tensor launches the
+    kernel (K1, K2, K5 or K6), a CPU tensor runs its plain version.
+    Arrays that are not tensors go on ``device``, else where the tensor
+    arguments are, else on the card (``_tensors``)."""
+    return fused_relax_reduce(
+        *_tensors(gval, gchg, edge_src, edge_w, edge_mask, edge_dst,
+                  device=device),
+        num_segments, relax_kind, kind, with_count=with_count,
+        with_debug=with_debug, grid_mode=grid_mode, worklist=worklist,
+        vmem_budget_bytes=vmem_budget_bytes, path=path, vblk=vblk,
+        smem_budget_bytes=smem_budget_bytes)
+
+
+def fused_relax_reduce_lanes_pallas(gval, gchg, lane_unitw, edge_src, edge_w,
+                                    edge_mask, edge_dst, num_segments: int,
+                                    relax_kind: str, kind: str,
+                                    interpret: bool = True,
+                                    with_count: bool = False,
+                                    vmem_budget_bytes=None, path=None,
+                                    vblk=None, lane_tile=None,
+                                    with_debug: bool = False,
+                                    grid_mode: str = "dense",
+                                    worklist=None, smem_budget_bytes=None,
+                                    device=None):
+    """``fused_relax_reduce_lanes`` in the reference's positional order.
+    ``interpret`` and ``lane_tile`` (the reference's lane padding, which
+    changes no value) are accepted and ignored: a CUDA tensor launches
+    the kernel (K3, K4, K7 or K8), a CPU tensor runs its plain version.
+    Arrays that are not tensors are placed as in
+    ``fused_relax_reduce_pallas``."""
+    return fused_relax_reduce_lanes(
+        *_tensors(gval, gchg, lane_unitw, edge_src, edge_w, edge_mask,
+                  edge_dst, device=device),
+        num_segments, relax_kind, kind, with_count=with_count,
+        with_debug=with_debug, grid_mode=grid_mode, worklist=worklist,
+        vmem_budget_bytes=vmem_budget_bytes, path=path, vblk=vblk,
+        smem_budget_bytes=smem_budget_bytes)

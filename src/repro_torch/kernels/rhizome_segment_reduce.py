@@ -161,3 +161,14 @@ def segment_combine(data, segment_ids, num_segments: int, kind: str,
                                   kind).to(data.dtype)
         dbg = launch_counts(plan, segment_ids) if with_debug else None
     return (out, dbg) if with_debug else out
+
+
+def segment_combine_pallas(data, segment_ids, num_segments: int, kind: str,
+                           interpret: bool = True, device=None):
+    """``segment_combine`` in the reference's call form.  ``interpret``
+    is accepted and ignored: a CUDA tensor launches K9, a CPU tensor runs
+    its plain version.  Arrays that are not tensors go on ``device``,
+    else where the tensor argument is, else on the card; ids are taken
+    as int32."""
+    data, ids = frr._tensors(data, segment_ids, device=device)
+    return segment_combine(data, ids.to(torch.int32), num_segments, kind)

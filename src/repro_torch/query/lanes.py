@@ -170,7 +170,8 @@ def _window_loop(run: str, cfg: EngineConfig, max_rounds: int, frontier,
 
 def make_stacked_lanes_fn(part: Partition,
                           cfg: EngineConfig = EngineConfig(),
-                          sem: Semiring = actions.SSSP, device=None):
+                          sem: Semiring = actions.SSSP, device=None,
+                          arrays=None):
     """Builds the stacked laned fixpoint as a function of ((S, R_max, Q)
     init values, (Q,) lane_unitw, (S, R_max, Q) init changed[, (Q,)
     lane_budget]) -> (values, ``LaneStats``), with the partition's device
@@ -180,11 +181,14 @@ def make_stacked_lanes_fn(part: Partition,
     ``lane_budget`` ((Q,) int, optional) is a per-lane round budget: a
     lane that has been live for ``budget`` rounds is frozen in-round
     (``exchange.fixpoint_round_stacked``'s ``lane_mask``) — its values
-    stop improving and it costs no further messages."""
+    stop improving and it costs no further messages.  ``arrays``:
+    ``DeviceArrays.from_partition(part)`` when the caller has uploaded it
+    already (``None``: uploaded here)."""
     _check_cfg(cfg)
     _check_min(sem)
     dev = engine.resolve_device(device)
-    arrays = DeviceArrays.from_partition(part, dev)
+    if arrays is None:
+        arrays = DeviceArrays.from_partition(part, dev)
     S, R_max = part.S, part.R_max
     vol = _volume(part, cfg)
 
@@ -229,7 +233,7 @@ def make_stacked_lanes_fn(part: Partition,
 def run_stacked_lanes(part: Partition, init_val, lane_unitw=None,
                       cfg: EngineConfig = EngineConfig(),
                       init_changed=None, sem: Semiring = actions.SSSP,
-                      lane_budget=None, device=None):
+                      lane_budget=None, device=None, arrays=None):
     """Single-device lane-batched execution.  ``init_val``: (S, R_max, Q)
     float32 — one query per lane; ``lane_unitw`` (Q,) marks BFS-style
     lanes (relax with weight 1.0).  A lane converges when no slot of its
@@ -242,8 +246,9 @@ def run_stacked_lanes(part: Partition, init_val, lane_unitw=None,
     Under ``cfg.grid_mode='worklist'|'auto'`` (fused only) each round's
     OR-across-lanes frontier plans a sparse K4 launch on the host; under
     ``'device_worklist'`` the K4 worklist is compacted on the device and
-    rounds run in windows.  Returns ((S, R_max, Q) values, per-lane
-    ``LaneStats``) as tensors on ``device``."""
+    rounds run in windows.  ``arrays`` as in ``make_stacked_lanes_fn``.
+    Returns ((S, R_max, Q) values, per-lane ``LaneStats``) as tensors on
+    ``device``."""
     init_val = np.asarray(init_val, np.float32) \
         if not isinstance(init_val, torch.Tensor) else init_val
     if init_val.ndim != 3:
@@ -252,7 +257,7 @@ def run_stacked_lanes(part: Partition, init_val, lane_unitw=None,
     _check_cfg(cfg)
     _check_min(sem)
     q = init_val.shape[-1]
-    fn = make_stacked_lanes_fn(part, cfg, sem, device)
+    fn = make_stacked_lanes_fn(part, cfg, sem, device, arrays)
     slot_valid = torch.as_tensor(part.slot_vertex >= 0)[..., None]
     if init_changed is not None:
         init_chg = torch.as_tensor(init_changed, dtype=torch.bool).cpu() \

@@ -233,11 +233,17 @@ class _LanePool:
 
     def __init__(self, part: Partition, n_lanes: int, cfg: EngineConfig,
                  arrays: engine.DeviceArrays, server):
-        self.part, self.n = part, n_lanes
-        self._cfg, self._arrays, self._server = cfg, arrays, server
+        self.n = n_lanes
+        self._cfg, self._server = cfg, server
         self.dev = arrays.slot_valid.device
-        self.exchange_volume = L._volume(part, cfg)
         self.reqs: list[QueryRequest | None] = [None] * n_lanes
+        self._bind(part, arrays)
+
+    def _bind(self, part: Partition, arrays: engine.DeviceArrays):
+        """Point the pool at ``part`` and its device tables (a fresh
+        ``DeviceArrays``: its launch plan and tables are ``part``'s)."""
+        self.part, self._arrays = part, arrays
+        self.exchange_volume = L._volume(part, self._cfg)
         self._valid = (np.asarray(part.slot_vertex) >= 0).reshape(-1)
 
     def put(self, x, dtype) -> torch.Tensor:
@@ -297,6 +303,51 @@ class _MinPool(_LanePool):
         self.unitw = np.array(unitw, np.int32)
         self._unitw = self.put(self.unitw, torch.int32)
 
+    def rebind(self, part: Partition, arrays: engine.DeviceArrays,
+               insert_seeds=None, has_deletes: bool = False) -> None:
+        """Swap the pool onto a mutated partition (streaming commit).
+
+        Rounds run over ``arrays`` from now on (shapes may change when a
+        splice grows ``R_max``).  Live lanes migrate: insert-only
+        batches warm-continue — per-vertex values are still valid upper
+        bounds, so they re-scatter onto the new replica layout with the
+        lane frontier OR'd with the insert seeds (the old tables cross
+        to the host in one read); a batch with deletes can RAISE min
+        values, so every live lane restarts from its request (same lane,
+        rounds keep accumulating)."""
+        old_part = self.part
+        live = [lane for lane, r in enumerate(self.reqs) if r is not None]
+        warm = live and not has_deletes
+        if warm:
+            old_val, old_chg = self._server._read(self.val, self.chg)
+        self._bind(part, arrays)
+        S, R_max = part.S, part.R_max
+        val = np.full((S, R_max, self.n), np.inf, np.float32)
+        chg = np.zeros((S, R_max, self.n), bool)
+        if warm:
+            # every lane at once: (n, Q) per-vertex values and frontier
+            # flags (a vertex is live if any replica was), then scattered
+            # onto the new layout; lanes without a request stay inert
+            sv_old = np.asarray(old_part.slot_vertex)
+            ok_old = sv_old >= 0
+            sv_new = np.asarray(part.slot_vertex)
+            ok_new = sv_new >= 0
+            seeds = (np.asarray(insert_seeds, np.int64)
+                     if insert_seeds is not None else np.zeros(0, np.int64))
+            vv = old_val.reshape(-1, self.n)[old_part.root_flat]
+            fl = np.zeros((part.n, self.n), bool)
+            np.logical_or.at(fl, sv_old[ok_old], old_chg[ok_old])
+            fl[seeds] |= np.isfinite(vv[seeds])
+            occupied = np.zeros(self.n, bool)
+            occupied[live] = True
+            val[ok_new] = np.where(occupied, vv[sv_new[ok_new]], np.inf)
+            chg[ok_new] = fl[sv_new[ok_new]] & occupied
+        self.val = self.put(val, torch.float32)
+        self.chg = self.put(chg, torch.bool)
+        if not warm:
+            for lane in live:
+                self.inject(lane, self.reqs[lane])
+
     def inject(self, lane: int, req: QueryRequest):
         init, unitw = L.init_lane_values(
             self.part, [("bfs" if req.kind == "reachability" else req.kind,
@@ -335,12 +386,29 @@ class _PprPool(_LanePool):
 
     def __init__(self, part, n_lanes, cfg, arrays, server):
         super().__init__(part, n_lanes, cfg, arrays, server)
-        self._round = L.make_ppr_delta_round(part, cfg, arrays=arrays)
+        self._fresh_tables()
+        self.set_lane_params(np.zeros(n_lanes, np.float32),
+                             np.full(n_lanes, 1e-6, np.float32))
+
+    def _bind(self, part, arrays):
+        super()._bind(part, arrays)
+        self._round = L.make_ppr_delta_round(part, self._cfg, arrays=arrays)
+
+    def _fresh_tables(self):
         self.rank = self._table(0.0, torch.float32)
         self.delta = self._table(0.0, torch.float32)
         self.chg = self._table(False, torch.bool)
-        self.set_lane_params(np.zeros(n_lanes, np.float32),
-                             np.full(n_lanes, 1e-6, np.float32))
+
+    def rebind(self, part: Partition, arrays: engine.DeviceArrays,
+               insert_seeds=None, has_deletes: bool = False) -> None:
+        """Swap the pool onto a mutated partition (streaming commit).
+        Sum-semiring residual state is exact only for the graph it was
+        seeded on, so every live lane restarts from its request."""
+        self._bind(part, arrays)
+        self._fresh_tables()
+        for lane, req in enumerate(self.reqs):
+            if req is not None:
+                self.inject(lane, req)
 
     def set_lane_params(self, damping, tol):
         self.damping = np.array(damping, np.float32)
@@ -392,7 +460,8 @@ class QueryServer:
     ``benchmarks/query_bench.py`` and ``benchmarks/serve_bench.py``.
 
     ``mesh=`` (the sharded layout, ROADMAP Queue 1 item 10) raises
-    through ``engine.no_mesh``; ``apply_mutation`` (item 8) raises.
+    through ``engine.no_mesh``.  ``apply_mutation`` swaps the server onto
+    a mutated partition between ticks (``StreamingGraph.bind_server``).
 
     ``serve=ServeConfig(...)`` enables the overload-safety layer; the
     default config reproduces the unpoliced server trace-identically.
@@ -437,14 +506,9 @@ class QueryServer:
         self.tick_rounds = int(tick_rounds)
         self._clock = clock if clock is not None else time.monotonic
         self._clock_offset = 0.0         # advanced by FaultPlan tick delays
-        # one device copy of the static graph tables, shared by both pools;
-        # the kernel path's launch plan is built here, not in a tick
         self.device = engine.resolve_device(device)
-        arrays = engine.DeviceArrays.from_partition(part, self.device)
-        if cfg.use_pallas:
-            arrays.launch_plan(cfg)
-        if cfg.exchange == "compact":
-            arrays.compact.inbox_index      # made now, not in a tick
+        self._cfg = cfg
+        arrays = self._device_arrays(part)
         self.host_syncs = 0      # device->host reads made by the server
         self.min_pool = _MinPool(part, n_lanes, cfg, arrays, self)
         self.ppr_pool = _PprPool(
@@ -476,6 +540,17 @@ class QueryServer:
         self._obs_admit_t = {}       # qid -> tracer time at admission
         self._ckpt_manager = None    # attach_checkpoints() wires saving
         self._resumed_qids: set[int] = set()   # lanes that crossed a restore
+
+    def _device_arrays(self, part: Partition) -> engine.DeviceArrays:
+        """One device copy of ``part``'s static graph tables, shared by
+        both pools; the kernel path's launch plan (and the compact
+        exchange's scatter index) is built here, not in a tick."""
+        arrays = engine.DeviceArrays.from_partition(part, self.device)
+        if self._cfg.use_pallas:
+            arrays.launch_plan(self._cfg)
+        if self._cfg.exchange == "compact":
+            arrays.compact.inbox_index      # made now, not in a tick
+        return arrays
 
     def now(self) -> float:
         """Server wall clock (injected faults advance it)."""
@@ -659,10 +734,34 @@ class QueryServer:
     def apply_mutation(self, new_part: Partition, insert_seeds=None,
                        has_deletes: bool = False,
                        affected_roots=None) -> None:
-        """Not ported yet (ROADMAP Queue 1 item 8, mutation): raises."""
-        raise NotImplementedError(
-            "QueryServer.apply_mutation (streaming mutation) is not ported "
-            "yet (ROADMAP Queue 1 item 8)")
+        """Swap the server onto a mutated partition between ticks (the
+        ``StreamingGraph.commit`` hook).
+
+        One fresh device copy of the new graph tables (with its own
+        launch plan: nothing planned for the old partition survives)
+        feeds both pools' ``rebind``: live min lanes warm-continue across
+        insert-only batches (frontier OR'd with ``insert_seeds``) and
+        restart when ``has_deletes``, PPR lanes always restart.  The
+        result cache is then invalidated — the whole cache when
+        ``affected_roots`` is None (exact: a mutation can move any root's
+        result), else per affected root (the root-affine heuristic
+        ``invalidate_cache(root)`` documents)."""
+        arrays = self._device_arrays(new_part)
+        self.part = new_part
+        self.min_pool.rebind(new_part, arrays, insert_seeds=insert_seeds,
+                             has_deletes=has_deletes)
+        self.ppr_pool.rebind(new_part, arrays)
+        if affected_roots is None:
+            self.invalidate_cache(None)
+        else:
+            for root in np.asarray(affected_roots).reshape(-1):
+                self.invalidate_cache(int(root))
+        self.counters["mutations"] += 1
+        rec = obs.get_recorder()
+        if rec is not None:
+            rec.registry.counter(
+                "serve_mutations_total",
+                "partition swaps applied between ticks").inc()
 
     # -------------------------------------------------------------- admit
     def _tenant_in_flight(self) -> dict:

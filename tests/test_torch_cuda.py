@@ -1123,3 +1123,224 @@ def test_query_server_on_the_card(dev, exch, grid_mode, tick_rounds):
         np.testing.assert_array_equal(r.values, want)
         assert (r.rounds, r.messages) == (int(st.iterations),
                                           int(st.messages))
+
+
+# --------------------------------------------------------------------------
+# streaming mutation and crash-safe fixpoints on the card
+# --------------------------------------------------------------------------
+
+def _stream_schedule(g):
+    """Two commits: 48 random inserts, then 32 inserts and 6 deletes."""
+    rng = np.random.default_rng(3)
+
+    def ins(k):
+        return (rng.integers(0, g.n, k).astype(np.int32),
+                rng.integers(0, g.n, k).astype(np.int32),
+                rng.integers(1, 10, k).astype(np.float32))
+
+    first, second = ins(48), ins(32)
+    idx = rng.choice(g.num_edges, 6, replace=False)
+    return [(first, None), (second, (g.src[idx].copy(), g.dst[idx].copy()))]
+
+
+@pytest.mark.parametrize("grid_mode,runner", [
+    ("dense", "stacked"), ("device_worklist", "stacked"),
+    ("dense", "lanes"), ("device_worklist", "lanes")])
+def test_streaming_on_the_card(dev, grid_mode, runner):
+    """A StreamingGraph on the card (K1/K2, or K3/K4 with the lanes
+    runner) and one on the CPU (the kernels' plain versions), same
+    schedule: equal ``MaintStats``, min values bit for bit, PageRank
+    within rtol 1e-4 / atol 1e-7."""
+    import dataclasses
+    from repro_torch.core.streaming import StreamingGraph
+    g = generators.rmat(9, edge_factor=8, seed=4).with_random_weights(
+        seed=4)
+    root = int(np.argmax(g.out_degrees()))
+    cfg = engine.EngineConfig(use_pallas=True, grid_mode=grid_mode)
+    sgs = [StreamingGraph(g, PartitionConfig(num_shards=4, rpvo_max=4),
+                          cfg=cfg, runner=runner, device=d)
+           for d in (dev, "cpu")]
+    for sg in sgs:
+        sg.track("bfs", root)
+        sg.track("sssp", root)
+        sg.track("pagerank", tol=1e-8)
+    for ins, dels in _stream_schedule(g):
+        infos = []
+        for sg in sgs:
+            sg.insert_edges(*ins)
+            if dels is not None:
+                sg.delete_edges(*dels)
+            infos.append(sg.commit())
+        assert {k: dataclasses.asdict(v) for k, v in infos[0].maint.items()
+                if k[0] != "pagerank"} \
+            == {k: dataclasses.asdict(v) for k, v in infos[1].maint.items()
+                if k[0] != "pagerank"}
+        for k in sgs[0].tracked:
+            a, b = (sg.tracked[k]["vals"] for sg in sgs)
+            if k[0] == "pagerank":
+                np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-7)
+            else:
+                np.testing.assert_array_equal(a, b)
+    lv = sgs[0].values("bfs", root)
+    want = reference.bfs_levels(sgs[0].g, root)
+    np.testing.assert_array_equal(np.isfinite(lv), want != lanes.UNREACHED)
+
+
+def test_checkpoint_cuda_tensors_async(dev, tmp_path):
+    """An async save of CUDA tensors copies them to the host before the
+    writer thread starts; a restore lands on the device asked for."""
+    from repro_torch.checkpoint import CheckpointManager
+    mgr = CheckpointManager(str(tmp_path))
+    tree = {"val": torch.arange(12, dtype=torch.float32, device=dev)
+            .reshape(3, 4), "chg": torch.ones(3, 4, dtype=torch.bool,
+                                              device=dev)}
+    want = {k: v.clone() for k, v in tree.items()}
+    mgr.save(1, tree, blocking=False)
+    tree["val"].add_(5.0)
+    mgr.wait()
+    got = mgr.restore(1, tree, device=dev)
+    for k in want:
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("task", ["stacked", "lanes"])
+def test_resilient_on_the_card(dev, task, tmp_path):
+    """``run_resilient`` on the card with a shard killed at round 3 and a
+    real checkpoint manager equals the plain runner bit for bit, with
+    equal ``RunStats``."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.resilient import LanesTask, StackedTask
+    from repro_torch.core.resilient import run_resilient
+    from repro_torch.runtime.chaos import ChaosEvent, ChaosPlan
+    g = generators.rmat(9, edge_factor=8, seed=5).with_random_weights(
+        seed=5)
+    part = build_partition(g, PartitionConfig(num_shards=4, rpvo_max=2))
+    deg = np.argsort(-g.out_degrees(), kind="stable")
+    cfg = engine.EngineConfig(use_pallas=True, checkpoint_every=2)
+    plain = engine.EngineConfig(use_pallas=True)
+    if task == "stacked":
+        init = engine.init_values(part, actions.SSSP, {int(deg[0]): 0.0})
+        want, wst = engine.run_stacked(actions.SSSP, part, init, plain,
+                                       device=dev)
+        t = StackedTask(actions.SSSP, part, init, cfg, device=dev)
+        wmsgs = int(wst.messages)
+    else:
+        init, unitw = lanes.init_lane_values(
+            part, [("bfs", int(v)) for v in deg[:3]]
+            + [("sssp", int(v)) for v in deg[3:6]])
+        want, wst = lanes.run_stacked_lanes(part, init, unitw, plain,
+                                            device=dev)
+        t = LanesTask(part, init, unitw, cfg, device=dev)
+        wmsgs = int(wst.messages.sum())
+    got, stats, report = run_resilient(
+        t, chaos=ChaosPlan(events=(ChaosEvent(round=3, kind="kill_shard",
+                                              shard=1),)),
+        manager=CheckpointManager(str(tmp_path)))
+    assert report.status == "recovered" and report.checkpoints_written
+    assert torch.equal(got, want)
+    assert int(stats.messages) == wmsgs
+
+
+def test_server_apply_mutation_on_the_card(dev):
+    """A bound server on the card (K4 under ``device_worklist``) across
+    an insert-only commit with lanes in flight and one with deletes:
+    every answer equals a solo run on the final partition."""
+    from repro_torch.core.streaming import StreamingGraph
+    from repro_torch.query import QueryServer
+    g = generators.rmat(9, edge_factor=8, seed=6).with_random_weights(
+        seed=6)
+    sg = StreamingGraph(g, PartitionConfig(num_shards=4, rpvo_max=4),
+                        device=dev)
+    srv = QueryServer(sg.view("base").part, n_lanes=4, ppr_lanes=0,
+                      cfg=engine.EngineConfig(use_pallas=True,
+                                              grid_mode="device_worklist"))
+    sg.bind_server(srv)
+    deg = np.argsort(-g.out_degrees(), kind="stable")
+    reqs = [("bfs", int(deg[0])), ("sssp", int(deg[1])),
+            ("sssp", int(deg[2])), ("bfs", int(deg[3]))]
+    qids = [srv.submit(k, v) for k, v in reqs]
+    srv.step()
+    for ins, dels in _stream_schedule(g):
+        sg.insert_edges(*ins)
+        if dels is not None:
+            sg.delete_edges(*dels)
+        sg.commit()
+        srv.step()
+    res = srv.run()
+    part = sg.view("base").part
+    for qid, (kind, v) in zip(qids, reqs):
+        sem = actions.BFS if kind == "bfs" else actions.SSSP
+        val, _ = engine.run_stacked(sem, part, engine.init_values(
+            part, sem, {v: 0.0}), engine.EngineConfig(use_pallas=True),
+            device=dev)
+        want = lanes.decode_min_values(engine.vertex_values(part, val), kind)
+        assert res[qid].status == "ok"
+        np.testing.assert_array_equal(res[qid].values, want)
+
+
+def _close_on_card(out, want, kind):
+    torch.cuda.synchronize()
+    if kind == "min":
+        assert torch.equal(out, want)
+    else:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("grid_mode,counter", [
+    ("dense", "launches"), ("worklist", "wl_launches"),
+    ("device_worklist", "wl_launches")])
+@pytest.mark.parametrize("relax,kind", PAIRS)
+def test_pallas_name_launches_k1_k2(dev, relax, kind, grid_mode, counter):
+    """``fused_relax_reduce_pallas`` in the reference's call form, with
+    numpy arrays and no device, launches K1/K2 on the card and equals the
+    plain version."""
+    case = _case(900, 3 * EBLK + 17, 700, 0.3, 31, negative=kind == "min")
+    n0 = getattr(frr, counter)
+    out, count = frr.fused_relax_reduce_pallas(
+        *case, 700, relax, kind, True, True, grid_mode=grid_mode)
+    assert getattr(frr, counter) > n0
+    assert out.is_cuda and count.is_cuda
+    want = fused_relax_reduce_ref(
+        *[torch.as_tensor(x, device=dev) for x in case], 700, relax, kind)
+    _close_on_card(out, want, kind)
+
+
+@pytest.mark.parametrize("grid_mode,counter", [
+    ("dense", "lanes_launches"), ("device_worklist", "wl_lanes_launches")])
+@pytest.mark.parametrize("relax,kind", LANE_PAIRS)
+def test_pallas_name_launches_k3_k4(dev, relax, kind, grid_mode, counter):
+    """``fused_relax_reduce_lanes_pallas`` with numpy arrays launches
+    K3/K4 on the card and equals the plain version."""
+    rng = np.random.default_rng(32)
+    _, _, src, w, mask, ids = _case(900, 3 * EBLK + 17, 700, 0.3, 32)
+    gvq = rng.uniform(0.0, 10.0, (900, 5)).astype(np.float32)
+    gcq = rng.random((900, 5)) < 0.3
+    unitw = np.array([1, 0, 1, 0, 0], np.int32)
+    n0 = getattr(frr, counter)
+    out, _ = frr.fused_relax_reduce_lanes_pallas(
+        gvq, gcq, unitw, src, w, mask, ids, 700, relax, kind, True, True,
+        grid_mode=grid_mode)
+    assert getattr(frr, counter) > n0
+    assert out.is_cuda
+    want = fused_relax_reduce_lanes_ref(
+        *[torch.as_tensor(x, device=dev)
+          for x in (gvq, gcq, unitw, src, w, mask, ids)],
+        700, relax, kind)
+    _close_on_card(out, want, kind)
+
+
+@pytest.mark.parametrize("kind", ["min", "sum"])
+def test_pallas_name_launches_k9(dev, kind):
+    """``segment_combine_pallas`` with numpy arrays launches K9 on the
+    card and equals the plain version."""
+    rng = np.random.default_rng(33)
+    data = rng.standard_normal(20 * EBLK + 5).astype(np.float32)
+    ids = np.sort(rng.integers(0, 3000, data.shape[0])).astype(np.int32)
+    n0 = rsr.launches
+    out = rsr.segment_combine_pallas(data, ids, 3000, kind)
+    assert rsr.launches == n0 + 1
+    assert out.is_cuda
+    want = segment_combine_ref(torch.as_tensor(data, device=dev),
+                               torch.as_tensor(ids, device=dev), 3000, kind)
+    _close_on_card(out, want, kind)

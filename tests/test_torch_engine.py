@@ -234,8 +234,9 @@ def test_unported_options_raise(case, item):
     them.  ``pallas_mode='reduce'`` (kernel K9) and ``exchange='compact'``
     have come since: their cases now run and equal the reference
     (``test_torch_segment_reduce.py`` and ``test_torch_compact.py`` hold
-    the paths in full).  ``QueryServer`` refuses ``mesh=`` (item 10) and
-    ``apply_mutation`` (item 8).  The sharded entry points take the
+    the paths in full), and so has ``QueryServer.apply_mutation`` (item
+    8; ``test_torch_streaming.py`` holds it in full).  ``QueryServer``
+    refuses ``mesh=`` (item 10).  The sharded entry points take the
     reference's parameters and call form (``mesh=`` on the apps, the six
     sharded engine functions) and raise for item 10."""
     g_ref, g, root, part_ref, part = _both("rmat8", 4, 1)
@@ -285,9 +286,19 @@ def test_unported_options_raise(case, item):
             with pytest.raises(NotImplementedError, match=item):
                 QueryServer(part, n_lanes=1, mesh=mesh, device="cpu")
         else:
-            srv = QueryServer(part, n_lanes=1, device="cpu")
-            with pytest.raises(NotImplementedError, match=item):
-                srv.apply_mutation(part)
+            from repro.query import QueryServer as RefQueryServer
+            servers = (RefQueryServer(part_ref, n_lanes=1),
+                       QueryServer(part, n_lanes=1, device="cpu"))
+            for srv, p in zip(servers, (part_ref, part)):
+                srv.submit("bfs", root)
+                srv.step()
+                srv.apply_mutation(p, insert_seeds=[root])
+                srv.run()
+                assert srv.counters["mutations"] == 1
+            want, got = (srv.results[0] for srv in servers)
+            np.testing.assert_array_equal(got.values, want.values)
+            assert (got.rounds, got.messages) == (want.rounds,
+                                                  want.messages)
         return
     if item == "K9":
         ref_cfg = ref_engine.EngineConfig(use_pallas=True,

@@ -71,14 +71,20 @@ def _tiny():
                                    "batched_queries", "cc",
                                    "personalized_pagerank",
                                    "run_stacked_lanes", "run_ppr_lanes",
-                                   "run_ppr_delta_lanes"])
+                                   "run_ppr_delta_lanes", "QueryServer",
+                                   "StreamingGraph", "DynamicGraph",
+                                   "StackedTask", "PagerankTask",
+                                   "LanesTask"])
 def test_entry_points_without_device_need_cuda(monkeypatch, entry):
     from repro_torch.apps import (
         batched_queries, bfs, cc, pagerank, pagerank_delta,
         personalized_pagerank, sssp,
     )
-    from repro_torch.core import actions, engine
-    from repro_torch.query import lanes
+    from repro_torch.core import actions, engine, resilient
+    from repro_torch.core.dynamic import DynamicGraph
+    from repro_torch.core.partition import PartitionConfig
+    from repro_torch.core.streaming import StreamingGraph
+    from repro_torch.query import QueryServer, lanes
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g, part = _tiny()
     init, unitw = lanes.init_lane_values(part, [("bfs", 0), ("sssp", 1)])
@@ -101,6 +107,16 @@ def test_entry_points_without_device_need_cuda(monkeypatch, entry):
         "pagerank": lambda: pagerank(g, part=part),
         "pagerank_delta": lambda: pagerank_delta(g, part=part),
         "run_pagerank_delta": lambda: engine.run_pagerank_delta(part),
+        "QueryServer": lambda: QueryServer(part),
+        "StreamingGraph": lambda: StreamingGraph(
+            g, PartitionConfig(num_shards=2)).track("bfs", 0),
+        "DynamicGraph": lambda: DynamicGraph.build(
+            g, PartitionConfig(num_shards=2)).bfs_full(0),
+        "StackedTask": lambda: resilient.StackedTask(
+            actions.BFS, part, engine.init_values(part, actions.BFS,
+                                                  {0: 0.0})),
+        "PagerankTask": lambda: resilient.PagerankTask(part),
+        "LanesTask": lambda: resilient.LanesTask(part, init, unitw),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -112,3 +128,23 @@ def test_cpu_device_runs_when_asked():
     levels, stats, _ = bfs(g, 0, part=part, device="cpu")
     np.testing.assert_array_equal(levels, np.arange(16))
     assert int(stats.iterations) == 16
+
+
+MIRRORED = ["checkpoint.manager", "runtime.chaos", "runtime.elastic",
+            "core.dynamic", "core.streaming", "core.resilient",
+            "checkpoint", "runtime"]
+
+
+@pytest.mark.parametrize("name", MIRRORED)
+def test_new_modules_mirror_reference_names(name):
+    """The modules ported for mutation and fault tolerance carry every
+    public name of their reference counterpart."""
+    import importlib
+    ref = importlib.import_module(f"repro.{name}")
+    port = importlib.import_module(f"repro_torch.{name}")
+    want = {n for n in (getattr(ref, "__all__", None) or vars(ref))
+            if not n.startswith("_")
+            and getattr(getattr(ref, n), "__module__", "").startswith(
+                "repro.")}
+    assert want, name
+    assert want <= set(vars(port)), sorted(want - set(vars(port)))

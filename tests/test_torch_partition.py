@@ -120,3 +120,32 @@ def test_interop_tables_round_trip():
     assert t_val.dtype == torch.float32 and t_chg.dtype == torch.bool
     np.testing.assert_array_equal(interop.table_to_numpy(t_val), val)
     np.testing.assert_array_equal(interop.table_to_numpy(t_chg), chg)
+
+
+@pytest.mark.parametrize("bound", [1, 200, 256, 257, 40_000, 65_536,
+                                   65_537, 300_000, 1 << 31])
+def test_stable_argsort_equals_numpy(bound):
+    """``_stable_argsort`` (16-bit radix passes) is numpy's stable
+    argsort, ties in input order, at every key width it takes."""
+    rng = np.random.default_rng(bound % 1000)
+    keys = rng.integers(0, bound, 5000)
+    keys[::7] = keys[0]                      # many ties
+    for dtype in (np.int32, np.int64):
+        k = keys.astype(dtype) if bound <= 1 << 31 else keys
+        np.testing.assert_array_equal(
+            partition._stable_argsort(k, bound),
+            np.argsort(k, kind="stable"))
+
+
+@pytest.mark.parametrize("shards", [3, 16, 300])
+def test_balanced_chunks_match_reference_large(shards):
+    """The balanced allocator's heap picks the least-loaded shard, lowest
+    id on a tie, as the reference's ``argmin`` loop does, over many
+    chunks of equal size."""
+    g = _rand_graph(COOGraph, 3000, 40_000, shards)
+    rg = RefCOOGraph(g.n, g.src, g.dst, g.weight)
+    kw = dict(num_shards=shards, rpvo_max=4, local_edge_list_size=4)
+    want = ref_partition.build_partition(
+        rg, ref_partition.PartitionConfig(**kw))
+    got = partition.build_partition(g, partition.PartitionConfig(**kw))
+    assert_same(dataclasses.asdict(want), dataclasses.asdict(got))
