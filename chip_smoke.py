@@ -180,6 +180,33 @@ started together) and runs, in order:
    host reads a tick and the checkpoint write and restore times
    (``[mutation]``).
 
+10. slice-12 path, the sharded layout on ``torch.distributed``
+   (``phase_sharded``): ``bfs(..., num_shards=1, mesh=)`` on a one-rank
+   NCCL group over the card; then 16 ranks spawned side by side on the
+   one card (NCCL takes one rank a GPU) over a gloo group with a
+   ``FileStore``, a ``DeviceMesh("cuda", (8, 2))`` over them, each rank
+   loading phase 4's RMAT-18 partition and phase 5's PageRank partition
+   from one pickle and making the same calls: a probe of which gloo
+   collective takes which CUDA dtype, BFS and SSSP under ``dense`` (K1),
+   ``device_worklist`` (K2), ``pallas_mode='reduce'`` (K9) and the
+   compact exchange, PageRank (30 rounds) and delta-PageRank, Q = 16
+   lanes under ``dense`` (K3) and ``device_worklist`` (K4), a sharded
+   ``QueryServer`` (16 min + 8 PPR lanes) answering 16 mixed requests,
+   ``StreamingGraph(runner='sharded')`` through one commit of 4,096
+   inserts (BFS, SSSP) and one ``ShardedTask`` recovering from a
+   corrupted tile with real checkpoint managers.  Here, against what
+   rank 0 writes: min values equal the numpy oracles and ``RunStats`` /
+   ``LaneStats`` the stacked runs exactly, PageRank within rtol 1e-4 /
+   atol 1e-7 of the oracle, served answers their solo runs (PPR the
+   float64 oracle), the warm commit a cold run and the oracle, the
+   recovered run the uninterrupted one; then K1, K2, K3 (Q = 16) and K9
+   on one shard's launch on the heaviest round against their plain
+   versions and K1/K3/K9 against their order models.  It prints each
+   leg's wall, rounds and a round's split into relax, collectives and
+   host (rank 0, each synced), the bytes each collective brings a rank
+   a round (``[sharded]``).  These times are 16 ranks sharing one card
+   over gloo, not a multi-GPU layout's.
+
 ``--profile`` also traces one replayed lane round's relax phase (K3 and
 K4 host-plan launches) with ``torch.profiler`` and prints its device
 time by operator.
@@ -4533,6 +4560,597 @@ def plan_timing(src) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# phase 10: the sharded layout on torch.distributed
+# --------------------------------------------------------------------------
+# The card's machine has one GPU and NCCL takes one rank a GPU, so the
+# 16 shards run as 16 spawned ranks side by side on the one card, over a
+# gloo group whose collectives stage the card's tensors through the host
+# (``exchange.collectives``): their times are not a multi-GPU layout's.
+# A one-rank NCCL group runs first, so the NCCL calls themselves launch.
+
+SHARD_RANKS, SHARD_MESH = 16, (8, 2)
+SHARD_DIR = ROOT / "chip_smoke_out" / "sharded"
+SHARD_INSERTS = 4096          # the streaming leg's one commit
+SHARD_SERVE_PPR = ((0, 0.85), (3, 0.7), (6, 0.6), (9, 0.85))
+SHARD_CKPT_EVERY = 4          # the resilient leg's checkpoint cadence
+SHARD_FAULT = ("corrupt_tile", 3, 5)   # kind, round, shard
+
+
+def _shard_configs(engine):
+    """The BFS/SSSP legs: K1 dense, K2 device worklist, K9 reduce and the
+    compact exchange (K1 on each shard's compact plan)."""
+    return {"dense": engine.EngineConfig(use_pallas=True),
+            "device_worklist": engine.EngineConfig(
+                use_pallas=True, grid_mode="device_worklist"),
+            "reduce": engine.EngineConfig(use_pallas=True,
+                                          pallas_mode="reduce"),
+            "compact": engine.EngineConfig(use_pallas=True,
+                                           exchange="compact")}
+
+
+def _probe_collectives(torch, dist, dev):
+    """Which collective of the gloo world group takes which CUDA dtype
+    (``exchange.collectives`` hands gloo the card's tensors as they
+    are: a refusal here fails the leg that needs it)."""
+    table = {}
+    world = dist.get_world_size()
+    for dtype in (torch.float32, torch.int64, torch.uint8, torch.bool):
+        x = torch.ones(world, dtype=dtype, device=dev)
+        calls = {
+            "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                torch.empty(world * world, dtype=dtype, device=dev), x),
+            "all_to_all_single": lambda: dist.all_to_all_single(
+                torch.empty_like(x), x),
+            "all_reduce": lambda: dist.all_reduce(
+                x.clone(), op=dist.ReduceOp.MAX if dtype == torch.bool
+                else dist.ReduceOp.SUM)}
+        for op, call in calls.items():
+            key = f"{op}/{str(dtype).removeprefix('torch.')}"
+            try:
+                call()
+                torch.cuda.synchronize()
+                table[key] = "ok"
+            except (RuntimeError, ValueError, TypeError) as e:
+                table[key] = "refused: " + str(e).splitlines()[0][:100]
+            dist.barrier()
+    return table
+
+
+def _shard_rank(rank, world, spec):
+    """One rank of phase 10: every leg through the entry points, each
+    rank making the same calls; rank 0 writes the results, every rank its
+    kernel launch counts."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch import apps
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import actions, engine, resilient
+    from repro_torch.core.partition import PartitionConfig
+    from repro_torch.core.streaming import StreamingGraph
+    from repro_torch.exchange import collectives, rounds
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import rhizome_segment_reduce as rsr
+    from repro_torch.query import QueryServer
+    from repro_torch.runtime.chaos import ChaosEvent, ChaosPlan
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.FileStore(spec["store"],
+                                                         world),
+                            rank=rank, world_size=world)
+    mesh = DeviceMesh("cuda", torch.arange(world).reshape(SHARD_MESH),
+                      mesh_dim_names=("data", "model"))
+    probe = _probe_collectives(torch, dist, dev)
+    with open(spec["data"], "rb") as f:
+        data = pickle.load(f)
+    part, part_pr, g, root = (data["part"], data["part_pr"], data["g"],
+                              data["root"])
+    setup_s = time.perf_counter() - t_start
+    mods = {"frr": frr, "rsr": rsr}
+    totals = collections.Counter()
+    legs, out = {}, {}
+    relax_s = [0.0]
+    plain_relax = rounds.relax
+
+    def timed_relax(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plain_relax(*a, **k)
+        torch.cuda.synchronize()
+        relax_s[0] += time.perf_counter() - t0
+        return res
+
+    rounds.relax = timed_relax          # the shard rounds' relax phase
+    collectives.timing = True
+
+    def leg(name, call, n_rounds):
+        for mod, attr in _COUNTERS.values():
+            setattr(mods[mod], attr, 0)
+        collectives.reset_counters()
+        relax_s[0] = 0.0
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = {"wall_s": wall, "rounds": int(n_rounds(res)),
+               "relax_s": relax_s[0],
+               "collective_s": dict(collectives.seconds),
+               "bytes": dict(collectives.bytes_in),
+               "calls": dict(collectives.calls)}
+        for k, (mod, attr) in _COUNTERS.items():
+            row[k] = getattr(mods[mod], attr)
+            totals[k] += row[k]
+        legs[name] = row
+        return res
+
+    def it(res):
+        return res[1].iterations
+
+    for tag, cfg in _shard_configs(engine).items():
+        for app in ("bfs", "sssp"):
+            vals, st, _ = leg(f"{app}_{tag}", lambda: getattr(apps, app)(
+                None, root, part=part, cfg=cfg, mesh=mesh), it)
+            out[f"{app}_{tag}"] = vals
+            out[f"{app}_{tag}_stats"] = np.asarray([int(x) for x in st])
+    cfg = engine.EngineConfig(use_pallas=True)
+    out["pagerank"], _ = leg("pagerank", lambda: apps.pagerank(
+        None, iters=PR_ITERS, part=part_pr, cfg=cfg, mesh=mesh),
+        lambda res: PR_ITERS)
+    sc, st, _ = leg("pagerank_delta", lambda: apps.pagerank_delta(
+        None, tol=PR_TOL, part=part_pr, cfg=cfg, mesh=mesh), it)
+    out["pagerank_delta"] = sc
+    out["pagerank_delta_stats"] = np.asarray([int(x) for x in st])
+    for tag in ("dense", "device_worklist"):
+        lcfg = _shard_configs(engine)[tag]
+        res, st, _ = leg(f"lanes_{tag}", lambda: apps.batched_queries(
+            None, data["queries"], part=part, cfg=lcfg, mesh=mesh),
+            lambda res: int(res[1].rounds.max()))
+        out[f"lanes_{tag}"] = np.stack(res).astype(np.float64)
+        out[f"lanes_{tag}_stats"] = np.stack([x.cpu().numpy()
+                                              for x in st])
+
+    def serve():
+        srv = QueryServer(part_pr, n_lanes=LANES, ppr_lanes=PPR_SEEDS,
+                          cfg=cfg, mesh=mesh)
+        qids = [srv.submit(kind, v, damping=d, tol=SERVE_PPR_TOL)
+                for kind, v, d in data["serve"]]
+        res = srv.run()
+        return srv, [res[q] for q in qids]
+
+    srv, served = leg("server", serve, lambda res: res[0].rounds_driven)
+    out["served"] = np.stack([np.asarray(r.values, np.float64)
+                              for r in served])
+    out["served_rows"] = np.asarray([[r.rounds, r.messages,
+                                      r.completed_tick] for r in served])
+    legs["server"]["ticks"] = srv.tick
+    legs["server"]["host_syncs"] = srv.host_syncs
+
+    t0 = time.perf_counter()
+    sg = StreamingGraph(g, PartitionConfig(num_shards=SHARDS,
+                                           rpvo_max=RPVO_MAX),
+                        cfg=cfg, runner="sharded", mesh=mesh)
+    sg.track("bfs", root)
+    sg.track("sssp", root)
+    stream_setup_s = time.perf_counter() - t0
+    ins = data["inserts"]
+
+    def commit():
+        sg.insert_edges(*ins)
+        return sg.commit()
+
+    info = leg("stream_commit", commit, lambda info: sum(
+        m.rounds for m in info.maint.values()))
+    legs["stream_commit"]["setup_s"] = stream_setup_s
+    legs["stream_commit"]["split"] = dict(sg.commit_seconds)
+    legs["stream_commit"]["maint"] = {
+        k[0]: [m.rounds, m.messages] for k, m in info.maint.items()}
+    spliced = sg.view("base").part
+    for app in ("bfs", "sssp"):
+        out[f"stream_{app}"] = sg.values(app, root)
+        sem = actions.BFS if app == "bfs" else actions.SSSP
+        init = engine.init_values(spliced, sem, {root: 0.0})
+        val, st = leg(f"stream_cold_{app}", lambda: engine.run_sharded(
+            sem, spliced, init, mesh, cfg=cfg), lambda res: res[1].iterations)
+        out[f"stream_cold_{app}"] = engine.vertex_values(spliced, val)
+        legs["stream_commit"]["maint"][f"cold_{app}"] = [
+            int(st.iterations), int(st.messages)]
+
+    init = engine.init_values(part, actions.SSSP, {root: 0.0})
+    kind, rnd, shard = SHARD_FAULT
+    mgr = CheckpointManager(str(SHARD_DIR / f"ckpt{rank}"))
+    rcfg = engine.EngineConfig(use_pallas=True,
+                               checkpoint_every=SHARD_CKPT_EVERY)
+    val, st, report = leg("resilient", lambda: resilient.run_resilient(
+        resilient.ShardedTask(actions.SSSP, part, init, mesh, cfg=rcfg),
+        chaos=ChaosPlan(events=(ChaosEvent(round=rnd, kind=kind,
+                                           shard=shard),)),
+        manager=mgr), lambda res: res[1].iterations)
+    out["resilient"] = engine.vertex_values(part, val)
+    out["resilient_stats"] = np.asarray([int(x) for x in st])
+    legs["resilient"]["report"] = {
+        "status": report.status, "restores": report.restores,
+        "rounds_lost": report.rounds_lost,
+        "checkpoints_written": report.checkpoints_written}
+
+    rounds.relax = plain_relax
+    collectives.timing = False
+    dist.barrier()
+    with open(SHARD_DIR / f"counts{rank}.json", "w") as f:
+        json.dump(dict(totals), f)
+    if rank == 0:
+        np.savez(SHARD_DIR / "rank0.npz", **out)
+        with open(SHARD_DIR / "rank0.json", "w") as f:
+            json.dump({"probe": probe, "legs": legs, "setup_s": setup_s,
+                       "total_s": time.perf_counter() - t_start}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _nccl_one_rank(torch, np, dev):
+    """``bfs(g, root, num_shards=1, mesh=<1x1 mesh>)`` on a one-rank NCCL
+    group over the card (``tests/test_engine_sharded.py:18``'s
+    counterpart): the NCCL collectives launch, the levels equal the
+    oracle.  Returns the launch counts of the run."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch import apps
+    from repro_torch.core import engine
+    from repro_torch.exchange import collectives
+    from repro_torch.graph import generators, reference
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                          mesh_dim_names=("data", "model"))
+        check(dist.get_backend(collectives.shard_group(mesh).group)
+              == "nccl", "the one-rank group is not NCCL")
+        g = generators.erdos_renyi(200, avg_degree=4.0, seed=0)
+        root = int(g.src[0])
+        launches = collections.Counter()
+        collectives.reset_counters()
+        (got, stats, _), row = _run_counter(
+            torch, {"runs": {}}, launches)(
+                "nccl_bfs", "bfs_sharded", lambda: apps.bfs(
+                    g, root, num_shards=1, mesh=mesh,
+                    cfg=engine.EngineConfig(use_pallas=True)))
+        check(np.array_equal(got, reference.bfs_levels(g, root)),
+              "one-rank NCCL BFS differs from the oracle")
+        n_coll = sum(collectives.calls.values())
+        check(n_coll > 0 and row["K1"] == int(stats.iterations),
+              "one-rank NCCL BFS: no collectives or K1 launches missing")
+        log(f"[sharded] one-rank NCCL group: BFS equal to the oracle, "
+            f"{int(stats.iterations)} rounds, {n_coll} NCCL collectives, "
+            f"K1 launches {row['K1']}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_requests(np, g):
+    """The sharded server's 16 requests: BFS from the 6 highest
+    out-degree vertices, SSSP from the next 4, reachability from 2, PPR
+    from 4 (``SHARD_SERVE_PPR``: degree rank, damping)."""
+    deg = np.argsort(-g.out_degrees())
+    reqs = [("bfs", int(deg[i]), 0.85) for i in range(6)]
+    reqs += [("sssp", int(deg[i]), 0.85) for i in range(6, 10)]
+    reqs += [("reachability", int(deg[i]), 0.85) for i in (10, 11)]
+    reqs += [("ppr", int(deg[i]), d) for i, d in SHARD_SERVE_PPR]
+    return reqs
+
+
+def _shard_kernels(torch, np, dev, part, root):
+    """K1, K2, K3 and K9 on one shard's launch (the shard with the most
+    edges, its edges into every shard's ``S*R_max`` slots) on the
+    heaviest BFS round (K3: that round's BFS tables in 8 lanes and the
+    heaviest SSSP round's in 8): each against its plain version, K1, K3
+    and K9 against their order models, and timed through its wrapper
+    (``ms``: the relax phase) and alone on prepared tables
+    (``kernel_ms``), beside the plain version, a library call and the
+    byte bound of the shard's launch (its edges read once, the gathered
+    table and frontier read once, the inbox written once)."""
+    from repro_torch.core import actions, engine
+    from repro_torch.kernels import fused_relax_reduce as frr
+    from repro_torch.kernels import rhizome_segment_reduce as rsr
+    from repro_torch.kernels.ref import (
+        fused_relax_reduce_lanes_ref, fused_relax_reduce_ref,
+        segment_combine_order, segment_combine_ref)
+    stacked = engine.DeviceArrays.from_partition(part, dev)
+    gval, gchg, rnd, _ = _heaviest_round(torch, dev, part, stacked,
+                                         actions.BFS, root)
+    sval, schg, _, _ = _heaviest_round(torch, dev, part, stacked,
+                                       actions.SSSP, root)
+    r = int(np.argmax(part.edge_mask.sum(axis=1)))
+    arrays = engine.DeviceArrays.from_partition(part, dev, shard=r)
+    src = arrays.edge_src_root_flat.reshape(-1)
+    w = arrays.edge_w.reshape(-1)
+    mask = arrays.edge_mask.reshape(-1)
+    ids = arrays.edge_dst_flat.reshape(-1)
+    plan, nseg = arrays.fused_plan, part.S * part.R_max
+    active = mask & gchg[src.long()]
+    n_active = int(active.sum())
+    args = (gval, gchg, src, w, mask, ids)
+    case = tuple(x.cpu().numpy() for x in args)
+    out, err = {"shard": r, "round": rnd, "active_edges": n_active}, {}
+
+    def k12(grid):
+        return frr.fused_relax_reduce(*args, nseg, "add_one", "min",
+                                      plan=plan, grid_mode=grid)
+
+    want = fused_relax_reduce_ref(*args, nseg, "add_one", "min")
+    gval_m = frr._masked_value_tables(gval, gchg, math.inf)
+    chunk_act, _ = frr._chunk_tables(src, mask, gchg)
+    alone = {"K1": lambda: frr._launch(gval_m, src, w, mask, ids, plan,
+                                       chunk_act, "add_one", "min", False),
+             "K2": lambda: frr._launch_wl(gval_m, src, w, mask, ids, plan,
+                                          chunk_act, None, "add_one", "min",
+                                          False)}
+    bound = 1e3 * (part.E_max * 5 + n_active * 4 + nseg * 9) \
+        / HBM_BYTES_PER_S
+    for key, grid in (("K1", "dense"), ("K2", "device_worklist")):
+        got = k12(grid)
+        check(torch.equal(got, want),
+              f"{key} on shard {r}'s launch differs from its plain version")
+        err[key] = max_abs_err(torch, got, want)
+        out[key] = {"ms": time_ms(torch, lambda g=grid: k12(g)),
+                    "kernel_ms": time_ms(torch, alone[key]),
+                    "bound_ms": bound}
+    _k1_orders(torch, np, frr, args, case, nseg, "add_one", "min",
+               f"shard {r}, BFS round {rnd}")
+    out["plain_ms"] = time_ms(torch, lambda: fused_relax_reduce_ref(
+        *args, nseg, "add_one", "min"), reps=5)
+    msg = torch.where(active, gval[src.long()] + 1.0, math.inf)
+    out["library_ms"] = _library_ms(torch, "min", ids.long(), msg, nseg)
+
+    q = LANES
+    lv = torch.stack([gval] * (q // 2) + [sval.reshape(-1)] * (q // 2), 1)
+    lc = torch.stack([gchg] * (q // 2) + [schg.reshape(-1)] * (q // 2), 1)
+    unitw = torch.as_tensor([1] * (q // 2) + [0] * (q // 2),
+                            dtype=torch.int32, device=dev)
+    largs = (lv.contiguous(), lc.contiguous(), unitw, src, w, mask, ids)
+
+    def k3():
+        return frr.fused_relax_reduce_lanes(*largs, nseg, "add_w", "min",
+                                            plan=plan)
+
+    got = k3()
+    lwant = fused_relax_reduce_lanes_ref(*largs, nseg, "add_w", "min")
+    check(torch.equal(got, lwant),
+          f"K3 on shard {r}'s launch differs from its plain version")
+    err["K3"] = max_abs_err(torch, got, lwant)
+    _k3_orders(torch, np, frr, largs, tuple(x.cpu().numpy() for x in largs),
+               nseg, "add_w", "min", f"shard {r}, Q = {q}")
+    lval_m = frr._masked_value_tables(largs[0], largs[1], math.inf)
+    lchunk, _ = frr._lane_chunk_tables(src, mask, largs[1], plan.src_deg)
+    unit_u8 = (unitw != 0).to(torch.uint8)
+    l_active = int((mask & largs[1][src.long()].any(dim=1)).sum())
+    out["K3"] = {"ms": time_ms(torch, k3),
+                 "kernel_ms": time_ms(torch, lambda: frr._launch_lanes(
+                     lval_m, unit_u8, src, w, mask, ids, plan, lchunk,
+                     "add_w", "min", False)),
+                 "plain_ms": time_ms(
+                     torch, lambda: fused_relax_reduce_lanes_ref(
+                         *largs, nseg, "add_w", "min"), reps=3),
+                 "bound_ms": 1e3 * (part.E_max * 5 + l_active * 8
+                                    + nseg * q * 9) / HBM_BYTES_PER_S}
+
+    def k9():
+        return rsr.segment_combine(msg, ids, nseg, "min", plan=plan)
+
+    got = k9()
+    check(torch.equal(got, segment_combine_ref(msg, ids, nseg, "min")),
+          f"K9 on shard {r}'s launch differs from its plain version")
+    model, _ = segment_combine_order(msg.cpu().numpy(), ids.cpu().numpy(),
+                                     nseg, "min", rsr.PIECE_CELLS,
+                                     edge_mask=mask.cpu().numpy())
+    check(_k9_bits(torch, got, model),
+          f"K9 on shard {r}'s launch differs from its order model")
+    err["K9"] = 0.0
+    out["K9"] = {"ms": time_ms(torch, k9),
+                 "kernel_ms": time_ms(torch, _k9_raw(torch, frr, rsr, msg,
+                                                     ids, plan, "min")),
+                 "bound_ms": _segment_bound_ms(part.E_max, nseg)[0]}
+    torch.cuda.synchronize()
+    return out, err
+
+
+def phase_sharded(torch, np, dev, g, part, root, want, part_pr, want_pr,
+                  want_conv):
+    """Phase 10: the one-rank NCCL run, the 16 ranks' legs on the one
+    card (spawned, gloo), their results checked here, and one shard's
+    kernels on the heaviest round.  Returns (launches, errors,
+    report)."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+    from repro_torch import apps
+    from repro_torch.apps.pagerank import _pr_graph
+    from repro_torch.core import engine
+    from repro_torch.graph import reference
+    from repro_torch.graph.graph import COOGraph
+    from repro_torch.query import lanes as L
+    t_phase = time.perf_counter()
+    launches = _nccl_one_rank(torch, np, dev)
+
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    deg = np.argsort(-g.out_degrees())
+    queries = [("bfs", int(v)) for v in deg[:LANES // 2]] \
+        + [("sssp", int(v)) for v in deg[LANES // 2:LANES]]
+    rng = np.random.default_rng(SEED)
+    inserts = (rng.integers(0, g.n, SHARD_INSERTS).astype(np.int32),
+               rng.integers(0, g.n, SHARD_INSERTS).astype(np.int32),
+               rng.integers(1, 10, SHARD_INSERTS).astype(np.float32))
+    serve = _serve_requests(np, g)
+    t0 = time.perf_counter()
+    with open(SHARD_DIR / "data.pkl", "wb") as f:
+        pickle.dump({"part": part, "part_pr": part_pr, "g": g, "root": root,
+                     "queries": queries, "serve": serve,
+                     "inserts": inserts}, f, protocol=5)
+    spec = {"store": str(SHARD_DIR / "store"),
+            "data": str(SHARD_DIR / "data.pkl")}
+    log(f"[sharded] shipped the RMAT-{RMAT_SCALE} partitions and graph to "
+        f"the ranks ({(SHARD_DIR / 'data.pkl').stat().st_size / 2**20:.0f} "
+        f"MiB, {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_shard_rank, args=(SHARD_RANKS, spec),
+                             nprocs=SHARD_RANKS, join=False,
+                             start_method="spawn")
+
+    # meanwhile: the stacked runs and oracles the ranks are held to
+    stacked = {}
+    for tag, cfg in _shard_configs(engine).items():
+        for app in ("bfs", "sssp"):
+            _, st, _ = getattr(apps, app)(g, root, part=part, cfg=cfg)
+            stacked[f"{app}_{tag}"] = [int(x) for x in st]
+    for tag in ("dense", "device_worklist"):
+        res, st, _ = apps.batched_queries(g, queries, part=part,
+                                          cfg=_shard_configs(engine)[tag])
+        stacked[f"lanes_{tag}"] = (np.stack(res).astype(np.float64),
+                                   np.stack([x.cpu().numpy() for x in st]))
+    g_pr = _pr_graph(g)
+    solo = []
+    for kind, v, d in serve:
+        if kind == "ppr":
+            solo.append(None)
+            continue
+        app = apps.sssp if kind == "sssp" else apps.bfs
+        vals, _, _ = app(g_pr, v, part=part_pr,
+                         cfg=engine.EngineConfig(use_pallas=True))
+        solo.append(vals != L.UNREACHED if kind == "reachability" else vals)
+    ppr = [(v, d) for kind, v, d in serve if kind == "ppr"]
+    ppr_want = _ppr_oracle(torch, np, g, [v for v, _ in ppr],
+                           [d for _, d in ppr], dev)
+    g_mut = COOGraph(g.n, np.concatenate([g.src, inserts[0]]),
+                     np.concatenate([g.dst, inserts[1]]),
+                     np.concatenate([g.weight, inserts[2]]))
+    mut_want = {"bfs": reference.bfs_levels(g_mut, root),
+                "sssp": reference.sssp_dijkstra(g_mut, root)}
+    parent_s = time.perf_counter() - t0
+    while not ctx.join():
+        pass
+    ranks_s = time.perf_counter() - t0
+    got = dict(np.load(SHARD_DIR / "rank0.npz"))
+    info = json.loads((SHARD_DIR / "rank0.json").read_text())
+    for r in range(SHARD_RANKS):
+        for k, n in json.loads(
+                (SHARD_DIR / f"counts{r}.json").read_text()).items():
+            launches[k] += n
+    log(f"[sharded] {SHARD_RANKS} ranks on one card (gloo, mesh "
+        f"{SHARD_MESH}): {ranks_s:.1f} s (set-up {info['setup_s']:.1f} s "
+        f"a rank; stacked runs and oracles here meanwhile {parent_s:.1f} s)")
+    for key, res in sorted(info["probe"].items()):
+        log(f"[sharded] probe gloo CUDA {key}: {res}")
+
+    for tag in _shard_configs(engine):
+        for app in ("bfs", "sssp"):
+            k = f"{app}_{tag}"
+            check(np.array_equal(got[k], want[app]),
+                  f"sharded {k} differs from the numpy oracle")
+            check(list(got[f"{k}_stats"]) == stacked[k],
+                  f"sharded {k} RunStats {list(got[f'{k}_stats'])} differ "
+                  f"from the stacked run's {stacked[k]}")
+    check(np.allclose(got["pagerank"], want_pr, rtol=PR_RTOL, atol=PR_ATOL),
+          "sharded PageRank outside tolerance of the oracle")
+    check(np.allclose(got["pagerank_delta"], want_conv, rtol=PR_RTOL,
+                      atol=PR_ATOL),
+          "sharded delta-PageRank outside tolerance of the oracle")
+    for tag in ("dense", "device_worklist"):
+        vals, st = stacked[f"lanes_{tag}"]
+        check(np.array_equal(got[f"lanes_{tag}"], vals),
+              f"sharded lanes ({tag}) differ from the stacked lanes")
+        check(np.array_equal(got[f"lanes_{tag}_stats"], st),
+              f"sharded LaneStats ({tag}) differ from the stacked run's")
+    j = 0
+    for i, (kind, v, d) in enumerate(serve):
+        if kind == "ppr":
+            check(np.allclose(got["served"][i], ppr_want[:, j],
+                              rtol=PR_RTOL, atol=PR_ATOL),
+                  f"served PPR from {v} outside tolerance of the oracle")
+            j += 1
+        else:
+            check(np.array_equal(got["served"][i],
+                                 np.asarray(solo[i], np.float64)),
+                  f"served {kind} from {v} differs from its solo run")
+    maint = info["legs"]["stream_commit"]["maint"]
+    for app in ("bfs", "sssp"):
+        check(np.array_equal(got[f"stream_{app}"], got[f"stream_cold_{app}"]),
+              f"sharded streaming: warm {app} differs from a cold run")
+        check(maint[app][1] < maint[f"cold_{app}"][1],
+              f"sharded streaming: warm {app} sent {maint[app][1]} "
+              f"messages, cold {maint[f'cold_{app}'][1]}")
+    lv = got["stream_bfs"]
+    levels = np.where(np.isfinite(lv), lv, 0).astype(np.int64)
+    levels[~np.isfinite(lv)] = L.UNREACHED
+    check(np.array_equal(levels, mut_want["bfs"]),
+          "sharded streaming: BFS differs from the numpy oracle")
+    dist_, wd = got["stream_sssp"], mut_want["sssp"]
+    fin = np.isfinite(wd)
+    check(np.array_equal(np.isfinite(dist_), fin)
+          and np.array_equal(dist_[fin], wd[fin].astype(np.float32)),
+          "sharded streaming: SSSP differs from the numpy oracle")
+    check(np.array_equal(got["resilient"], want["sssp"]),
+          "sharded resilient SSSP differs from the uninterrupted run")
+    check(list(got["resilient_stats"]) == list(got["sssp_dense_stats"]),
+          "sharded resilient RunStats differ from the uninterrupted run's")
+    check(info["legs"]["resilient"]["report"]["status"] == "recovered",
+          "the sharded resilient run did not recover from its fault")
+
+    report = {"legs": info["legs"], "probe": info["probe"],
+              "ranks_s": ranks_s, "parent_s": parent_s}
+    for name, row in info["legs"].items():
+        n = max(row["rounds"], 1)
+        coll = sum(row["collective_s"].values())
+        host = row["wall_s"] - coll - row["relax_s"]
+        per = {op: b / n for op, b in row["bytes"].items()}
+        kern = {k: row[k] for k in _COUNTERS if row[k]}
+        log(f"[sharded] {name}: wall {row['wall_s']:.3f} s, {row['rounds']} "
+            f"rounds; a round {1e3 * row['wall_s'] / n:.2f} ms = relax "
+            f"{1e3 * row['relax_s'] / n:.2f} + collectives "
+            f"{1e3 * coll / n:.2f} + host {1e3 * host / n:.2f} (rank 0); "
+            f"kernels {kern}")
+        log(f"[sharded] {name}: bytes a rank a round "
+            + ", ".join(f"{op} {b:,.0f}" for op, b in sorted(per.items())))
+    rs = info["legs"]["resilient"]["report"]
+    log(f"[sharded] resilient: {SHARD_FAULT[0]} at round {SHARD_FAULT[1]} "
+        f"on shard {SHARD_FAULT[2]}: {rs}")
+    sm = info["legs"]["stream_commit"]
+    log(f"[sharded] streaming: {SHARD_INSERTS} inserts, commit split "
+        f"{ {k: round(v, 3) for k, v in sm['split'].items()} }, warm / cold "
+        f"[rounds, messages] {sm['maint']}, StreamingGraph set-up "
+        f"{sm['setup_s']:.1f} s")
+    srv = info["legs"]["server"]
+    log(f"[sharded] server: {len(serve)} requests in {srv['ticks']} ticks, "
+        f"{srv['wall_s']:.2f} s ({len(serve) / srv['wall_s']:.1f} "
+        f"requests/s), {srv['host_syncs']} host reads")
+
+    kern, errs = _shard_kernels(torch, np, dev, part, root)
+    report["kernels"] = kern
+    log(f"[sharded] shard {kern['shard']}'s launch, BFS round "
+        f"{kern['round']} ({kern['active_edges']} active edges), ms through "
+        f"the wrapper (alone; bound): "
+        + "; ".join(f"{k} {kern[k]['ms']:.4f} ({kern[k]['kernel_ms']:.4f}; "
+                    f"{kern[k]['bound_ms']:.4f})"
+                    for k in ("K1", "K2", "K3", "K9"))
+        + f"; plain K1 {kern['plain_ms']:.4f}, K3 "
+        f"{kern['K3']['plain_ms']:.4f}; library (scatter_reduce_ amin) "
+        f"{kern['library_ms']:.4f}; each equal to its plain version, "
+        "K1/K3/K9 to their order models")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[sharded] phase 10: {report['phase_s']:.1f} s")
+    return launches, errs, report
+
+
 def _k1_sums(report, report2):
     """K1 alone on the heaviest dense round and summed over every round
     that phases 4 and 5 replay; logged and returned."""
@@ -4589,12 +5207,14 @@ def main() -> int:
     log(f"[compact] phase 8: {report8['phase_s']:.1f} s")
     launches9, report9 = phase_mutation(torch, np, dev, g, part, root,
                                         part_pr)
+    launches10, err10, report10 = phase_sharded(
+        torch, np, dev, g, part, root, want, part_pr, want_pr, want_conv)
     heavy, heavy2 = report["heaviest"], report2["heaviest"]
     k3, k4, k9 = report3["k3"], report3["k4"], report3["k9"]
     k9_sum = report3["k9_sum"]
 
     report.update(slice2=report2, slice3=report3, slice4=report4,
-                  slice10=report8, slice11=report9,
+                  slice10=report8, slice11=report9, slice12=report10,
                   device=smi, build_s=build_s,
                   total_s=time.perf_counter() - t_start)
     OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -4605,8 +5225,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:323",
         "launches": k1_launches + launches2["K1"] + launches8["K1"]
-        + launches9["K1"],
-        "max_abs_err": max(err, errs["K1"], err8["K1"]),
+        + launches9["K1"] + launches10["K1"],
+        "max_abs_err": max(err, errs["K1"], err8["K1"], err10["K1"]),
         "ms": heavy["ms"],
         "plain_ms": heavy["plain_ms"],
         "bound_ms": heavy["bound_ms"],
@@ -4620,8 +5240,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:613",
-        "launches": launches2["K2"] + launches8["K2"] + launches9["K2"],
-        "max_abs_err": max(err2, errs["K2"], err8["K2"]),
+        "launches": launches2["K2"] + launches8["K2"] + launches9["K2"]
+        + launches10["K2"],
+        "max_abs_err": max(err2, errs["K2"], err8["K2"], err10["K2"]),
         "ms": heavy2["ms"],
         "plain_ms": heavy2["plain_ms"],
         "bound_ms": heavy2["bound_ms"],
@@ -4636,8 +5257,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl_lanes.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:391",
-        "launches": launches3["K3"] + launches8["K3"] + launches9["K3"],
-        "max_abs_err": max(err3["K3"], errs3["K3"], err8["K3"]),
+        "launches": launches3["K3"] + launches8["K3"] + launches9["K3"]
+        + launches10["K3"],
+        "max_abs_err": max(err3["K3"], errs3["K3"], err8["K3"],
+                           err10["K3"]),
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
@@ -4652,7 +5275,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_relax_reduce_wl_lanes.cu",
         "replaces": "src/repro/kernels/fused_relax_reduce.py:639",
-        "launches": launches3["K4"] + launches8["K4"] + launches9["K4"],
+        "launches": launches3["K4"] + launches8["K4"] + launches9["K4"]
+        + launches10["K4"],
         "max_abs_err": max(err3["K4"], errs3["K4"]),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
@@ -4668,8 +5292,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_combine.cu",
         "replaces": "src/repro/kernels/rhizome_segment_reduce.py:39",
-        "launches": launches3["K9"] + launches8["K9"] + launches9["K9"],
-        "max_abs_err": max(err3["K9"], errs3["K9"], err8["K9"]),
+        "launches": launches3["K9"] + launches8["K9"] + launches9["K9"]
+        + launches10["K9"],
+        "max_abs_err": max(err3["K9"], errs3["K9"], err8["K9"], err10["K9"]),
         "ms": k9["ms"],
         "plain_ms": k9["plain_ms"],
         "bound_ms": k9["bound_ms"],
@@ -4702,7 +5327,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{cu}.cu",
             "replaces": f"src/repro/kernels/fused_relax_reduce.py:{line}",
-            "launches": launches4[key] + launches8[key] + launches9[key],
+            "launches": launches4[key] + launches8[key] + launches9[key]
+            + launches10[key],
             "max_abs_err": max(err4[key], errs4[key]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

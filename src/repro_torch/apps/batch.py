@@ -12,7 +12,7 @@ from repro_torch.core import engine
 from repro_torch.core.partition import Partition, PartitionConfig, build_partition
 from repro_torch.graph.graph import COOGraph
 from repro_torch.query.lanes import decode_min_values, init_lane_values, \
-    run_stacked_lanes
+    run_sharded_lanes, run_stacked_lanes
 
 
 def _extract(part, val, kinds):
@@ -29,14 +29,19 @@ def batched_queries(g: COOGraph, queries, part: Partition | None = None,
     vertex, a list (multi-source), or a {vertex: value} dict.  Returns
     (list of per-query (n,) results — int64 levels for BFS, float64
     distances for SSSP — per-lane ``LaneStats``, partition).
-    ``device=None`` runs on CUDA (see ``engine.resolve_device``)."""
-    engine.no_mesh(mesh)
+    ``device=None`` runs on CUDA (see ``engine.resolve_device``); ``mesh``
+    runs the sharded lanes (``run_sharded_lanes``), every rank making the
+    call."""
     dev = engine.resolve_device(device)
     if part is None:
         part = build_partition(
             g, PartitionConfig(num_shards=num_shards, rpvo_max=rpvo_max))
     init, unitw = init_lane_values(part, queries)
-    val, stats = run_stacked_lanes(part, init, unitw, cfg, device=dev)
+    if mesh is None:
+        val, stats = run_stacked_lanes(part, init, unitw, cfg, device=dev)
+    else:
+        val, stats = run_sharded_lanes(part, init, unitw, mesh, axis_names,
+                                       cfg, device=dev)
     return _extract(part, val, [k for k, _ in queries]), stats, part
 
 

@@ -21,15 +21,21 @@ def bfs(g: COOGraph, root: int, part: Partition | None = None,
         num_shards: int = 16, rpvo_max: int = 1,
         mesh=None, axis_names=("data", "model"), device=None):
     """Returns (levels (n,) int64, stats, partition).  ``device=None``
-    runs on CUDA (see ``engine.resolve_device``)."""
-    engine.no_mesh(mesh)
+    runs on CUDA (see ``engine.resolve_device``).  With ``mesh`` (a
+    ``DeviceMesh``) every rank makes this call and runs its shard
+    (``engine.run_sharded``)."""
     dev = engine.resolve_device(device)
     if part is None:
         part = build_partition(
             g, PartitionConfig(num_shards=num_shards, rpvo_max=rpvo_max)
         )
     init = engine.init_values(part, actions.BFS, {root: 0.0})
-    val, stats = engine.run_stacked(actions.BFS, part, init, cfg, device=dev)
+    if mesh is None:
+        val, stats = engine.run_stacked(actions.BFS, part, init, cfg,
+                                        device=dev)
+    else:
+        val, stats = engine.run_sharded(actions.BFS, part, init, mesh,
+                                        axis_names, cfg, device=dev)
     lv = engine.vertex_values(part, val)
     levels = np.where(np.isfinite(lv), lv, 0).astype(np.int64)
     levels[~np.isfinite(lv)] = UNREACHED

@@ -36,11 +36,17 @@ def pagerank(g: COOGraph, damping: float = 0.85, iters: int = 30,
              num_shards: int = 16, rpvo_max: int = 1,
              mesh=None, axis_names=("data", "model"), device=None):
     """Returns (scores (n,) float64, partition).  ``device=None`` runs on
-    CUDA (see ``engine.resolve_device``)."""
-    engine.no_mesh(mesh)
+    CUDA (see ``engine.resolve_device``); ``mesh`` runs the sharded
+    layout (``engine.run_pagerank_sharded``), every rank making the
+    call."""
     dev = engine.resolve_device(device)
     part = _partition(g, part, num_shards, rpvo_max)
-    val = engine.run_pagerank_stacked(part, damping, iters, cfg, device=dev)
+    if mesh is None:
+        val = engine.run_pagerank_stacked(part, damping, iters, cfg,
+                                          device=dev)
+    else:
+        val = engine.run_pagerank_sharded(part, damping, iters, mesh,
+                                          axis_names, cfg, device=dev)
     return engine.vertex_values(part, val).astype(np.float64), part
 
 
@@ -56,10 +62,15 @@ def pagerank_delta(g: COOGraph, damping: float = 0.85, tol=1e-7,
     for the sum semiring.  Converges to the ``pagerank`` fixpoint within
     O(tol / (1-damping)) per vertex.
 
-    Returns (scores (n,) float64, RunStats, partition)."""
-    engine.no_mesh(mesh)
+    Returns (scores (n,) float64, RunStats, partition); ``mesh`` runs
+    the sharded layout (``engine.run_pagerank_delta_sharded``)."""
     dev = engine.resolve_device(device)
     part = _partition(g, part, num_shards, rpvo_max)
-    val, stats = engine.run_pagerank_delta(part, damping, tol, cfg,
-                                           max_rounds, device=dev)
+    if mesh is None:
+        val, stats = engine.run_pagerank_delta(part, damping, tol, cfg,
+                                               max_rounds, device=dev)
+    else:
+        val, stats = engine.run_pagerank_delta_sharded(
+            part, damping, tol, mesh, axis_names, cfg, max_rounds,
+            device=dev)
     return engine.vertex_values(part, val).astype(np.float64), stats, part

@@ -18,13 +18,18 @@ def sssp(g: COOGraph, root: int, part: Partition | None = None,
         mesh=None, axis_names=("data", "model"), device=None):
     """Returns (dist (n,) float64 with inf for unreachable, stats,
     partition).  ``device=None`` runs on CUDA (see
-    ``engine.resolve_device``)."""
-    engine.no_mesh(mesh)
+    ``engine.resolve_device``).  With ``mesh`` (a ``DeviceMesh``) every
+    rank makes this call and runs its shard (``engine.run_sharded``)."""
     dev = engine.resolve_device(device)
     if part is None:
         part = build_partition(
             g, PartitionConfig(num_shards=num_shards, rpvo_max=rpvo_max)
         )
     init = engine.init_values(part, actions.SSSP, {root: 0.0})
-    val, stats = engine.run_stacked(actions.SSSP, part, init, cfg, device=dev)
+    if mesh is None:
+        val, stats = engine.run_stacked(actions.SSSP, part, init, cfg,
+                                        device=dev)
+    else:
+        val, stats = engine.run_sharded(actions.SSSP, part, init, mesh,
+                                        axis_names, cfg, device=dev)
     return engine.vertex_values(part, val).astype(np.float64), stats, part

@@ -11,7 +11,9 @@ The per-round math — relax, dense or compact targeted exchange, rhizome
 collapse — lives in the exchange layer (``repro_torch.exchange``); this
 module runs the rounds: it owns the fixpoint loop, the termination check
 and the Fig-6 stats bookkeeping.  ``run_stacked`` keeps all shards
-stacked ``(S, …)`` on one device.
+stacked ``(S, …)`` on one device; ``run_sharded`` and the sharded
+PageRanks run one shard a process over ``torch.distributed`` (a
+``DeviceMesh`` in ``mesh=``), every rank making the same call.
 
 With ``EngineConfig.use_pallas`` the relax phase of every round runs
 through the hand-written fused kernels (``kernels.fused_relax_reduce``)
@@ -31,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import typing
+import warnings
 
 import numpy as np
 import torch
@@ -150,31 +153,41 @@ class CompactTables:
     s: each source gets a disjoint window of ``S*P_t`` segments) and that
     launch's plan (``S*S*P_t`` segments over the ``S*R_max`` slots).  A
     masked padding edge's id is its window's lowest; the plan keeps the
-    mask, so its chunk ranges skip it."""
+    mask, so its chunk ranges skip it.
 
-    def __init__(self, part: Partition, put, edge_src, edge_mask):
+    One shard's tables (``shard=r``) are row r of each field (a leading
+    dim of 1); its launch reduces its own edges into its ``S*P_t``
+    window with no offset."""
+
+    def __init__(self, part: Partition, put, edge_src, edge_mask,
+                 shard: int | None = None):
         self._part, self._put = part, put
         self._src, self._mask = edge_src, edge_mask
+        self._shard = shard
+
+    def _field(self, x, dtype):
+        s = self._shard
+        return self._put(x if s is None else np.asarray(x)[s:s + 1], dtype)
 
     @functools.cached_property
     def edge_dst_compact(self):        # (S, E_max) int32 -> [0, S*P_t)
-        return self._put(self._part.edge_dst_compact, torch.int32)
+        return self._field(self._part.edge_dst_compact, torch.int32)
 
     @functools.cached_property
     def inbox_slot_map(self):          # (S_tgt, S_src, P_t) int32, R_max pad
-        return self._put(self._part.inbox_slot_map, torch.int32)
+        return self._field(self._part.inbox_slot_map, torch.int32)
 
     @functools.cached_property
     def rz_local(self):                # (S, R_rz_max) int32, R_max pad
-        return self._put(self._part.rz_local, torch.int32)
+        return self._field(self._part.rz_local, torch.int32)
 
     @functools.cached_property
     def rz_sibling_idx(self):          # (S, R_rz_max, K) int32
-        return self._put(self._part.rz_sibling_idx, torch.int32)
+        return self._field(self._part.rz_sibling_idx, torch.int32)
 
     @functools.cached_property
     def rz_sibling_mask(self):         # (S, R_rz_max, K) bool
-        return self._put(self._part.rz_sibling_mask, torch.bool)
+        return self._field(self._part.rz_sibling_mask, torch.bool)
 
     @functools.cached_property
     def inbox_index(self):             # exchange.inbox_index of the map
@@ -184,6 +197,8 @@ class CompactTables:
     def ids(self):                     # (S*E_max,) int32 offset ids
         part = self._part
         dst = self.edge_dst_compact
+        if self._shard is not None:    # one window: no offset
+            return dst.reshape(-1)
         offs = torch.arange(part.S, dtype=torch.int32, device=dst.device) \
             * (part.S * part.P_t)
         return (dst + offs[:, None]).reshape(-1)
@@ -191,9 +206,10 @@ class CompactTables:
     @functools.cached_property
     def plan(self) -> frr.LaunchPlan:
         part = self._part
+        windows = 1 if self._shard is not None else part.S
         return frr.plan_launch(self._src.reshape(-1),
                                self._mask.reshape(-1), self.ids,
-                               part.S * part.S * part.P_t,
+                               windows * part.S * part.P_t,
                                part.S * part.R_max)
 
 
@@ -202,7 +218,12 @@ class DeviceArrays(typing.NamedTuple):
     fused kernel's launch plan over the flattened dense edge stack.  The
     reference's compact fields (``edge_dst_compact``, ``inbox_slot_map``,
     ``rz_local``, ``rz_sibling_idx``, ``rz_sibling_mask``) are read
-    through ``compact``, which uploads them on first use."""
+    through ``compact``, which uploads them on first use.
+
+    ``from_partition(part, shard=r)`` uploads one shard: every field is
+    row r with a leading dim of 1 (the reference's ``x[0]`` under
+    ``shard_map``) and the plan is that shard's own launch — its edges
+    into the ``S*R_max`` slots of every shard."""
 
     edge_src_root_flat: torch.Tensor  # (S, E_max) int32
     edge_dst_flat: torch.Tensor       # (S, E_max) int32 (sorted per shard)
@@ -215,29 +236,34 @@ class DeviceArrays(typing.NamedTuple):
     compact: CompactTables            # the compact exchange's tables
 
     @classmethod
-    def from_partition(cls, part: Partition, device=None) -> "DeviceArrays":
+    def from_partition(cls, part: Partition, device=None,
+                       shard: int | None = None) -> "DeviceArrays":
         dev = resolve_device(device)
 
         def put(x, dtype):
             return torch.as_tensor(np.ascontiguousarray(x)).to(
                 device=dev, dtype=dtype)
 
-        src = put(part.edge_src_root_flat, torch.int32)
-        dst = put(part.edge_dst_flat, torch.int32)
-        mask = put(part.edge_mask, torch.bool)
+        def row(x, dtype):
+            x = np.asarray(x)
+            return put(x if shard is None else x[shard:shard + 1], dtype)
+
+        src = row(part.edge_src_root_flat, torch.int32)
+        dst = row(part.edge_dst_flat, torch.int32)
+        mask = row(part.edge_mask, torch.bool)
         plan = frr.plan_launch(src.reshape(-1), mask.reshape(-1),
                                dst.reshape(-1), part.S * part.R_max,
                                part.S * part.R_max)
         return cls(
             edge_src_root_flat=src,
             edge_dst_flat=dst,
-            edge_w=put(part.edge_w, torch.float32),
+            edge_w=row(part.edge_w, torch.float32),
             edge_mask=mask,
-            sibling_flat=put(part.sibling_flat, torch.int32),
-            sibling_mask=put(part.sibling_mask, torch.bool),
-            slot_valid=put(part.slot_vertex >= 0, torch.bool),
+            sibling_flat=row(part.sibling_flat, torch.int32),
+            sibling_mask=row(part.sibling_mask, torch.bool),
+            slot_valid=row(part.slot_vertex >= 0, torch.bool),
             fused_plan=plan,
-            compact=CompactTables(part, put, src, mask),
+            compact=CompactTables(part, put, src, mask, shard),
         )
 
     @property
@@ -735,57 +761,209 @@ def vertex_values(part: Partition, val) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# sharded execution (ROADMAP Queue 1 item 10): not ported yet
+# sharded execution: one shard a process over torch.distributed
 # --------------------------------------------------------------------------
+# The reference runs ``shard_map`` from one controller; here every rank
+# makes the same call with the same arguments (SPMD), uploads only its
+# own shard (``DeviceArrays.from_partition(part, shard=r)``: its rows and
+# its own launch plan) and runs one round per Python iteration over real
+# collectives (``exchange.collectives``).  Each round ends in ONE
+# all-reduce of [messages, work, any-changed], read to the host: the
+# round's one host sync.  Every rank returns the all-gathered (S, R_max)
+# table and the same all-reduced totals, so ``vertex_values`` and the
+# apps read a sharded run as they read a stacked one.
 
-def no_mesh(mesh):
-    """Refuse a ``mesh``: the apps' sharded runs are not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded runs (mesh=) are not ported yet (ROADMAP Queue 1 "
-            "item 10)")
+_SHARDED_GRID_WARNED: set = set()
 
 
-def _unported_sharded(name: str):
-    raise NotImplementedError(
-        f"{name} (sharded execution) is not ported yet (ROADMAP Queue 1 "
-        "item 10)")
+def _sharded_cfg(cfg: EngineConfig, where: str) -> EngineConfig:
+    """A sharded round plans no host worklist (the reference's traced
+    collective loop cannot run one): ``grid_mode='worklist'|'auto'``
+    warns once per call site and runs as ``'device_worklist'`` — the
+    same sparse launch, its list compacted on the device."""
+    if cfg.grid_mode in ("worklist", "auto") and cfg.use_pallas \
+            and cfg.pallas_mode == "fused":
+        if where not in _SHARDED_GRID_WARNED:
+            _SHARDED_GRID_WARNED.add(where)
+            warnings.warn(
+                f"{where}: grid_mode={cfg.grid_mode!r} needs a host-planned "
+                "worklist, which a sharded round does not plan; routing to "
+                "grid_mode='device_worklist' (the same sparse launch, "
+                "compacted on the device)", stacklevel=3)
+        return dataclasses.replace(cfg, grid_mode="device_worklist")
+    return cfg
+
+
+def shard_group(S: int, mesh, axis_names=("data", "model")):
+    """This rank's ``collectives.ShardGroup`` on ``mesh``; raises
+    ``ValueError`` unless the axes hold exactly ``S`` ranks (one shard a
+    rank, as the reference requires)."""
+    sg = exchange.collectives.shard_group(mesh, axis_names)
+    if sg.size != S:
+        raise ValueError(
+            f"mesh axes {exchange.axis_tuple(axis_names)} hold {sg.size} "
+            f"ranks; the partition has {S} shards (one shard a rank)")
+    return sg
+
+
+def shard_rows(x, sg, device, dtype) -> torch.Tensor:
+    """This shard's rows of a full (S, ...) table (an array or a tensor)
+    as a (1, ...) tensor on ``device``."""
+    r = sg.rank
+    if isinstance(x, torch.Tensor):
+        t = x[r:r + 1]
+    else:
+        t = torch.as_tensor(np.ascontiguousarray(np.asarray(x)[r:r + 1]))
+    return t.to(device=device, dtype=dtype)
+
+
+def shard_arrays(part: Partition, sg, device=None, arrays=None):
+    """This shard's ``DeviceArrays`` (``arrays`` when given)."""
+    if arrays is None:
+        arrays = DeviceArrays.from_partition(part, device, shard=sg.rank)
+    return arrays
+
+
+def _run_shard_rounds(run, sg, max_rounds, round_fn, state, chg):
+    """The sharded round loop: one all-reduce of the initial frontier's
+    liveness, then a round per iteration — ``round_fn(state)`` -> (state,
+    next frontier, this shard's message count) — each closed by ONE
+    all-reduce of [messages, work, any-changed] read to the host.
+    Returns (state, ``RunStats`` of the all-reduced totals)."""
+    psum = exchange.collectives.psum
+    dev = chg.device
+    live = int(psum(chg.any().to(torch.int64).reshape(1), sg)[0]) > 0
+    it = msgs = work_total = pruned = 0
+    syncs = 1
+    while live and it < max_rounds:
+        state, chg, mc = round_fn(state)
+        tot = psum(torch.stack([mc.to(torch.int64).reshape(()),
+                                chg.sum().to(torch.int64),
+                                chg.any().to(torch.int64)]), sg)
+        mc, work, anyc = tot.tolist()
+        syncs += 1
+        it += 1
+        msgs += mc
+        work_total += work
+        pruned += mc - min(work, mc)
+        live = anyc > 0
+    _count_dispatches(run, it, syncs)
+    return state, _host_stats(it, msgs, work_total, pruned, dev)
 
 
 def make_sharded_fn(sem: Semiring, S: int, R_max: int, mesh,
                     axis_names=("data", "model"),
                     cfg: EngineConfig = EngineConfig()):
-    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
-    _unported_sharded("make_sharded_fn")
+    """The sharded min fixpoint as ``(fn, group)``: ``fn(arrays, val)``
+    takes this rank's shard (``DeviceArrays.from_partition(part,
+    shard=group.rank)``, (1, R_max) values) and returns its (1, R_max)
+    fixpoint values and the all-reduced ``RunStats``; ``group`` is the
+    shards' ``collectives.ShardGroup`` (the reference returns its
+    ``NamedSharding`` here)."""
+    if sem.segment != "min":
+        raise ValueError(
+            "make_sharded_fn drives monotone min-semiring fixpoints; use "
+            "make_sharded_pagerank_fn for counted sum-semiring rounds")
+    cfg = _sharded_cfg(cfg, "make_sharded_fn")
+    sg = shard_group(S, mesh, axis_names)
+
+    def fn(arrays, val):
+        round_fn = exchange.make_shard_fixpoint_round(sem, arrays, cfg, S,
+                                                      R_max, sg)
+        chg = sem.improved(val, torch.full_like(val, sem.identity)) \
+            & arrays.slot_valid
+
+        def step(state):
+            val, chg, mc = round_fn(*state)
+            return (val, chg), chg, mc
+
+        (val, _), stats = _run_shard_rounds(
+            f"{sem.name}_sharded", sg, cfg.max_iters, step, (val, chg), chg)
+        if cfg.collapse == "deferred":
+            val = exchange.collapse(sem, exchange.shard_gather(val, sg),
+                                    arrays.sibling_flat, arrays.sibling_mask)
+        return val, stats
+
+    return fn, sg
 
 
 def run_sharded(sem: Semiring, part: Partition, init_val, mesh,
                 axis_names=("data", "model"),
-                cfg: EngineConfig = EngineConfig()):
-    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
-    _unported_sharded("run_sharded")
+                cfg: EngineConfig = EngineConfig(), device=None,
+                arrays=None):
+    """Sharded execution: the leading (shard) dim of every table is split
+    over ``axis_names`` of ``mesh``, whose ranks there must number
+    ``part.S``.  Every rank calls it with the same arguments (the full
+    (S, R_max) ``init_val``); each runs its shard and returns the
+    all-gathered (S, R_max) values and the all-reduced ``RunStats``.
+    ``arrays``: this rank's ``DeviceArrays.from_partition(part,
+    shard=rank)`` when uploaded already."""
+    fn, sg = make_sharded_fn(sem, part.S, part.R_max, mesh, axis_names, cfg)
+    dev = resolve_device(device)
+    arrays = shard_arrays(part, sg, dev, arrays)
+    val, stats = fn(arrays, shard_rows(init_val, sg, dev, torch.float32))
+    return exchange.collectives.all_gather(val, sg), stats
 
 
 def make_sharded_pagerank_fn(S: int, R_max: int, n: int, damping: float,
                              iters: int, mesh, axis_names=("data", "model"),
                              cfg: EngineConfig = EngineConfig()):
-    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
-    _unported_sharded("make_sharded_pagerank_fn")
+    """Sharded PageRank as ``(fn, group)``: ``fn(arrays)`` runs ``iters``
+    rounds of relax → exchange → rhizome-collapse(+) → damping update on
+    this rank's shard and returns its (1, R_max) scores."""
+    from repro_torch.core.actions import PAGERANK as sem
+
+    cfg = _sharded_cfg(cfg, "make_sharded_pagerank_fn")
+    sg = shard_group(S, mesh, axis_names)
+    base = (1.0 - damping) / n
+
+    def fn(arrays):
+        sv = arrays.slot_valid
+        gchg = exchange.shard_gather(sv, sg)   # PR predicate is #t
+        val = torch.where(sv, 1.0 / n, 0.0)
+        for _ in range(iters):
+            total_in, _ = exchange.shard_total_in(
+                sem, arrays, cfg, S, R_max, sg,
+                exchange.shard_gather(val, sg), gchg)
+            val = torch.where(sv, base + damping * total_in, 0.0)
+        return val
+
+    return fn, sg
 
 
 def run_pagerank_sharded(part: Partition, damping: float, iters: int, mesh,
                          axis_names=("data", "model"),
-                         cfg: EngineConfig = EngineConfig()):
-    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
-    _unported_sharded("run_pagerank_sharded")
+                         cfg: EngineConfig = EngineConfig(), device=None):
+    """Sharded PageRank; layout and call form as in ``run_sharded``.
+    Returns the all-gathered (S, R_max) scores."""
+    fn, sg = make_sharded_pagerank_fn(part.S, part.R_max, part.n, damping,
+                                      iters, mesh, axis_names, cfg)
+    arrays = shard_arrays(part, sg, resolve_device(device))
+    return exchange.collectives.all_gather(fn(arrays), sg)
 
 
 def make_sharded_pagerank_delta_fn(S: int, R_max: int, damping: float,
                                    tol: float, mesh,
                                    axis_names=("data", "model"),
                                    cfg: EngineConfig = EngineConfig()):
-    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
-    _unported_sharded("make_sharded_pagerank_delta_fn")
+    """One sharded delta-PageRank round as ``(fn, group)``: ``fn(arrays,
+    rank, delta)`` -> (rank, delta, message count, live-slot count), the
+    tables this shard's (1, R_max) and both counts summed over the shards
+    by one all-reduce.  Host-planned worklist modes run as
+    ``device_worklist`` (``_sharded_cfg``)."""
+    from repro_torch.core.actions import PAGERANK as sem
+
+    cfg = _sharded_cfg(cfg, "make_sharded_pagerank_delta_fn")
+    sg = shard_group(S, mesh, axis_names)
+
+    def fn(arrays, rank, delta):
+        rank, delta, chg, counts = exchange.delta_pagerank_round_shard(
+            sem, arrays, cfg, S, R_max, sg, damping, tol, rank, delta)
+        tot = exchange.collectives.psum(torch.stack(
+            [counts.to(torch.int64).reshape(()), chg.sum()]), sg)
+        return rank, delta, tot[0], tot[1]
+
+    return fn, sg
 
 
 def run_pagerank_delta_sharded(part: Partition, damping: float = 0.85,
@@ -793,6 +971,74 @@ def run_pagerank_delta_sharded(part: Partition, damping: float = 0.85,
                                axis_names=("data", "model"),
                                cfg: EngineConfig = EngineConfig(),
                                max_rounds: int = 256, init_rank=None,
-                               init_delta=None):
-    """Not ported yet (ROADMAP Queue 1 item 10): raises."""
-    _unported_sharded("run_pagerank_delta_sharded")
+                               init_delta=None, device=None, arrays=None):
+    """Sharded delta-PageRank (a host-driven round loop over real
+    collectives); layout and call form as in ``run_sharded``.  Scalar
+    ``tol`` only.  A round's message and live-slot counts come back in
+    one read; with a flight recorder installed each round also gathers
+    the frontier for the per-shard message mirror, and shard 0 records
+    the round (run ``pagerank_delta_sharded``).  Returns the all-gathered
+    (S, R_max) ranks and the all-reduced ``RunStats``."""
+    if np.ndim(tol) != 0:
+        raise ValueError("run_pagerank_delta_sharded takes a scalar tol")
+    tol = float(tol)
+    fn, sg = make_sharded_pagerank_delta_fn(part.S, part.R_max, damping, tol,
+                                            mesh, axis_names, cfg)
+    dev = resolve_device(device)
+    arrays = shard_arrays(part, sg, dev, arrays)
+    sv = arrays.slot_valid
+    if init_rank is None:
+        rank = delta = torch.where(sv, (1.0 - damping) / part.n, 0.0)
+    else:
+        rank = shard_rows(init_rank, sg, dev, torch.float32)
+        delta = shard_rows(init_delta, sg, dev, torch.float32)
+    rec = obs.get_recorder()
+    rec_path = "torch"
+    if cfg.use_pallas and cfg.pallas_mode == "fused":
+        rec_path, _ = frr.select_kernel_path(
+            part.S * part.R_max, 1, cfg.vmem_budget_bytes,
+            smem_budget_bytes=cfg.smem_budget_bytes)
+    elif cfg.use_pallas:
+        rec_path = cfg.pallas_mode
+    psum = exchange.collectives.psum
+    live = int(psum(((delta.abs() > tol) & sv).any().to(torch.int64)
+                    .reshape(1), sg)[0]) > 0
+    it = msgs = work_total = pruned = 0
+    syncs = 1
+    while live and it < max_rounds:
+        if rec is not None:
+            # recorder-only frontier gather: the per-shard message mirror
+            # reads the whole live-residual bitmap on the host
+            gchg = exchange.shard_gather((delta.abs() > tol) & sv, sg) \
+                .cpu().numpy()
+            frontier = int(gchg.sum())
+            t0 = rec.tracer.now()
+            span = rec.tracer.span(
+                "round", track="engine/pagerank_delta_sharded",
+                round=it + 1)
+        rank, delta, counts, work = fn(arrays, rank, delta)
+        mc, w = torch.stack([counts, work]).tolist()
+        syncs += 1
+        it += 1
+        msgs += mc
+        work_total += w
+        pruned += mc - min(w, mc)
+        live = w > 0
+        if rec is not None:
+            wall = rec.tracer.now() - t0
+            span.end(frontier=frontier, messages=mc)
+            if sg.rank == 0:
+                shard = exchange.shard_message_mirror(
+                    part.edge_mask, part.edge_src_root_flat, gchg)
+                rec.add_round(
+                    obs.RoundRecord(
+                        run="pagerank_delta_sharded", round=it,
+                        frontier=frontier, messages=mc, work=w,
+                        pruned=mc - min(w, mc), grid="dense", path=rec_path,
+                        cells=0, launched=0, tile_dmas=0, dma_bytes=0,
+                        wall_s=wall, shard_messages=[int(x) for x in shard]),
+                    frontier_bitmap=gchg.copy() if rec.keep_frontiers
+                    else None)
+    _count_dispatches("pagerank_delta_sharded", it, syncs)
+    return (exchange.collectives.all_gather(rank, sg),
+            _host_stats(it, msgs, work_total, pruned, dev))

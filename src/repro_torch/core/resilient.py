@@ -44,7 +44,12 @@ BIT-IDENTICAL to an uninterrupted run (monotone relaxation from
 intermediate upper bounds reconverges to the same fixpoint, and the
 replayed rounds are the same deterministic dispatches); sum-semiring
 (delta-PageRank) runs agree within reassociation tolerance.
-``ShardedTask`` (the sharded layout, ROADMAP Queue 1 item 10) raises.
+``ShardedTask`` runs the sharded layout: every rank drives the same
+runner (the same chaos plan and policy, each with its own checkpoint
+manager, which keeps that rank's shard), and what the detectors read —
+the frontier, the crc scrub's value rows, the message count — is
+gathered or summed over the shards, so every rank takes the same
+decisions.
 """
 from __future__ import annotations
 
@@ -371,13 +376,83 @@ class LanesTask:
 
 
 class ShardedTask:
-    """Not ported yet (the sharded layout, ROADMAP Queue 1 item 10):
-    raises."""
+    """Sharded min fixpoint over a ``DeviceMesh`` under the resilient
+    runner: a round a dispatch of the sharded round
+    (``exchange.make_shard_fixpoint_round``) with its message count
+    summed over the shards, so the same chaos detectors and recovery
+    ladder apply over real collectives.  Every rank builds the same task
+    and runs ``run_resilient`` with it; the state is this shard's (1,
+    R_max) rows (a checkpoint holds them), the frontier and the scrubbed
+    values are gathered, and a fault on shard s touches shard s's rows.
+    Host-planned worklist modes run as ``device_worklist``
+    (``engine._sharded_cfg``)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardedTask (sharded execution) is not ported yet (ROADMAP "
-            "Queue 1 item 10)")
+    laned = False
+    records = False
+
+    def __init__(self, sem: Semiring, part: Partition, init_val, mesh,
+                 axis_names=("data", "model"),
+                 cfg: EngineConfig = EngineConfig(), device=None):
+        if sem.segment != "min":
+            raise ValueError("ShardedTask drives min-semiring fixpoints")
+        self.sem = sem
+        self.part = part
+        self.cfg = engine._sharded_cfg(cfg, "ShardedTask")
+        self.name = f"{sem.name}_sharded"
+        self.mesh = mesh
+        self.device = engine.resolve_device(device)
+        self.sg = engine.shard_group(part.S, mesh, axis_names)
+        self.arrays = engine.shard_arrays(part, self.sg, self.device)
+        self._round = exchange.make_shard_fixpoint_round(
+            sem, self.arrays, self.cfg, part.S, part.R_max, self.sg)
+        self._init_val = np.asarray(init_val, np.float32)
+
+    def init_state(self) -> dict:
+        val = engine.shard_rows(self._init_val, self.sg, self.device,
+                                torch.float32)
+        chg = self.sem.improved(val, torch.full_like(
+            val, self.sem.identity)) & self.arrays.slot_valid
+        return {"val": val, "chg": chg}
+
+    def dispatch(self, state, wl):
+        # wl is always None: a sharded round plans no host worklist
+        val, chg, mc = self._round(state["val"], state["chg"])
+        return {"val": val, "chg": chg}, exchange.collectives.psum(
+            mc.to(torch.int64), self.sg)
+
+    def _gathered(self, table) -> np.ndarray:
+        return _host(exchange.collectives.all_gather(table, self.sg))
+
+    def host_frontier(self, state):
+        return self._gathered(state["chg"])
+
+    def plan_frontier(self, chg_h):
+        return chg_h.reshape(-1)
+
+    def drop_shard(self, state, s: int):
+        if s != self.sg.rank:
+            return state
+        return {**state, "chg": torch.zeros_like(state["chg"])}
+
+    def corrupt_shard(self, state, s: int):
+        if s != self.sg.rank:
+            return state
+        return {**state, "val": torch.full_like(state["val"], -7.25)}
+
+    def crc_arrays(self, state):
+        return [self._gathered(state["val"])]
+
+    def put(self, host_state):
+        return {"val": torch.as_tensor(host_state["val"],
+                                       dtype=torch.float32,
+                                       device=self.device),
+                "chg": torch.as_tensor(host_state["chg"], dtype=torch.bool,
+                                       device=self.device)}
+
+    def finalize(self, state):
+        return exchange.collectives.all_gather(state["val"], self.sg)
+
+    can_shrink = False
 
 
 # --------------------------------------------------------------------------

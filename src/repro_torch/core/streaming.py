@@ -37,9 +37,11 @@ by a spliced partition.  Mutation batches are buffered by
 
 Runners: ``runner='stacked'`` drives ``engine.run_stacked`` per query,
 ``'lanes'`` batches every tracked min query of a view into one laned
-fixpoint (Q lanes, ``lanes.run_stacked_lanes``).  ``'sharded'`` and
-``mesh=`` (the sharded layout, ROADMAP Queue 1 item 10) raise
-``NotImplementedError``.
+fixpoint (Q lanes, ``lanes.run_stacked_lanes``), ``'sharded'`` does the
+same through ``lanes.run_sharded_lanes`` over ``mesh`` (a ``DeviceMesh``:
+every rank holds the same ``StreamingGraph`` and makes the same calls;
+each commit uploads this rank's shard of each view it maintains, and
+delta-PageRank runs ``engine.run_pagerank_delta_sharded``).
 
 Every fixpoint runs on ``device`` (``None``: CUDA).  A commit uploads
 each view it maintains once, as a fresh ``DeviceArrays`` of the spliced
@@ -232,11 +234,8 @@ class StreamingGraph:
                  staleness_metric: str = "edges", device=None):
         if runner not in ("stacked", "lanes", "sharded"):
             raise ValueError(f"unknown runner {runner!r}")
-        if runner == "sharded":
-            raise NotImplementedError(
-                "StreamingGraph(runner='sharded') is not ported yet "
-                "(ROADMAP Queue 1 item 10)")
-        engine.no_mesh(mesh)
+        if runner == "sharded" and mesh is None:
+            raise ValueError("runner='sharded' runs over a mesh: pass mesh=")
         if staleness_metric not in ("edges", "pr_mass"):
             raise ValueError(f"unknown staleness metric "
                              f"{staleness_metric!r}")
@@ -499,7 +498,7 @@ class StreamingGraph:
         self._upload_s = 0.0
         maint: dict[tuple, MaintStats] = {}
         min_keys = [k for k in self.tracked if k[0] in ("bfs", "sssp")]
-        group = self.runner == "lanes" and len(min_keys) > 0
+        group = self.runner in ("lanes", "sharded") and len(min_keys) > 0
         try:
             if group:
                 self._maintain_min_group(min_keys, old_vals, old_parts,
@@ -612,8 +611,13 @@ class StreamingGraph:
         if view.name not in self._arrays:
             t0 = time.perf_counter()
             dev = engine.resolve_device(self.device)
-            self._arrays[view.name] = engine.DeviceArrays.from_partition(
-                view.part, dev)
+            if self.runner == "sharded":     # this rank's shard of the view
+                self._arrays[view.name] = engine.shard_arrays(
+                    view.part, engine.shard_group(
+                        view.part.S, self.mesh, self.axis_names), dev)
+            else:
+                self._arrays[view.name] = \
+                    engine.DeviceArrays.from_partition(view.part, dev)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             self._upload_s += time.perf_counter() - t0
@@ -632,7 +636,6 @@ class StreamingGraph:
                         arrays=None):
         """One min query through the configured runner; returns
         ((n,) per-vertex values, (rounds, messages, work))."""
-        from repro_torch.query import lanes
         part = view.part
         if self.runner == "stacked":
             sem = actions.BFS if unitw else actions.SSSP
@@ -642,15 +645,27 @@ class StreamingGraph:
             stats = (int(st.iterations), int(st.messages),
                      int(st.work_actions))
         else:
-            val, st = lanes.run_stacked_lanes(
+            val, st = self._run_lanes(
                 part, np.asarray(init, np.float32)[..., None],
-                lane_unitw=np.asarray([unitw], np.int32), cfg=self.cfg,
-                init_changed=np.asarray(chg, bool)[..., None],
-                device=self.device, arrays=arrays)
+                np.asarray([unitw], np.int32),
+                np.asarray(chg, bool)[..., None], arrays)
             val = val[..., 0]
             stats = (int(st.rounds[0]), int(st.messages[0]),
                      int(st.work_actions[0]))
         return engine.vertex_values(part, val), stats
+
+    def _run_lanes(self, part, init, unitw, chg, arrays):
+        """One laned min fixpoint through the lane runner of
+        ``self.runner`` ('lanes': stacked, 'sharded': over the mesh)."""
+        from repro_torch.query import lanes
+        if self.runner == "sharded":
+            return lanes.run_sharded_lanes(
+                part, init, lane_unitw=unitw, mesh=self.mesh,
+                axis_names=self.axis_names, cfg=self.cfg,
+                init_changed=chg, device=self.device, arrays=arrays)
+        return lanes.run_stacked_lanes(
+            part, init, lane_unitw=unitw, cfg=self.cfg, init_changed=chg,
+            device=self.device, arrays=arrays)
 
     def _min_warm_state(self, key, vals, isrc, idst, dsrc, ddst, dw):
         """init/changed per-vertex state for one min query after the
@@ -695,7 +710,6 @@ class StreamingGraph:
                             dsrc, ddst, dw, maint):
         """All tracked base-view min queries in ONE laned fixpoint
         (Q = len(keys)); per-lane stats feed per-key MaintStats."""
-        from repro_torch.query import lanes
         view = self.view("base")
         part = view.part
         cols_init, cols_chg, unitw, inv_counts = [], [], [], []
@@ -710,10 +724,9 @@ class StreamingGraph:
         chg = np.stack(cols_chg, axis=-1)
 
         def run(arrays):
-            val, st = lanes.run_stacked_lanes(
-                part, init, lane_unitw=np.asarray(unitw, np.int32),
-                cfg=self.cfg, init_changed=chg, device=self.device,
-                arrays=arrays)
+            val, st = self._run_lanes(part, init,
+                                      np.asarray(unitw, np.int32), chg,
+                                      arrays)
             return val.cpu().numpy(), [t.cpu().numpy() for t in (
                 st.rounds, st.messages, st.work_actions)]
         val, (rounds, msgs, work) = self._warm("lanes", run, view)
@@ -758,10 +771,17 @@ class StreamingGraph:
     # -------------------------------------------------------- pagerank
     def _run_pr(self, view, damping, tol, max_rounds, init_rank,
                 init_delta, arrays=None):
-        rank, st = engine.run_pagerank_delta(
-            view.part, damping=damping, tol=tol, cfg=self.cfg,
-            max_rounds=max_rounds, init_rank=init_rank,
-            init_delta=init_delta, device=self.device, arrays=arrays)
+        if self.runner == "sharded":
+            rank, st = engine.run_pagerank_delta_sharded(
+                view.part, damping=damping, tol=tol, mesh=self.mesh,
+                axis_names=self.axis_names, cfg=self.cfg,
+                max_rounds=max_rounds, init_rank=init_rank,
+                init_delta=init_delta, device=self.device, arrays=arrays)
+        else:
+            rank, st = engine.run_pagerank_delta(
+                view.part, damping=damping, tol=tol, cfg=self.cfg,
+                max_rounds=max_rounds, init_rank=init_rank,
+                init_delta=init_delta, device=self.device, arrays=arrays)
         return rank, (int(st.iterations), int(st.messages),
                       int(st.work_actions))
 

@@ -1,11 +1,12 @@
-"""Round compositions over the exchange primitives (stacked layout).
+"""Round compositions over the exchange primitives.
 
-One relax → exchange → rhizome-collapse composition per app class —
-monotone fixpoints and counted PageRank-style rounds — each serving both
-the unlaned ``(S, R_max)`` and the lane-batched ``(S, R_max, Q)`` table
-layouts.  ``core.engine`` and ``query.lanes`` are thin loops over these —
-the round loop, termination check and stats bookkeeping live there; the
-per-round math lives here, once.
+One relax → exchange → rhizome-collapse composition per execution layout
+(stacked, sharded) and per app class — monotone fixpoints and counted
+PageRank-style rounds — each serving both the unlaned and the
+lane-batched (trailing Q) table layouts.  ``core.engine`` and
+``query.lanes`` are thin loops over these — the round loop, termination
+check and stats bookkeeping live there; the per-round math lives here,
+once.
 """
 from __future__ import annotations
 
@@ -13,14 +14,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.actions import Semiring
+from repro_torch.exchange import collectives
+from repro_torch.exchange.collectives import axis_tuple  # noqa: F401
 from repro_torch.exchange.primitives import (
-    collapse, compact_collapse, scatter_inbox, stacked_compact_partial,
-    stacked_dense_inbox,
+    collapse, compact_collapse, reduce_axis0, relax, scatter_inbox,
+    stacked_compact_partial, stacked_dense_inbox,
 )
-
-
-def axis_tuple(axis_names):
-    return axis_names if isinstance(axis_names, tuple) else (axis_names,)
 
 
 def _flat(table):
@@ -181,6 +180,127 @@ def delta_pagerank_window_stacked(sem: Semiring, arrays, cfg, S: int,
         counts.append(c.to(torch.int64))
     chg = (delta.abs() > tol) & arrays.slot_valid
     return rank, delta, chg, torch.stack(counts), torch.stack(frontiers)
+
+
+# --------------------------------------------------------------------------
+# sharded layout: one shard a process, real collectives
+# --------------------------------------------------------------------------
+# A shard's tables keep a leading dim of 1 — (1, R_max[, Q]) values and
+# frontiers over one shard's ``DeviceArrays`` (``DeviceArrays.
+# from_partition(part, shard=r)``), the reference's ``x[0]`` before it is
+# stripped — and ``group`` (``collectives.ShardGroup``) stands where the
+# reference passes its mesh ``axis_names``.
+
+
+def shard_gather(x, group):
+    """Tiled all-gather of a shard's (1, R[, Q]) table: the flat
+    (S*R[, Q]) table of every shard in shard order."""
+    return _flat(collectives.all_gather(x, group))
+
+
+def shard_inbox(sem: Semiring, arrays_s, cfg, S: int, R_max: int, group,
+                gval, gchg, lane_unitw=None):
+    """Per-shard relax + real inbox exchange.
+
+    The relax launches this shard's edges only (its own launch plan,
+    ``S*R_max`` segments dense, ``S*P_t`` compact) over the gathered
+    (S*R_max[, Q]) tables.  Dense: the (S, R_max[, Q]) partial →
+    ``all_to_all`` → axis-0 reduce of the received partials in shard
+    order.  Compact: only the (S, P_t[, Q]) targeted tables ride the
+    ``all_to_all`` and scatter into the local slots.  Returns ((1,
+    R_max[, Q]) inbox, this shard's message count)."""
+    plan_on = cfg.use_pallas
+    if cfg.exchange == "compact":
+        ct = arrays_s.compact
+        P_t = ct.inbox_slot_map.shape[-1]
+        partial, counts = relax(
+            sem, cfg, arrays_s.edge_src_root_flat, arrays_s.edge_w,
+            arrays_s.edge_mask, ct.edge_dst_compact, gval, gchg, S * P_t,
+            lane_unitw, plan=ct.plan if plan_on else None)
+        recv = collectives.all_to_all(partial, group)
+        inbox = scatter_inbox(sem, recv.reshape((1, S, P_t) + tuple(
+            recv.shape[1:])), ct.inbox_slot_map, R_max, ct.inbox_index)
+        return inbox, counts
+    partial, counts = relax(
+        sem, cfg, arrays_s.edge_src_root_flat, arrays_s.edge_w,
+        arrays_s.edge_mask, arrays_s.edge_dst_flat, gval, gchg, S * R_max,
+        lane_unitw, plan=arrays_s.fused_plan if plan_on else None)
+    # row block t of the partial belongs to shard t
+    recv = collectives.all_to_all(partial, group)
+    recv = recv.reshape((S, R_max) + tuple(recv.shape[1:]))
+    return reduce_axis0(sem, recv)[None], counts
+
+
+def shard_collapse(sem: Semiring, arrays_s, cfg, table, group, R_max: int):
+    """Eager rhizome collapse of a shard's (1, R_max[, Q]) table over the
+    gathered siblings: every slot's siblings (dense), or the compact
+    rhizome-only gather/scatter."""
+    if cfg.exchange == "compact":
+        ct = arrays_s.compact
+        rz = ct.rz_local
+        return compact_collapse(
+            sem, table, rz, ct.rz_sibling_idx, ct.rz_sibling_mask,
+            lambda x: shard_gather(x, group), R_max, rz.shape[-1])
+    return collapse(sem, shard_gather(table, group), arrays_s.sibling_flat,
+                    arrays_s.sibling_mask)
+
+
+def make_shard_fixpoint_round(sem: Semiring, arrays_s, cfg, S: int,
+                              R_max: int, group, lane_unitw=None):
+    """The per-shard fixpoint round: (val, chg[, lane_mask]) → (new val,
+    new changed, this shard's message count), with the same collective
+    plan for unlaned (1, R_max) and laned (1, R_max, Q) tables — value
+    and frontier ``all_gather`` (the diffusion fan-out), inbox
+    ``all_to_all``, sibling collapse over the gathered table.
+
+    ``lane_mask`` ((Q,) bool, the same on every shard) freezes masked-off
+    lanes, as in ``fixpoint_round_stacked``."""
+
+    def round_fn(val, chg, lane_mask=None):
+        laned = val.dim() == 3
+        if lane_mask is not None:
+            chg = chg & lane_mask
+        inbox, counts = shard_inbox(
+            sem, arrays_s, cfg, S, R_max, group, shard_gather(val, group),
+            shard_gather(chg, group), lane_unitw)
+        cand = sem.combine(val, inbox)
+        if cfg.collapse == "eager":
+            cand = shard_collapse(sem, arrays_s, cfg, cand, group, R_max)
+        slot = arrays_s.slot_valid[..., None] if laned \
+            else arrays_s.slot_valid
+        new_chg = sem.improved(cand, val) & slot
+        if lane_mask is not None:
+            cand = torch.where(lane_mask, cand, val)
+            new_chg = new_chg & lane_mask
+        return cand, new_chg, counts
+
+    return round_fn
+
+
+def shard_total_in(sem: Semiring, arrays_s, cfg, S: int, R_max: int, group,
+                   gval, gchg, lane_unitw=None):
+    """Sharded relax → exchange → rhizome-collapse(⊕) of the bare inbox
+    (see ``stacked_total_in``)."""
+    inbox, counts = shard_inbox(sem, arrays_s, cfg, S, R_max, group, gval,
+                                gchg, lane_unitw)
+    return shard_collapse(sem, arrays_s, cfg, inbox, group, R_max), counts
+
+
+def delta_pagerank_round_shard(sem: Semiring, arrays_s, cfg, S: int,
+                               R_max: int, group, damping, tol, rank,
+                               delta):
+    """Per-shard delta-PageRank round, the sharded twin of
+    ``delta_pagerank_round_stacked``: value/frontier ``all_gather``,
+    relax over the residual frontier, inbox exchange,
+    rhizome-collapse(+).  Counts are this shard's (callers sum them)."""
+    chg = (delta.abs() > tol) & arrays_s.slot_valid
+    total_in, counts = shard_total_in(
+        sem, arrays_s, cfg, S, R_max, group, shard_gather(delta, group),
+        shard_gather(chg, group))
+    new_delta = torch.where(arrays_s.slot_valid, damping * total_in, 0.0)
+    new_rank = rank + new_delta
+    new_chg = (new_delta.abs() > tol) & arrays_s.slot_valid
+    return new_rank, new_delta, new_chg, counts
 
 
 # --------------------------------------------------------------------------

@@ -27,7 +27,9 @@ window.  ``engine_dispatches_total`` / ``engine_host_syncs_total`` (runs
 statistics stay on the device.
 
 Every runner takes the dense or the compact exchange (``cfg.exchange``).
-The sharded runners are ROADMAP Queue 1 item 10.  Entry points take
+The sharded runners (``run_sharded_lanes`` and the sharded rounds) run
+one shard a process over ``torch.distributed``, every rank making the
+same call (see ``core.engine.run_sharded``).  Entry points take
 ``device`` (``None`` means CUDA and raises without it).
 """
 from __future__ import annotations
@@ -271,24 +273,174 @@ def run_stacked_lanes(part: Partition, init_val, lane_unitw=None,
 
 
 # --------------------------------------------------------------------------
-# sharded laned runners (ROADMAP Queue 1 item 10)
+# sharded laned runners (one shard a process, torch.distributed)
 # --------------------------------------------------------------------------
-
-def _sharded(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} (sharded lanes) is not ported yet (ROADMAP Queue 1 "
-            "item 10)")
-    fn.__name__ = name
-    fn.__doc__ = f"``{name}``: not ported yet (ROADMAP Queue 1 item 10)."
-    return fn
+# As ``engine.run_sharded``: every rank makes the same call; a shard's
+# tables are (1, R_max, Q) over its own ``DeviceArrays`` (``shard=r``),
+# and per-lane counts are summed over the shards by one all-reduce.
 
 
-make_sharded_lanes_fn = _sharded("make_sharded_lanes_fn")
-make_sharded_min_round = _sharded("make_sharded_min_round")
-run_sharded_lanes = _sharded("run_sharded_lanes")
-make_sharded_ppr_round = _sharded("make_sharded_ppr_round")
-make_sharded_ppr_delta_round = _sharded("make_sharded_ppr_delta_round")
+def make_sharded_lanes_fn(S: int, R_max: int, Q: int, mesh,
+                          axis_names=("data", "model"),
+                          cfg: EngineConfig = EngineConfig(),
+                          sem: Semiring = actions.SSSP,
+                          with_init_changed: bool = False):
+    """The sharded laned fixpoint as ``(fn, group)``: ``fn(arrays, val,
+    lane_unitw[, init_chg])`` takes this rank's shard and (1, R_max, Q)
+    values ((1, R_max, Q) bool initial frontier with
+    ``with_init_changed=True``; else derived from non-identity values)
+    and returns its (1, R_max, Q) fixpoint values and the per-lane
+    ``LaneStats`` summed over the shards.  The collective plan of
+    ``engine.make_sharded_fn`` with the lane axis riding along: value and
+    frontier ``all_gather``, inbox ``all_to_all`` (the (S, R_max, Q)
+    partial dense, the (S, P_t, Q) tables compact), sibling collapse over
+    the gathered table; each round ends in one all-reduce of the (Q,)
+    counts, work and live flags, read to the host."""
+    _check_cfg(cfg)
+    _check_min(sem)
+    cfg = engine._sharded_cfg(cfg, "make_sharded_lanes_fn")
+    sg = engine.shard_group(S, mesh, axis_names)
+
+    def fn(arrays, val, lane_unitw, init_chg=None):
+        if with_init_changed != (init_chg is not None):
+            raise ValueError("init_chg is given exactly when the function "
+                             "was built with_init_changed=True")
+        dev = val.device
+        unitw = _lane_vector(lane_unitw, Q, torch.int32, dev)
+        sv = arrays.slot_valid[..., None]
+        if init_chg is None:
+            chg = sem.improved(val, torch.full_like(val, sem.identity)) & sv
+        else:
+            chg = init_chg & sv
+        vol = exchange.exchange_volume(
+            S, R_max, arrays.compact.inbox_slot_map.shape[-1]
+            if cfg.exchange == "compact" else 0, cfg)
+        round_fn = exchange.make_shard_fixpoint_round(
+            sem, arrays, cfg, S, R_max, sg, lane_unitw=unitw)
+        psum = exchange.collectives.psum
+        live = psum(chg.reshape(-1, Q).any(dim=0).to(torch.int64), sg) \
+            .cpu().numpy() > 0
+        totals = np.zeros((4, Q), np.int64)
+        it, syncs = 0, 1
+        while live.any() and it < cfg.max_iters:
+            val, chg, counts = round_fn(val, chg)
+            tot = psum(torch.stack([
+                counts.to(torch.int64),
+                chg.reshape(-1, Q).sum(dim=0),
+                chg.reshape(-1, Q).any(dim=0).to(torch.int64)]), sg)
+            counts_h, work_h, any_h = tot.cpu().numpy()
+            totals += np.stack([live, counts_h, work_h, live * vol])
+            live = any_h > 0
+            it += 1
+            syncs += 1
+        engine._count_dispatches("lanes_min_sharded", it, syncs)
+        return val, LaneStats(*(torch.as_tensor(t, device=dev)
+                                for t in totals))
+
+    return fn, sg
+
+
+def make_sharded_min_round(S: int, R_max: int, mesh,
+                           axis_names=("data", "model"),
+                           cfg: EngineConfig = EngineConfig(),
+                           sem: Semiring = actions.SSSP):
+    """One sharded laned fixpoint round as ``(fn, group)``: ``fn(arrays,
+    val, chg, unitw)`` -> (val, chg, (Q,) counts summed over the shards)
+    on this shard's (1, R_max, Q) tables — one tick of the sharded
+    ``QueryServer``'s min pool."""
+    _check_cfg(cfg)
+    _check_min(sem)
+    cfg = engine._sharded_cfg(cfg, "make_sharded_min_round")
+    sg = engine.shard_group(S, mesh, axis_names)
+
+    def fn(arrays, val, chg, unitw):
+        round_fn = exchange.make_shard_fixpoint_round(
+            sem, arrays, cfg, S, R_max, sg, lane_unitw=unitw)
+        val, chg, counts = round_fn(val, chg)
+        return val, chg, exchange.collectives.psum(counts.to(torch.int64),
+                                                   sg)
+
+    return fn, sg
+
+
+def run_sharded_lanes(part: Partition, init_val, lane_unitw=None,
+                      mesh=None, axis_names=("data", "model"),
+                      cfg: EngineConfig = EngineConfig(),
+                      sem: Semiring = actions.SSSP,
+                      init_changed=None, device=None, arrays=None):
+    """Sharded laned execution; layout and call form as in
+    ``engine.run_sharded`` (the full (S, R_max, Q) ``init_val`` on every
+    rank).  ``init_changed`` optionally seeds the first frontier
+    (streaming warm starts).  Returns the all-gathered (S, R_max, Q)
+    values and the per-lane ``LaneStats``; ``arrays`` as in
+    ``engine.run_sharded``."""
+    q = init_val.shape[-1]
+    unitw = np.zeros(q, np.int32) if lane_unitw is None else lane_unitw
+    fn, sg = make_sharded_lanes_fn(
+        part.S, part.R_max, q, mesh, axis_names, cfg, sem,
+        with_init_changed=init_changed is not None)
+    dev = engine.resolve_device(device)
+    arrays = engine.shard_arrays(part, sg, dev, arrays)
+    val = engine.shard_rows(init_val, sg, dev, torch.float32)
+    rest = () if init_changed is None else (
+        engine.shard_rows(init_changed, sg, dev, torch.bool),)
+    val, stats = fn(arrays, val, unitw, *rest)
+    return exchange.collectives.all_gather(val, sg), stats
+
+
+def make_sharded_ppr_round(S: int, R_max: int, mesh,
+                           axis_names=("data", "model"),
+                           cfg: EngineConfig = EngineConfig()):
+    """One sharded laned PPR round as ``(fn, group)``: ``fn(arrays, val,
+    base, damping, live)`` -> (new val, (Q,) max-abs delta, (Q,) counts)
+    on this shard's (1, R_max, Q) tables, the delta maxed and the counts
+    summed over the shards — ``make_ppr_round`` over real collectives."""
+    _check_cfg(cfg)
+    cfg = engine._sharded_cfg(cfg, "make_sharded_ppr_round")
+    sg = engine.shard_group(S, mesh, axis_names)
+    sem = actions.PAGERANK
+
+    def fn(arrays, val, base, damping, live):
+        sv = arrays.slot_valid[..., None]
+        chg = sv & live
+        total_in, counts = exchange.shard_total_in(
+            sem, arrays, cfg, S, R_max, sg, exchange.shard_gather(val, sg),
+            exchange.shard_gather(chg, sg))
+        new = torch.where(sv, base + damping * total_in, 0.0)
+        new = torch.where(live, new, val)
+        delta = exchange.collectives.pmax((new - val).abs().amax(dim=(0, 1)),
+                                          sg)
+        return new, delta, exchange.collectives.psum(
+            counts.to(torch.int64), sg)
+
+    return fn, sg
+
+
+def make_sharded_ppr_delta_round(S: int, R_max: int, mesh,
+                                 axis_names=("data", "model"),
+                                 cfg: EngineConfig = EngineConfig()):
+    """One sharded laned delta-PPR round as ``(fn, group)``: ``fn(arrays,
+    rank, delta, damping, tol)`` -> (rank, delta, changed, (Q,) counts
+    summed over the shards) on this shard's (1, R_max, Q) tables — the
+    sharded twin of ``make_ppr_delta_round`` (each lane diffuses only
+    residuals above its own tolerance)."""
+    _check_cfg(cfg)
+    cfg = engine._sharded_cfg(cfg, "make_sharded_ppr_delta_round")
+    sg = engine.shard_group(S, mesh, axis_names)
+    sem = actions.PAGERANK
+
+    def fn(arrays, rank, delta, damping, tol):
+        sv = arrays.slot_valid[..., None]
+        chg = (delta.abs() > tol) & sv
+        total_in, counts = exchange.shard_total_in(
+            sem, arrays, cfg, S, R_max, sg,
+            exchange.shard_gather(delta, sg), exchange.shard_gather(chg, sg))
+        new_delta = torch.where(sv, damping * total_in, 0.0)
+        new_chg = (new_delta.abs() > tol) & sv
+        return rank + new_delta, new_delta, new_chg, \
+            exchange.collectives.psum(counts.to(torch.int64), sg)
+
+    return fn, sg
 
 
 # --------------------------------------------------------------------------

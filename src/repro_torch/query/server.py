@@ -1,4 +1,4 @@
-"""Continuous-batching graph query server on the stacked layout.
+"""Continuous-batching graph query server.
 
 A pool of ``Q`` query lanes shares one round per semiring class (a
 min-pool for BFS / SSSP / reachability, a sum-pool for personalized
@@ -37,6 +37,14 @@ the loop is trace-identical to the unpoliced server.
 The ``EngineConfig`` also governs the value table's residency
 (``vmem_budget_bytes``): a lane table over the budget runs every pool
 round through the tiled kernels with the same serving semantics.
+
+``QueryServer(mesh=...)`` serves on the sharded layout: every rank runs
+the same server and makes the same calls (SPMD), each holding its
+shard's (1, R_max, Q) lane tables and running the pools' sharded rounds
+(``lanes.make_sharded_min_round``, ``make_sharded_ppr_delta_round``):
+injection writes a lane's column on the shard that owns each slot, the
+live flags are a max over the shards, and a retiring lane's values, a
+snapshot and a mutation's migration gather the lane tables.
 """
 from __future__ import annotations
 
@@ -223,7 +231,8 @@ def _result_from_dict(d: dict, values) -> QueryResult:
 
 class _LanePool:
     """Shared pool plumbing: the lane tables live on the server's device
-    as (S, R_max, Q) tensors.  ``step()`` runs one shared round and
+    as (S, R_max, Q) tensors, or this shard's (1, R_max, Q) rows when
+    the server holds a mesh (``server._sg``).  ``step()`` runs one shared round and
     ``step_window(k)`` k rounds back to back, each returning device
     tensors (the server reads them in one transfer): the (Q,) message
     counts and, for a window, the (Q,) live-round counts summed over it.
@@ -235,6 +244,7 @@ class _LanePool:
                  arrays: engine.DeviceArrays, server):
         self.n = n_lanes
         self._cfg, self._server = cfg, server
+        self._sg = server._sg
         self.dev = arrays.slot_valid.device
         self.reqs: list[QueryRequest | None] = [None] * n_lanes
         self._bind(part, arrays)
@@ -252,23 +262,43 @@ class _LanePool:
         return torch.as_tensor(np.ascontiguousarray(x)).to(
             device=self.dev, dtype=dtype, non_blocking=True)
 
+    def _rows(self, x):
+        """The rows of a full (S, ...) host table this pool holds: all of
+        them, or this shard's one."""
+        if self._sg is None:
+            return x
+        r = self._sg.rank
+        return x[r:r + 1]
+
+    def _full(self, table) -> torch.Tensor:
+        """A pool table as the full (S, R_max, Q) tensor (gathered over
+        the shards when sharded: every rank takes part)."""
+        if self._sg is None:
+            return table
+        return exchange.collectives.all_gather(table, self._sg)
+
     def _table(self, fill, dtype) -> torch.Tensor:
-        S, R_max = self.part.S, self.part.R_max
-        return torch.full((S, R_max, self.n), fill, dtype=dtype,
-                          device=self.dev)
+        rows = self.part.S if self._sg is None else 1
+        return torch.full((rows, self.part.R_max, self.n), fill,
+                          dtype=dtype, device=self.dev)
 
     def _write(self, table, lane: int, fill, col: np.ndarray):
         """Set lane ``lane`` of an (S, R_max, Q) table to the host column
         ``col`` ((S, R_max), ``fill`` everywhere but a few slots): the
-        column is filled on the card and only its other slots cross."""
+        column is filled on the card and only its other slots cross —
+        on a mesh, only the slots of this shard's rows."""
         table[:, :, lane] = fill
+        col = self._rows(col)
         s, r = np.nonzero(col != fill)
         if s.size:
             table[self.put(s, torch.int64), self.put(r, torch.int64),
                   lane] = self.put(col[s, r], table.dtype)
 
     def live_dev(self) -> torch.Tensor:
-        return self.chg.reshape(-1, self.n).any(dim=0)
+        live = self.chg.reshape(-1, self.n).any(dim=0)
+        if self._sg is not None:
+            live = exchange.collectives.pmax(live, self._sg)
+        return live
 
     def live(self) -> np.ndarray:
         """(Q,) live flags, reduced on the card; only they cross."""
@@ -285,7 +315,7 @@ class _LanePool:
     def _values(self, table, lane: int) -> np.ndarray:
         """Lane ``lane``'s per-vertex (root-replica) values, one copy."""
         return engine.vertex_values(
-            self.part, self._server._read(table[:, :, lane])[0])
+            self.part, self._server._read(self._full(table[:, :, lane]))[0])
 
 
 class _MinPool(_LanePool):
@@ -298,6 +328,13 @@ class _MinPool(_LanePool):
         self.val = self._table(np.inf, torch.float32)
         self.chg = self._table(False, torch.bool)
         self.set_unitw(np.zeros(n_lanes, np.int32))
+
+    def _bind(self, part, arrays):
+        super()._bind(part, arrays)
+        if self._sg is not None:
+            srv = self._server
+            self._round, _ = L.make_sharded_min_round(
+                part.S, part.R_max, srv.mesh, srv.axis_names, self._cfg)
 
     def set_unitw(self, unitw):
         self.unitw = np.array(unitw, np.int32)
@@ -319,7 +356,8 @@ class _MinPool(_LanePool):
         live = [lane for lane, r in enumerate(self.reqs) if r is not None]
         warm = live and not has_deletes
         if warm:
-            old_val, old_chg = self._server._read(self.val, self.chg)
+            old_val, old_chg = self._server._read(self._full(self.val),
+                                                  self._full(self.chg))
         self._bind(part, arrays)
         S, R_max = part.S, part.R_max
         val = np.full((S, R_max, self.n), np.inf, np.float32)
@@ -342,8 +380,8 @@ class _MinPool(_LanePool):
             occupied[live] = True
             val[ok_new] = np.where(occupied, vv[sv_new[ok_new]], np.inf)
             chg[ok_new] = fl[sv_new[ok_new]] & occupied
-        self.val = self.put(val, torch.float32)
-        self.chg = self.put(chg, torch.bool)
+        self.val = self.put(self._rows(val), torch.float32)
+        self.chg = self.put(self._rows(chg), torch.bool)
         if not warm:
             for lane in live:
                 self.inject(lane, self.reqs[lane])
@@ -362,6 +400,10 @@ class _MinPool(_LanePool):
 
     def step(self) -> torch.Tensor:
         part = self.part
+        if self._sg is not None:
+            self.val, self.chg, counts = self._round(
+                self._arrays, self.val, self.chg, self._unitw)
+            return counts
         self.val, self.chg, counts = exchange.fixpoint_round_stacked(
             actions.SSSP, self._arrays, self._cfg, part.S, part.R_max,
             self.val, self.chg, lane_unitw=self._unitw)
@@ -392,7 +434,14 @@ class _PprPool(_LanePool):
 
     def _bind(self, part, arrays):
         super()._bind(part, arrays)
-        self._round = L.make_ppr_delta_round(part, self._cfg, arrays=arrays)
+        if self._sg is None:
+            self._round = L.make_ppr_delta_round(part, self._cfg,
+                                                 arrays=arrays)
+        else:
+            srv = self._server
+            sharded, _ = L.make_sharded_ppr_delta_round(
+                part.S, part.R_max, srv.mesh, srv.axis_names, self._cfg)
+            self._round = lambda *a: sharded(arrays, *a)
 
     def _fresh_tables(self):
         self.rank = self._table(0.0, torch.float32)
@@ -459,9 +508,11 @@ class QueryServer:
     message counters are kept per lane for the serving metrics in
     ``benchmarks/query_bench.py`` and ``benchmarks/serve_bench.py``.
 
-    ``mesh=`` (the sharded layout, ROADMAP Queue 1 item 10) raises
-    through ``engine.no_mesh``.  ``apply_mutation`` swaps the server onto
-    a mutated partition between ticks (``StreamingGraph.bind_server``).
+    ``mesh=`` (a ``DeviceMesh`` whose ``axis_names`` hold ``part.S``
+    ranks) serves on the sharded layout, every rank running the same
+    server (see the module docstring).  ``apply_mutation`` swaps the
+    server onto a mutated partition between ticks
+    (``StreamingGraph.bind_server``).
 
     ``serve=ServeConfig(...)`` enables the overload-safety layer; the
     default config reproduces the unpoliced server trace-identically.
@@ -492,9 +543,11 @@ class QueryServer:
                  axis_names=("data", "model"),
                  serve: ServeConfig | None = None, clock=None,
                  tick_rounds: int = 1, device=None):
-        engine.no_mesh(mesh)
         self.part = part
         self.mesh = mesh
+        self.axis_names = axis_names
+        self._sg = (None if mesh is None
+                    else engine.shard_group(part.S, mesh, axis_names))
         self.serve = serve if serve is not None else ServeConfig()
         if int(tick_rounds) < 1:
             raise ValueError(f"tick_rounds={tick_rounds!r}")
@@ -545,7 +598,9 @@ class QueryServer:
         """One device copy of ``part``'s static graph tables, shared by
         both pools; the kernel path's launch plan (and the compact
         exchange's scatter index) is built here, not in a tick."""
-        arrays = engine.DeviceArrays.from_partition(part, self.device)
+        arrays = engine.DeviceArrays.from_partition(
+            part, self.device,
+            shard=None if self._sg is None else self._sg.rank)
         if self._cfg.use_pallas:
             arrays.launch_plan(self._cfg)
         if self._cfg.exchange == "compact":
@@ -1052,13 +1107,14 @@ class QueryServer:
         the per-lane accounting, completed results, and the admission
         queue — everything ``restore`` needs to warm-boot a server whose
         min lanes resume bit-identically."""
+        mp, pp = self.min_pool, self.ppr_pool
         tree = {
-            "min": {"val": self.min_pool.val.cpu().numpy(),
-                    "chg": self.min_pool.chg.cpu().numpy(),
+            "min": {"val": mp._full(mp.val).cpu().numpy(),
+                    "chg": mp._full(mp.chg).cpu().numpy(),
                     "unitw": np.array(self.min_pool.unitw, copy=True)},
-            "ppr": {"rank": self.ppr_pool.rank.cpu().numpy(),
-                    "delta": self.ppr_pool.delta.cpu().numpy(),
-                    "chg": self.ppr_pool.chg.cpu().numpy(),
+            "ppr": {"rank": pp._full(pp.rank).cpu().numpy(),
+                    "delta": pp._full(pp.delta).cpu().numpy(),
+                    "chg": pp._full(pp.chg).cpu().numpy(),
                     "damping": np.array(self.ppr_pool.damping, copy=True),
                     "tol": np.array(self.ppr_pool.tol, copy=True)},
             "results": {str(qid): np.asarray(r.values)
@@ -1162,12 +1218,12 @@ class QueryServer:
 
     def _load_snapshot(self, tree: dict, meta: dict):
         mp, pp = self.min_pool, self.ppr_pool
-        mp.val = mp.put(tree["min"]["val"], torch.float32)
-        mp.chg = mp.put(tree["min"]["chg"], torch.bool)
+        mp.val = mp.put(mp._rows(tree["min"]["val"]), torch.float32)
+        mp.chg = mp.put(mp._rows(tree["min"]["chg"]), torch.bool)
         mp.set_unitw(tree["min"]["unitw"])
-        pp.rank = pp.put(tree["ppr"]["rank"], torch.float32)
-        pp.delta = pp.put(tree["ppr"]["delta"], torch.float32)
-        pp.chg = pp.put(tree["ppr"]["chg"], torch.bool)
+        pp.rank = pp.put(pp._rows(tree["ppr"]["rank"]), torch.float32)
+        pp.delta = pp.put(pp._rows(tree["ppr"]["delta"]), torch.float32)
+        pp.chg = pp.put(pp._rows(tree["ppr"]["chg"]), torch.bool)
         pp.set_lane_params(tree["ppr"]["damping"], tree["ppr"]["tol"])
         self.tick = int(meta["tick"])
         self.rounds_driven = int(meta["rounds_driven"])

@@ -1344,3 +1344,105 @@ def test_pallas_name_launches_k9(dev, kind):
     want = segment_combine_ref(torch.as_tensor(data, device=dev),
                                torch.as_tensor(ids, device=dev), 3000, kind)
     _close_on_card(out, want, kind)
+
+
+# --------------------------------------------------------------------------
+# the sharded layout: one shard's launch, and a one-rank NCCL group
+# --------------------------------------------------------------------------
+
+def _shard_launch_case(dev, exch, weights):
+    """One shard's launch inputs on an RMAT partition: its
+    ``DeviceArrays`` (``shard=`` the heaviest row), gathered tables over
+    every shard's slots and a frontier of a third of the slots."""
+    g = generators.rmat(10, edge_factor=8, seed=3).with_random_weights(
+        seed=3)
+    if weights == "pagerank":
+        from repro_torch.apps.pagerank import _pr_graph
+        g = _pr_graph(g)
+    part = build_partition(g, PartitionConfig(num_shards=8, rpvo_max=4))
+    r = int(np.argmax(part.edge_mask.sum(axis=1)))
+    arrays = engine.DeviceArrays.from_partition(part, dev, shard=r)
+    rng = np.random.default_rng(r)
+    v = part.S * part.R_max
+    gval = torch.as_tensor(rng.uniform(0, 9, v).astype(np.float32),
+                           device=dev)
+    gchg = torch.as_tensor(rng.random(v) < 0.3, device=dev)
+    if exch == "compact":
+        ct = arrays.compact
+        ids, nseg, plan = ct.ids, part.S * part.P_t, ct.plan
+    else:
+        ids = arrays.edge_dst_flat.reshape(-1)
+        nseg, plan = v, arrays.fused_plan
+    edges = (arrays.edge_src_root_flat.reshape(-1),
+             arrays.edge_w.reshape(-1), arrays.edge_mask.reshape(-1), ids)
+    return gval, gchg, edges, nseg, plan
+
+
+@pytest.mark.parametrize("exch", ["dense", "compact"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K9"])
+def test_shard_launch_matches_plain(dev, exch, kernel):
+    """K1 (dense), K2 (device worklist), K3 (Q = 5 lanes) and K9 on one
+    shard's launch (its edges into ``S*R_max`` dense or ``S*P_t``
+    compact segments) against their plain versions: min bit for bit,
+    K1's sum within rtol 1e-5 / atol 1e-6."""
+    gval, gchg, (src, w, mask, ids), nseg, plan = _shard_launch_case(
+        dev, exch, "plain")
+    if kernel in ("K1", "K2"):
+        grid = "dense" if kernel == "K1" else "device_worklist"
+        for relax, kind in PAIRS:
+            got, n = frr.fused_relax_reduce(
+                gval, gchg, src, w, mask, ids, nseg, relax, kind,
+                with_count=True, plan=plan, grid_mode=grid)
+            want = fused_relax_reduce_ref(gval, gchg, src, w, mask, ids,
+                                          nseg, relax, kind)
+            if kind == "min":
+                assert torch.equal(got, want)
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            assert int(n) == int((mask & gchg[src.long()]).sum())
+    elif kernel == "K3":
+        q = 5
+        rng = np.random.default_rng(7)
+        gv = torch.as_tensor(rng.uniform(0, 9, (gval.shape[0], q))
+                             .astype(np.float32), device=dev)
+        gc = torch.as_tensor(rng.random((gval.shape[0], q)) < 0.3,
+                             device=dev)
+        unitw = torch.as_tensor([1, 0, 1, 0, 0], dtype=torch.int32,
+                                device=dev)
+        got, n = frr.fused_relax_reduce_lanes(
+            gv, gc, unitw, src, w, mask, ids, nseg, "add_w", "min",
+            with_count=True, plan=plan)
+        want = fused_relax_reduce_lanes_ref(gv, gc, unitw, src, w, mask,
+                                            ids, nseg, "add_w", "min")
+        assert torch.equal(got, want)
+    else:
+        active = mask & gchg[src.long()]
+        msg = torch.where(active, gval[src.long()] + w, torch.inf)
+        got = rsr.segment_combine(msg, ids, nseg, "min", plan=plan)
+        assert torch.equal(got, segment_combine_ref(msg, ids, nseg, "min"))
+
+
+def test_sharded_bfs_on_one_rank_nccl_group(dev):
+    """``bfs(..., num_shards=1, mesh=)`` on a one-rank NCCL group over
+    the card (the counterpart of ``tests/test_engine_sharded.py:18``):
+    the NCCL collectives launch and the levels equal the oracle."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.exchange import collectives
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                          mesh_dim_names=("data", "model"))
+        assert dist.get_backend(collectives.shard_group(mesh).group) \
+            == "nccl"
+        g = generators.erdos_renyi(200, avg_degree=4.0, seed=0)
+        root = int(g.src[0])
+        cfg = engine.EngineConfig(use_pallas=True)
+        got, stats, _ = bfs(g, root, num_shards=1, mesh=mesh, cfg=cfg)
+        want, want_stats, _ = bfs(g, root, num_shards=1, cfg=cfg)
+        np.testing.assert_array_equal(got, reference.bfs_levels(g, root))
+        assert [int(x) for x in stats] == [int(x) for x in want_stats]
+    finally:
+        dist.destroy_process_group()

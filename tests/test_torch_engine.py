@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro import apps as ref_apps  # noqa: E402
+from repro.apps.pagerank import _pr_graph as _ref_pr_graph  # noqa: E402
 from repro.core import actions as ref_actions  # noqa: E402
 from repro.core import engine as ref_engine  # noqa: E402
 from repro.core import partition as ref_partition  # noqa: E402
@@ -230,38 +231,20 @@ def test_engine_config_fields_and_defaults_match_reference():
     ("sssp_mesh", "Queue 1 item 10"),
 ] + [(name, "Queue 1 item 10") for name in SHARDED_ENGINE_FNS])
 def test_unported_options_raise(case, item):
-    """Options the port lacks raise, naming the ROADMAP item that brings
-    them.  ``pallas_mode='reduce'`` (kernel K9) and ``exchange='compact'``
-    have come since: their cases now run and equal the reference
+    """Options the port once lacked, each case named by the ROADMAP item
+    that brought it; every one now runs and equals the reference.
+    ``pallas_mode='reduce'`` (kernel K9) and ``exchange='compact'``
     (``test_torch_segment_reduce.py`` and ``test_torch_compact.py`` hold
-    the paths in full), and so has ``QueryServer.apply_mutation`` (item
-    8; ``test_torch_streaming.py`` holds it in full).  ``QueryServer``
-    refuses ``mesh=`` (item 10).  The sharded entry points take the
-    reference's parameters and call form (``mesh=`` on the apps, the six
-    sharded engine functions) and raise for item 10."""
-    g_ref, g, root, part_ref, part = _both("rmat8", 4, 1)
-    mesh = object()
-    if case in SHARDED_ENGINE_FNS:
-        fn = getattr(engine, case)
-        want = inspect.signature(getattr(ref_engine, case)).parameters
-        assert list(inspect.signature(fn).parameters) == list(want)
-        init = engine.init_values(part, actions.BFS, {root: 0.0})
-        args = {"make_sharded_fn": (actions.BFS, part.S, part.R_max, mesh),
-                "run_sharded": (actions.BFS, part, init, mesh),
-                "make_sharded_pagerank_fn": (part.S, part.R_max, g.n, 0.85,
-                                             5, mesh),
-                "run_pagerank_sharded": (part, 0.85, 5, mesh),
-                "make_sharded_pagerank_delta_fn": (part.S, part.R_max, 0.85,
-                                                   1e-6, mesh),
-                "run_pagerank_delta_sharded": (part, 0.85, 1e-6, mesh)}
-        with pytest.raises(NotImplementedError, match=item):
-            fn(*args[case], ("data", "model"), engine.EngineConfig())
+    the paths in full), ``QueryServer.apply_mutation`` (item 8;
+    ``test_torch_streaming.py``), and the sharded layout (item 10:
+    ``mesh=`` on the apps and ``QueryServer``, the six sharded engine
+    functions), each with the reference's parameters and call form, run
+    on a one-rank gloo group against the reference's 1-device mesh
+    (``test_torch_sharded.py`` holds 8 and 4 ranks)."""
+    if item == "Queue 1 item 10":
+        _sharded_one_rank(case)
         return
-    if case in ("bfs_mesh", "sssp_mesh"):
-        app = case.split("_")[0]
-        want = list(inspect.signature(getattr(ref_apps, app)).parameters)
-        got = list(inspect.signature(getattr(apps, app)).parameters)
-        assert got == want + ["device"]
+    g_ref, g, root, part_ref, part = _both("rmat8", 4, 1)
     compact = engine.EngineConfig(exchange="compact")
     reduce = engine.EngineConfig(use_pallas=True, pallas_mode="reduce")
     if case.endswith("_compact"):
@@ -280,25 +263,20 @@ def test_unported_options_raise(case, item):
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7)
         assert _stats(stats) == _stats(want_stats)
         return
-    if case.startswith("server"):
+    if case == "server_apply_mutation":
+        from repro.query import QueryServer as RefQueryServer
         from repro_torch.query import QueryServer
-        if case == "server_mesh":
-            with pytest.raises(NotImplementedError, match=item):
-                QueryServer(part, n_lanes=1, mesh=mesh, device="cpu")
-        else:
-            from repro.query import QueryServer as RefQueryServer
-            servers = (RefQueryServer(part_ref, n_lanes=1),
-                       QueryServer(part, n_lanes=1, device="cpu"))
-            for srv, p in zip(servers, (part_ref, part)):
-                srv.submit("bfs", root)
-                srv.step()
-                srv.apply_mutation(p, insert_seeds=[root])
-                srv.run()
-                assert srv.counters["mutations"] == 1
-            want, got = (srv.results[0] for srv in servers)
-            np.testing.assert_array_equal(got.values, want.values)
-            assert (got.rounds, got.messages) == (want.rounds,
-                                                  want.messages)
+        servers = (RefQueryServer(part_ref, n_lanes=1),
+                   QueryServer(part, n_lanes=1, device="cpu"))
+        for srv, p in zip(servers, (part_ref, part)):
+            srv.submit("bfs", root)
+            srv.step()
+            srv.apply_mutation(p, insert_seeds=[root])
+            srv.run()
+            assert srv.counters["mutations"] == 1
+        want, got = (srv.results[0] for srv in servers)
+        np.testing.assert_array_equal(got.values, want.values)
+        assert (got.rounds, got.messages) == (want.rounds, want.messages)
         return
     if item == "K9":
         ref_cfg = ref_engine.EngineConfig(use_pallas=True,
@@ -314,16 +292,123 @@ def test_unported_options_raise(case, item):
             got, _ = apps.pagerank(g, num_shards=4, cfg=reduce,
                                    device="cpu")
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7)
-        return
-    calls = {
-        "pagerank_mesh": lambda: apps.pagerank(g, part=part, mesh=object(),
-                                               device="cpu"),
-        # the reference's call form (tests/test_engine_sharded.py)
-        "bfs_mesh": lambda: apps.bfs(g, root, num_shards=1, mesh=mesh),
-        "sssp_mesh": lambda: apps.sssp(g, root, num_shards=1, mesh=mesh),
-    }
-    with pytest.raises(NotImplementedError, match=item):
-        calls[case]()
+
+
+# the port's sharded entry points add these to the reference's parameters
+SHARDED_EXTRA = {"run_sharded": ["device", "arrays"],
+                 "run_pagerank_sharded": ["device"],
+                 "run_pagerank_delta_sharded": ["device", "arrays"]}
+
+
+def _sharded_one_rank(case):
+    """One case of the sharded layout on a one-rank gloo group (1x1
+    mesh) against the reference's 1-device mesh run: min values bit for
+    bit and ``RunStats`` exactly, sums within the reference's sharded
+    tolerance (rtol 1e-6 / atol 1e-9 of its run)."""
+    import jax
+    from jax.sharding import Mesh
+    from torch_dist import single_rank_mesh
+    ref_mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                    ("data", "model"))
+    g_ref, g, root, part_ref, part = _both("rmat8", 1, 1)
+    pr_ref = ref_partition.build_partition(
+        _ref_pr_graph(g_ref), ref_partition.PartitionConfig(num_shards=1))
+    pr = interop.partition_from_dict(dataclasses.asdict(pr_ref))
+    cpu = "cpu"
+    with single_rank_mesh() as mesh:
+        if case in SHARDED_ENGINE_FNS:
+            want = list(inspect.signature(getattr(ref_engine,
+                                                  case)).parameters)
+            got = list(inspect.signature(getattr(engine, case)).parameters)
+            assert got == want + SHARDED_EXTRA.get(case, [])
+        if case in ("make_sharded_fn", "run_sharded"):
+            init = engine.init_values(part, actions.BFS, {root: 0.0})
+            want, want_st = ref_engine.run_sharded(
+                ref_actions.BFS, part_ref, init, ref_mesh)
+            if case == "run_sharded":
+                got, st = engine.run_sharded(actions.BFS, part, init, mesh,
+                                             device=cpu)
+            else:
+                fn, sg = engine.make_sharded_fn(actions.BFS, part.S,
+                                                part.R_max, mesh)
+                assert (sg.rank, sg.size) == (0, 1)
+                got, st = fn(engine.DeviceArrays.from_partition(
+                    part, cpu, shard=0), torch.as_tensor(init))
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            assert _stats(st) == _stats(want_st)
+        elif case in ("make_sharded_pagerank_fn", "run_pagerank_sharded",
+                      "pagerank_mesh"):
+            want = np.asarray(ref_engine.run_pagerank_sharded(
+                pr_ref, 0.85, 12, ref_mesh))
+            if case == "make_sharded_pagerank_fn":
+                fn, _ = engine.make_sharded_pagerank_fn(
+                    pr.S, pr.R_max, pr.n, 0.85, 12, mesh)
+                got = fn(engine.DeviceArrays.from_partition(pr, cpu,
+                                                            shard=0))
+            elif case == "run_pagerank_sharded":
+                got = engine.run_pagerank_sharded(pr, 0.85, 12, mesh,
+                                                  device=cpu)
+            else:
+                got, _ = apps.pagerank(g, iters=12, part=pr, mesh=mesh,
+                                       device=cpu)
+                want = ref_engine.vertex_values(pr_ref, want)
+            np.testing.assert_allclose(np.asarray(got), want, rtol=1e-6,
+                                       atol=1e-9)
+        elif case == "make_sharded_pagerank_delta_fn":
+            fn, _ = engine.make_sharded_pagerank_delta_fn(
+                pr.S, pr.R_max, 0.85, 1e-9, mesh)
+            ref_fn, sharding = ref_engine.make_sharded_pagerank_delta_fn(
+                pr.S, pr.R_max, 0.85, 1e-9, ref_mesh)
+            arrays = engine.DeviceArrays.from_partition(pr, cpu, shard=0)
+            ref_arrays = jax.tree.map(
+                lambda x: jax.device_put(x, sharding),
+                ref_engine.DeviceArrays.from_partition(pr_ref))
+            base = np.where(pr.slot_vertex >= 0, 0.15 / pr.n,
+                            0.0).astype(np.float32)
+            rank = delta = torch.as_tensor(base)
+            r_rank = r_delta = jax.device_put(base, sharding)
+            for _ in range(4):
+                rank, delta, counts, work = fn(arrays, rank, delta)
+                r_rank, r_delta, r_counts, r_work = ref_fn(
+                    ref_arrays, r_rank, r_delta)
+                np.testing.assert_allclose(rank.numpy(), np.asarray(r_rank),
+                                           rtol=1e-6, atol=1e-9)
+                assert (int(counts), int(work)) == (
+                    int(np.asarray(r_counts)[0]), int(np.asarray(r_work)[0]))
+        elif case == "run_pagerank_delta_sharded":
+            want, want_st = ref_engine.run_pagerank_delta_sharded(
+                pr_ref, 0.85, 1e-9, ref_mesh)
+            got, st = engine.run_pagerank_delta_sharded(pr, 0.85, 1e-9, mesh,
+                                                        device=cpu)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-6, atol=1e-9)
+            assert _stats(st)[:2] == _stats(want_st)[:2]
+        elif case in ("bfs_mesh", "sssp_mesh"):
+            app = case.split("_")[0]
+            want = list(inspect.signature(getattr(ref_apps, app)).parameters)
+            got = list(inspect.signature(getattr(apps, app)).parameters)
+            assert got == want + ["device"]
+            # the reference's call form (tests/test_engine_sharded.py)
+            want, want_st, _ = getattr(ref_apps, app)(
+                g_ref, root, num_shards=1, mesh=ref_mesh)
+            got, st, _ = getattr(apps, app)(g, root, num_shards=1,
+                                            mesh=mesh, device=cpu)
+            np.testing.assert_array_equal(got, want)
+            assert _stats(st) == _stats(want_st)
+        else:                                         # server_mesh
+            from repro.query import QueryServer as RefQueryServer
+            from repro_torch.query import QueryServer
+            servers = (RefQueryServer(part_ref, n_lanes=1, mesh=ref_mesh),
+                       QueryServer(part, n_lanes=1, mesh=mesh, device=cpu))
+            for srv in servers:
+                srv.submit("bfs", root)
+                srv.submit("sssp", root)
+                srv.run()
+            for q in (0, 1):
+                want, got = (srv.results[q] for srv in servers)
+                np.testing.assert_array_equal(got.values, want.values)
+                assert (got.rounds, got.messages, got.exchanged) == (
+                    want.rounds, want.messages, want.exchanged)
 
 
 def test_grid_mode_is_moot_without_kernel():

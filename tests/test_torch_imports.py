@@ -74,7 +74,8 @@ def _tiny():
                                    "run_ppr_delta_lanes", "QueryServer",
                                    "StreamingGraph", "DynamicGraph",
                                    "StackedTask", "PagerankTask",
-                                   "LanesTask"])
+                                   "LanesTask", "run_sharded",
+                                   "run_sharded_lanes", "ShardedTask"])
 def test_entry_points_without_device_need_cuda(monkeypatch, entry):
     from repro_torch.apps import (
         batched_queries, bfs, cc, pagerank, pagerank_delta,
@@ -118,6 +119,24 @@ def test_entry_points_without_device_need_cuda(monkeypatch, entry):
         "PagerankTask": lambda: resilient.PagerankTask(part),
         "LanesTask": lambda: resilient.LanesTask(part, init, unitw),
     }
+    sharded = {
+        "run_sharded": lambda mesh, p: engine.run_sharded(
+            actions.BFS, p, engine.init_values(p, actions.BFS, {0: 0.0}),
+            mesh),
+        "run_sharded_lanes": lambda mesh, p: lanes.run_sharded_lanes(
+            p, lanes.init_lane_values(p, [("bfs", 0)])[0], mesh=mesh),
+        "ShardedTask": lambda mesh, p: resilient.ShardedTask(
+            actions.BFS, p, engine.init_values(p, actions.BFS, {0: 0.0}),
+            mesh),
+    }
+    if entry in sharded:
+        from repro_torch.core.partition import build_partition
+        from torch_dist import single_rank_mesh
+        one = build_partition(g, PartitionConfig(num_shards=1))
+        with single_rank_mesh() as mesh, \
+                pytest.raises(RuntimeError, match="no CUDA device"):
+            sharded[entry](mesh, one)
+        return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 
@@ -132,13 +151,14 @@ def test_cpu_device_runs_when_asked():
 
 MIRRORED = ["checkpoint.manager", "runtime.chaos", "runtime.elastic",
             "core.dynamic", "core.streaming", "core.resilient",
-            "checkpoint", "runtime"]
+            "checkpoint", "runtime", "exchange", "exchange.rounds",
+            "core.engine", "query.lanes"]
 
 
 @pytest.mark.parametrize("name", MIRRORED)
 def test_new_modules_mirror_reference_names(name):
-    """The modules ported for mutation and fault tolerance carry every
-    public name of their reference counterpart."""
+    """The modules ported for mutation, fault tolerance and the sharded
+    layout carry every public name of their reference counterpart."""
     import importlib
     ref = importlib.import_module(f"repro.{name}")
     port = importlib.import_module(f"repro_torch.{name}")
@@ -148,3 +168,26 @@ def test_new_modules_mirror_reference_names(name):
                 "repro.")}
     assert want, name
     assert want <= set(vars(port)), sorted(want - set(vars(port)))
+
+
+@pytest.mark.parametrize("path", [PKG / "exchange" / "collectives.py",
+                                  ROOT / "tests" / "torch_dist.py"],
+                         ids=["collectives", "torch_dist"])
+def test_sharded_layout_stands_alone(path):
+    """The collectives module, and the helper whose spawned ranks run the
+    sharded tests, import neither JAX nor the reference package, even
+    where nothing blocks them; the collectives are the exchange layer's
+    ``exchange.collectives``."""
+    code = (
+        "import runpy, sys\n"
+        f"runpy.run_path({str(path)!r}, run_name='m')\n"
+        "from repro_torch import exchange\n"
+        "from repro_torch.exchange import collectives\n"
+        "assert exchange.collectives is collectives\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r}))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from repro.apps.pagerank import _pr_graph as ref_pr_graph  # noqa: E402
 from repro.apps.pagerank import pagerank as ref_pr  # noqa: E402
 from repro.apps.pagerank import pagerank_delta as ref_pr_delta  # noqa: E402,E501
+from repro import apps as ref_apps  # noqa: E402
 from repro import obs as ref_obs  # noqa: E402
 from repro.core import engine as ref_engine  # noqa: E402
 from repro.core import partition as ref_partition  # noqa: E402
@@ -216,6 +217,20 @@ def test_pagerank_delta_counts_windows():
 
 @pytest.mark.parametrize("fn", ["pagerank", "pagerank_delta"])
 def test_mesh_names_its_roadmap_item(fn):
-    _, g, _, part = _both("rmat8")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        getattr(apps, fn)(g, part=part, mesh=object(), device="cpu")
+    """``mesh=`` (ROADMAP Queue 1 item 10, ported): on a one-rank gloo
+    group against the reference's 1-device mesh, within the reference's
+    sharded tolerance (test_delta_pagerank.py:79: rtol 1e-6 / atol 1e-9),
+    with equal iterations and messages for the delta run."""
+    import jax
+    from jax.sharding import Mesh
+    from torch_dist import single_rank_mesh
+    ref_mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                    ("data", "model"))
+    g_ref, g, part_ref, part = _both("rmat8", shards=1)
+    kw = {"tol": 1e-9, "max_rounds": 400} if fn == "pagerank_delta" else {}
+    want = getattr(ref_apps, fn)(g_ref, part=part_ref, mesh=ref_mesh, **kw)
+    with single_rank_mesh() as mesh:
+        got = getattr(apps, fn)(g, part=part, mesh=mesh, device="cpu", **kw)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-9)
+    if fn == "pagerank_delta":
+        assert _stats(got[1])[:2] == _stats(want[1])[:2]

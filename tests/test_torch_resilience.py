@@ -20,6 +20,7 @@ import dataclasses
 import json
 import pathlib
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -445,8 +446,40 @@ def test_chaos_events_fire_exactly_once():
 
 
 def test_unported_sharded_task_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        resilient.ShardedTask(actions.SSSP, None, None, None)
+    """``ShardedTask`` (ROADMAP Queue 1 item 10, ported) on a one-rank
+    gloo group against the reference's on its 1-device mesh: clean and
+    under a corrupted tile restored from a real checkpoint, values bit
+    for bit and ``RunStats`` exactly equal."""
+    import jax
+    from jax.sharding import Mesh
+    from torch_dist import single_rank_mesh
+    ref_mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                    ("data", "model"))
+    g = ref_generators.rmat(7, edge_factor=5, seed=4).with_random_weights(
+        seed=4)
+    part_ref = ref_build(g, RefPCfg(num_shards=1, rpvo_max=2))
+    part = interop.partition_from_dict(dataclasses.asdict(part_ref))
+    root = int(np.argsort(-g.out_degrees())[0])
+    init = engine.init_values(part, actions.SSSP, {root: 0.0})
+    want, want_st, _ = ref_res.run_resilient(ref_res.ShardedTask(
+        ref_actions.SSSP, part_ref, init, ref_mesh))
+    plan = chaos.ChaosPlan(events=(chaos.ChaosEvent(
+        round=2, kind="corrupt_tile", shard=0),))
+    with single_rank_mesh() as mesh, pytest.warns(UserWarning,
+                                                  match="device_worklist"):
+        engine._SHARDED_GRID_WARNED.discard("ShardedTask")
+        for ch in (None, plan):
+            with tempfile.TemporaryDirectory() as d:
+                task = resilient.ShardedTask(
+                    actions.SSSP, part, init, mesh, device=CPU,
+                    cfg=engine.EngineConfig(checkpoint_every=1,
+                                            use_pallas=True,
+                                            grid_mode="worklist"))
+                got, st, report = resilient.run_resilient(
+                    task, chaos=ch, manager=CheckpointManager(d))
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            assert [int(x) for x in st] == [int(x) for x in want_st]
+            assert report.status == ("ok" if ch is None else "recovered")
 
 
 # --------------------------------------------------------------------------

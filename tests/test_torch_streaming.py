@@ -269,14 +269,38 @@ def test_mutation_differential_q1_single_lane():
 
 
 def test_unported_runner_and_mesh_raise():
-    g = _pg(ref_generators.rmat(5, edge_factor=4, seed=1))
-    pcfg = PartitionConfig(num_shards=4, rpvo_max=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """``runner='sharded'`` with ``mesh=`` (ROADMAP Queue 1 item 10,
+    ported) on a one-rank gloo group against the reference's 1-device
+    mesh: every commit's tracked values and ``CommitInfo`` equal (a batch
+    with deletes included); the sharded runner without a mesh, and an
+    unknown runner, raise ``ValueError``."""
+    import jax
+    from jax.sharding import Mesh
+    from torch_dist import single_rank_mesh
+    ref_mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                    ("data", "model"))
+    g_ref = ref_generators.rmat(5, edge_factor=4, seed=1) \
+        .with_random_weights(seed=1)
+    g = _pg(g_ref)
+    pcfg = PartitionConfig(num_shards=1, rpvo_max=2)
+    with pytest.raises(ValueError, match="mesh="):
         StreamingGraph(g, pcfg, runner="sharded", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        StreamingGraph(g, pcfg, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="unknown runner"):
         StreamingGraph(g, pcfg, runner="nope", device=CPU)
+    root = int(g.src[0])
+    with single_rank_mesh() as mesh:
+        pair = (RefStreamingGraph(g_ref, RefPCfg(num_shards=1, rpvo_max=2),
+                                  runner="sharded", mesh=ref_mesh),
+                StreamingGraph(g, pcfg, runner="sharded", mesh=mesh,
+                               device=CPU))
+        for sg in pair:
+            sg.track("bfs", root)
+            sg.track("sssp", root)
+            sg.track("pagerank", tol=1e-7)
+        rng = np.random.default_rng(5)
+        for _ in range(2):
+            _commit_both(pair, *_random_batch(rng, g.n, 5, 2, pair[1].g))
+            _assert_tracked_equal(*pair)
 
 
 # --------------------------------------------------------------------------
