@@ -207,6 +207,35 @@ started together) and runs, in order:
    a round (``[sharded]``).  These times are 16 ranks sharing one card
    over gloo, not a multi-GPU layout's.
 
+11. slice-13 simulation layer (``phase_amcca``): ``benchmarks/fig10.py``'s
+   simulator runs (BFS on ``ba_skewed`` 600 / 1,200 on 64 / 256 CCs,
+   mesh and torus), ``fig6.py``'s (RMAT-10 SSSP on 256 CCs, rpvo_max 8)
+   and ``fig8.py``'s cost-model replays (``ba_skewed(2^14)``, five
+   all-vertex rounds, 4,096 and 16,384 CCs, rpvo_max 1-16) run on the
+   card and again through the same code on the CPU, every ``SimResult``
+   / ``CostResult`` field equal, simulated values equal to the numpy
+   oracles; one RMAT-14 BFS simulation on 4,096 CCs runs on the card
+   alone, held to the oracle.  It prints cycles, speedups, the torus's
+   time and energy against the mesh and the wall seconds (``[amcca]``).
+
+12. slice-13 LM serving (``phase_lm_serve``): 12a the ten architectures
+   at ``reduced()`` width in float32 with the same weights on the card
+   and the CPU (prefill logits within rtol/atol 1e-4, 8 greedy tokens
+   and every MoE routing's expert indices equal); 12b minitron-4b at
+   full width in bfloat16 (weights drawn on the card from seed 0), a
+   ``ContinuousBatcher`` of 8 slots (max_len 1,024) answering 16
+   requests (prompts of 64-512 tokens, 32 new), each answer run again
+   alone (B = 1) on its own tokens: equal up to the first step whose
+   top-2 margin is under 8 bfloat16 ulps of the row's largest |logit|,
+   and every token within that of the lone run's top logit; requests/s,
+   decode tokens/s, prefill ms, peak memory and a profiled decode step
+   are printed; 12c granite-moe-1b-a400m (float32 and a capacity factor
+   of E / K, so no token drops; each decoded token's MoE routing forced
+   to the prefill's, near-ties under 1e-6 of probability allowed) and
+   xlstm-125m (bfloat16) at full width: a
+   4 x 256 prefill and 16 decode steps, each step's logits within the
+   tolerance of a prefill of the extended sequence (``[lm-serve]``).
+
 ``--profile`` also traces one replayed lane round's relax phase (K3 and
 K4 host-plan launches) with ``torch.profiler`` and prints its device
 time by operator.
@@ -234,6 +263,8 @@ JAX or of the JAX package.  The last lines are the ``kernels`` JSON and
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -5151,6 +5182,615 @@ def phase_sharded(torch, np, dev, g, part, root, want, part_pr, want_pr,
     return launches, errs, report
 
 
+# --------------------------------------------------------------------------
+# phase 11: the AM-CCA simulator and cost model on the card
+# --------------------------------------------------------------------------
+
+AMCCA_FIG8_CCS = (4096, 16384)        # fig8.py's two chip sizes
+AMCCA_RPVO = (1, 2, 4, 8, 16)
+AMCCA_FIG8_ROUNDS = 5                 # all-vertex rounds replayed
+
+
+def _fields_equal(torch, card, cpu, where):
+    """Every field of two SimResults / CostResults equal: tensors with
+    dtype and shape, scalars exactly."""
+    for f in dataclasses.fields(card):
+        a, b = getattr(card, f.name), getattr(cpu, f.name)
+        if torch.is_tensor(a):
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and torch.equal(a.cpu(), b.cpu()),
+                  f"{where}: card and CPU differ in {f.name}")
+        else:
+            check(a == b, f"{where}: {f.name} card {a} != CPU {b}")
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _sim_twin(torch, dev, part, torus, sources, weights, where):
+    """One simulator run on the card and the same on the CPU, equal
+    field for field; returns (result, card s, CPU s)."""
+    from repro_torch.core.amcca_sim import AmccaSim
+    card, t_card = _timed(torch, lambda: AmccaSim(
+        part, torus=torus, device=dev).run_min_app(sources, weights))
+    cpu, t_cpu = _timed(torch, lambda: AmccaSim(
+        part, torus=torus, device="cpu").run_min_app(sources, weights))
+    _fields_equal(torch, card, cpu, where)
+    return card, t_card, t_cpu
+
+
+def _sim_oracle(np, part, res, want, where):
+    """Root-slot values equal the numpy oracle (BFS levels or Dijkstra
+    distances), unreached vertices infinite."""
+    got = res.values.cpu().numpy()[part.root_flat]
+    reached = np.isfinite(want) & (want != np.iinfo(np.int32).max)
+    check(np.array_equal(got[reached], want[reached].astype(np.float64)),
+          f"{where}: values differ from the oracle")
+    check(bool(np.isinf(got[~reached]).all()),
+          f"{where}: an unreached vertex has a value")
+
+
+def phase_amcca(torch, np, dev):
+    """Phase 11: fig6's and fig10's simulator configs and fig8's cost
+    model on the card and on the CPU, equal field for field, values held
+    to the numpy oracles; one simulator run at the paper's chip scale
+    (RMAT-14, 4,096 CCs) on the card alone."""
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.partition import PartitionConfig, build_partition
+    from repro_torch.graph import generators, reference
+    out = {}
+    t_phase = time.perf_counter()
+
+    # fig10 first: BFS on ba_skewed, mesh against torus (the first run
+    # also warms the card up; its times are not kept)
+    fig10 = []
+    for rep, (n, shards) in enumerate(((600, 64), (600, 64), (1200, 256))):
+        g = generators.ba_skewed(n, m_per=5, seed=9)
+        root = int(np.argmax(g.out_degrees()))
+        want = reference.bfs_levels(g, root)
+        row = {"n": n, "ccs": shards}
+        for torus in (False, True):
+            part = build_partition(g, PartitionConfig(
+                num_shards=shards, rpvo_max=4, local_edge_list_size=8,
+                torus=torus, seed=8))
+            where = f"fig10 n={n} {'torus' if torus else 'mesh'}"
+            res, t_card, t_cpu = _sim_twin(torch, dev, part, torus,
+                                           {root: 0.0}, False, where)
+            _sim_oracle(np, part, res, want, where)
+            key = "torus" if torus else "mesh"
+            row[key] = {"cycles": res.cycles, "energy_pj": res.energy_pj,
+                        "card_s": t_card, "cpu_s": t_cpu}
+        if rep == 0:
+            continue
+        row["time_reduction_pct"] = 100 * (
+            row["mesh"]["cycles"] - row["torus"]["cycles"]) \
+            / row["mesh"]["cycles"]
+        row["energy_increase_pct"] = 100 * (
+            row["torus"]["energy_pj"] - row["mesh"]["energy_pj"]) \
+            / row["mesh"]["energy_pj"]
+        fig10.append(row)
+        log(f"[amcca] fig10 ba_skewed({n}) on {shards} CCs, rpvo_max 4, "
+            f"BFS: mesh {row['mesh']['cycles']} cycles, torus "
+            f"{row['torus']['cycles']} (time -{row['time_reduction_pct']:.1f}"
+            f"%, energy +{row['energy_increase_pct']:.1f}%); card "
+            f"{row['mesh']['card_s']:.3f} / {row['torus']['card_s']:.3f} s, "
+            f"CPU {row['mesh']['cpu_s']:.3f} / {row['torus']['cpu_s']:.3f} s")
+    out["fig10"] = fig10
+
+    # fig6: RMAT-10 SSSP on 256 CCs, rpvo_max 8, vicinity ghosts
+    g = generators.rmat(10, edge_factor=8, seed=7).with_random_weights(seed=7)
+    root = int(np.argmax(g.out_degrees()))
+    part = build_partition(g, PartitionConfig(
+        num_shards=256, rpvo_max=8, local_edge_list_size=8,
+        ghost_alloc="vicinity", seed=1))
+    res, t_card, t_cpu = _sim_twin(torch, dev, part, True, {root: 0.0}, True,
+                                   "fig6")
+    _sim_oracle(np, part, res, reference.sssp_dijkstra(g, root), "fig6")
+    out["fig6"] = {
+        "cycles": res.cycles, "actions": res.actions_executed,
+        "work_actions": res.work_actions, "staged": res.diffusions_staged,
+        "pruned": res.diffusions_pruned,
+        "stalls": res.contention_stall_cycles, "card_s": t_card,
+        "cpu_s": t_cpu, "card_ms_per_cycle": 1e3 * t_card / res.cycles,
+        "cpu_ms_per_cycle": 1e3 * t_cpu / res.cycles}
+    log(f"[amcca] fig6 RMAT-10 SSSP on 256 CCs, rpvo_max 8: "
+        f"{res.cycles} cycles, {res.actions_executed} actions "
+        f"({100 * res.work_actions / res.actions_executed:.1f}% work), "
+        f"{res.diffusions_pruned} of {res.diffusions_staged} staged "
+        f"diffusions pruned, {res.contention_stall_cycles} stalls; card "
+        f"{t_card:.3f} s ({out['fig6']['card_ms_per_cycle']:.3f} ms a "
+        f"cycle), CPU {t_cpu:.3f} s ({out['fig6']['cpu_ms_per_cycle']:.3f}"
+        f" ms a cycle)")
+
+    # fig8: the cost model's all-vertex rounds at 4,096 and 16,384 CCs
+    g = generators.ba_skewed(1 << 14, m_per=8, seed=3)
+    trace = [np.arange(g.n, dtype=np.int64)] * AMCCA_FIG8_ROUNDS
+    fig8 = []
+    for ccs in AMCCA_FIG8_CCS:
+        base = None
+        for rmax in AMCCA_RPVO:
+            part = build_partition(g, PartitionConfig(
+                num_shards=ccs, rpvo_max=rmax, local_edge_list_size=16,
+                seed=6))
+            cm = CostModel(part, torus=True, device=dev)
+            cm.replay(trace[:1])                      # warm
+            card, t_card = _timed(torch, lambda: cm.replay(trace))
+            cpu, t_cpu = _timed(torch, lambda: CostModel(
+                part, torus=True, device="cpu").replay(trace))
+            where = f"fig8 {ccs} CCs rpvo_max {rmax}"
+            _fields_equal(torch, card, cpu, where)
+            check(card.rounds == AMCCA_FIG8_ROUNDS, f"{where}: rounds")
+            base = base if base is not None else card.cycles
+            fig8.append({"ccs": ccs, "rpvo_max": rmax,
+                         "cycles": card.cycles, "speedup": base / card.cycles,
+                         "messages": card.messages,
+                         "max_link_load": card.max_link_load,
+                         "card_ms": 1e3 * t_card, "cpu_ms": 1e3 * t_cpu})
+        rows = [r for r in fig8 if r["ccs"] == ccs]
+        log(f"[amcca] fig8 ba_skewed(2^14) on {ccs} CCs, "
+            f"{AMCCA_FIG8_ROUNDS} all-vertex rounds, speedup over "
+            f"rpvo_max 1: " + ", ".join(
+                f"{r['rpvo_max']}: {r['speedup']:.2f}" for r in rows)
+            + "; replay card " + "/".join(f"{r['card_ms']:.1f}"
+                                          for r in rows)
+            + " ms, CPU " + "/".join(f"{r['cpu_ms']:.1f}" for r in rows)
+            + " ms")
+    out["fig8"] = fig8
+
+    # the paper's chip scale: RMAT-14 BFS on 64x64 CCs, on the card only
+    g = generators.rmat(14, edge_factor=8, seed=7)
+    root = int(np.argmax(g.out_degrees()))
+    part = build_partition(g, PartitionConfig(
+        num_shards=4096, rpvo_max=4, local_edge_list_size=8, seed=1))
+    from repro_torch.core.amcca_sim import AmccaSim
+    res, t_card = _timed(torch, lambda: AmccaSim(
+        part, torus=True, device=dev).run_min_app({root: 0.0}, False))
+    _sim_oracle(np, part, res, reference.bfs_levels(g, root), "R14 BFS")
+    out["r14"] = {"cycles": res.cycles, "injected": res.messages_injected,
+                  "hops": res.hops_total, "stalls":
+                  res.contention_stall_cycles, "max_inflight":
+                  res.max_inflight, "energy_pj": res.energy_pj,
+                  "card_s": t_card, "card_ms_per_cycle":
+                  1e3 * t_card / res.cycles}
+    log(f"[amcca] RMAT-14 BFS on 4,096 CCs (64x64 torus), rpvo_max 4: "
+        f"{res.cycles} cycles, {res.messages_injected} messages, "
+        f"{res.contention_stall_cycles} stalls, {res.max_inflight} in "
+        f"flight at most; card {t_card:.3f} s "
+        f"({out['r14']['card_ms_per_cycle']:.3f} ms a cycle)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[amcca] phase 11: {out['phase_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 12: the LM serving path
+# --------------------------------------------------------------------------
+
+LM_FULL_ARCH = "minitron-4b"
+LM_SLOTS, LM_MAX_LEN = 8, 1024
+LM_REQUESTS, LM_MAX_NEW = 16, 32
+LM_PROMPT_LENS = (64, 512)            # drawn uniformly, both included
+LM_TOKENS_GREEDY = 8                  # phase 12a's greedy tokens
+LM_REDUCED_TOL = 1e-4                 # float32 card vs CPU, rtol and atol
+BF16_ULP = 2.0 ** -8
+LM_BF16_ULPS = 8      # bf16 tolerance: 8 ulps of the row's largest logit
+LM_DVP_ARCHS = ("granite-moe-1b-a400m", "xlstm-125m")
+LM_DVP_BATCH, LM_DVP_PROMPT, LM_DVP_STEPS = 4, 256, 16
+# a near-tie of the router: how far (in probability) a forced expert may
+# sit under the step's own k-th choice; the float32 gap between two ways
+# of computing one position is ~1e-8, a router's typical gap ~1e-4
+LM_ROUTE_TIE = 1e-6
+
+
+def _bf16_tol(scale):
+    return LM_BF16_ULPS * BF16_ULP * max(1.0, float(scale))
+
+
+@contextlib.contextmanager
+def _force_routing(moe, forced):
+    """The n-th MoE routing while open takes the expert indices
+    ``forced[n]`` (gates read from its own probabilities) and appends how
+    far the forced experts' probabilities fall below its own k-th
+    largest: 0 where the forced set is its own choice."""
+    ties = []
+    top_k = moe.top_k
+
+    def forcing(probs, k):
+        vals, _ = top_k(probs, k)
+        idx = forced[len(ties)].to(probs.device).reshape(vals.shape)
+        got = probs.gather(-1, idx)
+        ties.append(float((vals[..., -1:] - got).clamp_min(0).max()))
+        return got, idx
+
+    moe.top_k = forcing
+    try:
+        yield ties
+    finally:
+        moe.top_k = top_k
+
+
+@contextlib.contextmanager
+def _record_routing(moe):
+    """Collects the expert indices of every MoE routing while open."""
+    seen = []
+    top_k = moe.top_k
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        seen.append(idx.cpu())
+        return vals, idx
+
+    moe.top_k = recording
+    try:
+        yield seen
+    finally:
+        moe.top_k = top_k
+
+
+def _lm_batch(np, cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, S))}
+    if cfg.family == "vlm":
+        b["patch_embeds"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "enc_dec":
+        b["frames"] = rng.standard_normal(
+            (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def _greedy(torch, model, batch, n_tokens, max_len):
+    """Prefill, then ``n_tokens - 1`` greedy decode steps: (first logits,
+    (B, n_tokens) tokens)."""
+    B = batch["tokens"].shape[0]
+    pre = model.cfg.n_patches if model.cfg.family == "vlm" else 0
+    params = model.param_tree()
+    logits, caches = model.prefill(params, batch,
+                                   model.init_cache(B, max_len))
+    first = logits
+    toks = [logits[:, -1].argmax(-1)]
+    for i in range(n_tokens - 1):
+        logits, caches = model.decode_step(
+            params, toks[-1][:, None], caches,
+            pre + batch["tokens"].shape[1] + i)
+        toks.append(logits[:, -1].argmax(-1))
+    return first, torch.stack(toks, 1)
+
+
+def _lm_reduced_twins(torch, np, dev):
+    """12a: every arch at reduced width in float32, the same weights on
+    the card and on the CPU: prefill logits within LM_REDUCED_TOL, the
+    greedy tokens and every MoE routing's expert indices equal."""
+    from repro_torch.lm.configs import ARCHS
+    from repro_torch.lm.models import moe
+    from repro_torch.lm.models.model import Model
+    rows = {}
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch].reduced()
+        cpu = Model(cfg, device="cpu")
+        cpu.init(torch.Generator().manual_seed(0))
+        card = Model(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        batch = _lm_batch(np, cfg, 2, 16, 1)
+        max_len = (cfg.n_patches if cfg.family == "vlm" else 0) + 16 \
+            + LM_TOKENS_GREEDY
+        runs = {}
+        for name, model in (("card", card), ("cpu", cpu)):
+            with _record_routing(moe) as seen:
+                t0 = time.perf_counter()
+                logits, toks = _greedy(torch, model, batch, LM_TOKENS_GREEDY,
+                                       max_len)
+                toks = toks.cpu()
+                runs[name] = (logits.float().cpu(), toks, seen,
+                              time.perf_counter() - t0)
+        (lc, tc, rc, sc), (lp, tp, rp, sp) = runs["card"], runs["cpu"]
+        err = float((lc - lp).abs().max())
+        check(torch.allclose(lc, lp, rtol=LM_REDUCED_TOL, atol=LM_REDUCED_TOL),
+              f"[lm-serve] {arch}: card prefill logits differ from the CPU "
+              f"by {err:.3g}")
+        check(torch.equal(tc, tp),
+              f"[lm-serve] {arch}: greedy tokens differ: {tc.tolist()} vs "
+              f"{tp.tolist()}")
+        check(len(rc) == len(rp) and all(torch.equal(a, b)
+                                         for a, b in zip(rc, rp)),
+              f"[lm-serve] {arch}: MoE expert indices differ")
+        rows[arch] = {"max_abs_err": err, "routings": len(rc),
+                      "card_s": sc, "cpu_s": sp}
+        log(f"[lm-serve] 12a {arch} reduced float32: prefill logits max "
+            f"|card - CPU| {err:.3g}, {LM_TOKENS_GREEDY} greedy tokens x 2 "
+            f"equal, {len(rc)} MoE routings' expert indices equal; card "
+            f"{sc:.3f} s, CPU {sp:.3f} s")
+    return rows
+
+
+def _single_stream(torch, model, params, prompt, forced, max_len):
+    """One request alone, teacher-forced on the batched answer
+    ``forced``: at each step the single-stream argmax, its top-2 margin,
+    its logit of the forced token, the row's largest |logit|; and the
+    prefill's seconds."""
+    dev = model.device
+    caches = model.init_cache(1, max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": prompt[None]}, caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    steps = []
+    for j, tok in enumerate(forced):
+        row = logits[0, -1].float()
+        top2 = row.topk(2)          # its values; argmax picks among ties
+        steps.append((int(row.argmax()),
+                       float(top2.values[0] - top2.values[1]),
+                       float(top2.values[0] - row[tok]),
+                       float(row.abs().max())))
+        if j < len(forced) - 1:
+            logits, caches = model.decode_step(
+                params, torch.tensor([[tok]], device=dev), caches,
+                len(prompt) + j)
+    return steps, prefill_s
+
+
+def _batch_vs_one(torch, model, params, prompts):
+    """One decode step of every prompt in an LM_SLOTS-slot cache at
+    per-slot positions against each prompt's own B = 1 step: the largest
+    |logit difference| over the row's largest |logit|, in bf16 ulps."""
+    from repro_torch.serve.scheduler import _slot_views
+    dev = model.device
+    caches = model.init_cache(LM_SLOTS, LM_MAX_LEN)
+    pos, last, worst = [], [], 0.0
+    for s, p in enumerate(prompts[:LM_SLOTS]):
+        lg, _ = model.prefill(params, {"tokens": p[None]},
+                              _slot_views(caches, s))
+        pos.append(len(p))
+        last.append(int(lg[0, -1].argmax()))
+    toks = torch.tensor(last, device=dev)[:, None]
+    batched, _ = model.decode_step(params, toks, caches,
+                                   torch.tensor(pos, device=dev))
+    for s, p in enumerate(prompts[:LM_SLOTS]):
+        one = model.init_cache(1, LM_MAX_LEN)
+        model.prefill(params, {"tokens": p[None]}, one)
+        lg, _ = model.decode_step(params, toks[s:s + 1], one, len(p))
+        row = lg[0, -1].float()
+        worst = max(worst, float((batched[s, -1].float() - row).abs().max())
+                    / (BF16_ULP * float(row.abs().max())))
+    return worst, (toks, caches, torch.tensor(pos, device=dev))
+
+
+def _lm_full_serve(torch, np, dev, cfg):
+    """12b: a ContinuousBatcher of LM_SLOTS slots answers LM_REQUESTS
+    requests on ``cfg`` (minitron-4b at full width, bfloat16, weights
+    drawn on the card from seed 0).  Each answer is held to its
+    single-stream run, fed the answer's own tokens: equal up to the first
+    step whose single-stream top-2 margin is under the bf16 tolerance
+    (what a greedy single-stream run would give), and at every step the
+    answer's token within the tolerance of the single-stream top logit."""
+    import types
+    from repro_torch import obs
+    from repro_torch.lm.models.model import Model
+    from repro_torch.serve.scheduler import ContinuousBatcher, Request
+    model = Model(cfg, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    (params, _), init_s = _timed(torch, lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1,
+                        LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+
+    warm = ContinuousBatcher(model, params, n_slots=LM_SLOTS,
+                             max_len=LM_MAX_LEN)
+    warm.submit(Request(rid=-1, tokens=prompts[0][:64], max_new=4))
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    batcher = ContinuousBatcher(model, params, n_slots=LM_SLOTS,
+                                max_len=LM_MAX_LEN)
+    reqs = [Request(rid=i, tokens=p, max_new=LM_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    with obs.recording() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            batcher.submit(r)
+        done = batcher.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(len(done) == LM_REQUESTS and all(
+        r.done and len(r.out) == LM_MAX_NEW for r in reqs),
+        "[lm-serve] a request did not finish")
+    events = rec.tracer.events()
+    prefill_s = sum(e["dur"] for e in events if e["name"] == "prefill") / 1e6
+    ticks = [e for e in events if e["name"] == "tick"]
+    tick_s = sum(e["dur"] for e in ticks) / 1e6
+    decode_tokens = sum(e["args"]["active"] for e in ticks)
+    decode_s = tick_s - prefill_s
+
+    held = whole = 0
+    worst_gap = 0.0
+    solo_prefill = []
+    for r, p in zip(reqs, prompts):
+        steps, ps = _single_stream(torch, model, params, p, r.out,
+                                   LM_MAX_LEN)
+        solo_prefill.append((len(p), ps))
+        upto = next((j for j, (_, m, _, s) in enumerate(steps)
+                     if m < _bf16_tol(s)), LM_MAX_NEW)
+        want = [a for a, _, _, _ in steps]
+        check(r.out[:upto] == want[:upto],
+              f"[lm-serve] request {r.rid} (prompt {len(p)}): batched "
+              f"{r.out[:upto]} differs from single-stream {want[:upto]} "
+              f"before step {upto}")
+        for j, (_, _, gap, s) in enumerate(steps):
+            check(gap <= _bf16_tol(s),
+                  f"[lm-serve] request {r.rid} step {j}: the batched token's "
+                  f"single-stream logit is {gap:.4g} under the top "
+                  f"(tolerance {_bf16_tol(s):.4g})")
+            worst_gap = max(worst_gap, gap / _bf16_tol(s))
+        held += upto
+        whole += r.out == want
+    ulps, probe = _batch_vs_one(torch, model, params, prompts)
+    toks, caches, pos = probe
+    prof = _tick_profile(torch, types.SimpleNamespace(
+        step=lambda: model.decode_step(params, toks, caches, pos)), ticks=3)
+    out = {
+        "arch": cfg.name, "params": n_params, "param_bytes": sum(
+            p.numel() * p.element_size() for p in model.parameters()),
+        "init_s": init_s, "requests": LM_REQUESTS, "slots": LM_SLOTS,
+        "max_len": LM_MAX_LEN, "prompt_lens": [int(n) for n in lens],
+        "wall_s": wall, "requests_per_s": LM_REQUESTS / wall,
+        "ticks": batcher.tick, "decode_tokens": decode_tokens,
+        "decode_s": decode_s, "decode_tokens_per_s": decode_tokens / decode_s,
+        "batched_prefill_s": prefill_s,
+        "solo_prefill_ms_mean": 1e3 * statistics.mean(
+            s for _, s in solo_prefill),
+        "solo_prefill_ms_per_token": 1e3 * sum(s for _, s in solo_prefill)
+        / sum(n for n, _ in solo_prefill),
+        "max_memory_allocated": peak, "tokens_held": held,
+        "tokens_total": LM_REQUESTS * LM_MAX_NEW,
+        "answers_equal_whole": whole, "worst_gap_over_tol": worst_gap,
+        "batch_vs_one_ulps": ulps, "decode_profile": prof}
+    log(f"[lm-serve] 12b {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}; "
+        f"{n_params / 1e9:.3f} B parameters, "
+        f"{out['param_bytes'] / 1e9:.2f} GB; drawn in {init_s:.2f} s): "
+        f"{LM_REQUESTS} requests (prompts {min(lens)}-{max(lens)}, "
+        f"{LM_MAX_NEW} new) on {LM_SLOTS} slots in {wall:.3f} s = "
+        f"{out['requests_per_s']:.2f} requests/s, {batcher.tick} ticks; "
+        f"decode {decode_tokens} tokens in {decode_s:.3f} s = "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s; slot prefills "
+        f"{prefill_s:.3f} s; single-stream prefill "
+        f"{out['solo_prefill_ms_mean']:.2f} ms a prompt "
+        f"({out['solo_prefill_ms_per_token']:.4f} ms a token); peak "
+        f"{peak / 2**30:.2f} GiB allocated")
+    log(f"[lm-serve] 12b answers vs single-stream: {held} of "
+        f"{out['tokens_total']} tokens equal before a top-2 margin under "
+        f"{LM_BF16_ULPS} bf16 ulps; every token within the tolerance of the "
+        f"single-stream top (worst {worst_gap:.3f} of it); {whole} of "
+        f"{LM_REQUESTS} answers equal whole; one {LM_SLOTS}-slot decode "
+        f"step against B = 1 steps: {ulps:.1f} bf16 ulps of the row's "
+        f"largest |logit| at most")
+    log(f"[lm-serve] 12b one {LM_SLOTS}-slot decode step (profiled, 3 "
+        f"steps): {prof['wall_ms'] / 3:.2f} ms wall, device busy "
+        f"{100 * prof['busy']:.1f}%, {prof['kernels'] / 3:.0f} kernels a "
+        f"step; top: " + "; ".join(f"{n} {ms:.3f} ms x{c}"
+                                   for n, ms, c in prof["top"][:4]))
+    del model, params, caches, batcher
+    return out
+
+
+def _dvp_config(cfg):
+    """12c's config of an MoE arch: float32, and a capacity factor of
+    E / K, so no token is dropped.  A prefill of B*S tokens drops
+    tokens over an expert's capacity (0-15% a layer for granite at
+    S = 257) where a decode step's one token a group never is, and a
+    bfloat16 rounding of the hidden state flips the router's top-8 among
+    32 near-equal experts: either makes the two paths different
+    functions, so the check holds the cache handoff alone."""
+    if cfg.moe is None:
+        return cfg
+    moe = dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                               moe=moe)
+
+
+def _lm_decode_vs_prefill(torch, np, dev, cfg):
+    """12c: prefill LM_DVP_BATCH x LM_DVP_PROMPT tokens, then
+    LM_DVP_STEPS teacher-forced decode steps at per-sequence positions
+    (each sequence routes its MoE token alone), each step's logits
+    within the tolerance of a prefill of the extended sequence, on
+    ``_dvp_config``'s config.  Each MoE routing of the decoded token is
+    forced to the prefill's routing of that position, which may differ
+    from the step's own top-k only at a near-tie (LM_ROUTE_TIE), so the
+    logits compare the cache handoff.  bfloat16: 8 ulps of the row's
+    largest |logit|; float32: 2^-10 of it."""
+    from repro_torch.lm.models import moe
+    from repro_torch.lm.models.model import Model
+    model = Model(cfg, device=dev)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    B, S, n = LM_DVP_BATCH, LM_DVP_PROMPT, LM_DVP_STEPS
+    rel = LM_BF16_ULPS * BF16_ULP if cfg.dtype == "bfloat16" else 2.0 ** -10
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S + n)),
+                           device=dev)
+    caches = model.init_cache(B, S + n)
+    _, caches = model.prefill(params, {"tokens": toks[:, :S]}, caches)
+    worst = worst_err = worst_tie = 0.0
+    routings = flips = 0
+    t0 = time.perf_counter()
+    for i in range(n):
+        with _record_routing(moe) as seen_full:
+            full, _ = model.prefill(params, {"tokens": toks[:, :S + i + 1]},
+                                    model.init_cache(B, S + i + 1))
+        # the prefill's routing of the decoded position (last in each
+        # sequence of its (1, B*(S+i+1), K) indices), forced on the step
+        forced = [f.reshape(B, S + i + 1, -1)[:, -1:] for f in seen_full]
+        with _force_routing(moe, forced) as ties:
+            dec, caches = model.decode_step(
+                params, toks[:, S + i:S + i + 1], caches,
+                torch.full((B,), S + i, device=dev))
+        check(len(ties) == len(forced),
+              f"[lm-serve] {cfg.name}: routing counts differ")
+        for layer, tie in enumerate(ties):
+            check(tie <= LM_ROUTE_TIE,
+                  f"[lm-serve] {cfg.name}: decode step {i} routes a token "
+                  f"of MoE layer {layer} off the prefill's experts by "
+                  f"{tie:.3g} of probability (a near-tie is under "
+                  f"{LM_ROUTE_TIE:g})")
+            flips += tie > 0
+            worst_tie = max(worst_tie, tie)
+        routings += len(ties)
+        d, f = dec[:, -1].float(), full[:, -1].float()
+        err = float((d - f).abs().max())
+        tol = rel * max(1.0, float(f.abs().max()))
+        check(err <= tol, f"[lm-serve] {cfg.name}: decode step {i} logits "
+              f"differ from the prefill by {err:.4g} > {tol:.4g}")
+        worst = max(worst, err / tol)
+        worst_err = max(worst_err, err)
+    torch.cuda.synchronize()
+    row = {"dtype": cfg.dtype, "worst_err_over_tol": worst,
+           "worst_abs_err": worst_err, "moe_routings": routings,
+           "moe_near_ties": flips, "worst_tie": worst_tie,
+           "s": time.perf_counter() - t0}
+    log(f"[lm-serve] 12c {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.dtype}): {B}x{S} prefill, {n} decode steps "
+        f"each within {rel:.4g} of the row's largest |logit| of the "
+        f"extended prefill (worst |decode - prefill| {worst_err:.4g}, "
+        f"{worst:.3f} of the tolerance); {routings} MoE routings forced to "
+        f"the prefill's, {flips} of them off the step's own choice by at "
+        f"most {worst_tie:.3g} of probability; {row['s']:.2f} s")
+    del model, params, caches
+    return row
+
+
+def phase_lm_serve(torch, np, dev, full=True):
+    """Phase 12: the LM serving path (12a, 12b, 12c).  ``full=False``
+    runs 12b and 12c at reduced width, for a rehearsal."""
+    from repro_torch.lm.configs import get_config
+    t_phase = time.perf_counter()
+    out = {"reduced": _lm_reduced_twins(torch, np, dev)}
+    width = (lambda c: c) if full else (
+        lambda c: dataclasses.replace(c.reduced(), dtype="bfloat16",
+                                      param_dtype="bfloat16"))
+    out["serve"] = _lm_full_serve(torch, np, dev,
+                                  width(get_config(LM_FULL_ARCH)))
+    torch.cuda.empty_cache()
+    out["decode_vs_prefill"] = {
+        arch: _lm_decode_vs_prefill(torch, np, dev,
+                                    _dvp_config(width(get_config(arch))))
+        for arch in LM_DVP_ARCHS}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm-serve] phase 12: {out['phase_s']:.1f} s")
+    return out
+
+
 def _k1_sums(report, report2):
     """K1 alone on the heaviest dense round and summed over every round
     that phases 4 and 5 replay; logged and returned."""
@@ -5209,12 +5849,15 @@ def main() -> int:
                                         part_pr)
     launches10, err10, report10 = phase_sharded(
         torch, np, dev, g, part, root, want, part_pr, want_pr, want_conv)
+    report11 = phase_amcca(torch, np, dev)
+    report12 = phase_lm_serve(torch, np, dev)
     heavy, heavy2 = report["heaviest"], report2["heaviest"]
     k3, k4, k9 = report3["k3"], report3["k4"], report3["k9"]
     k9_sum = report3["k9_sum"]
 
     report.update(slice2=report2, slice3=report3, slice4=report4,
                   slice10=report8, slice11=report9, slice12=report10,
+                  slice13={"amcca": report11, "lm_serve": report12},
                   device=smi, build_s=build_s,
                   total_s=time.perf_counter() - t_start)
     OUT.parent.mkdir(parents=True, exist_ok=True)

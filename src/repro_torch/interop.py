@@ -69,3 +69,29 @@ def worklist_from_dict(d: dict) -> Worklist:
     return Worklist(*map(torch.as_tensor, (wl_i, wl_j, nlive, ntiles, tiles,
                                            slot, fetch)),
                     path=path, vblk=int(d["vblk"]))
+
+
+def _leaf_to_torch(x) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":       # ml_dtypes' bfloat16
+        return torch.as_tensor(x.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(x))
+
+
+def lm_params_from_numpy(cfg, params: dict) -> dict:
+    """The port's ``lm.models.Model`` state (``load_state_dict`` form:
+    dotted names -> CPU tensors) from the reference's ``Model.init``
+    params with numpy leaves (``jax.tree.map(np.asarray, params)``; each
+    stage stacked on a leading ``layers`` axis, bfloat16 kept).  Names
+    and shapes are checked against the port's model of ``cfg``."""
+    from repro_torch.lm.models.model import Model, _flatten
+    state = {k: _leaf_to_torch(v) for k, v in _flatten(params).items()}
+    want = Model(cfg, device="meta").state_dict()
+    if set(state) != set(want):
+        raise ValueError(f"parameter names differ: "
+                         f"{sorted(set(state) ^ set(want))}")
+    for k, t in state.items():
+        if t.shape != want[k].shape or t.dtype != want[k].dtype:
+            raise ValueError(f"{k}: {tuple(t.shape)} {t.dtype}, the port "
+                             f"wants {tuple(want[k].shape)} {want[k].dtype}")
+    return state

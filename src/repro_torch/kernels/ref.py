@@ -50,6 +50,20 @@ def fused_relax_reduce_ref(gval, gchg, edge_src, edge_w, edge_mask,
     return segment_combine_ref(msg, edge_dst, num_segments, kind)
 
 
+def frontier_relax_ref(values, src_flat, weights, mask, kind: str):
+    """Gather + relax: msg_e = values[src_e] (+ w_e | * w_e), masked to the
+    semiring identity. values: (V,), src_flat/weights/mask: (E,)."""
+    v = values[src_flat.long()]
+    if kind == "min":  # min-plus relax
+        msg, identity = v + weights, math.inf
+    elif kind == "sum":  # plus-times relax
+        msg, identity = v * weights, 0.0
+    else:
+        raise ValueError(kind)
+    return torch.where(mask, msg, torch.tensor(identity, dtype=msg.dtype,
+                                               device=msg.device))
+
+
 def fused_relax_reduce_wl_ref(gval, gchg, edge_src, edge_w, edge_mask,
                               edge_dst, wl_i, wl_j, nlive,
                               num_segments: int, relax_kind: str, kind: str):

@@ -75,15 +75,22 @@ def _tiny():
                                    "StreamingGraph", "DynamicGraph",
                                    "StackedTask", "PagerankTask",
                                    "LanesTask", "run_sharded",
-                                   "run_sharded_lanes", "ShardedTask"])
+                                   "run_sharded_lanes", "ShardedTask",
+                                   "AmccaSim", "CostModel", "Model",
+                                   "serve_cli"])
 def test_entry_points_without_device_need_cuda(monkeypatch, entry):
     from repro_torch.apps import (
         batched_queries, bfs, cc, pagerank, pagerank_delta,
         personalized_pagerank, sssp,
     )
     from repro_torch.core import actions, engine, resilient
+    from repro_torch.core.amcca_sim import AmccaSim
+    from repro_torch.core.costmodel import CostModel
     from repro_torch.core.dynamic import DynamicGraph
     from repro_torch.core.partition import PartitionConfig
+    from repro_torch.lm.configs import get_config
+    from repro_torch.lm.launch import serve
+    from repro_torch.lm.models import Model
     from repro_torch.core.streaming import StreamingGraph
     from repro_torch.query import QueryServer, lanes
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -118,6 +125,11 @@ def test_entry_points_without_device_need_cuda(monkeypatch, entry):
                                                   {0: 0.0})),
         "PagerankTask": lambda: resilient.PagerankTask(part),
         "LanesTask": lambda: resilient.LanesTask(part, init, unitw),
+        "AmccaSim": lambda: AmccaSim(part),
+        "CostModel": lambda: CostModel(part),
+        "Model": lambda: Model(get_config("minitron-4b").reduced()),
+        "serve_cli": lambda: serve.main(["--arch", "minitron-4b",
+                                         "--reduced"]),
     }
     sharded = {
         "run_sharded": lambda mesh, p: engine.run_sharded(
@@ -152,13 +164,17 @@ def test_cpu_device_runs_when_asked():
 MIRRORED = ["checkpoint.manager", "runtime.chaos", "runtime.elastic",
             "core.dynamic", "core.streaming", "core.resilient",
             "checkpoint", "runtime", "exchange", "exchange.rounds",
-            "core.engine", "query.lanes"]
+            "core.engine", "query.lanes", "kernels.ref", "core.amcca_sim",
+            "core.costmodel", "serve.scheduler", "lm.configs",
+            "lm.configs.base", "lm.models.layers", "lm.models.ssm",
+            "lm.models.model"]
 
 
 @pytest.mark.parametrize("name", MIRRORED)
 def test_new_modules_mirror_reference_names(name):
-    """The modules ported for mutation, fault tolerance and the sharded
-    layout carry every public name of their reference counterpart."""
+    """The modules ported for mutation, fault tolerance, the sharded
+    layout, the AM-CCA simulation layer and the LM serving path carry
+    every public name of their reference counterpart."""
     import importlib
     ref = importlib.import_module(f"repro.{name}")
     port = importlib.import_module(f"repro_torch.{name}")
