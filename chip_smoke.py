@@ -236,6 +236,30 @@ started together) and runs, in order:
    4 x 256 prefill and 16 decode steps, each step's logits within the
    tolerance of a prefill of the extended sequence (``[lm-serve]``).
 
+13. slice-14 LM training (``phase_lm_train``): 13a the ten architectures
+   at ``reduced()`` width in float32 with the same weights on the card
+   and the CPU: ``Model.loss`` and its metrics within rtol 1e-5, every
+   gradient leaf within rtol 1e-4 + 1e-5 of the largest gradient; for
+   minitron and granite one ``make_train_step`` step with remat on and
+   off, and with ``accum_steps=4`` against one batch (granite at a
+   capacity factor of E / K, so no token drops), within
+   ``tests/test_grad_accum.py``'s rtol 5e-4 / atol 6e-4 (an entry whose
+   clipped gradient is under 100 Adam eps within one lr); 13b
+   minitron-4b at full width and depth in bfloat16 (remat on, weights
+   drawn on the card from seed 0) trained 8 ``Trainer`` steps on
+   ``TokenPipeline(vocab=256000, seq_len=512, global_batch=4)`` at a
+   constant lr: step 0's ce in [12, 14], every metric finite, the last
+   ce under the first, peak memory under 75 GiB; it prints ms a step
+   (forward + backward, optimizer), tokens/s, MFU against 989.4 TFLOP/s
+   and one profiled step's kernels and device busy share; 13c
+   granite-moe-1b-a400m at full width cut to 2 layers, in a child
+   process (``--lm-resume DIR``) with ``CUBLAS_WORKSPACE_CONFIG`` set
+   and deterministic algorithms: 6 ``Trainer`` steps with async
+   checkpoints every 2, killed at step 5 and resumed, every parameter,
+   moment and logged metric equal bit for bit to a straight run, with
+   the checkpoint write (caller's and writer's thread) and restore
+   times (``[lm-train]``).
+
 ``--profile`` also traces one replayed lane round's relax phase (K3 and
 K4 host-plan launches) with ``torch.profiler`` and prints its device
 time by operator.
@@ -267,6 +291,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -3729,17 +3754,36 @@ def _oracles(g, root, iters):
 def _timed_manager(directory):
     """A port ``CheckpointManager`` whose writer's whole write (the
     ``.npy`` files, crc-32s, manifest fsync, rename and GC, on the
-    writer thread) is timed: ``write_s`` sums it, ``writes`` counts it."""
+    writer thread) is timed: ``write_s`` sums it, ``writes`` counts it;
+    ``save_s`` / ``saves`` do the same for ``save`` on the caller's
+    thread (its wait for a previous write and the host copy) and
+    ``restore_s`` / ``restores`` for ``restore``."""
     from repro_torch.checkpoint import CheckpointManager
 
     class Timed(CheckpointManager):
         write_s, writes = 0.0, 0
+        save_s, saves = 0.0, 0
+        restore_s, restores = 0.0, 0
 
         def _write(self, *args, **kwargs):
             t0 = time.perf_counter()
             out = super()._write(*args, **kwargs)
             self.write_s += time.perf_counter() - t0
             self.writes += 1
+            return out
+
+        def save(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = super().save(*args, **kwargs)
+            self.save_s += time.perf_counter() - t0
+            self.saves += 1
+            return out
+
+        def restore(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = super().restore(*args, **kwargs)
+            self.restore_s += time.perf_counter() - t0
+            self.restores += 1
             return out
     return Timed(directory)
 
@@ -5791,6 +5835,440 @@ def phase_lm_serve(torch, np, dev, full=True):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13: the LM training path
+# --------------------------------------------------------------------------
+
+# 13a: card against CPU in float32 at reduced width.  Loss and metrics
+# within rtol 1e-5; a gradient within rtol 1e-4 and an atol of 1e-5 of the
+# model's largest |gradient| (a key bias's gradient is zero in exact
+# arithmetic and ~1e-8 of noise in either device's float32 sums; the CPU
+# tests hold the port to jax.grad the same way)
+LM_TRAIN_LOSS_RTOL = 1e-5
+LM_TRAIN_GRAD_RTOL, LM_TRAIN_GRAD_ATOL_OF_MAX = 1e-4, 1e-5
+# one train step's parameters: tests/test_grad_accum.py's tolerance, but
+# an entry whose clipped gradient is under LM_EPS_REGIME (100 Adam eps)
+# moves by lr * g / (|g| + eps), a ratio at the float32 noise of the
+# backward: it is held to one lr, the most a step can move it
+LM_STEP_RTOL, LM_STEP_ATOL = 5e-4, 6e-4
+LM_EPS_REGIME = 1e-6
+LM_TRAIN_STEP_ARCHS = ("minitron-4b", "granite-moe-1b-a400m")
+LM_TRAIN_LR = 3e-4
+# 13b: minitron-4b at full width and depth
+LM_TRAIN_ARCH = "minitron-4b"
+LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_STEPS = 512, 4, 8
+LM_TRAIN_CE_RANGE = (12.0, 14.0)     # ln 256,000 = 12.45, + ~0.5 (unit logits)
+LM_TRAIN_PEAK_GIB = 75.0
+H100_BF16_FLOPS = 989.4e12           # dense bf16 peak, H100 SXM5 (80GB HBM3)
+# 13c: granite-moe-1b-a400m at full width, cut to 2 layers
+LM_RESUME_ARCH, LM_RESUME_LAYERS = "granite-moe-1b-a400m", 2
+LM_RESUME_STEPS, LM_RESUME_EVERY, LM_RESUME_KILL = 6, 2, 5
+LM_TRAIN_DIR = ROOT / "chip_smoke_out" / "lm_train"
+
+
+def _loss_grads(torch, model, batch):
+    """(loss, metrics, {name: gradient}) of ``model.loss`` and its
+    backward, with every ``.grad`` cleared afterwards."""
+    from repro_torch.lm.models.model import _flatten
+    params = model.param_tree()
+    leaves = _flatten(params)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    try:
+        loss, metrics = model.loss(params, batch)
+        loss.backward()
+        grads = {k: p.grad.detach().float().cpu() for k, p in leaves.items()}
+    finally:
+        for p in leaves.values():
+            p.grad = None
+            p.requires_grad_(False)
+    return (float(loss.detach()),
+            {k: float(v.detach()) for k, v in metrics.items()}, grads)
+
+
+def _grads_err(torch, got, want, where):
+    """Every gradient leaf within the 13a tolerance; the largest |got -
+    want| over the largest |want|."""
+    top = max(float(w.abs().max()) for w in want.values())
+    atol = LM_TRAIN_GRAD_ATOL_OF_MAX * top
+    for k in want:
+        check(torch.allclose(got[k], want[k], rtol=LM_TRAIN_GRAD_RTOL,
+                             atol=atol),
+              f"{where}: gradient {k} differs by "
+              f"{float((got[k] - want[k]).abs().max()):.3g} (atol {atol:.3g})")
+    return max(float((got[k] - want[k]).abs().max()) for k in want) / top
+
+
+def _step_err(torch, a, b, where):
+    """Two states after one step: parameters within LM_STEP_RTOL /
+    LM_STEP_ATOL, except entries in Adam's eps regime (``b``'s clipped
+    gradient, its first moment over 1 - b1, under LM_EPS_REGIME), held to
+    one lr.  Returns the largest |a - b| and the eps-regime count."""
+    from repro_torch.lm.models.model import _flatten
+    pa, pb = _flatten(a.params), _flatten(b.params)
+    mu = _flatten(b.opt.mu)
+    worst, tiny_n = 0.0, 0
+    for k in pb:
+        x, y = pa[k].float(), pb[k].float()
+        tiny = (mu[k] / (1 - 0.9)).abs() < LM_EPS_REGIME
+        tiny_n += int(tiny.sum())
+        bad = ((x - y).abs() > LM_STEP_ATOL + LM_STEP_RTOL * y.abs()) & ~tiny
+        check(not bool(bad.any()) and bool(
+            ((x - y).abs()[tiny] <= LM_TRAIN_LR).all()),
+              f"{where}: parameter {k} differs by "
+              f"{float((x - y).abs().max()):.3g} after one step")
+        worst = max(worst, float((x - y).abs().max()))
+    return worst, tiny_n
+
+
+def _model_like(cfg, dev, src):
+    """A model of ``cfg`` on ``dev`` holding ``src``'s weights."""
+    from repro_torch.lm.models.model import Model
+    model = Model(cfg, device=dev)
+    model.load_state_dict(src.state_dict())
+    return model
+
+
+def _one_step(torch, model, batch, **kw):
+    from repro_torch.lm.train import AdamW, make_train_step
+    from repro_torch.lm.train.train_step import TrainState
+    opt = AdamW(lr=LM_TRAIN_LR)
+    params = model.param_tree()
+    state, metrics = make_train_step(model, opt, **kw)(
+        TrainState(params, opt.init(params), None), batch)
+    return state, {k: float(v) for k, v in metrics.items()}
+
+
+def _lm_train_twins(torch, np, dev):
+    """13a: every arch at reduced width in float32, the same weights on
+    the card and on the CPU: loss, metrics and every gradient leaf; for
+    LM_TRAIN_STEP_ARCHS also remat on against off and accum_steps=4
+    against one step on the card."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.lm.configs import ARCHS
+    from repro_torch.lm.models.model import Model
+    rows = {}
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch].reduced()
+        cpu = Model(cfg, device="cpu")
+        cpu.init(torch.Generator().manual_seed(0))
+        card = _model_like(cfg, dev, cpu)
+        batch = _lm_batch(np, cfg, 2, 16, 2)
+        t0 = time.perf_counter()
+        lc, mc, gc = _loss_grads(torch, card, batch)
+        card_s = time.perf_counter() - t0
+        lp, mp, gp = _loss_grads(torch, cpu, batch)
+        check(abs(lc - lp) <= LM_TRAIN_LOSS_RTOL * abs(lp) and set(mc) == set(
+            mp) and all(abs(mc[k] - mp[k]) <= LM_TRAIN_LOSS_RTOL * abs(mp[k])
+                        for k in mp),
+              f"[lm-train] {arch}: card loss {lc} / metrics {mc} differ from "
+              f"the CPU's {lp} / {mp}")
+        rows[arch] = {"loss": lc, "loss_rel_err": abs(lc - lp) / abs(lp),
+                      "grad_err_of_max": _grads_err(
+                          torch, gc, gp, f"[lm-train] {arch}"),
+                      "card_s": card_s}
+        line = (f"[lm-train] 13a {arch} reduced float32: loss {lc:.6f}, "
+                f"|card - CPU| {rows[arch]['loss_rel_err']:.2e} of it; "
+                f"{len(gc)} gradient leaves within rtol "
+                f"{LM_TRAIN_GRAD_RTOL:g} + {LM_TRAIN_GRAD_ATOL_OF_MAX:g} of "
+                f"the largest (worst {rows[arch]['grad_err_of_max']:.2e} of "
+                f"it)")
+        if arch in LM_TRAIN_STEP_ARCHS:
+            on = _model_like(dataclasses.replace(cfg, remat=True), dev, cpu)
+            off = _model_like(dataclasses.replace(cfg, remat=False), dev,
+                              cpu)
+            _, _, g_on = _loss_grads(torch, on, batch)
+            _, _, g_off = _loss_grads(torch, off, batch)
+            remat_grad = _grads_err(torch, g_on, g_off,
+                                    f"[lm-train] {arch} remat")
+            pipe_batch = TokenPipeline(vocab=cfg.vocab, seq_len=16,
+                                       global_batch=8, seed=2).batch_at(0)
+            s_on, _ = _one_step(torch, on, pipe_batch)
+            s_off, _ = _one_step(torch, off, pipe_batch)
+            remat_step, _ = _step_err(torch, s_on, s_off,
+                                      f"[lm-train] {arch} remat step")
+            # a microbatch of B/4 sequences routes with a quarter of the
+            # capacity and drops other tokens than the whole batch: the
+            # MoE arch runs at capacity factor E/K (no drops), so the two
+            # are one function
+            full, acc = (_model_like(_dvp_config(cfg), dev, cpu)
+                         for _ in range(2))
+            s_full, m_full = _one_step(torch, full, pipe_batch)
+            s_acc, m_acc = _one_step(torch, acc, pipe_batch, accum_steps=4)
+            check(abs(m_acc["ce"] - m_full["ce"]) <= 1e-5 * abs(m_full["ce"]),
+                  f"[lm-train] {arch}: accum_steps=4 ce {m_acc['ce']} vs "
+                  f"{m_full['ce']}")
+            accum_step, tiny = _step_err(torch, s_acc, s_full,
+                                         f"[lm-train] {arch} accum")
+            rows[arch].update(remat_grad_err_of_max=remat_grad,
+                              remat_step_err=remat_step,
+                              accum_step_err=accum_step, eps_regime=tiny)
+            line += (f"; remat on/off gradients {remat_grad:.2e} of the "
+                     f"largest, one step {remat_step:.3g}; accum_steps=4 vs "
+                     f"1{' (no MoE drops)' if cfg.moe else ''} ce within "
+                     f"1e-5, one step {accum_step:.3g} (rtol "
+                     f"{LM_STEP_RTOL:g}, atol {LM_STEP_ATOL:g}; {tiny} "
+                     f"entries in Adam's eps regime held to one lr)")
+        log(line)
+    return rows
+
+
+class _TimedOpt:
+    """An optimizer whose ``update`` is timed on the host clock between
+    two ``torch.cuda.synchronize()``s (``seconds``, one a step)."""
+
+    def __init__(self, torch, opt):
+        self.torch, self.opt, self.seconds = torch, opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.opt.update(grads, state, params)
+        self.torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def _lm_train_full(torch, np, dev, cfg, smi, seq, batch_size, steps):
+    """13b: ``Trainer`` on ``cfg`` (minitron-4b at full width and depth,
+    bfloat16, remat on, weights drawn on the card from seed 0) for
+    ``steps`` steps of ``TokenPipeline(vocab, seq, batch_size, seed=0)``
+    at a constant lr: ms a step (forward + backward, optimizer),
+    tokens/s, MFU, peak memory, and one profiled step's kernels and
+    device busy share."""
+    import shutil
+    import types
+    from repro_torch.data import TokenPipeline
+    from repro_torch.lm.configs.base import ShapeSpec
+    from repro_torch.lm.launch.specs import model_flops, param_count
+    from repro_torch.lm.models.model import Model
+    from repro_torch.lm.train import AdamW
+    from repro_torch.lm.train.trainer import Trainer, TrainerConfig
+    ckpt_dir = LM_TRAIN_DIR / "full"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    opt = _TimedOpt(torch, AdamW(lr=LM_TRAIN_LR))
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq,
+                         global_batch=batch_size, seed=0)
+    trainer = Trainer(model, opt, pipe, TrainerConfig(
+        steps=steps, ckpt_every=steps + 1, ckpt_dir=str(ckpt_dir),
+        log_every=1))
+    state, init_s = _timed(torch, lambda: trainer.init_state(0))
+    step_s = []
+    inner = trainer.step_fn
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+    trainer.step_fn = timed_step
+    state, run_s = _timed(torch, lambda: trainer.run(state))
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    check(len(hist) == steps and all(
+        math.isfinite(v) for h in hist for v in h.values()),
+        f"[lm-train] 13b: a metric is not finite: {hist}")
+    ce0, ce_last = hist[0]["ce"], hist[-1]["ce"]
+    check(LM_TRAIN_CE_RANGE[0] <= ce0 <= LM_TRAIN_CE_RANGE[1],
+          f"[lm-train] 13b: step 0's ce {ce0:.4f} is outside "
+          f"{LM_TRAIN_CE_RANGE}")
+    check(ce_last < ce0, f"[lm-train] 13b: ce did not fall: {ce0:.4f} -> "
+          f"{ce_last:.4f}")
+    check(peak < LM_TRAIN_PEAK_GIB * 2**30,
+          f"[lm-train] 13b: peak {peak / 2**30:.2f} GiB")
+    batch = pipe.batch_at(steps)
+
+    def one():
+        _, m = inner(state, batch)
+        torch.stack([v.float() for v in m.values()]).tolist()
+    prof = _tick_profile(torch, types.SimpleNamespace(step=one), ticks=1)
+    warm, opt_s = step_s[1:], opt.seconds[1:]
+    mean_s = statistics.mean(warm)
+    opt_mean = statistics.mean(opt_s)
+    tokens = seq * batch_size
+    flops = model_flops(cfg, ShapeSpec("train", "train", seq, batch_size))
+    n_params = param_count(cfg)
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "seq_len": seq, "batch": batch_size, "steps": steps,
+        "lr": LM_TRAIN_LR, "init_s": init_s, "run_s": run_s,
+        "step_ms": [1e3 * s for s in step_s],
+        "opt_ms": [1e3 * s for s in opt.seconds],
+        "step_ms_mean": 1e3 * mean_s,
+        "step_ms_median": 1e3 * statistics.median(warm),
+        "fwd_bwd_ms_mean": 1e3 * (mean_s - opt_mean),
+        "opt_ms_mean": 1e3 * opt_mean,
+        "tokens_per_s": tokens / mean_s, "model_flops": flops,
+        "mfu": flops / mean_s / H100_BF16_FLOPS,
+        "max_memory_allocated": peak,
+        "ce": [h["ce"] for h in hist], "grad_norm": [
+            h["grad_norm"] for h in hist],
+        "profile": prof, "device": smi}
+    log(f"[lm-train] 13b {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}, remat; "
+        f"{n_params / 1e9:.3f} B parameters, drawn in {init_s:.2f} s), "
+        f"{batch_size} x {seq} tokens a step, lr {LM_TRAIN_LR:g} constant, "
+        f"{steps} Trainer steps on {smi}: ce {ce0:.4f} -> {ce_last:.4f}; "
+        f"step 0 {1e3 * step_s[0]:.1f} ms, steps 1-{steps - 1} "
+        f"{out['step_ms_mean']:.1f} ms mean ({out['step_ms_median']:.1f} "
+        f"median) = forward+backward {out['fwd_bwd_ms_mean']:.1f} + "
+        f"optimizer {out['opt_ms_mean']:.1f}; {out['tokens_per_s']:.0f} "
+        f"tokens/s; MFU {100 * out['mfu']:.2f}% (6·N·D = "
+        f"{flops / 1e12:.2f} TFLOP a step over {H100_BF16_FLOPS / 1e12:.1f} "
+        f"TFLOP/s dense bf16, H100 SXM5); peak {peak / 2**30:.2f} GiB "
+        f"allocated")
+    log(f"[lm-train] 13b one profiled step on {smi}: "
+        f"{prof['wall_ms']:.1f} ms wall, device busy "
+        f"{100 * prof['busy']:.1f}%, {prof['kernels']} kernels; top: "
+        + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in prof["top"][:5]))
+    del trainer, state, model, opt
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def lm_resume(out_dir, dev="cuda", cfg=None) -> int:
+    """13c, in a process of its own (``--lm-resume DIR``, started with
+    ``CUBLAS_WORKSPACE_CONFIG`` set, run under
+    ``torch.use_deterministic_algorithms``): granite-moe-1b-a400m at full
+    width cut to LM_RESUME_LAYERS layers, bfloat16, trained
+    LM_RESUME_STEPS steps by ``Trainer`` (weights from seed 0) with async
+    checkpoints every LM_RESUME_EVERY, once straight through and once
+    killed at step LM_RESUME_KILL and resumed.  Prints one JSON line: the
+    leaves and logged metrics of the two runs that differ (each must be
+    equal bit for bit), the ops that warned of no deterministic form
+    (``warn_only``, so they are named rather than raised), and the
+    checkpoint managers' times."""
+    import shutil
+    import warnings
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.data import TokenPipeline
+    from repro_torch.lm.configs import get_config
+    from repro_torch.lm.models.model import Model
+    from repro_torch.lm.train import AdamW
+    from repro_torch.lm.train.trainer import (
+        SimulatedFailure, Trainer, TrainerConfig)
+    cfg = cfg or dataclasses.replace(get_config(LM_RESUME_ARCH),
+                                     n_layers=LM_RESUME_LAYERS)
+
+    def bomb(step):
+        if step == LM_RESUME_KILL:
+            raise SimulatedFailure(f"killed at step {step}")
+
+    def train(name):
+        d = pathlib.Path(out_dir) / name
+        shutil.rmtree(d, ignore_errors=True)
+        tr = Trainer(Model(cfg, device=dev), AdamW(lr=LM_TRAIN_LR),
+                     TokenPipeline(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                                   global_batch=LM_TRAIN_BATCH, seed=0),
+                     TrainerConfig(steps=LM_RESUME_STEPS,
+                                   ckpt_every=LM_RESUME_EVERY, log_every=1,
+                                   ckpt_dir=str(d), async_ckpt=True))
+        tr.ckpt = c = _timed_manager(str(d))
+        if name == "killed":
+            with contextlib.suppress(SimulatedFailure):
+                tr.run(failure_hook=bomb)
+            check(tr.history[-1]["step"] == LM_RESUME_KILL,
+                  f"13c: the failure at step {LM_RESUME_KILL} did not fire")
+            c.wait()
+            check(c.latest_step() == LM_RESUME_KILL - 1,
+                  f"13c: latest checkpoint {c.latest_step()}")
+        state = tr.run()
+        leaves = [(p, t.cpu()) for p, t in _flatten(state)]
+        ckpt_bytes = sum(f.stat().st_size for f in d.rglob("*.npy")) // max(
+            len(c.all_steps()), 1)
+        shutil.rmtree(d, ignore_errors=True)
+        return leaves, {h["step"]: h for h in tr.history}, {
+            "saves": c.saves, "caller_ms": 1e3 * c.save_s,
+            "writes": c.writes, "writer_ms": 1e3 * c.write_s,
+            "restores": c.restores, "restore_ms": 1e3 * c.restore_s,
+            "checkpoint_bytes": ckpt_bytes}
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        (a, ha, ta), (b, hb, tb) = train("straight"), train("killed")
+    nondet = sorted({str(w.message).split("\n")[0][:160] for w in seen
+                     if "deterministic" in str(w.message)})
+    print(json.dumps({
+        "arch": cfg.name, "layers": cfg.n_layers,
+        "params": sum(x.numel() for p, x in a if p[0] == ".params"),
+        "leaves": len(a), "nondeterministic": nondet,
+        "unequal": [str(p) for (p, x), (_, y) in zip(a, b)
+                    if x.dtype != y.dtype or not torch.equal(x, y)],
+        "metrics_unequal": [s for s in sorted(ha) if ha[s] != hb[s]],
+        "ce": [ha[s]["ce"] for s in sorted(ha)],
+        "times": {"straight": ta, "killed": tb}}))
+    return 0
+
+
+def _lm_train_resume(torch, smi):
+    """13c: ``lm_resume`` in a child process whose environment sets
+    ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts (cuBLAS reads it once
+    a process), so only this sub-phase runs deterministic algorithms."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--lm-resume",
+         str(LM_TRAIN_DIR / "resume")], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=900)
+    check(res.returncode == 0, f"[lm-train] 13c exited {res.returncode}: "
+          f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    row = json.loads(res.stdout.strip().splitlines()[-1])
+    row["wall_s"] = time.perf_counter() - t0
+    check(not row["unequal"], f"[lm-train] 13c: the resumed run differs "
+          f"from the straight one in {row['unequal']}")
+    check(not row["metrics_unequal"], f"[lm-train] 13c: logged metrics "
+          f"differ at steps {row['metrics_unequal']}")
+    t = row["times"]
+    log(f"[lm-train] 13c {row['arch']} at full width cut to {row['layers']} "
+        f"layers ({row['params'] / 1e6:.1f} M parameters, bfloat16; "
+        f"{t['straight']['checkpoint_bytes'] / 1e9:.2f} GB a checkpoint), "
+        f"{LM_RESUME_STEPS} Trainer steps, async checkpoints every "
+        f"{LM_RESUME_EVERY}, under deterministic algorithms on {smi}: killed "
+        f"at step {LM_RESUME_KILL} and resumed from step "
+        f"{LM_RESUME_KILL - 1}, all {row['leaves']} parameter, moment and "
+        f"step leaves and every logged metric equal bit for bit to the "
+        f"straight run (ce {row['ce'][0]:.4f} -> {row['ce'][-1]:.4f}); "
+        f"ops with no deterministic form: {row['nondeterministic'] or 'none'}; "
+        f"checkpoint writes {t['killed']['caller_ms'] / t['killed']['saves']:.1f} "
+        f"ms a save on the caller's thread (the wait for the previous write "
+        f"included), {t['killed']['writer_ms'] / t['killed']['writes']:.1f} ms "
+        f"on the writer's; restore {t['killed']['restore_ms']:.1f} ms; "
+        f"{row['wall_s']:.1f} s with the process start")
+    return row
+
+
+def phase_lm_train(torch, np, dev, smi, full=True):
+    """Phase 13: the LM training path (13a, 13b, 13c).  ``full=False``
+    runs 13b at reduced width and leaves out 13c, for a rehearsal."""
+    from repro_torch.lm.configs import get_config
+    t_phase = time.perf_counter()
+    out = {"reduced": _lm_train_twins(torch, np, dev)}
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_TRAIN_ARCH)
+    if not full:
+        cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16",
+                                  param_dtype="bfloat16", remat=True)
+    out["full"] = _lm_train_full(torch, np, dev, cfg, smi, LM_TRAIN_SEQ,
+                                 LM_TRAIN_BATCH, LM_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    if full:
+        out["resume"] = _lm_train_resume(torch, smi)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm-train] phase 13: {out['phase_s']:.1f} s")
+    return out
+
+
 def _k1_sums(report, report2):
     """K1 alone on the heaviest dense round and summed over every round
     that phases 4 and 5 replay; logged and returned."""
@@ -5851,6 +6329,7 @@ def main() -> int:
         torch, np, dev, g, part, root, want, part_pr, want_pr, want_conv)
     report11 = phase_amcca(torch, np, dev)
     report12 = phase_lm_serve(torch, np, dev)
+    report13 = phase_lm_train(torch, np, dev, smi)
     heavy, heavy2 = report["heaviest"], report2["heaviest"]
     k3, k4, k9 = report3["k3"], report3["k4"], report3["k9"]
     k9_sum = report3["k9_sum"]
@@ -5858,6 +6337,7 @@ def main() -> int:
     report.update(slice2=report2, slice3=report3, slice4=report4,
                   slice10=report8, slice11=report9, slice12=report10,
                   slice13={"amcca": report11, "lm_serve": report12},
+                  slice14={"lm_train": report13},
                   device=smi, build_s=build_s,
                   total_s=time.perf_counter() - t_start)
     OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -6002,4 +6482,6 @@ if __name__ == "__main__":
         sys.exit(fold_sweep())
     if "--trace-drops" in sys.argv[1:]:
         sys.exit(trace_drops())
+    if "--lm-resume" in sys.argv[1:]:
+        sys.exit(lm_resume(sys.argv[sys.argv.index("--lm-resume") + 1]))
     sys.exit(main())

@@ -17,6 +17,12 @@ caller's thread first, so the writer thread never touches the device; a
 failed background write re-raises on the next ``save()`` / ``wait()``.
 ``restore(step, like, device=None)`` returns numpy leaves, or tensors on
 ``device``.
+
+A bfloat16 leaf is written as the reference writes one: its 2-byte
+payload as a ``'<V2'`` ``.npy`` with ``"dtype": "bfloat16"`` in the
+manifest and the crc-32 over those bytes.  Restored onto a device it is a
+``torch.bfloat16`` tensor again; restored without one it is the raw
+``'V2'`` array (``.view(np.int16)`` gives its bits), as NumPy loads it.
 """
 from __future__ import annotations
 
@@ -83,12 +89,28 @@ def _structure(tree) -> str:
     return "*"
 
 
-def _host(leaf) -> np.ndarray:
+BF16 = "bfloat16"
+
+
+def _host(leaf) -> tuple[np.ndarray, str]:
     """A leaf as a host numpy array, copied now (blocking for a CUDA
-    tensor, so no later reader races the copy)."""
+    tensor, so no later reader races the copy), and its dtype's name.
+    A bfloat16 tensor's bits travel as a ``'V2'`` array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
-    return np.array(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().copy().view("V2"), BF16
+        arr = t.numpy().copy()
+    else:
+        arr = np.array(leaf)
+    return arr, str(arr.dtype)
+
+
+def _device_leaf(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
+    if dtype == BF16:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.as_tensor(arr).to(device)
 
 
 class CheckpointManager:
@@ -105,7 +127,7 @@ class CheckpointManager:
     def save(self, step: int, tree, blocking: bool = True,
              meta: dict | None = None) -> str:
         self.wait()
-        host = [(_flat_key(p), _host(leaf)) for p, leaf in _flatten(tree)]
+        host = [(_flat_key(p),) + _host(leaf) for p, leaf in _flatten(tree)]
         structure = _structure(tree)
         if blocking:
             return self._write(step, host, structure, meta)
@@ -142,12 +164,12 @@ class CheckpointManager:
         os.makedirs(tmp)
         manifest = {"step": step, "treedef": structure, "leaves": {},
                     "meta": meta if meta is not None else {}}
-        for key, arr in host:
+        for key, arr, dtype in host:
             fname = f"{key}{self.shard_suffix}.npy"
             np.save(os.path.join(tmp, fname), arr)
             manifest["leaves"][key] = {
                 "file": fname, "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
+                "dtype": dtype,
                 "crc32": zlib.crc32(np.ascontiguousarray(arr).tobytes()),
             }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -195,7 +217,7 @@ class CheckpointManager:
                     raise IOError(f"checkpoint leaf {key} corrupt "
                                   f"(crc {crc} != {meta['crc32']})")
             if device is not None:
-                arr = torch.as_tensor(arr).to(device)
+                arr = _device_leaf(arr, meta["dtype"], device)
             leaves[p] = arr
         return _unflatten(like, leaves)
 

@@ -9,7 +9,10 @@ arrays, scalars and the config as a nested dict) and hands it to
 arrays through ``table_to_torch`` / ``table_to_numpy``; a
 reference worklist plan crosses as the dict of its leaves
 (``vars(worklist)``) through ``worklist_from_dict``.  With these a test
-runs both packages on the very same partition and launch plan.
+runs both packages on the very same partition and launch plan.  LM
+weights cross as numpy trees (``lm_params_from_numpy`` and its inverse
+``lm_params_to_numpy``), and a reference ``OptState`` through
+``opt_state_from_numpy``.
 """
 from __future__ import annotations
 
@@ -95,3 +98,35 @@ def lm_params_from_numpy(cfg, params: dict) -> dict:
             raise ValueError(f"{k}: {tuple(t.shape)} {t.dtype}, the port "
                              f"wants {tuple(want[k].shape)} {want[k].dtype}")
     return state
+
+
+def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The reference's nested params dict with numpy leaves from the
+    port's parameter tree (``model.param_tree()``, or any tree of
+    tensors of its shape, such as optimizer moments).  A bfloat16 leaf
+    comes back as float32, exactly."""
+    if isinstance(params, dict):
+        return {k: lm_params_to_numpy(v) for k, v in params.items()}
+    return _tensor_to_numpy(params)
+
+
+def opt_state_from_numpy(state, device):
+    """The port's ``lm.train.OptState`` on ``device`` from a reference
+    ``OptState`` with numpy leaves (``jax.tree.map(np.asarray, state)``:
+    ``step``, and ``mu``/``nu`` as nested dicts of float32 arrays)."""
+    from repro_torch.lm.train.optimizer import OptState
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return torch.as_tensor(np.array(t, dtype=np.float32), device=device)
+    return OptState(step=torch.as_tensor(np.int32(state.step),
+                                         device=device),
+                    mu=walk(state.mu), nu=walk(state.nu))

@@ -13,7 +13,12 @@ Stage kinds:
 
 Within a stage, per-layer parameters are stacked on a leading ``layers``
 axis (the reference's layout, so its parameters load as they are) and a
-loop runs the layers one after the other.
+loop runs the layers one after the other.  In train mode each stacked
+leaf is unbound once a stage (its backward stacks one gradient, where
+slicing a layer at a time would add a full-size zero gradient a layer)
+and, with ``cfg.remat``, each layer runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable``: only a layer's input is kept).
 
 ``Model`` is an ``nn.Module``: construction allocates every parameter
 (uninitialized) on the model's device, ``init`` draws them from an
@@ -25,8 +30,9 @@ reference's call forms: ``prefill(params, batch, caches)`` and
 model.param_tree()``.  Caches are allocated by ``init_cache`` and updated
 in place (the returned caches hold the same tensors); ``decode_step``
 also takes a (B,) tensor of per-sequence positions, each sequence
-writing and masking at its own index.  Training (``loss``) is the next
-slice's work.
+writing and masking at its own index.  ``loss(params, batch)`` is the
+training mode; its gradients are the parameters' ``.grad`` after
+``backward`` (``lm.train.make_train_step`` turns them on).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.lm.configs.base import ModelConfig
@@ -79,6 +86,13 @@ def build_stages(cfg: ModelConfig) -> list[Stage]:
         return [Stage("enc_layer", cfg.encoder.n_layers),
                 Stage("dec_layer", cfg.n_layers)]
     raise ValueError(cfg.family)
+
+
+def _token_ce(logits, targets):
+    """(B, S) cross entropy of float32 (B, S, V) logits at int targets."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, targets[..., None])[..., 0]
+    return lse - ll
 
 
 # ---- trees of tensors -----------------------------------------------------
@@ -322,15 +336,22 @@ class Model(nn.Module):
         cache is written into its slot of the stage's stacked cache."""
         p_st = params[f"stage{si}"]
         cache_st = caches.get(f"stage{si}") if caches else None
+        if mode == "train":
+            p_st = _map(lambda t: t.unbind(0), p_st)
         aux = {}
         for i in range(stage.count):
             p_layer = _map(lambda t: t[i], p_st)
             cache_layer = (_map(lambda t: t[i], cache_st)
                            if cache_st is not None else None)
             x = constrain(x, ("act_batch", "act_seq", None), ctx)
-            x, new_cache, a = self._apply_layer(
-                stage, p_layer, x, positions, mask_fn, ctx, cache_layer,
-                cache_index, mode, enc_out, enc_pos, moe_groups)
+            layer = lambda x, p=p_layer, c=cache_layer: self._apply_layer(
+                stage, p, x, positions, mask_fn, ctx, c, cache_index, mode,
+                enc_out, enc_pos, moe_groups)
+            if mode == "train" and self.cfg.remat:
+                x, new_cache, a = checkpoint(layer, x, use_reentrant=False,
+                                             preserve_rng_state=False)
+            else:
+                x, new_cache, a = layer(x)
             if cache_layer is not None and new_cache is not None:
                 _map(lambda dst, src: dst is src or dst.copy_(src),
                      {k: cache_layer[k] for k in new_cache}, new_cache)
@@ -391,6 +412,64 @@ class Model(nn.Module):
             for k, v in a.items():
                 aux[k] = aux.get(k, 0.0) + v
         return x, new_caches, aux
+
+    # ---- training -----------------------------------------------------------
+    def loss(self, params, batch, ctx: ShardCtx | None = None):
+        """Next-token CE (+ MoE aux). batch: tokens (B,S) [, labels (B,S),
+        patch_embeds, frames]. Returns (total, metrics), 0-d float32
+        tensors on the model's device."""
+        cfg = self.cfg
+        labels = self._tokens(batch.get("labels", batch["tokens"]))
+        enc_out = enc_pos = None
+        if cfg.family == "enc_dec":
+            enc_out, enc_pos = self._encoder(params, batch, ctx)
+        x, prefix_len = self._embed_tokens(params, batch, ctx)
+        positions = torch.arange(x.shape[1], device=self.device)
+        mask_fn = (L.prefix_lm_mask(prefix_len) if prefix_len
+                   else L.causal_mask)
+        x, _, aux = self._backbone(params, x, positions, mask_fn, ctx,
+                                   None, None, "train", enc_out, enc_pos)
+        x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        if prefix_len:
+            x = x[:, prefix_len:]
+        if "chunked_ce" in cfg.opts:
+            ce = self._chunked_ce(params, x[:, :-1], labels[:, 1:], ctx)
+        else:
+            logits = L.unembed(params["unembed"], params["embed"], x, cfg,
+                               ctx)
+            lg = logits[:, :-1].float()
+            ce = _token_ce(lg, labels[:, 1:]).mean()
+        total = ce
+        metrics = {"ce": ce}
+        for k, v in aux.items():
+            metrics[k] = v
+            if k in ("moe_load_balance", "moe_router_z"):
+                total = total + v
+        metrics["loss"] = total
+        return total, metrics
+
+    def _chunked_ce(self, params, x, labels, ctx, chunk: int = 256):
+        """CE over sequence chunks, each chunk's logits recomputed in the
+        backward (``torch.utils.checkpoint``): the (B, S, V) logits never
+        exist at once (the peak is one chunk's (B, chunk, V)).  The same
+        loss as the dense path."""
+        cfg = self.cfg
+        B, n, _ = x.shape
+        nc = n // chunk if n % chunk == 0 else 1
+        ck = n // nc
+
+        def body(xb, tb):
+            logits = L.unembed(params["unembed"], params["embed"], xb,
+                               cfg, ctx).float()
+            return _token_ce(logits, tb).sum()
+
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for c in range(nc):
+            sl = slice(c * ck, (c + 1) * ck)
+            total = total + checkpoint(body, x[:, sl], labels[:, sl],
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+        return total / (B * n)
 
     # ---- serving ----------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int,

@@ -21,8 +21,8 @@ as the reference's per-slot decode does.
 plays the cutoff_chunk role — the same split-hot-destinations idea the
 paper applies to hub vertices.
 
-``apply_moe_shardmap`` (expert parallelism over a mesh) waits for the LM
-training slice (ROADMAP Queue 1, item 12b).
+``apply_moe_shardmap`` (expert parallelism over a mesh) waits for
+sharded LM training (ROADMAP Queue 1, item 12c).
 """
 from __future__ import annotations
 
@@ -149,7 +149,7 @@ def apply_moe(p, cfg, x, ctx: ShardCtx | None):
     if "moe_shardmap" in cfg.opts and ctx is not None and ctx.mesh is not None:
         raise NotImplementedError(
             "apply_moe_shardmap is not ported yet (ROADMAP Queue 1, item "
-            "12b: the LM training slice)")
+            "12c: sharded LM training)")
     if "moe_grouped" in cfg.opts or "moe_shardmap" in cfg.opts:
         return apply_moe_grouped(p, cfg, x, ctx)
     m = cfg.moe

@@ -1,0 +1,64 @@
+"""Gradient compression for data-parallel reduction.
+
+int8 block-quantized gradients with error feedback: each leaf is
+quantized per block of ``BLOCK`` values, dequantized, and the
+quantization residual is carried to the next step.  The reference
+places the pair around its cross-pod reduction; on one card there is
+no reduction between them, so the pair changes the gradient exactly as
+the reference's does and nothing else.
+
+``compress_decompress(grads, residuals)`` takes and returns trees
+(nested dicts) of tensors.  Rounding is half-to-even, as ``jnp.round``
+is, so ``q`` equals the reference's.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+BLOCK = 256
+
+
+def _quantize(g):
+    """Per-block symmetric int8. Returns (q, scale). g: any shape."""
+    flat = g.reshape(-1)
+    pad = (-flat.numel()) % BLOCK
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    blocks = flat.reshape(-1, BLOCK)
+    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q, scale, shape, size):
+    flat = (q.float() * scale).reshape(-1)[:size]
+    return flat.reshape(shape)
+
+
+def compress_decompress(grads, residuals=None):
+    """Quantize->dequantize each grad leaf with error feedback.
+
+    Returns (new_grads, new_residuals). residuals=None disables feedback.
+    """
+    if isinstance(grads, dict):
+        pairs = {k: compress_decompress(
+            g, None if residuals is None else residuals[k])
+            for k, g in grads.items()}
+        return ({k: g for k, (g, _) in pairs.items()},
+                None if residuals is None
+                else {k: r for k, (_, r) in pairs.items()})
+    gf = grads.float()
+    if residuals is not None:
+        gf = gf + residuals
+    q, s = _quantize(gf)
+    deq = _dequantize(q, s, gf.shape, gf.numel())
+    return deq.to(grads.dtype), (gf - deq if residuals is not None else None)
+
+
+def init_residuals(params):
+    if isinstance(params, dict):
+        return {k: init_residuals(v) for k, v in params.items()}
+    return torch.zeros(params.shape, dtype=torch.float32,
+                       device=params.device)

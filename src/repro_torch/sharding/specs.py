@@ -13,8 +13,8 @@ one entry a dimension: None, a mesh axis name, or a tuple of names.
 The mesh is read only through its named axis sizes: a
 ``torch.distributed.device_mesh.DeviceMesh`` (``mesh_dim_names`` and
 ``shape``) or any object whose ``shape`` maps axis names to sizes.  The
-one-device serving path binds no mesh; ``constrain`` on a bound mesh
-waits for the LM training slice (ROADMAP Queue 1, item 12b).
+one-device serving and training paths bind no mesh; ``constrain`` on a
+bound mesh waits for sharded LM training (ROADMAP Queue 1, item 12c).
 """
 from __future__ import annotations
 
@@ -127,9 +127,9 @@ def spec_for(axes: tuple[str | None, ...], ctx: ShardCtx,
 
 def constrain(x, axes: tuple[str | None, ...], ctx: ShardCtx | None):
     """Identity without a bound mesh.  Placing activations on a mesh is
-    the LM training slice's work (ROADMAP Queue 1, item 12b)."""
+    sharded LM training's work (ROADMAP Queue 1, item 12c)."""
     if ctx is None or ctx.mesh is None:
         return x
     raise NotImplementedError(
         "constrain on a bound mesh is not ported yet (ROADMAP Queue 1, "
-        "item 12b: the LM training slice)")
+        "item 12c: sharded LM training)")

@@ -9,6 +9,7 @@ the same crc-32s.
 """
 import json
 import os
+import zlib
 
 import numpy as np
 import pytest
@@ -185,3 +186,112 @@ def test_cross_package_restore(tmp_path, writer):
     got = reader.restore(3, _zeros_like(t))
     _assert_tree_equal(t, {k: got[k] for k in t})
     assert reader.restore_meta(3) == meta
+
+
+# ------------------------------------------------------------- bfloat16
+def _bf16_tree(seed):
+    g = torch.Generator().manual_seed(seed)
+    return {"w": torch.randn((3, 5), generator=g).to(torch.bfloat16),
+            "f": torch.randn(4, generator=g),
+            "s": torch.tensor(7, dtype=torch.int32)}
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def test_bfloat16_leaf_roundtrip(tmp_path):
+    """A bfloat16 leaf saves and restores bit for bit: a ``torch.bfloat16``
+    tensor on ``device``, the raw 2-byte payload without one.  The
+    manifest names it ``bfloat16`` and its crc-32 covers those bytes."""
+    cm = CheckpointManager(str(tmp_path))
+    t = _bf16_tree(0)
+    cm.save(1, t)
+    leaf = json.loads((tmp_path / "step_0000000001" / "manifest.json")
+                      .read_text())["leaves"]["w"]
+    assert leaf["dtype"] == "bfloat16" and leaf["shape"] == [3, 5]
+    raw = np.load(tmp_path / "step_0000000001" / "w.npy")
+    assert raw.dtype == np.dtype("V2")
+    assert leaf["crc32"] == zlib.crc32(raw.tobytes())
+    on_dev = cm.restore(1, t, device="cpu")
+    for k in t:
+        assert on_dev[k].dtype == t[k].dtype, k
+        assert torch.equal(_bits(on_dev[k]), _bits(t[k])), k
+    host = cm.restore(1, t)
+    np.testing.assert_array_equal(host["w"].view(np.int16),
+                                  t["w"].view(torch.int16).numpy())
+
+
+def test_bfloat16_async_save_copies_first(tmp_path):
+    cm = CheckpointManager(str(tmp_path))
+    t = _bf16_tree(1)
+    want = t["w"].clone()
+    cm.save(2, t, blocking=False)
+    t["w"].zero_()
+    cm.wait()
+    assert torch.equal(cm.restore(2, t, device="cpu")["w"].view(torch.int16),
+                       want.view(torch.int16))
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_bfloat16_cross_package_restore(tmp_path, writer):
+    """Reference checkpoints with bfloat16 leaves restore in the port, and
+    the port's in the reference: the same files, manifests and bits."""
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    t = _bf16_tree(2)
+    np_t = {"w": t["w"].view(torch.int16).numpy().view(ml_dtypes.bfloat16),
+            "f": t["f"].numpy(), "s": t["s"].numpy()}
+    dirs = {"reference": tmp_path / "ref", "port": tmp_path / "port"}
+    RefManager(str(dirs["reference"])).save(4, np_t)
+    CheckpointManager(str(dirs["port"])).save(4, t)
+    manifests = [json.loads((d / "step_0000000004" / "manifest.json")
+                            .read_text()) for d in dirs.values()]
+    assert manifests[0]["leaves"] == manifests[1]["leaves"]
+    if writer == "reference":
+        got = CheckpointManager(str(dirs[writer])).restore(4, t,
+                                                           device="cpu")
+        for k in t:
+            assert got[k].dtype == t[k].dtype
+            assert torch.equal(_bits(got[k]), _bits(t[k])), k
+    else:
+        got = RefManager(str(dirs[writer])).restore(4, np_t)
+        np.testing.assert_array_equal(
+            got["w"].view(ml_dtypes.bfloat16).view(np.int16),
+            np_t["w"].view(np.int16))
+        for k in ("f", "s"):
+            np.testing.assert_array_equal(got[k], np_t[k])
+
+
+def test_train_state_with_no_residuals_roundtrips(tmp_path):
+    """A ``TrainState`` (bfloat16 parameters, f32 moments, an int32 step,
+    ``residuals=None``) saves and restores leaf for leaf, keyed as the
+    reference keys its ``TrainState``."""
+    from repro_torch.lm.train.optimizer import OptState
+    from repro_torch.lm.train.train_step import TrainState
+    t = _bf16_tree(3)
+    params = {"embed": {"table": t["w"]}, "ln_f": t["f"]}
+    mu = {"embed": {"table": torch.ones(3, 5)}, "ln_f": torch.zeros(4)}
+    nu = {"embed": {"table": torch.full((3, 5), 2.0)}, "ln_f": t["f"] ** 2}
+    state = TrainState(params, OptState(t["s"], mu, nu), None)
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(5, state)
+    keys = set(json.loads((tmp_path / "step_0000000005" / "manifest.json")
+                          .read_text())["leaves"])
+    assert keys == {".params__embed__table", ".params__ln_f", ".opt__.step",
+                    ".opt__.mu__embed__table", ".opt__.mu__ln_f",
+                    ".opt__.nu__embed__table", ".opt__.nu__ln_f"}
+    from repro.lm.train.optimizer import OptState as RefOptState
+    from repro.lm.train.train_step import TrainState as RefTrainState
+    np_of = lambda tree: manager_mod._unflatten(tree, {
+        p: x.float().numpy() for p, x in manager_mod._flatten(tree)})
+    RefManager(str(tmp_path / "ref")).save(5, RefTrainState(
+        np_of(params), RefOptState(np.int32(7), np_of(mu), np_of(nu)), None))
+    assert keys == set(json.loads(
+        (tmp_path / "ref" / "step_0000000005" / "manifest.json")
+        .read_text())["leaves"])
+    got = cm.restore(5, state, device="cpu")
+    assert isinstance(got, TrainState) and isinstance(got.opt, OptState)
+    assert got.residuals is None
+    for (p, a), (_, b) in zip(manager_mod._flatten(state),
+                              manager_mod._flatten(got)):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b)), p

@@ -77,8 +77,10 @@ def _tiny():
                                    "LanesTask", "run_sharded",
                                    "run_sharded_lanes", "ShardedTask",
                                    "AmccaSim", "CostModel", "Model",
-                                   "serve_cli"])
-def test_entry_points_without_device_need_cuda(monkeypatch, entry):
+                                   "serve_cli", "Trainer", "train_cli",
+                                   "make_train_step"])
+def test_entry_points_without_device_need_cuda(monkeypatch, tmp_path,
+                                              entry):
     from repro_torch.apps import (
         batched_queries, bfs, cc, pagerank, pagerank_delta,
         personalized_pagerank, sssp,
@@ -89,8 +91,11 @@ def test_entry_points_without_device_need_cuda(monkeypatch, entry):
     from repro_torch.core.dynamic import DynamicGraph
     from repro_torch.core.partition import PartitionConfig
     from repro_torch.lm.configs import get_config
-    from repro_torch.lm.launch import serve
+    from repro_torch.data import TokenPipeline
+    from repro_torch.lm.launch import serve, train
     from repro_torch.lm.models import Model
+    from repro_torch.lm.train import AdamW, make_train_step
+    from repro_torch.lm.train.trainer import Trainer, TrainerConfig
     from repro_torch.core.streaming import StreamingGraph
     from repro_torch.query import QueryServer, lanes
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -130,6 +135,15 @@ def test_entry_points_without_device_need_cuda(monkeypatch, entry):
         "Model": lambda: Model(get_config("minitron-4b").reduced()),
         "serve_cli": lambda: serve.main(["--arch", "minitron-4b",
                                          "--reduced"]),
+        "Trainer": lambda: Trainer(
+            Model(get_config("minitron-4b").reduced()), AdamW(),
+            TokenPipeline(vocab=512, seq_len=8, global_batch=2),
+            TrainerConfig(steps=1, ckpt_dir=str(tmp_path))),
+        "train_cli": lambda: train.main(["--arch", "minitron-4b",
+                                         "--reduced", "--steps", "1",
+                                         "--ckpt-dir", str(tmp_path)]),
+        "make_train_step": lambda: make_train_step(
+            Model(get_config("minitron-4b").reduced()), AdamW()),
     }
     sharded = {
         "run_sharded": lambda mesh, p: engine.run_sharded(
@@ -167,14 +181,16 @@ MIRRORED = ["checkpoint.manager", "runtime.chaos", "runtime.elastic",
             "core.engine", "query.lanes", "kernels.ref", "core.amcca_sim",
             "core.costmodel", "serve.scheduler", "lm.configs",
             "lm.configs.base", "lm.models.layers", "lm.models.ssm",
-            "lm.models.model"]
+            "lm.models.model", "data", "data.pipeline",
+            "sharding.compression", "lm.train", "lm.train.optimizer",
+            "lm.train.trainer"]
 
 
 @pytest.mark.parametrize("name", MIRRORED)
 def test_new_modules_mirror_reference_names(name):
     """The modules ported for mutation, fault tolerance, the sharded
-    layout, the AM-CCA simulation layer and the LM serving path carry
-    every public name of their reference counterpart."""
+    layout, the AM-CCA simulation layer and the LM serving and training
+    paths carry every public name of their reference counterpart."""
     import importlib
     ref = importlib.import_module(f"repro.{name}")
     port = importlib.import_module(f"repro_torch.{name}")
@@ -207,3 +223,23 @@ def test_sharded_layout_stands_alone(path):
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
+
+
+def test_serve_does_not_import_the_lm_stack():
+    """``repro_torch.serve`` re-exports the LM serve steps lazily: importing
+    it (and its submodules) loads nothing of ``repro_torch.lm``, and the
+    first lookup of an export loads the train-step module."""
+    code = (
+        "import sys\n"
+        "import repro_torch.serve\n"
+        "import repro_torch.serve.admission\n"
+        "print(sorted(m for m in sys.modules "
+        "if m.startswith('repro_torch.lm')))\n"
+        "f = repro_torch.serve.make_serve_steps\n"
+        "print(f.__module__)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split("\n")[:2] == [
+        "[]", "repro_torch.lm.train.train_step"]

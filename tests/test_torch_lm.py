@@ -340,6 +340,6 @@ def test_constrain_without_a_mesh_is_identity_and_raises_with_one():
     assert specs.constrain(x, ("act_batch", None), specs.ShardCtx()) is x
     assert specs.spec_for(("embed", "mlp"), specs.ShardCtx()) == \
         ("data", "model")
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(NotImplementedError, match="item 12c"):
         specs.constrain(x, ("act_batch", None),
                         specs.ShardCtx(mesh=FakeMesh({"data": 2, "model": 2})))
