@@ -5,6 +5,7 @@
     python3 chip_smoke.py --plan-timing [SRC]
     python3 chip_smoke.py --fold-sweep
     python3 chip_smoke.py --trace-drops
+    python3 chip_smoke.py --lm-sharded
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 the ignored ``src/repro_torch/kernels/build/`` (one ``nvcc`` per source,
@@ -259,6 +260,31 @@ started together) and runs, in order:
    moment and logged metric equal bit for bit to a straight run, with
    the checkpoint write (caller's and writer's thread) and restore
    times (``[lm-train]``).
+14. Sharded LM training and serving (``phase_lm_sharded``,
+   ``[lm-sharded]``): gloo's point-to-point send of the card's tensors
+   probed in two throwaway processes; 14a 13b's minitron-4b run on a
+   (1, 1) mesh over a one-rank NCCL group, 4 ``Trainer(..., ctx)``
+   steps with each ce equal to 13b's within 1e-3 relative, then
+   ``make_serve_steps`` under "opt" (a 4 x 256 prefill, 8 decode steps)
+   held to the unsharded model by 12b's rule; 14b four spawned gloo
+   ranks on the card, a (2, 2) ("data", "model") mesh: granite at full
+   width and depth (float32, ``moe_shardmap``, capacity E / K) and
+   minitron cut to 4 layers (bfloat16), 2 ``make_train_step`` steps
+   each, held after the ranks free their state to an unsharded twin on
+   rank 0 (granite: loss and metrics rtol 1e-5, every parameter to
+   ``tests/test_grad_accum.py``'s tolerance with the Adam-eps clause,
+   the twin taking the sharded run's expert choices; minitron: ce 1e-2),
+   a rank's parameter + moment bytes at most 0.26 of the unsharded, one
+   all-reduce over model a MoE layer in the forward, the collectives a
+   step counted (``CommDebugMode``) and metered (calls, bytes, synced
+   seconds), each rank's peak; then serving under "opt" with the KV
+   sequence over model; 14c ``pipeline_apply`` over a ("pod",) mesh of
+   2 gloo ranks at the dry-run's pipeline cell, float32 held to the
+   sequential stages (output and gradients), bfloat16 timed.
+
+``--lm-sharded`` runs 13b (cut to 14a's steps, its reference) and phase
+14 alone, with no kernel build, and writes
+``chip_smoke_out/lm_sharded.json``.
 
 ``--profile`` also traces one replayed lane round's relax phase (K3 and
 K4 host-plan launches) with ``torch.profiler`` and prints its device
@@ -4667,10 +4693,13 @@ def _shard_configs(engine):
 def _probe_collectives(torch, dist, dev):
     """Which collective of the gloo world group takes which CUDA dtype
     (``exchange.collectives`` hands gloo the card's tensors as they
-    are: a refusal here fails the leg that needs it)."""
+    are: a refusal here fails the leg that needs it).  Point-to-point
+    send/recv is probed apart, in phase 14 (where gloo does not take a
+    CUDA tensor there, it aborts the process)."""
     table = {}
     world = dist.get_world_size()
-    for dtype in (torch.float32, torch.int64, torch.uint8, torch.bool):
+    for dtype in (torch.float32, torch.bfloat16, torch.int64, torch.uint8,
+                  torch.bool):
         x = torch.ones(world, dtype=dtype, device=dev)
         calls = {
             "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
@@ -4680,6 +4709,10 @@ def _probe_collectives(torch, dist, dev):
             "all_reduce": lambda: dist.all_reduce(
                 x.clone(), op=dist.ReduceOp.MAX if dtype == torch.bool
                 else dist.ReduceOp.SUM)}
+        if dtype.is_floating_point:     # the sharded LM's gradients
+            calls["reduce_scatter_tensor"] = \
+                lambda: dist.reduce_scatter_tensor(
+                    torch.empty(1, dtype=dtype, device=dev), x)
         for op, call in calls.items():
             key = f"{op}/{str(dtype).removeprefix('torch.')}"
             try:
@@ -6269,6 +6302,855 @@ def phase_lm_train(torch, np, dev, smi, full=True):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 14: sharded LM training and serving on torch.distributed
+# --------------------------------------------------------------------------
+
+LM_SHARD_DIR = ROOT / "chip_smoke_out" / "lm_sharded"
+LM_SHARD_RANKS = 4                   # 14b: (data=2, model=2) on the one card
+LM_SHARD_STEPS = 2                   # 14b's train steps
+LM_SHARD_A_STEPS = 4                 # 14a's Trainer steps (13b's first 4)
+LM_SHARD_CE_RTOL = 1e-3              # 14a: ce against the unsharded Trainer
+LM_SHARD_F32_RTOL = 1e-5             # 14b(i): loss and metrics, float32
+LM_SHARD_BF16_CE_RTOL = 1e-2         # 14b(ii): ce, bfloat16
+LM_SHARD_SHARE = 0.26                # 14b(i): local param + moment bytes
+# 14b: a leaf's change over the steps, p - p0, against the twin's: the
+# relative L2 gap |d - d_twin| / |d_twin|.  A state left unchanged reads
+# 1, a reversed update 2, one of the two steps left out about 0.5.
+# float32 parts only where a near-zero gradient's sign differs; bfloat16
+# also rounds each step's result to the parameter's ulp (about a third
+# of an lr step at the init's scale) and sums its gradients in another
+# order
+LM_SHARD_DELTA_GAP = {"float32": 0.05, "bfloat16": 0.25}
+LM_SHARD_DENSE_LAYERS = 4            # 14b(ii)/(iii): minitron cut to 4 layers
+LM_SHARD_PROMPT, LM_SHARD_DECODE = 256, 8
+LM_SHARD_MOE_ARCH = "granite-moe-1b-a400m"
+PIPE_STAGES, PIPE_LAYERS, PIPE_D = 2, 4, 4096     # dryrun's pipeline cell
+PIPE_MICRO, PIPE_MB = 8, 32
+PIPE_RTOL, PIPE_ATOL, PIPE_GRAD_RTOL = 2e-5, 2e-6, 1e-4
+
+
+def _rank_device(torch, kind):
+    """The device every rank of phase 14 works on: index 0 of ``kind``
+    (the phase's own device type, passed in each rank's spec)."""
+    dev = torch.device(kind, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+class _CommMeter:
+    """Every collective a window dispatches (``DTensor``'s functional
+    collectives and the ``c10d`` ops of ``torch.distributed``), by kind:
+    calls, the bytes each hands back to this rank, and its seconds with
+    the card synchronized before and after (so the window runs slower
+    than an unmetered one)."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        meter = self
+        self.calls = collections.Counter()
+        self.bytes = collections.Counter()
+        self.seconds = collections.Counter()
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                from torch.distributed.tensor import DTensor
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented   # its collectives come through
+                kwargs = kwargs or {}
+                ns = func.namespace
+                if ns not in ("_c10d_functional", "c10d", "_dtensor",
+                              "_c10d_functional_autograd") or any(
+                        w in func.__name__ for w in ("wait", "wrap")):
+                    return func(*args, **kwargs)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = func(*args, **kwargs)
+                flat = out if isinstance(out, (list, tuple)) else (out,)
+                for o in flat:
+                    if hasattr(o, "wait") and not torch.is_tensor(o):
+                        o.wait()
+                tensors = [o for o in flat if torch.is_tensor(o)]
+                if ns != "c10d":
+                    tensors = [torch.ops._c10d_functional.wait_tensor(t)
+                               for t in tensors]
+                else:                 # in place: the first argument
+                    first = args[0]
+                    tensors = list(first) if isinstance(
+                        first, (list, tuple)) else [first]
+                    tensors = [t for x in tensors for t in (
+                        x if isinstance(x, (list, tuple)) else [x])
+                        if torch.is_tensor(t)]
+                torch.cuda.synchronize()
+                kind = func.__name__.split(".")[0].strip("_")
+                meter.calls[kind] += 1
+                meter.bytes[kind] += sum(t.numel() * t.element_size()
+                                         for t in tensors)
+                meter.seconds[kind] += time.perf_counter() - t0
+                return out
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+    def row(self, per=1):
+        return {k: {"calls": self.calls[k] / per,
+                    "bytes": self.bytes[k] / per,
+                    "seconds": self.seconds[k] / per}
+                for k in sorted(self.calls)}
+
+
+def _comm_counts(comm):
+    return {str(k).split(".")[-1]: int(v)
+            for k, v in comm.get_comm_counts().items()}
+
+
+def _greedy_rule(torch, got_tokens, want_logits, where):
+    """12b's rule: every sequence's greedy tokens equal the unsharded
+    run's up to the first step whose top-2 margin there is under the
+    bfloat16 tolerance.  Returns (tokens compared, tokens equal)."""
+    checked = 0
+    for b in range(got_tokens.shape[0]):
+        for t, lg in enumerate(want_logits):
+            row = lg[b].float()
+            top2 = torch.topk(row, 2).values
+            if float(top2[0] - top2[1]) < _bf16_tol(row.abs().max()):
+                break
+            check(int(got_tokens[b, t]) == int(row.argmax()),
+                  f"{where}: sequence {b} step {t}: token "
+                  f"{int(got_tokens[b, t])} != {int(row.argmax())}")
+            checked += 1
+    return checked
+
+
+def _serve_run(torch, model, ctx, prompt, n_decode):
+    """A prefill of ``prompt`` and ``n_decode`` greedy decode steps
+    through ``make_serve_steps``: ((B, n_decode + 1) tokens, each step's
+    (B, V) logits on the host, prefill ms, decode ms a step)."""
+    from repro_torch.lm.train.train_step import make_serve_steps
+    pre, dec = make_serve_steps(model, ctx)
+    B, P = prompt.shape
+    params = model.param_tree()
+    caches = model.init_cache(B, P + n_decode)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = pre(params, {"tokens": prompt}, caches)
+    torch.cuda.synchronize()
+    pre_ms = 1e3 * (time.perf_counter() - t0)
+    steps = [logits[:, -1].float().cpu()]
+    toks = [logits[:, -1].argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(n_decode):
+        logits, caches = dec(params, toks[-1][:, None], caches, P + i)
+        steps.append(logits[:, -1].float().cpu())
+        toks.append(logits[:, -1].argmax(-1))
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0) / n_decode
+    return torch.stack(toks, 1).cpu(), steps, pre_ms, dec_ms
+
+
+def _lm_sharded_nccl(torch, np, dev, smi, cfg, ce_13b, ms_13b):
+    """14a: a (1, 1) ("data", "model") mesh over a one-rank NCCL group:
+    ``Trainer(..., ctx)`` on ``cfg`` (13b's run: weights from seed 0,
+    13b's token pipeline, constant lr) for LM_SHARD_A_STEPS steps, each
+    step's ce held to 13b's unsharded Trainer, then serving under the
+    "opt" rules held to the unsharded model of the same weights."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.data import TokenPipeline
+    from repro_torch.lm.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.lm.models.model import Model
+    from repro_torch.lm.train import AdamW
+    from repro_torch.lm.train.trainer import Trainer, TrainerConfig
+    from repro_torch.exchange.collectives import backend_for
+    ckpt = LM_SHARD_DIR / "a"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    backend = backend_for(dev.type, 1)
+    dist.init_process_group(
+        backend, store=dist.HashStore(), rank=0, world_size=1,
+        **({"device_id": dev} if backend == "nccl" else {}))
+    try:
+        mesh = make_test_mesh((1, 1), device=dev.type)
+        ctx = make_ctx(mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev, ctx=ctx)
+        check(model.sharded, "14a: the model's parameters are not placed")
+        pipe = TokenPipeline(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                             global_batch=LM_TRAIN_BATCH, seed=0)
+        trainer = Trainer(model, AdamW(lr=LM_TRAIN_LR), pipe, TrainerConfig(
+            steps=LM_SHARD_A_STEPS, ckpt_every=LM_SHARD_A_STEPS + 1,
+            ckpt_dir=str(ckpt), log_every=1), ctx)
+        state, init_s = _timed(torch, lambda: trainer.init_state(0))
+        inner, step_s, comms = trainer.step_fn, [], []
+
+        def timed_step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with CommDebugMode() as comm:
+                out = inner(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            comms.append(_comm_counts(comm))
+            return out
+        trainer.step_fn = timed_step
+        trainer.run(state)
+        peak = torch.cuda.max_memory_allocated()
+        hist = trainer.history
+        ce = [h["ce"] for h in hist]
+        check(len(hist) == LM_SHARD_A_STEPS and all(
+            math.isfinite(v) for h in hist for v in h.values()),
+            f"[lm-sharded] 14a: a metric is not finite: {hist}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(ce, ce_13b)]
+        check(max(rel) <= LM_SHARD_CE_RTOL,
+              f"[lm-sharded] 14a: ce {ce} against 13b's {ce_13b[:len(ce)]}")
+        check(peak < LM_TRAIN_PEAK_GIB * 2**30,
+              f"[lm-sharded] 14a: peak {peak / 2**30:.2f} GiB")
+        del trainer, state
+        torch.cuda.empty_cache()
+        # serving under "opt" against the unsharded model of the weights
+        octx = make_ctx(mesh, "opt")
+        prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (LM_TRAIN_BATCH, LM_SHARD_PROMPT)), device=dev)
+        toks, _, pre_ms, dec_ms = _serve_run(torch, model, octx, prompt,
+                                             LM_SHARD_DECODE)
+        twin = Model(cfg, device=dev)
+        twin.load_state_dict({k: v.to_local()
+                              for k, v in model.state_dict().items()})
+        del model
+        _, want, twin_pre, twin_dec = _serve_run(torch, twin, None, prompt,
+                                                 LM_SHARD_DECODE)
+        n_eq = _greedy_rule(torch, toks, want, "[lm-sharded] 14a serve")
+        del twin
+    finally:
+        dist.destroy_process_group()
+    warm = step_s[1:]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "init_s": init_s,
+           "backend": backend,
+           "step_ms": [1e3 * s for s in step_s],
+           "step_ms_mean": 1e3 * statistics.mean(warm),
+           "step_ms_13b": ms_13b, "ce": ce, "ce_13b": ce_13b[:len(ce)],
+           "ce_rel_max": max(rel), "peak_bytes": peak,
+           "collectives_a_step": comms[-1], "serve": {
+               "prefill_ms": pre_ms, "decode_ms": dec_ms,
+               "plain_prefill_ms": twin_pre, "plain_decode_ms": twin_dec,
+               "tokens_checked": n_eq}, "device": smi}
+    log(f"[lm-sharded] 14a {cfg.name} ({cfg.n_layers} layers, "
+        f"{cfg.param_dtype}, remat) on a (1, 1) mesh over a one-rank "
+        f"{backend} group, {LM_SHARD_A_STEPS} Trainer steps of {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ} on {smi}: ce {', '.join(f'{c:.4f}' for c in ce)} "
+        f"(13b unsharded: {', '.join(f'{c:.4f}' for c in ce_13b[:len(ce)])};"
+        f" largest relative gap {max(rel):.2e}); steps 1-"
+        f"{LM_SHARD_A_STEPS - 1} {out['step_ms_mean']:.1f} ms mean against "
+        f"13b's {ms_13b:.1f} ms unsharded (the difference is DTensor's "
+        f"dispatch); peak {peak / 2**30:.2f} GiB; collectives a step "
+        f"{comms[-1] or 'none'}")
+    log(f"[lm-sharded] 14a serving under 'opt' on {smi}: prefill "
+        f"{LM_TRAIN_BATCH} x {LM_SHARD_PROMPT} {pre_ms:.1f} ms (unsharded "
+        f"{twin_pre:.1f}), decode {dec_ms:.1f} ms a step (unsharded "
+        f"{twin_dec:.1f}); {n_eq} greedy tokens equal before a top-2 margin "
+        f"under {LM_BF16_ULPS} bf16 ulps")
+    return out
+
+
+def _param_bytes(tree, local):
+    from repro_torch.lm.models.model import _flatten
+    from repro_torch.sharding.specs import is_dtensor
+    total = 0
+    for t in _flatten(tree).values():
+        if local and is_dtensor(t):
+            t = t.to_local()
+        total += t.numel() * t.element_size()
+    return total
+
+
+def _shard_train(torch, np, dist, dev, ctx, cfg, batches, tag):
+    """14b(i)/(ii) on every rank: ``make_train_step`` on the mesh for
+    the batches, the first step under ``CommDebugMode`` and the second
+    metered; then the updated parameters and the eps-regime mask
+    gathered to rank 0's host.  Returns (rank 0's row, host leaves)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.exchange import collectives
+    from repro_torch.lm.models.model import Model, _flatten
+    from repro_torch.lm.train import AdamW, make_train_step
+    from repro_torch.lm.train.train_step import TrainState
+    from repro_torch.sharding.specs import gathered
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev, ctx=ctx)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW(lr=LM_TRAIN_LR)
+    params = model.param_tree()
+    state = TrainState(params, opt.init(params), None)
+    share = (_param_bytes(params, True) + _param_bytes(state.opt.mu, True)
+             + _param_bytes(state.opt.nu, True)) / (
+        _param_bytes(params, False) + _param_bytes(state.opt.mu, False)
+        + _param_bytes(state.opt.nu, False))
+    row = {"share": share}
+    if cfg.moe is not None:
+        # the forward alone: one all-reduce over model a MoE layer
+        collectives.reset_counters()
+        with torch.no_grad():
+            model.loss(params, batches[0], ctx)
+        row["forward_psum_model"] = collectives.calls["psum_replicated"]
+        row["forward_weight_gathers"] = collectives.calls["all_gather_dim"]
+    step = make_train_step(model, opt, ctx)
+    metrics, step_s = [], []
+    meter = _CommMeter(torch)
+    # the expert choices of every routing, for the twin to take (a router
+    # near-tie may fall either way under another summation order)
+    from repro_torch.lm.models import moe as moe_mod
+    with (_record_routing(moe_mod) if cfg.moe is not None
+          else contextlib.nullcontext([])) as seen:
+        for i, batch in enumerate(batches):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                with CommDebugMode() as comm:
+                    state, m = step(state, batch)
+                row["comm_counts"] = _comm_counts(comm)
+            else:
+                with meter:
+                    state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    routing = [None] * dist.get_world_size()
+    dist.all_gather_object(routing, seen)
+    # the groups in order: the ranks of model coordinate 0, by data
+    rows = [routing[r] for r in ctx.mesh.mesh[:, 0].tolist()]
+    forced = [torch.cat([r[n] for r in rows]).reshape(1, -1, r0.shape[-1])
+              for n, r0 in enumerate(rows[0])]
+    row.update(metrics=metrics, step_ms=[1e3 * s for s in step_s],
+               metered=meter.row(len(batches) - 1),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    host = {}
+    mu = _flatten(state.opt.mu)
+    for k, p in _flatten(state.params).items():
+        full = gathered(p)
+        tiny = gathered(DTensor.from_local(
+            (mu[k].to_local() / (1 - 0.9)).abs() < LM_EPS_REGIME,
+            p.device_mesh, p.placements, run_check=False))
+        if dist.get_rank() == 0:
+            host[k] = (full.cpu(), tiny.cpu())
+        del full, tiny
+    host["routing"] = forced
+    del model, state, step, params, mu
+    torch.cuda.empty_cache()
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, row["peak_bytes"])
+    row["peak_bytes_ranks"] = peaks
+    shares = [None] * dist.get_world_size()
+    dist.all_gather_object(shares, share)
+    row["share_ranks"] = shares
+    return row, host
+
+
+def _twin_train(torch, dev, cfg, batches, host, row, where, ce_only):
+    """Rank 0, after the ranks freed their state: the unsharded twin's
+    steps on the same weights and batches, and the sharded run held to
+    it."""
+    from repro_torch.lm.models.model import Model, _flatten
+    from repro_torch.lm.train import AdamW, make_train_step
+    from repro_torch.lm.train.train_step import TrainState
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW(lr=LM_TRAIN_LR)
+    params = model.param_tree()
+    state = TrainState(params, opt.init(params), None)
+    p0 = {k: p.detach().clone() for k, p in _flatten(params).items()}
+    step = make_train_step(model, opt)
+    twin_s, twin_m = [], []
+    from repro_torch.lm.models import moe as moe_mod
+    with (_force_routing(moe_mod, host["routing"]) if cfg.moe is not None
+          else contextlib.nullcontext([])) as ties:
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            twin_m.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            twin_s.append(time.perf_counter() - t0)
+    check(len(ties) == len(host["routing"]),
+          f"{where}: the twin routed {len(ties)} times, the sharded run "
+          f"{len(host['routing'])}")
+    for n, tie in enumerate(ties):
+        check(tie <= LM_ROUTE_TIE,
+              f"{where}: routing {n} of the twin takes the sharded run's "
+              f"experts off its own by {tie:.3g} of probability (a near-tie "
+              f"is under {LM_ROUTE_TIE:g})")
+    row["routing_calls"] = len(ties)
+    row["routing_tie_max"] = max(ties, default=0.0)
+    worst_m = 0.0
+    for got, want in zip(row["metrics"], twin_m):
+        for k in (("ce", "loss") if ce_only else want):
+            rel = abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+            worst_m = max(worst_m, rel)
+            tol = LM_SHARD_BF16_CE_RTOL if ce_only else LM_SHARD_F32_RTOL
+            check(math.isfinite(got[k]) and rel <= tol,
+                  f"{where}: {k} {got[k]} against the twin's {want[k]}")
+    worst_p, tiny_n, gaps = 0.0, 0, {}
+    gap_limit = LM_SHARD_DELTA_GAP[cfg.param_dtype]
+    for k, p in _flatten(state.params).items():
+        got, tiny = (t.to(dev) for t in host[k])
+        diff = (got.float() - p.float()).abs()
+        tiny_n += int(tiny.sum())
+        # the change each run made, held to the twin's: an update left
+        # out, reversed or of the wrong size fails here
+        start = p0.pop(k).float()
+        moved = float(torch.linalg.vector_norm(p.float() - start))
+        if moved > 0:
+            gaps[k] = float(torch.linalg.vector_norm(
+                got.float() - p.float())) / moved
+            check(gaps[k] <= gap_limit,
+                  f"{where}: parameter {k} changed {gaps[k]:.3g} of the "
+                  f"twin's change away from it (limit {gap_limit:g})")
+        else:
+            check(bool((got.float() == start).all()),
+                  f"{where}: parameter {k} moved where the twin's did not")
+        del start
+        if ce_only:
+            # bfloat16: a step moves an entry by at most lr (plus the
+            # weight decay) and a rounding of half a bf16 ulp (at most
+            # 2^-8 of it), so two runs part by at most twice that a step;
+            # more is a fault
+            bound = 2 * len(batches) * (LM_TRAIN_LR * 1.1
+                                        + BF16_ULP * p.float().abs())
+            bad = diff > bound
+        else:
+            bad = (diff > LM_STEP_ATOL + LM_STEP_RTOL * p.float().abs()) \
+                & ~tiny
+            check(bool((diff[tiny] <= LM_TRAIN_LR).all()),
+                  f"{where}: {k}: an eps-regime entry moved by more than lr")
+        if bool(bad.any()):
+            i = int(diff.argmax())
+            check(False, f"{where}: parameter {k} differs by "
+                  f"{float(diff.max()):.3g} (the twin's entry "
+                  f"{float(p.flatten()[i]):.4g}, the sharded run's "
+                  f"{float(got.flatten()[i]):.4g})")
+        worst_p = max(worst_p, float(diff.max()))
+        del got, tiny, diff
+    check(bool(gaps), f"{where}: the twin's steps moved no parameter")
+    worst_gap = max(gaps, key=gaps.get)
+    row.update(twin_metrics=twin_m, twin_step_ms=[1e3 * s for s in twin_s],
+               metric_rel_max=worst_m, param_abs_max=worst_p,
+               eps_regime=tiny_n, change_gap_max=gaps[worst_gap],
+               change_gap_leaf=worst_gap, change_gap_limit=gap_limit,
+               leaves_moved=len(gaps),
+               twin_peak_bytes=torch.cuda.max_memory_allocated())
+    del model, state, step, params
+    torch.cuda.empty_cache()
+
+
+def _shard_serve(torch, np, dist, dev, mesh, cfg):
+    """14b(iii) on every rank: serving under "opt" (the KV sequence over
+    model); rank 0 then holds it to the unsharded model."""
+    from repro_torch.lm.launch.mesh import make_ctx
+    from repro_torch.lm.models.model import Model
+    octx = make_ctx(mesh, "opt")
+    model = Model(cfg, device=dev, ctx=octx)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_TRAIN_BATCH, LM_SHARD_PROMPT)), device=dev)
+    dist.barrier()
+    toks, _, pre_ms, dec_ms = _serve_run(torch, model, octx, prompt,
+                                         LM_SHARD_DECODE)
+    del model
+    torch.cuda.empty_cache()
+    dist.barrier()
+    row = {"prefill_ms": pre_ms, "decode_ms": dec_ms}
+    if dist.get_rank() == 0:
+        twin = Model(cfg, device=dev)
+        twin.init(torch.Generator(device=dev).manual_seed(0))
+        _, want, tp, td = _serve_run(torch, twin, None, prompt,
+                                     LM_SHARD_DECODE)
+        row.update(plain_prefill_ms=tp, plain_decode_ms=td,
+                   tokens_checked=_greedy_rule(
+                       torch, toks, want, "[lm-sharded] 14b(iii)"))
+        del twin
+        torch.cuda.empty_cache()
+    return row
+
+
+def _lm_shard_rank(rank, world, spec):
+    """One rank of 14b: 4 ranks on the one card over gloo, a (2, 2)
+    ("data", "model") mesh, every rank making the same calls; rank 0
+    holds each case to its unsharded twin after the ranks freed theirs
+    and writes the results."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.lm.configs import get_config
+    from repro_torch.lm.launch.mesh import make_ctx, make_test_mesh
+    dev = _rank_device(torch, spec["device"])
+    dist.init_process_group("gloo", store=dist.FileStore(spec["store"],
+                                                         world),
+                            rank=rank, world_size=world)
+    mesh = make_test_mesh((2, 2), device=dev.type)
+    ctx = make_ctx(mesh)
+    res = {}
+    for case in spec["cases"]:
+        t0 = time.perf_counter()
+        cfg = get_config(case["arch"])
+        if spec["reduced"]:
+            cfg = dataclasses.replace(cfg.reduced(), dtype=cfg.dtype,
+                                      param_dtype=cfg.param_dtype)
+        cfg = dataclasses.replace(cfg, **case.get("replace", {}))
+        if "moe" in case:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.num_experts
+                / cfg.moe.top_k))
+        if case["kind"] == "serve":
+            row = _shard_serve(torch, np, dist, dev, mesh, cfg)
+        else:
+            batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                        _lm_batch(np, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                  SEED + i).items()}
+                       for i in range(LM_SHARD_STEPS)]
+            row, host = _shard_train(torch, np, dist, dev, ctx, cfg,
+                                     batches, case["tag"])
+            dist.barrier()
+            if rank == 0:
+                _twin_train(torch, dev, cfg, batches, host, row,
+                            f"[lm-sharded] 14b({case['tag']})",
+                            ce_only=case["dtype"] == "bfloat16")
+            del host
+        dist.barrier()
+        row["wall_s"] = time.perf_counter() - t0
+        row["config"] = {"arch": cfg.name, "layers": cfg.n_layers,
+                         "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+                         "opts": list(cfg.opts), "remat": cfg.remat}
+        res[case["tag"]] = row
+    if rank == 0:
+        with open(spec["out"], "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _pipe_stage(torch, F):
+    def stage_fn(wp, x):
+        w1, w2 = wp
+        for i in range(w1.shape[0]):
+            x = x + F.gelu(x @ w1[i]) @ w2[i]
+        return x
+    return stage_fn
+
+
+def _pipe_rank(rank, world, spec):
+    """One rank of 14c: ``pipeline_apply`` over a ("pod",) mesh of 2
+    gloo ranks on the card; float32 held to the sequential stages on rank
+    0 (output and the gradient of sum(y²)), then bfloat16 timed."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    sys.path.insert(0, str(SRC))
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.exchange import collectives
+    from repro_torch.lm.launch.mesh import make_test_mesh
+    from repro_torch.sharding.pipeline import pipeline_apply, stage_shardings
+    from repro_torch.sharding.specs import gathered
+    dev = _rank_device(torch, spec["device"])
+    dist.init_process_group("gloo", store=dist.FileStore(spec["store"],
+                                                         world),
+                            rank=rank, world_size=world)
+    mesh = make_test_mesh((world,), ("pod",), device=dev.type)
+    S, Lp, d = PIPE_STAGES, spec["layers"], spec["d"]
+    n_micro, mb = PIPE_MICRO, PIPE_MB
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    w1 = torch.randn((S, Lp, d, 4 * d), generator=gen, device=dev) * d ** -0.5
+    w2 = torch.randn((S, Lp, 4 * d, d), generator=gen, device=dev) * (
+        0.5 * (4 * d) ** -0.5)
+    x = torch.randn((n_micro, mb, d), generator=gen, device=dev)
+    stage_fn = _pipe_stage(torch, F)
+    fn = pipeline_apply(stage_fn, S, n_micro, mesh)
+    (m, pl), _ = stage_shardings(mesh, (w1, w2))
+    placed = tuple(distribute_tensor(w, m, pl, src_data_rank=None
+                                     ).requires_grad_(True) for w in (w1, w2))
+    y = fn(placed, x)
+    torch.sum(y ** 2).backward()
+    g = [gathered(p.grad) for p in placed]
+    res = {}
+    if rank == 0:
+        ws = [w.clone().requires_grad_(True) for w in (w1, w2)]
+        ys = []
+        for k in range(n_micro):          # the stages one after the other
+            v = x[k]
+            for s in range(S):
+                v = stage_fn((ws[0][s], ws[1][s]), v)
+            ys.append(v)
+        ys = torch.stack(ys)
+        torch.sum(ys ** 2).backward()
+        y, ys = y.detach(), ys.detach()
+        out_err = float((y - ys).abs().max())
+        check(bool(torch.allclose(y, ys, rtol=PIPE_RTOL, atol=PIPE_ATOL)),
+              f"[lm-sharded] 14c: pipeline output differs from the "
+              f"sequential stages by {out_err:.3g}")
+        grad_err = []
+        for got, w in zip(g, ws):
+            scale = float(w.grad.abs().max())
+            grad_err.append(float((got - w.grad).abs().max()) / scale)
+            check(bool(torch.allclose(got, w.grad, rtol=PIPE_GRAD_RTOL,
+                                      atol=PIPE_GRAD_RTOL * scale)),
+                  f"[lm-sharded] 14c: gradient differs by "
+                  f"{grad_err[-1]:.3g} of its largest entry")
+        res.update(out_err=out_err, grad_rel_err=grad_err)
+        del ws, ys
+    del placed, y, g
+    torch.cuda.empty_cache()
+    # bfloat16: ms a schedule and the bytes a tick
+    pb = tuple(distribute_tensor(w.to(torch.bfloat16), m, pl,
+                                 src_data_rank=None) for w in (w1, w2))
+    xb = x.to(torch.bfloat16)
+    del w1, w2
+    with torch.no_grad():
+        fn(pb, xb)
+        ms = []
+        for _ in range(spec["reps"]):
+            collectives.reset_counters()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(pb, xb)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    n_t = n_micro + S - 1
+    got = [None] * world
+    dist.all_gather_object(got, dict(collectives.bytes_in))
+    res.update(bf16_ms=ms, ticks=n_t,
+               bytes_a_tick=got[1].get("ppermute", 0) / n_t,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        with open(spec["out"], "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _probe_gloo_p2p_rank(rank, world, spec):
+    """A gloo send/recv of a CUDA tensor between two throwaway ranks."""
+    import torch
+    import torch.distributed as dist
+    dev = _rank_device(torch, spec["device"])
+    dist.init_process_group("gloo", store=dist.FileStore(spec["store"],
+                                                         world),
+                            rank=rank, world_size=world)
+    x = torch.arange(8, dtype=spec["dtype"], device=dev)
+    if rank == 0:
+        dist.send(x, 1)
+    else:
+        y = torch.zeros_like(x)
+        dist.recv(y, 0)
+        torch.cuda.synchronize()
+        if bool((y == x).all()):
+            pathlib.Path(spec["out"]).write_text("ok")
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(torch, fn, world, spec, timeout):
+    """``world`` spawned ranks of ``fn``; their exit codes (None: still
+    running at ``timeout`` seconds, then killed)."""
+    import torch.multiprocessing as mp
+    store = pathlib.Path(spec["store"])
+    if store.exists():
+        store.unlink()        # a stale store file hangs gloo
+    ctx = mp.start_processes(fn, args=(world, spec), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + timeout
+    try:
+        while not ctx.join(timeout=5.0):
+            if time.perf_counter() > deadline:
+                break
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        log(f"[lm-sharded] a rank failed: {e}")
+    codes = [p.exitcode for p in ctx.processes]
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    return codes
+
+
+def _probe_gloo_p2p(torch, kind):
+    """Whether gloo's point-to-point send/recv takes the card's tensors
+    (it is probed in two throwaway processes: where it does not, it
+    aborts the process).  ``sharding.pipeline`` stages its sends through
+    host memory on a gloo group whatever this says."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        path = LM_SHARD_DIR / f"p2p_{name}"
+        codes = _spawn_ranks(torch, _probe_gloo_p2p_rank, 2, {
+            "store": str(LM_SHARD_DIR / "p2p_store"), "dtype": dtype,
+            "device": kind, "out": str(path)}, timeout=60)
+        out[f"send_recv/{name}"] = (
+            "ok" if path.exists() and codes == [0, 0]
+            else f"refused: exit codes {codes}")
+    return out
+
+
+def phase_lm_sharded(torch, np, dev, smi, report13, full=True):
+    """Phase 14: sharded LM training and serving (14a one-rank NCCL,
+    14b four gloo ranks on the card, 14c the GPipe pipeline).
+    ``full=False`` runs every case at reduced width, for a rehearsal."""
+    import shutil
+    from repro_torch.lm.configs import get_config
+    t_phase = time.perf_counter()
+    shutil.rmtree(LM_SHARD_DIR, ignore_errors=True)
+    LM_SHARD_DIR.mkdir(parents=True)
+    out = {"p2p_probe": _probe_gloo_p2p(torch, dev.type)}
+    log(f"[lm-sharded] gloo send/recv of the card's tensors: "
+        f"{out['p2p_probe']}; the pipeline's ppermute stages its sends "
+        f"through host memory on a gloo group (chosen from the backend "
+        f"and the device)")
+    cfg = get_config(LM_TRAIN_ARCH)
+    if not full:
+        cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16",
+                                  param_dtype="bfloat16", remat=True)
+    full13 = report13["full"]
+    out["a"] = _lm_sharded_nccl(torch, np, _rank_device(torch, dev.type),
+                                smi, cfg,
+                                full13["ce"], full13["step_ms_mean"])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cases = [{"tag": "i", "kind": "train", "arch": LM_SHARD_MOE_ARCH,
+              "dtype": "float32", "moe": True,
+              "replace": {"opts": ("moe_shardmap",), "dtype": "float32",
+                          "param_dtype": "float32"}},
+             {"tag": "ii", "kind": "train", "arch": LM_TRAIN_ARCH,
+              "dtype": "bfloat16",
+              "replace": {"n_layers": LM_SHARD_DENSE_LAYERS}},
+             {"tag": "iii", "kind": "serve", "arch": LM_TRAIN_ARCH,
+              "dtype": "bfloat16",
+              "replace": {"n_layers": LM_SHARD_DENSE_LAYERS}}]
+    spec = {"store": str(LM_SHARD_DIR / "store"), "cases": cases,
+            "reduced": not full, "device": dev.type,
+            "out": str(LM_SHARD_DIR / "b.json")}
+    codes = _spawn_ranks(torch, _lm_shard_rank, LM_SHARD_RANKS, spec,
+                         timeout=900)
+    check(codes == [0] * LM_SHARD_RANKS,
+          f"[lm-sharded] 14b: rank exit codes {codes}")
+    b = json.loads((LM_SHARD_DIR / "b.json").read_text())
+    b["wall_s"] = time.perf_counter() - t0
+    out["b"] = b
+    i, ii, iii = b["i"], b["ii"], b["iii"]
+    check(max(i["share_ranks"]) <= LM_SHARD_SHARE,
+          f"[lm-sharded] 14b(i): a rank holds {max(i['share_ranks']):.4f} "
+          f"of the parameter and moment bytes")
+    n_moe = i["config"]["layers"]
+    check(i["forward_psum_model"] == n_moe,
+          f"[lm-sharded] 14b(i): {i['forward_psum_model']} all-reduces over "
+          f"model in the forward, for {n_moe} MoE layers")
+    cc = i["comm_counts"]
+    check(any("all_gather" in k or "allgather" in k for k in cc)
+          and any("reduce_scatter" in k for k in cc),
+          f"[lm-sharded] 14b(i): no all-gather or reduce-scatter a step: "
+          f"{cc}")
+    for tag in ("i", "ii"):
+        r = b[tag]
+        log(f"[lm-sharded] 14b({tag}) {r['config']} on a (2, 2) mesh of 4 "
+            f"gloo ranks sharing {smi} (not a multi-GPU layout's times): "
+            f"steps {', '.join(f'{s:.0f}' for s in r['step_ms'])} ms "
+            f"(rank 0; the first under CommDebugMode, the second metered), "
+            f"unsharded twin {', '.join(f'{s:.0f}' for s in r['twin_step_ms'])}"
+            f" ms; ce {[round(m['ce'], 5) for m in r['metrics']]} vs "
+            f"{[round(m['ce'], 5) for m in r['twin_metrics']]} (largest "
+            f"relative gap {r['metric_rel_max']:.2e}); parameters within "
+            f"{r['param_abs_max']:.3g} ({r['eps_regime']} eps-regime "
+            f"entries); each leaf's change within {r['change_gap_max']:.3g} "
+            f"of the twin's ({r['change_gap_leaf']}, limit "
+            f"{r['change_gap_limit']:g}, {r['leaves_moved']} leaves moved; "
+            f"a state left unchanged reads 1); local parameter + moment bytes "
+            f"{max(r['share_ranks']):.4f} of the unsharded; peak GiB by rank "
+            f"{[round(p / 2**30, 2) for p in r['peak_bytes_ranks']]}")
+        log(f"[lm-sharded] 14b({tag}) collectives a step on rank 0: counts "
+            f"{r['comm_counts']}; metered "
+            + "; ".join(f"{k} {v['calls']:.0f} calls {v['bytes'] / 2**20:.1f}"
+                        f" MiB {v['seconds']:.3f} s"
+                        for k, v in r["metered"].items()))
+    log(f"[lm-sharded] 14b(i) forward: {i['forward_psum_model']} all-reduces "
+        f"over model for {n_moe} MoE layers, {i['forward_weight_gathers']} "
+        f"expert-weight all-gathers over data; the twin took the sharded "
+        f"run's expert choices in all {i['routing_calls']} routings (its own "
+        f"k-th probability above a forced expert's by at most "
+        f"{i['routing_tie_max']:.3g})")
+    log(f"[lm-sharded] 14b(iii) serving under 'opt' (KV sequence over "
+        f"model), 4 gloo ranks on {smi}: prefill {LM_TRAIN_BATCH} x "
+        f"{LM_SHARD_PROMPT} {iii['prefill_ms']:.0f} ms (unsharded "
+        f"{iii['plain_prefill_ms']:.0f}), decode {iii['decode_ms']:.0f} ms "
+        f"a step (unsharded {iii['plain_decode_ms']:.1f}); "
+        f"{iii['tokens_checked']} greedy tokens equal before a top-2 "
+        f"margin under {LM_BF16_ULPS} bf16 ulps")
+    t0 = time.perf_counter()
+    pspec = {"store": str(LM_SHARD_DIR / "pstore"),
+             "out": str(LM_SHARD_DIR / "c.json"),
+             "layers": PIPE_LAYERS if full else 2,
+             "d": PIPE_D if full else 256, "reps": 5, "device": dev.type}
+    codes = _spawn_ranks(torch, _pipe_rank, PIPE_STAGES, pspec, timeout=600)
+    check(codes == [0] * PIPE_STAGES,
+          f"[lm-sharded] 14c: rank exit codes {codes}")
+    c = json.loads((LM_SHARD_DIR / "c.json").read_text())
+    c["wall_s"] = time.perf_counter() - t0
+    out["c"] = c
+    want_bytes = PIPE_MB * pspec["d"] * 2
+    check(c["bytes_a_tick"] == want_bytes,
+          f"[lm-sharded] 14c: {c['bytes_a_tick']} bytes a tick, not "
+          f"{want_bytes}")
+    log(f"[lm-sharded] 14c pipeline_apply, {PIPE_STAGES} stages x "
+        f"{pspec['layers']} MLP layers (d {pspec['d']}, 4d hidden, gelu), "
+        f"{PIPE_MICRO} microbatches of {PIPE_MB}, 2 gloo ranks sharing "
+        f"{smi}: float32 output within {c['out_err']:.3g} of the sequential "
+        f"stages, gradients within {max(c['grad_rel_err']):.3g} of their "
+        f"largest entry; bfloat16 "
+        f"{statistics.median(c['bf16_ms']):.1f} ms a schedule (median of "
+        f"{len(c['bf16_ms'])}, {c['ticks']} ticks, host-staged sends), "
+        f"{c['bytes_a_tick']:.0f} bytes received a tick")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm-sharded] phase 14: {out['phase_s']:.1f} s")
+    return out
+
+
+def lm_sharded_alone() -> int:
+    """``--lm-sharded``: phase 14 alone, after 13b's minitron-4b run cut
+    to 14a's LM_SHARD_A_STEPS steps (its unsharded reference); no kernel
+    is built.  Writes ``chip_smoke_out/lm_sharded.json`` and prints the
+    card and one JSON line."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.lm.configs import get_config
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    r13 = {"full": _lm_train_full(torch, np, dev, get_config(LM_TRAIN_ARCH),
+                                  smi, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                                  LM_SHARD_A_STEPS)}
+    torch.cuda.empty_cache()
+    out = phase_lm_sharded(torch, np, dev, smi, r13)
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / "lm_sharded.json").write_text(json.dumps(
+        {"lm_train_13b": r13, "lm_sharded": out}, indent=1, default=str))
+    print(smi)
+    print(json.dumps({"ok": True, "phase_s": out["phase_s"]}))
+    return 0
+
+
 def _k1_sums(report, report2):
     """K1 alone on the heaviest dense round and summed over every round
     that phases 4 and 5 replay; logged and returned."""
@@ -6330,6 +7212,7 @@ def main() -> int:
     report11 = phase_amcca(torch, np, dev)
     report12 = phase_lm_serve(torch, np, dev)
     report13 = phase_lm_train(torch, np, dev, smi)
+    report14 = phase_lm_sharded(torch, np, dev, smi, report13)
     heavy, heavy2 = report["heaviest"], report2["heaviest"]
     k3, k4, k9 = report3["k3"], report3["k4"], report3["k9"]
     k9_sum = report3["k9_sum"]
@@ -6338,6 +7221,7 @@ def main() -> int:
                   slice10=report8, slice11=report9, slice12=report10,
                   slice13={"amcca": report11, "lm_serve": report12},
                   slice14={"lm_train": report13},
+                  slice15={"lm_sharded": report14},
                   device=smi, build_s=build_s,
                   total_s=time.perf_counter() - t_start)
     OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -6482,6 +7366,8 @@ if __name__ == "__main__":
         sys.exit(fold_sweep())
     if "--trace-drops" in sys.argv[1:]:
         sys.exit(trace_drops())
+    if "--lm-sharded" in sys.argv[1:]:
+        sys.exit(lm_sharded_alone())
     if "--lm-resume" in sys.argv[1:]:
         sys.exit(lm_resume(sys.argv[sys.argv.index("--lm-resume") + 1]))
     sys.exit(main())

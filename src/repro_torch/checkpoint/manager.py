@@ -18,6 +18,14 @@ failed background write re-raises on the next ``save()`` / ``wait()``.
 ``restore(step, like, device=None)`` returns numpy leaves, or tensors on
 ``device``.
 
+A tree with ``DTensor`` leaves (sharded LM training) is saved by every
+rank of its mesh together: each leaf is gathered whole with
+``full_tensor()`` (a collective on every rank) and the world's rank 0
+alone writes, in the same format, so a sharded checkpoint restores
+unsharded in either package; ``wait`` then also waits for every rank.
+Restoring into a ``like`` with ``DTensor`` leaves gives each rank its
+own shard of each leaf, placed like ``like``'s.
+
 A bfloat16 leaf is written as the reference writes one: its 2-byte
 payload as a ``'<V2'`` ``.npy`` with ``"dtype": "bfloat16"`` in the
 manifest and the crc-32 over those bytes.  Restored onto a device it is a
@@ -34,6 +42,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.specs import gathered, is_dtensor
 
 
 def _flat_key(path) -> str:
@@ -122,12 +132,29 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._async_error: BaseException | None = None
+        self._sharded = False     # saved DTensor trees: ranks sync
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree, blocking: bool = True,
              meta: dict | None = None) -> str:
         self.wait()
-        host = [(_flat_key(p),) + _host(leaf) for p, leaf in _flatten(tree)]
+        leaves = _flatten(tree)
+        if any(is_dtensor(leaf) for _, leaf in leaves):
+            import torch.distributed as dist
+            self._sharded = True
+            # every rank takes part in each gather; rank 0 alone copies
+            # the whole leaf to the host, one leaf at a time
+            writer = dist.get_rank() == 0
+            host = []
+            for p, leaf in leaves:
+                full = gathered(leaf)
+                if writer:
+                    host.append((_flat_key(p),) + _host(full))
+                del full
+            if not writer:
+                return self._final_path(step)
+        else:
+            host = [(_flat_key(p),) + _host(leaf) for p, leaf in leaves]
         structure = _structure(tree)
         if blocking:
             return self._write(step, host, structure, meta)
@@ -141,6 +168,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            import torch.distributed as dist
+            dist.barrier()
         if self._async_error is not None:
             err, self._async_error = self._async_error, None
             raise RuntimeError(
@@ -202,12 +232,13 @@ class CheckpointManager:
 
     def restore(self, step: int, like, device=None, verify: bool = True):
         """Restore into the structure of ``like``: numpy leaves, or
-        tensors on ``device`` when one is given."""
+        tensors on ``device`` when one is given (a ``DTensor`` leaf of
+        ``like``: its placements, on its own device)."""
         path = self._final_path(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         leaves = {}
-        for p, _ in _flatten(like):
+        for p, ref in _flatten(like):
             key = _flat_key(p)
             meta = manifest["leaves"][key]
             arr = np.load(os.path.join(path, meta["file"]))
@@ -216,7 +247,12 @@ class CheckpointManager:
                 if crc != meta["crc32"]:
                     raise IOError(f"checkpoint leaf {key} corrupt "
                                   f"(crc {crc} != {meta['crc32']})")
-            if device is not None:
+            if is_dtensor(ref):
+                from torch.distributed.tensor import distribute_tensor
+                arr = distribute_tensor(
+                    _device_leaf(arr, meta["dtype"], ref.to_local().device),
+                    ref.device_mesh, ref.placements, src_data_rank=None)
+            elif device is not None:
                 arr = _device_leaf(arr, meta["dtype"], device)
             leaves[p] = arr
         return _unflatten(like, leaves)

@@ -57,6 +57,50 @@ class ShardGroup(typing.NamedTuple):
     size: int
 
 
+def backend_for(device_type: str, world_size: int) -> str:
+    """The process group's backend for ranks on ``device_type``: NCCL
+    when each of ``world_size`` ranks has a GPU of its own, gloo when
+    the ranks outnumber the visible GPUs (they share a card: gloo stages
+    its tensors through host memory) or run on the CPU."""
+    if device_type == "cuda" and world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+_GLOO_CUDA_GATHERS = []     # the kernel registration, kept alive
+
+
+def route_gloo_cuda_gathers():
+    """Route the functional all-gather of CUDA tensors (``DTensor``'s
+    ``Shard`` -> ``Replicate``) through ``dist.all_gather_into_tensor``
+    on the resolved group, synchronously.  The functional op calls the
+    group's coalesced all-gather, which gloo runs on the host's view of
+    the card's pointers: on an H100 with torch 2.11 it crashed every rank
+    (SIGSEGV), while ``all_gather_into_tensor`` (gloo's
+    ``_allgather_base``, staging through host memory) and the functional
+    all-reduce, reduce-scatter and all-to-all took the card's tensors
+    (``chip_smoke.py`` phase 14).  Called once a process by
+    ``lm.launch.mesh`` when the world's backend is gloo and the mesh's
+    devices are CUDA; an NCCL process never registers it."""
+    if _GLOO_CUDA_GATHERS:
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def gather(x, group_size, group_name):
+        out = x.new_empty((group_size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    def gather_coalesced(xs, group_size, group_name):
+        return [gather(x, group_size, group_name) for x in xs]
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", gather, "CUDA")
+    lib.impl("all_gather_into_tensor_coalesced", gather_coalesced, "CUDA")
+    _GLOO_CUDA_GATHERS.append(lib)
+
+
 def axis_tuple(axis_names):
     return axis_names if isinstance(axis_names, tuple) else (axis_names,)
 
@@ -161,3 +205,75 @@ def reset_counters():
     calls.clear()
     bytes_in.clear()
     seconds.clear()
+
+
+# --------------------------------------------------------------------------
+# autograd-aware collectives of the sharded LM (``lm.models.moe``)
+# --------------------------------------------------------------------------
+
+class _GatherDim(torch.autograd.Function):
+    """Tiled all-gather along ``dim`` over ``group``; its adjoint is the
+    reduce-scatter (sum) of the gradient along the same dim."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+        _gather_into(out, xt, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        gt = g.movedim(ctx.dim, 0).contiguous()
+        out = gt.new_empty((gt.shape[0] // n,) + tuple(gt.shape[1:]))
+        dist.reduce_scatter_tensor(out, gt, op=dist.ReduceOp.SUM,
+                                   group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+class _SumReplicated(torch.autograd.Function):
+    """All-reduce (sum) over ``group`` of partial values whose sum every
+    rank then uses as one replicated value: the gradient of each part is
+    the replicated sum's gradient, passed through as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def axes_group(mesh, axes):
+    """The process group of ``mesh`` over the named ``axes`` (one mesh
+    dimension's group, or the group of several flattened)."""
+    axes = axis_tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)`` with autograd.
+    Counted (forward calls) as ``all_gather_dim``."""
+    out = _GatherDim.apply(x, dim, group)
+    calls["all_gather_dim"] += 1
+    bytes_in["all_gather_dim"] += out.numel() * out.element_size()
+    return out
+
+
+def psum_replicated(x: torch.Tensor, group,
+                    kind: str = "psum_replicated") -> torch.Tensor:
+    """``lax.psum(x, axis)`` inside a ``shard_map`` whose output is
+    replicated over ``axis``, with autograd.  Counted (forward calls)
+    under ``kind``."""
+    out = _SumReplicated.apply(x, group)
+    calls[kind] += 1
+    bytes_in[kind] += out.numel() * out.element_size()
+    return out

@@ -101,7 +101,8 @@ def lm_params_from_numpy(cfg, params: dict) -> dict:
 
 
 def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    from repro_torch.sharding.specs import gathered
+    t = gathered(t).detach().cpu()   # a DTensor: every rank calls this
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy().copy()
@@ -111,22 +112,28 @@ def lm_params_to_numpy(params: dict) -> dict:
     """The reference's nested params dict with numpy leaves from the
     port's parameter tree (``model.param_tree()``, or any tree of
     tensors of its shape, such as optimizer moments).  A bfloat16 leaf
-    comes back as float32, exactly."""
+    comes back as float32, exactly; a ``DTensor`` leaf comes back whole
+    (every rank of its mesh calls this)."""
     if isinstance(params, dict):
         return {k: lm_params_to_numpy(v) for k, v in params.items()}
     return _tensor_to_numpy(params)
 
 
-def opt_state_from_numpy(state, device):
+def opt_state_from_numpy(state, device, ctx=None, axes=None):
     """The port's ``lm.train.OptState`` on ``device`` from a reference
     ``OptState`` with numpy leaves (``jax.tree.map(np.asarray, state)``:
-    ``step``, and ``mu``/``nu`` as nested dicts of float32 arrays)."""
+    ``step``, and ``mu``/``nu`` as nested dicts of float32 arrays).  With
+    a bound ``ctx`` the moments are placed on its mesh by ``axes`` (the
+    model's ``_axes_tree``), as their parameters are."""
     from repro_torch.lm.train.optimizer import OptState
+    from repro_torch.sharding.specs import place
 
     def walk(t):
         if isinstance(t, dict):
             return {k: walk(v) for k, v in t.items()}
         return torch.as_tensor(np.array(t, dtype=np.float32), device=device)
+    mu, nu = walk(state.mu), walk(state.nu)
+    if ctx is not None and ctx.mesh is not None:
+        mu, nu = place(mu, axes, ctx), place(nu, axes, ctx)
     return OptState(step=torch.as_tensor(np.int32(state.step),
-                                         device=device),
-                    mu=walk(state.mu), nu=walk(state.nu))
+                                         device=device), mu=mu, nu=nu)

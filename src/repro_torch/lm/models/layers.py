@@ -13,6 +13,8 @@ Products are ``torch.einsum`` in the activation dtype, as the reference's
 ``cache_index`` and the same tensors are returned: a scalar index writes
 rows ``[index, index + S)`` of every sequence, a (B,) index writes one
 row a sequence at its own position (the batched decode of a slot pool).
+A cache placed on a mesh (its sequence dim sharded under the "opt"
+rules) is written shard by shard, each rank at its own offset.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.specs import ShardCtx, constrain
+from repro_torch.sharding.specs import (ShardCtx, constrain, is_dtensor,
+                                       local_offset)
 
 
 @dataclasses.dataclass
@@ -204,6 +207,8 @@ def write_cache(c, new, cache_index):
     ``dynamic_update_slice`` does), or row ``i[b]`` of sequence b for a
     (B,) tensor (S = 1).  Returns ``c``."""
     new = new.to(c.dtype)
+    if is_dtensor(c):
+        return _write_cache_local(c, new, cache_index)
     if torch.is_tensor(cache_index) and cache_index.dim() == 1:
         idx = cache_index.clamp(0, c.shape[1] - 1)
         c[torch.arange(c.shape[0], device=c.device), idx] = new[:, 0]
@@ -211,6 +216,73 @@ def write_cache(c, new, cache_index):
         start = min(max(int(cache_index), 0), c.shape[1] - new.shape[1])
         c[:, start:start + new.shape[1]] = new
     return c
+
+
+def _write_cache_local(c, new, cache_index):
+    """``write_cache`` into a placed cache: each rank writes the rows of
+    its own shard (its batch rows, its slice of the sequence at its
+    offset) from ``new`` with the sequence dim gathered whole."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = c.device_mesh
+    pl = tuple(Replicate() if q.is_shard(1) else q for q in c.placements)
+    if not is_dtensor(new):
+        new = DTensor.from_local(new, mesh, (Replicate(),) * mesh.ndim,
+                                 run_check=False)
+    new = new.redistribute(mesh, pl).to_local()
+    local = c.to_local()
+    b0, s0 = local_offset(c)[:2]
+    nb, n = local.shape[:2]
+    if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+        rows = cache_index.clamp(0, c.shape[1] - 1)[b0:b0 + nb] - s0
+        ok = (rows >= 0) & (rows < n)
+        b = torch.arange(nb, device=local.device)[ok]
+        local[b, rows[ok]] = new[ok, 0]
+    else:
+        S = new.shape[1]
+        start = min(max(int(cache_index), 0), c.shape[1] - S)
+        lo, hi = max(start, s0), min(start + S, s0 + n)
+        if lo < hi:
+            local[:, lo - s0:hi - s0] = new[:, lo - start:hi - start]
+    return c
+
+
+def _partial_where(ref, used):
+    """Gradient placements of a local view taken from ``used``: a
+    pending sum over the mesh dims where ``ref`` is sharded and ``used``
+    is whole (each rank there used part of it), ``used``'s own
+    placements elsewhere."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if r.is_shard() and u.is_replicate() else u
+                 for r, u in zip(ref.placements, used.placements))
+
+
+def _attention_on_shards(attn, q, k, v, mask_fn, q_pos, k_pos, scale, ctx):
+    """The attention core on each rank's own batch rows and query heads
+    (heads are independent): the batched products over two sharded
+    batch dims (batch, heads) are left to no ``DTensor`` view rule.
+    A rank's query heads read the KV heads ``h // rep`` of its own."""
+    from torch.distributed.tensor import DTensor
+    if q_pos.dim() > 1:
+        raise ValueError("per-sequence positions are not supported on a "
+                         "mesh")
+    q = constrain(q, ("act_batch", None, "act_heads", None), ctx)
+    k = constrain(k, ("act_batch", None, "act_kv_heads", None), ctx)
+    v = constrain(v, ("act_batch", None, "act_kv_heads", None), ctx)
+    rep = q.shape[2] // k.shape[2]
+    h0, kv0 = local_offset(q)[2], local_offset(k)[2]
+    grad = _partial_where(q, k)
+    ql = q.to_local()
+    kl, vl = (t.to_local(grad_placements=grad) for t in (k, v))
+    nq = ql.shape[2]
+    if h0 % rep == 0 and nq % rep == 0:
+        sl = slice(h0 // rep - kv0, (h0 + nq) // rep - kv0)
+        kl, vl = kl[:, :, sl], vl[:, :, sl]
+    else:                     # a group split across ranks: one KV a head
+        idx = (h0 + torch.arange(nq, device=ql.device)) // rep - kv0
+        kl, vl = kl[:, :, idx], vl[:, :, idx]
+    out = attn(ql, kl, vl, mask_fn, q_pos, k_pos, scale)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False)
 
 
 def apply_attention(p, cfg, x, positions, mask_fn, ctx: ShardCtx | None,
@@ -223,9 +295,13 @@ def apply_attention(p, cfg, x, positions, mask_fn, ctx: ShardCtx | None,
     """
     B, S, d = x.shape
     scale = cfg.hd ** -0.5
+    # the sequence gathered whole before the projections (a layer's
+    # input is sequence-parallel at its boundary)
+    x = constrain(x, ("act_batch", None, None), ctx)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     wk, wv, wo = p["wk"], p["wv"], p["wo"]
     xkv, kv_pos = (x, positions) if kv_override is None else kv_override
+    xkv = constrain(xkv, ("act_batch", None, None), ctx)
     k = torch.einsum("bsd,dhk->bshk", xkv, wk)
     v = torch.einsum("bsd,dhk->bshk", xkv, wv)
     if cfg.attn_bias:
@@ -261,9 +337,16 @@ def apply_attention(p, cfg, x, positions, mask_fn, ctx: ShardCtx | None,
     threshold = 1024 if "attn_chunked" in cfg.opts else ATTN_CHUNK_THRESHOLD
     attn = (_chunked_attention if max(S, Sk) > threshold
             else _plain_attention)
-    out = attn(q, k.to(q.dtype), v.to(q.dtype), mask_fn,
-               positions, kv_pos, scale)
-    out = torch.einsum("bshk,hkd->bsd", out, wo)
+    if is_dtensor(q):
+        out = _attention_on_shards(attn, q, k.to(q.dtype), v.to(q.dtype),
+                                   mask_fn, positions, kv_pos, scale, ctx)
+    else:
+        out = attn(q, k.to(q.dtype), v.to(q.dtype), mask_fn,
+                   positions, kv_pos, scale)
+    # the heads' sum reduced here: a gradient that comes back sequence-
+    # parallel is gathered before the product's backward folds (b, s)
+    out = constrain(torch.einsum("bshk,hkd->bsd", out, wo),
+                    ("act_batch", None, None), ctx)
     if cfg.attn_bias:
         out = out + p["bo"]
     return out, new_cache
@@ -309,6 +392,7 @@ def gelu(x):
 
 
 def apply_mlp(p, cfg, x, ctx: ShardCtx | None):
+    x = constrain(x, ("act_batch", None, None), ctx)
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
     if cfg.mlp_act == "swiglu":
         h = F.silu(torch.einsum("bsd,df->bsf", x, p["wg"])) * h
@@ -319,7 +403,8 @@ def apply_mlp(p, cfg, x, ctx: ShardCtx | None):
     else:
         h = gelu(h)
     h = constrain(h, ("act_batch", None, "act_mlp"), ctx)
-    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+    return constrain(torch.einsum("bsf,fd->bsd", h, p["wo"]),
+                     ("act_batch", None, None), ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -331,8 +416,32 @@ def init_embedding(key, cfg, dtype):
                                 ("vocab", "embed"), dtype, fan_in=1)}
 
 
+def _embed_on_shards(table, tokens):
+    """The lookup on a placed table: each rank gathers its vocab rows
+    whole (the embed dim over its mesh dims), looks up the tokens those
+    rows hold (zeros for the rest) and one all-reduce over the vocab's
+    mesh dims sums the parts; the result is replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.exchange import collectives as C
+    mesh = table.device_mesh
+    vocab_dims = [i for i, q in enumerate(table.placements) if q.is_shard(0)]
+    t = table.redistribute(mesh, tuple(
+        q if i in vocab_dims else Replicate()
+        for i, q in enumerate(table.placements)))
+    local = t.to_local()
+    idx = tokens - local_offset(t)[0]
+    hit = (idx >= 0) & (idx < local.shape[0])
+    out = torch.where(hit[..., None], local[idx.clamp(0, local.shape[0] - 1)],
+                      0)
+    for i in vocab_dims:
+        out = C.psum_replicated(out, mesh.get_group(i), "embed_psum")
+    return DTensor.from_local(out, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
 def embed(p, tokens, cfg):
-    x = p["table"][tokens]
+    x = (_embed_on_shards(p["table"], tokens) if is_dtensor(p["table"])
+         else p["table"][tokens])
     if cfg.family in ("vlm",):  # gemma scales embeddings
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -345,11 +454,36 @@ def init_unembed(key, cfg, dtype):
                                ("embed", "vocab"), dtype)}
 
 
+def _unembed_on_shards(x, w, eq, vocab_dim, ctx):
+    """Logits on each rank's batch rows and vocab slice: ``w`` gathered
+    whole but for its vocab dim, ``x`` with its batch rows and the whole
+    embed dim; the logits keep both shardings."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    x = constrain(x, ("act_batch", None, None), ctx)
+    mesh = x.device_mesh
+    w = w.redistribute(mesh, tuple(q if q.is_shard(vocab_dim) else Replicate()
+                                   for q in w.placements))
+    # each rank's products use its batch rows against its vocab slice:
+    # their gradients are pending sums over the other's mesh dims
+    xl = x.to_local(grad_placements=tuple(
+        Partial() if qw.is_shard() else qx
+        for qx, qw in zip(x.placements, w.placements)))
+    wl = w.to_local(grad_placements=tuple(
+        Partial() if qx.is_shard() else qw
+        for qx, qw in zip(x.placements, w.placements)))
+    out = torch.einsum(eq, xl, wl)
+    pl = tuple(Shard(0) if qx.is_shard(0) else Shard(2) if qw.is_shard()
+               else Replicate() for qx, qw in zip(x.placements, w.placements))
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
 def unembed(p, emb_p, x, cfg, ctx):
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, emb_p["table"])
+    w, eq, vd = ((emb_p["table"], "bsd,vd->bsv", 0) if cfg.tie_embeddings
+                 else (p["wout"], "bsd,dv->bsv", 1))
+    if is_dtensor(w):
+        logits = _unembed_on_shards(x, w, eq, vd, ctx)
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, p["wout"])
+        logits = torch.einsum(eq, x, w)
     logits = constrain(logits, ("act_batch", None, "act_vocab"), ctx)
     if cfg.logit_softcap:
         c = cfg.logit_softcap

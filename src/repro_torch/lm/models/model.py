@@ -47,7 +47,9 @@ from repro_torch.lm.configs.base import ModelConfig
 from repro_torch.lm.models import layers as L
 from repro_torch.lm.models import moe as M
 from repro_torch.lm.models import ssm as S
-from repro_torch.sharding.specs import ShardCtx, constrain
+from repro_torch.sharding.specs import (ShardCtx, constrain, constrain_like,
+                                       gathered, is_dtensor, local_call,
+                                       local_part, place, sharding_for, spmd)
 
 
 def _dt(name: str):
@@ -93,6 +95,32 @@ def _token_ce(logits, targets):
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, targets[..., None])[..., 0]
     return lse - ll
+
+
+def _local_ce(ctx):
+    """``_token_ce`` on a mesh: ``gather`` along a sharded vocab has no
+    ``DTensor`` rule, so each rank takes its batch rows with the whole
+    vocab."""
+    return local_call(_token_ce, ctx, (("act_batch", None, None),
+                                       ("act_batch", None)),
+                      ("act_batch", None))
+
+
+def _write_back(dst, src):
+    """A layer's new cache leaf into its slot (a placed slot takes the
+    new value in its own placements)."""
+    if dst is src:
+        return
+    if is_dtensor(dst):
+        src = constrain_like(src, dst)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
+
+
+def _plain(t):
+    """A ``DTensor`` result as the plain tensor every rank holds."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 # ---- trees of tensors -----------------------------------------------------
@@ -147,7 +175,8 @@ def _tree_of(module: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 ctx: ShardCtx | None = None):
         super().__init__()
         self.cfg = cfg
         self.stages = build_stages(cfg)
@@ -157,8 +186,30 @@ class Model(nn.Module):
         shapes, axes = L.split_tree(self._tree(L.Draw(None)))
         self.param_axes: dict[str, tuple] = _flatten(axes)
         self._axes_tree = axes
-        _register(self, _map(lambda m: torch.empty(
-            m.shape, dtype=m.dtype, device=self.device), shapes))
+        if ctx is not None and ctx.mesh is not None:
+            from torch.distributed.tensor import empty as dt_empty
+
+            def alloc(m, a):
+                mesh, pl = sharding_for(a, ctx, m.shape)
+                return dt_empty(m.shape, dtype=m.dtype, device_mesh=mesh,
+                                placements=pl)
+            _register(self, _map(alloc, shapes, axes))
+        else:
+            _register(self, _map(lambda m: torch.empty(
+                m.shape, dtype=m.dtype, device=self.device), shapes))
+
+    @torch.no_grad()
+    def place(self, ctx: ShardCtx):
+        """Put the parameters on ``ctx``'s mesh, each as a ``DTensor``
+        placed by its logical axes (one leaf at a time); returns the
+        model."""
+        _register(self, place(_map(lambda t: t.detach(), self.param_tree()),
+                              self._axes_tree, ctx))
+        return self
+
+    @property
+    def sharded(self) -> bool:
+        return any(is_dtensor(p) for p in self.parameters())
 
     def param_tree(self) -> dict:
         """The parameters as the reference's nested params dict."""
@@ -231,12 +282,20 @@ class Model(nn.Module):
             generator = torch.Generator(device=self.device).manual_seed(0)
         key = L.Draw(generator)
         params = self.param_tree()
-        _map(lambda dst, leaf: dst.copy_(leaf.value),
+
+        def put(dst, value, i=None):
+            # a placed parameter takes the rank's part of the drawn value
+            if is_dtensor(dst):
+                dst, value = dst.to_local(), local_part(
+                    value, dst, 0 if i is None else 1)
+            (dst if i is None else dst[i]).copy_(value)
+
+        _map(lambda dst, leaf: put(dst, leaf.value),
              {k: params[k] for k in ("embed", "unembed", "ln_f")},
              self._top(key))
         for si, stage in enumerate(self.stages):
             for i in range(stage.count):
-                _map(lambda dst, leaf: dst[i].copy_(leaf.value),
+                _map(lambda dst, leaf: put(dst, leaf.value, i),
                      params[f"stage{si}"], self._init_layer(key, stage))
         return params, self._axes_tree
 
@@ -353,15 +412,18 @@ class Model(nn.Module):
             else:
                 x, new_cache, a = layer(x)
             if cache_layer is not None and new_cache is not None:
-                _map(lambda dst, src: dst is src or dst.copy_(src),
-                     {k: cache_layer[k] for k in new_cache}, new_cache)
+                _map(_write_back, {k: cache_layer[k] for k in new_cache},
+                     new_cache)
             for k, v in a.items():
                 aux[k] = aux.get(k, 0.0) + v
         return x, cache_st, aux
 
     # ---------------------------------------------------------------- fronts
     def _tokens(self, tokens):
-        return torch.as_tensor(tokens, device=self.device).long()
+        """Token ids as a plain tensor, whole on every rank: a placed
+        batch is gathered first (the lookups index with them; a
+        ``DTensor`` index is left to no sharding rule)."""
+        return torch.as_tensor(gathered(tokens), device=self.device).long()
 
     def _embed_tokens(self, params, batch, ctx, pos_offset=0):
         cfg = self.cfg
@@ -417,9 +479,18 @@ class Model(nn.Module):
     def loss(self, params, batch, ctx: ShardCtx | None = None):
         """Next-token CE (+ MoE aux). batch: tokens (B,S) [, labels (B,S),
         patch_embeds, frames]. Returns (total, metrics), 0-d float32
-        tensors on the model's device."""
+        tensors on the model's device.  On a bound mesh the parameters
+        are ``DTensor``s, the activations are placed where the reference
+        constrains them, and the results are plain tensors, the same on
+        every rank."""
+        with spmd(ctx):
+            total, metrics = self._loss(params, batch, ctx)
+            return _plain(total), {k: _plain(v) for k, v in metrics.items()}
+
+    def _loss(self, params, batch, ctx):
         cfg = self.cfg
-        labels = self._tokens(batch.get("labels", batch["tokens"]))
+        labels = constrain(self._tokens(batch.get("labels", batch["tokens"])),
+                           ("act_batch", None), ctx)
         enc_out = enc_pos = None
         if cfg.family == "enc_dec":
             enc_out, enc_pos = self._encoder(params, batch, ctx)
@@ -429,7 +500,8 @@ class Model(nn.Module):
                    else L.causal_mask)
         x, _, aux = self._backbone(params, x, positions, mask_fn, ctx,
                                    None, None, "train", enc_out, enc_pos)
-        x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        x = L.rms_norm(constrain(x, ("act_batch", None, None), ctx),
+                       params["ln_f"], cfg.norm_eps)
         if prefix_len:
             x = x[:, prefix_len:]
         if "chunked_ce" in cfg.opts:
@@ -438,7 +510,7 @@ class Model(nn.Module):
             logits = L.unembed(params["unembed"], params["embed"], x, cfg,
                                ctx)
             lg = logits[:, :-1].float()
-            ce = _token_ce(lg, labels[:, 1:]).mean()
+            ce = _local_ce(ctx)(lg, labels[:, 1:]).mean()
         total = ce
         metrics = {"ce": ce}
         for k, v in aux.items():
@@ -461,7 +533,7 @@ class Model(nn.Module):
         def body(xb, tb):
             logits = L.unembed(params["unembed"], params["embed"], xb,
                                cfg, ctx).float()
-            return _token_ce(logits, tb).sum()
+            return _local_ce(ctx)(logits, tb).sum()
 
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for c in range(nc):
@@ -525,6 +597,11 @@ class Model(nn.Module):
     def prefill(self, params, batch, caches, ctx: ShardCtx | None = None):
         """Fill caches from a prompt; returns (last-token logits, caches).
         For enc_dec, also computes encoder output (stored under 'enc')."""
+        with spmd(ctx):
+            logits, caches = self._prefill(params, batch, caches, ctx)
+            return _plain(logits), caches
+
+    def _prefill(self, params, batch, caches, ctx):
         cfg = self.cfg
         enc_out = enc_pos = None
         if cfg.family == "enc_dec":
@@ -536,7 +613,8 @@ class Model(nn.Module):
         x, new_caches, _ = self._backbone(
             params, x, positions, mask_fn, ctx, caches, 0, "prefill",
             enc_out, enc_pos)
-        x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        x = L.rms_norm(constrain(x, ("act_batch", None, None), ctx),
+                       params["ln_f"], cfg.norm_eps)
         logits = L.unembed(params["unembed"], params["embed"],
                            x[:, -1:], cfg, ctx)
         if cfg.family == "enc_dec":
@@ -551,6 +629,12 @@ class Model(nn.Module):
         per-sequence positions.  A per-sequence step also routes each
         sequence's MoE tokens as their own group, as a decode of one
         sequence at a time does."""
+        with spmd(ctx):
+            logits, caches = self._decode_step(params, tokens_t, caches,
+                                               index, ctx)
+            return _plain(logits), caches
+
+    def _decode_step(self, params, tokens_t, caches, index, ctx):
         cfg = self.cfg
         tokens_t = self._tokens(tokens_t)
         x = L.embed(params["embed"], tokens_t, cfg).to(self.adt)

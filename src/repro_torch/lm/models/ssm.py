@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.lm.models import layers as L
-from repro_torch.sharding.specs import constrain
+from repro_torch.sharding.specs import constrain, pointwise
 
 MLSTM_CHUNK = 256
 
@@ -158,8 +158,9 @@ def init_mlstm(key, cfg, dtype):
 
 
 def _mlstm_gates(p, x):
-    logf = F.logsigmoid(
-        torch.einsum("bsd,dh->bsh", x, p["wf"]).float() + p["f_bias"])
+    logf = pointwise(F.logsigmoid,
+                     torch.einsum("bsd,dh->bsh", x, p["wf"]).float()
+                     + p["f_bias"])
     logi = torch.einsum("bsd,dh->bsh", x, p["wi"]).float()
     return logi, logf
 
@@ -296,7 +297,8 @@ def _slstm_inputs(p, x):
     z = torch.einsum("...d,dhk->...hk", x, p["wz"]).float()
     o = torch.einsum("...d,dhk->...hk", x, p["wo_gate"]).float()
     logi = torch.einsum("...d,dh->...h", x, p["wi"]).float()
-    logf = (F.logsigmoid(torch.einsum("...d,dh->...h", x, p["wf"]).float())
+    logf = (pointwise(F.logsigmoid,
+                      torch.einsum("...d,dh->...h", x, p["wf"]).float())
             + p["f_bias"])
     return z, o, logi, logf
 

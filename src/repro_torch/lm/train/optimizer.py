@@ -9,6 +9,14 @@ updated in blocks along its leading axis (a stacked leaf's layers, an
 embedding's rows) of at most ``BLOCK_ELEMS`` values, so the float32
 temporaries stay a block's size; a whole-leaf update of minitron-4b's
 stacked MLP weight would hold several 3.6 GB float32 copies.
+
+On a mesh the parameters are ``DTensor``s and the moments are placed
+like them.  Each gradient is first redistributed to its parameter's
+placements (a backward may hand back a pending sum), the global norm
+counts each element once (a sum of squares over a shard is a pending
+sum over the mesh dims that shard it, replicated over the others), and
+the blocked update runs on each rank's local shards: the element-wise
+math is the unsharded one's.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import typing
 import torch
 
 from repro_torch.lm.models.model import _map
+from repro_torch.sharding.specs import gathered, is_dtensor
 
 BLOCK_ELEMS = 1 << 24
 
@@ -43,6 +52,36 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     return [tree]
+
+
+def as_placed(g, p):
+    """Gradient ``g`` in its parameter ``p``'s placements (a plain
+    ``p``: ``g`` itself)."""
+    if g is None or not is_dtensor(p):
+        return g
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _sq_sum(g):
+    """Sum of squares of ``g`` in float32, blockwise; on a ``DTensor``
+    the plain total of every element, on every rank."""
+    local = _local(g)
+    ssq = torch.zeros((), dtype=torch.float32, device=local.device)
+    for (b,) in _blocks(local):
+        ssq = ssq + torch.sum(torch.square(b.float()))
+    if not is_dtensor(g):
+        return ssq
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    pl = tuple(Replicate() if q.is_replicate() else Partial()
+               for q in g.placements)
+    return gathered(DTensor.from_local(ssq, g.device_mesh, pl,
+                                       run_check=False))
 
 
 def _blocks(*tensors):
@@ -70,8 +109,9 @@ class AdamW:
     def init(self, params) -> OptState:
         leaves = _leaves(params)
         dev = leaves[0].device if leaves else None
-        zeros = lambda: _map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        zeros = lambda: _map(lambda p: torch.zeros_like(
+            p, dtype=torch.float32, memory_format=torch.contiguous_format),
+            params)
         return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                         mu=zeros(), nu=zeros())
 
@@ -83,14 +123,14 @@ class AdamW:
         """Returns (params, state, metrics), params and moments updated
         in place.  A ``None`` gradient counts as zeros (an unused
         parameter)."""
-        flat_p, flat_g = _leaves(params), _leaves(grads)
+        flat_p = _leaves(params)
+        flat_g = [as_placed(g, p) for g, p in zip(_leaves(grads), flat_p)]
         flat_m, flat_v = _leaves(state.mu), _leaves(state.nu)
         dev = state.step.device
         gsq = torch.zeros((), dtype=torch.float32, device=dev)
         for g in flat_g:
             if g is not None:
-                for (b,) in _blocks(g):
-                    gsq = gsq + torch.sum(torch.square(b.float()))
+                gsq = gsq + _sq_sum(g)
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -101,8 +141,8 @@ class AdamW:
         bc2 = 1.0 - torch.pow(torch.tensor(b2, device=dev), stepf)
         lr = torch.as_tensor(self._lr(step), dtype=torch.float32, device=dev)
         for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-            if g is None:
-                g = torch.zeros_like(p)
+            p, m, v = _local(p), _local(m), _local(v)
+            g = torch.zeros_like(p) if g is None else _local(g)
             for pb, gb, mb, vb in _blocks(p, g, m, v):
                 gf = gb.float() * scale
                 mb.copy_(b1 * mb + (1 - b1) * gf)

@@ -9,6 +9,13 @@ returns, so no gradient outlives a step and serving's ``torch.no_grad``
 paths see the parameters as they were built.
 
 ``make_serve_steps`` builds the prefill and decode steps.
+
+With a bound ``ctx`` the parameters are ``DTensor``s on its mesh
+(``Model(cfg, ctx=ctx)`` or ``model.place(ctx)``): the batch is placed
+by ``batch_axes`` (dp over the batch dim), each gradient is taken in
+its parameter's placements, the caches are placed by
+``cache_axes_tree`` on the first prefill, and the metrics are plain
+0-d tensors, the same on every rank.
 """
 from __future__ import annotations
 
@@ -18,9 +25,10 @@ import typing
 import torch
 
 from repro_torch.lm.models.model import Model, _map
-from repro_torch.lm.train.optimizer import AdamW, _leaves
+from repro_torch.lm.train.optimizer import AdamW, _leaves, as_placed
 from repro_torch.sharding import compression
-from repro_torch.sharding.specs import ShardCtx
+from repro_torch.sharding.specs import (ShardCtx, constrain, is_dtensor,
+                                       place, spmd)
 
 
 class TrainState(typing.NamedTuple):
@@ -54,27 +62,38 @@ def make_train_step(model: Model, opt: AdamW, ctx: ShardCtx | None = None,
     buffers: peak activation memory scales with the microbatch, the
     update is numerically the full-batch mean."""
 
+    axes = batch_axes(model.cfg)
+
     def _backward(params, batch):
-        loss, metrics = model.loss(params, batch, ctx)
-        loss.backward()
+        # the backward recomputes remat'd layers: placed like the forward
+        with spmd(ctx):
+            # token ids stay plain: the lookups read them whole and
+            # ``Model._loss`` places the labels where it uses them
+            batch = {k: v if k in ("tokens", "labels") else
+                     constrain(v, axes.get(k, (None,) * v.dim()), ctx)
+                     for k, v in batch.items()}
+            loss, metrics = model.loss(params, batch, ctx)
+            loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
     def step(state: TrainState, batch):
         params = state.params
         leaves = _leaves(params)
+        batch = {k: torch.as_tensor(v, device=model.device)
+                 for k, v in batch.items()}
         with _grads_on(leaves):
             if accum_steps > 1:
                 micro = {k: _split(v, accum_steps, model.device)
                          for k, v in batch.items()}
-                gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device) for p in leaves]
+                gsum = [torch.zeros_like(p, dtype=torch.float32)
+                        for p in leaves]
                 ms = []
                 for i in range(accum_steps):
                     ms.append(_backward(
                         params, {k: v[i] for k, v in micro.items()}))
                     for acc, p in zip(gsum, leaves):
                         if p.grad is not None:
-                            acc.add_(p.grad)
+                            acc.add_(as_placed(p.grad, p))
                             p.grad = None
                 grads = _tree_like(params, leaves,
                                    [g.div_(accum_steps) for g in gsum])
@@ -83,7 +102,8 @@ def make_train_step(model: Model, opt: AdamW, ctx: ShardCtx | None = None,
                            for k in ms[0]}
             else:
                 metrics = _backward(params, batch)
-                grads = _tree_like(params, leaves, [p.grad for p in leaves])
+                grads = _tree_like(params, leaves,
+                                   [as_placed(p.grad, p) for p in leaves])
             residuals = state.residuals
             if compress_grads:
                 grads, residuals = compression.compress_decompress(
@@ -157,6 +177,9 @@ def make_serve_steps(model: Model, ctx: ShardCtx | None = None):
     """Returns (prefill_fn, decode_fn)."""
 
     def prefill(params, batch, caches):
+        if ctx is not None and ctx.mesh is not None and not any(
+                is_dtensor(t) for t in _leaves(caches)):
+            caches = place(caches, cache_axes_tree(caches), ctx)
         return model.prefill(params, batch, caches, ctx)
 
     def decode(params, tokens_t, caches, index):

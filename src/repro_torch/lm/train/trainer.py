@@ -2,7 +2,11 @@
 
 The loop is deliberately boring: everything interesting lives in the
 substrates it composes (train_step, CheckpointManager, TokenPipeline,
-StragglerMonitor). ``run`` resumes from the latest valid checkpoint
+StragglerMonitor).  With a bound ``ctx`` the model's parameters are
+put on its mesh (``model.place``, unless the model was built placed)
+and ``init_state`` draws the weights with the same generator on every
+rank, each rank keeping its shard: the sharded model equals the
+unsharded one of the same seed. ``run`` resumes from the latest valid checkpoint
 automatically, copying its leaves into the model's parameters and the
 optimizer's moments in place; a simulated failure raised by
 ``failure_hook`` exercises the restore path in tests.  The step's
@@ -26,7 +30,7 @@ from repro_torch.lm.train.optimizer import AdamW
 from repro_torch.lm.train.train_step import TrainState, make_train_step
 from repro_torch.runtime.elastic import StragglerMonitor
 from repro_torch.sharding import compression
-from repro_torch.sharding.specs import ShardCtx
+from repro_torch.sharding.specs import ShardCtx, is_dtensor
 
 
 @dataclasses.dataclass
@@ -48,6 +52,8 @@ class Trainer:
         self.pipeline = pipeline
         self.tcfg = tcfg
         self.ctx = ctx
+        if ctx is not None and ctx.mesh is not None and not model.sharded:
+            model.place(ctx)
         self.extra_batch = extra_batch  # vlm/enc_dec stub inputs per step
         self.ckpt = CheckpointManager(tcfg.ckpt_dir)
         self.straggler = StragglerMonitor()
@@ -69,6 +75,8 @@ class Trainer:
         saved = self.ckpt.restore(step, state, device="cpu")
         for (_, dst), (_, src) in zip(_ckpt_leaves(state),
                                       _ckpt_leaves(saved)):
+            if is_dtensor(dst):
+                dst, src = dst.to_local(), src.to_local()
             dst.copy_(src)
 
     def run(self, state: TrainState | None = None,

@@ -9,12 +9,16 @@ the reference's does and nothing else.
 
 ``compress_decompress(grads, residuals)`` takes and returns trees
 (nested dicts) of tensors.  Rounding is half-to-even, as ``jnp.round``
-is, so ``q`` equals the reference's.
+is, so ``q`` equals the reference's.  A ``DTensor`` leaf (sharded
+training) is quantized whole, as the reference's global array is, and
+each rank keeps its shard of the result.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.specs import gathered, is_dtensor
 
 BLOCK = 256
 
@@ -49,6 +53,15 @@ def compress_decompress(grads, residuals=None):
         return ({k: g for k, (g, _) in pairs.items()},
                 None if residuals is None
                 else {k: r for k, (_, r) in pairs.items()})
+    if is_dtensor(grads):
+        # the blocks run over the whole flattened leaf, across shards
+        out, res = compress_decompress(
+            gathered(grads),
+            None if residuals is None else gathered(residuals))
+        from torch.distributed.tensor import distribute_tensor
+        mesh, pl = grads.device_mesh, grads.placements
+        place = lambda t: distribute_tensor(t, mesh, pl, src_data_rank=None)
+        return place(out), (None if res is None else place(res))
     gf = grads.float()
     if residuals is not None:
         gf = gf + residuals
@@ -60,5 +73,5 @@ def compress_decompress(grads, residuals=None):
 def init_residuals(params):
     if isinstance(params, dict):
         return {k: init_residuals(v) for k, v in params.items()}
-    return torch.zeros(params.shape, dtype=torch.float32,
-                       device=params.device)
+    return torch.zeros_like(params, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)

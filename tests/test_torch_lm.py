@@ -335,11 +335,19 @@ def test_spec_for_equals_reference(case, mesh_cls):
 
 
 def test_constrain_without_a_mesh_is_identity_and_raises_with_one():
+    """Identity without a mesh; on a bound one (here a one-rank gloo
+    mesh) it places the tensor as a ``DTensor`` of the same value (the
+    4-rank cases are ``tests/test_torch_lm_sharded.py``'s)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch_dist import single_rank_mesh
     x = torch.ones(4, 4)
     assert specs.constrain(x, ("act_batch", None), None) is x
     assert specs.constrain(x, ("act_batch", None), specs.ShardCtx()) is x
     assert specs.spec_for(("embed", "mlp"), specs.ShardCtx()) == \
         ("data", "model")
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        specs.constrain(x, ("act_batch", None),
-                        specs.ShardCtx(mesh=FakeMesh({"data": 2, "model": 2})))
+    with single_rank_mesh() as mesh:
+        out = specs.constrain(x, ("act_batch", None),
+                              specs.ShardCtx(mesh=mesh))
+        assert isinstance(out, DTensor)
+        assert out.placements == (Replicate(), Replicate())
+        assert torch.equal(specs.gathered(out), x)

@@ -96,6 +96,9 @@ def test_train_cli_stub_inputs(tmp_path, arch):
 
 
 def test_train_cli_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    """``--mesh`` is ported (``tests/test_torch_lm_mesh_cli.py`` runs it
+    under torchrun); outside a world of ``D*M`` ranks it raises, naming
+    both counts."""
+    with pytest.raises(ValueError, match="needs 4 ranks, WORLD_SIZE is 1"):
         train.main(["--arch", "minitron-4b", "--reduced", "--device", "cpu",
                     "--mesh", "2,2"])
