@@ -6,6 +6,7 @@
     python3 chip_smoke.py --fold-sweep
     python3 chip_smoke.py --trace-drops
     python3 chip_smoke.py --lm-sharded
+    python3 chip_smoke.py --dryrun JOB
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 the ignored ``src/repro_torch/kernels/build/`` (one ``nvcc`` per source,
@@ -281,6 +282,28 @@ started together) and runs, in order:
    sequence over model; 14c ``pipeline_apply`` over a ("pod",) mesh of
    2 gloo ranks at the dry-run's pipeline cell, float32 held to the
    sequential stages (output and gradients), bfloat16 timed.
+15. The dry-run tools (``phase_dryrun``, ``[dryrun]``), after phase 14:
+   each trace runs in a child process of its own (``--dryrun JOB``; a
+   fake default process group cannot share a process with phase 14's
+   groups), all started together, a core each, on fake CUDA tensors
+   over ``fake`` process groups.  15a: minitron-4b ``train_4k`` /
+   ``prefill_32k`` / ``decode_32k``, granite-moe-1b-a400m ``train_4k``
+   and xlstm-125m ``long_500k`` on the 16x16 mesh, ``graph-bfs-rhizome``
+   on the 16x16 and 2x16x16 meshes and the pipeline cell; each must be
+   ``ok``, its ``per_device`` fields finite, its FLOPs nonzero where it
+   has products, and its record as written equal field for field to
+   ``reanalyze`` of its trace summary read back from disk; each cell's
+   roofline terms, dominant term and trace seconds are printed.  15b: a
+   child traces 13b's minitron-4b step (full width and depth, bfloat16,
+   remat, 4 x 512) on a (1, 1) mesh; the parent then runs the same step
+   for real, and the traced FLOPs must be within 1% of
+   ``FlopCounterMode`` over it, the argument bytes equal to its
+   parameter, moment and batch bytes, and argument + temp within 1% of
+   ``torch.cuda.max_memory_allocated()`` but not within 1% with one
+   decoder layer's parameters, moments and gradients left out; its
+   bound is printed beside the measured ms a step.  Writes
+   ``chip_smoke_out/dryrun.json`` (the records) and
+   ``dryrun_report.json``.
 
 ``--lm-sharded`` runs 13b (cut to 14a's steps, its reference) and phase
 14 alone, with no kernel build, and writes
@@ -321,6 +344,7 @@ import os
 import pathlib
 import statistics
 import subprocess
+import shutil
 import sys
 import time
 
@@ -7151,6 +7175,262 @@ def lm_sharded_alone() -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# phase 15: the dry-run tools on fake process groups (15a), against a real
+# step (15b)
+# --------------------------------------------------------------------------
+
+DRYRUN_DIR = ROOT / "chip_smoke_out" / "dryrun"
+DRYRUN_OUT = ROOT / "chip_smoke_out" / "dryrun.json"
+DRYRUN_CELLS = (("minitron-4b", "train_4k"), ("minitron-4b", "prefill_32k"),
+                ("minitron-4b", "decode_32k"),
+                ("granite-moe-1b-a400m", "train_4k"),
+                ("xlstm-125m", "long_500k"))      # 16x16 mesh
+DRYRUN_BUDGET_S = 300        # a cell's trace before it counts as failed
+DRYRUN_WAIT_S = 400          # the 15a/15b children, all started together
+DRYRUN_FLOPS_RTOL = 0.01     # 15b: traced FLOPs against FlopCounterMode
+# 15b: argument + temp bytes against the real step's peak allocation.  Set
+# from the H100's readings: the trace misses the peak by 0.0006-0.0013 of
+# it (MemTracker follows each storage's bytes; the card rounds each block
+# and holds the cuBLAS workspace), and by 0.0192-0.0198 with one decoder
+# layer's parameters, moments and gradients (0.914 GiB) left out, which
+# 15b also checks
+DRYRUN_MEM_RTOL = 0.01
+
+
+def _calib_shape():
+    from repro_torch.lm.configs.base import ShapeSpec
+    return ShapeSpec("train_4x512", "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+
+
+def _dryrun_jobs():
+    """Phase 15's traces: DRYRUN_CELLS on the 16x16 mesh,
+    ``graph-bfs-rhizome`` on both meshes, the pipeline cell, and
+    ``calib`` (15b's step)."""
+    from repro_torch.lm.launch.dryrun import PIPELINE_CELL
+    return ([[a, s, False, None] for a, s in DRYRUN_CELLS]
+            + [["graph-bfs-rhizome", "rmat22", mp, "rhizome"]
+               for mp in (False, True)]
+            + [[*PIPELINE_CELL, True, None], "calib"])
+
+
+def dryrun_job(job) -> int:
+    """One of phase 15's traces, in a process of its own (``--dryrun
+    JOB``; a fake default group cannot share a process with phase 14's
+    groups): a cell ``[arch, shape, multi_pod, graph_mode]`` traced on
+    fake CUDA tensors by ``dryrun.run_cell`` into DRYRUN_DIR, or
+    ``calib``, 13b's minitron-4b step (full width and depth, bfloat16,
+    remat, 4 x 512) traced on a (1, 1) mesh into DRYRUN_DIR/calib.json."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.lm.configs import get_config
+    from repro_torch.lm.launch import dryrun
+    from repro_torch.lm.launch.mesh import make_test_mesh
+    torch.set_num_threads(1)      # one core a child
+    dryrun.RESULTS_DIR = str(DRYRUN_DIR)
+    if job != "calib":
+        arch, shape, multi_pod, graph_mode = job
+        dryrun.run_cell(arch, shape, multi_pod, force=True,
+                        graph_mode=graph_mode, budget_s=DRYRUN_BUDGET_S)
+        return 0
+    t0 = time.perf_counter()
+    with dryrun.fake_group(1):
+        mesh = make_test_mesh((1, 1))
+        with dryrun.fake_tensors():
+            low = dryrun.lower_model(get_config(LM_TRAIN_ARCH),
+                                     _calib_shape(), mesh)
+            calib = dryrun.record_trace({"lower_s": time.perf_counter() - t0},
+                                        low, 1, budget_s=DRYRUN_BUDGET_S)
+    (DRYRUN_DIR / "calib.json").write_text(json.dumps(calib, indent=1))
+    return 0
+
+
+def _run_dryrun_jobs(jobs):
+    """Each job in a child process (``dryrun_job``), all started
+    together, each on a core; every child is stopped before this
+    returns.  Returns the exit codes ("killed" past DRYRUN_WAIT_S) and
+    the wall seconds."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i, job in enumerate(jobs):
+            out = open(DRYRUN_DIR / f"job{i}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun",
+                 json.dumps(job)], stdout=out, stderr=subprocess.STDOUT,
+                cwd=ROOT), out))
+        rcs = []
+        for proc, _ in procs:
+            try:
+                rcs.append(proc.wait(timeout=max(
+                    DRYRUN_WAIT_S - (time.perf_counter() - t0), 1)))
+            except subprocess.TimeoutExpired:
+                rcs.append("killed")
+    finally:
+        for proc, out in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    return rcs, time.perf_counter() - t0
+
+
+def _finite_tree(x):
+    if isinstance(x, dict):
+        return all(_finite_tree(v) for v in x.values())
+    if isinstance(x, bool) or x is None or isinstance(x, str):
+        return True
+    return math.isfinite(x)
+
+
+def _real_step(torch, dev, cfg):
+    """13b's step run for real on the card, made as the dry run makes it
+    (``dryrun.lower_model``'s optimizer and batch): its FLOPs under
+    ``FlopCounterMode``, its parameter, moment and batch bytes, its peak
+    allocation and the ms of two more steps."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.lm.models.model import Model
+    from repro_torch.lm.train.optimizer import AdamW, _leaves, cosine_schedule
+    from repro_torch.lm.train.train_step import TrainState, make_train_step
+    model = Model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW(lr=cosine_schedule(3e-4, 100, 10000))
+    params = model.param_tree()
+    state = TrainState(params, opt.init(params), None)
+    step = make_train_step(model, opt)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                              generator=gen, device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    leaves = _leaves(params) + _leaves(state.opt.mu) \
+        + _leaves(state.opt.nu) + [state.opt.step] + list(batch.values())
+    arg_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    # one decoder layer's parameters and gradients (the same dtype) and
+    # moments: the part 15b leaves out to show its tolerance would see it
+    layer_bytes = sum(2 * t[0].numel() * t.element_size()
+                      for t in _leaves(params["stage0"])) + sum(
+        t[0].numel() * t.element_size() for t in
+        _leaves(state.opt.mu["stage0"]) + _leaves(state.opt.nu["stage0"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = []
+    for _ in range(2):
+        (state, _), s = _timed(torch, lambda: step(state, batch))
+        ms.append(1e3 * s)
+    del model, opt, state, params, step, leaves, batch
+    torch.cuda.empty_cache()
+    return {"flops": float(fc.get_total_flops()), "argument_bytes": arg_bytes,
+            "layer_bytes": layer_bytes, "max_memory_allocated": peak,
+            "step_ms": ms}
+
+
+def phase_dryrun(torch, np, dev, smi):
+    """Phase 15 (``[dryrun]``), after phase 14: every trace in a child of
+    its own (``_run_dryrun_jobs``), then 15a: every cell ok, its
+    ``per_device`` fields finite, FLOPs nonzero where it has products,
+    and its record as written equal field for field to ``reanalyze`` of
+    its trace summary read back from disk; 15b runs 13b's step for real
+    and holds the trace of the same step to it: FLOPs within
+    DRYRUN_FLOPS_RTOL of ``FlopCounterMode``, argument bytes equal,
+    argument + temp within DRYRUN_MEM_RTOL of the peak allocation (and
+    outside it with one layer's state left out)."""
+    from repro_torch.lm.configs import get_config
+    from repro_torch.lm.launch import dryrun, reanalyze
+    t_phase = time.perf_counter()
+    jobs = _dryrun_jobs()
+    rcs, jobs_s = _run_dryrun_jobs(jobs)
+    for i, (job, rc) in enumerate(zip(jobs, rcs)):
+        tail = (DRYRUN_DIR / f"job{i}.log").read_text()[-4000:]
+        check(rc == 0, f"[dryrun] the child tracing {job} exited {rc}: "
+              f"{tail}")
+    recs, rows = [], []
+    for arch, shape, multi_pod, _ in jobs[:-1]:
+        tag = dryrun._tag(arch, shape, multi_pod, "default", (), False)
+        rec = json.loads((DRYRUN_DIR / f"{tag}.json").read_text())
+        recs.append(rec)
+        name = f"{arch} {shape} {'2x16x16' if multi_pod else '16x16'}"
+        check(rec.get("ok"), f"[dryrun] 15a {name}: {rec.get('error')}\n"
+              f"{rec.get('traceback', '')[-2000:]}")
+        pd, r = rec["per_device"], rec["roofline"]
+        check(_finite_tree(pd) and _finite_tree(r),
+              f"[dryrun] 15a {name}: a per_device field is not finite")
+        check(pd["flops"] > 0 or arch.startswith("graph-"),
+              f"[dryrun] 15a {name}: no FLOPs counted")
+        check(reanalyze.reanalyze(rec, str(DRYRUN_DIR / f"{tag}.trace.json.gz"))
+              == rec, f"[dryrun] 15a {name}: reanalyze does not reproduce it")
+        rows.append({"cell": name, "trace_s": rec["trace_s"],
+                     "lower_s": rec["lower_s"], **{
+                         k: r[k] for k in ("compute_s", "memory_s",
+                                           "collective_s", "dominant",
+                                           "bound_s")},
+                     "flops": pd["flops"], "bytes": pd["bytes_accessed"],
+                     "collective_bytes": pd["collective_bytes"],
+                     "memory": rec["memory"],
+                     "useful_compute_ratio": rec.get(
+                         "useful_compute_ratio")})
+        log(f"[dryrun] 15a {name}: compute {r['compute_s']:.4g} s, memory "
+            f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s, "
+            f"dominant {r['dominant']}; useful "
+            f"{rec.get('useful_compute_ratio') or 0:.3f}; traced in "
+            f"{rec['trace_s']:.2f} s (built in {rec['lower_s']:.1f} s) on "
+            f"the host of {smi}")
+    calib = json.loads((DRYRUN_DIR / "calib.json").read_text())
+    DRYRUN_OUT.write_text(json.dumps({"cells": recs, "calib": calib},
+                                     indent=1))
+    cfg = get_config(LM_TRAIN_ARCH)
+    real = _real_step(torch, dev, cfg)
+    traced = calib["per_device"]["flops"]
+    mem = calib["memory"]
+    est = mem["argument_size_bytes"] + mem["temp_size_bytes"]
+    check(abs(traced - real["flops"]) <= DRYRUN_FLOPS_RTOL * real["flops"],
+          f"[dryrun] 15b: traced FLOPs {traced:.6g} against "
+          f"FlopCounterMode's {real['flops']:.6g}")
+    check(mem["argument_size_bytes"] == real["argument_bytes"],
+          f"[dryrun] 15b: argument bytes {mem['argument_size_bytes']} "
+          f"against the real step's {real['argument_bytes']}")
+    peak = real["max_memory_allocated"]
+    gap = abs(est - peak) / peak
+    gap_less_layer = abs(est - real["layer_bytes"] - peak) / peak
+    check(gap <= DRYRUN_MEM_RTOL,
+          f"[dryrun] 15b: argument + temp {est / 2**30:.2f} GiB against "
+          f"the real step's peak {peak / 2**30:.2f} GiB")
+    check(gap_less_layer > DRYRUN_MEM_RTOL,
+          f"[dryrun] 15b: {DRYRUN_MEM_RTOL} does not see one layer's "
+          f"state ({real['layer_bytes'] / 2**30:.3f} GiB) left out")
+    r = calib["roofline"]
+    log(f"[dryrun] 15b {cfg.name} (full width and depth, bfloat16, remat, "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}) on a (1, 1) mesh: traced FLOPs "
+        f"{traced:.6g} vs FlopCounterMode {real['flops']:.6g} (rel "
+        f"{abs(traced - real['flops']) / real['flops']:.2e}); argument "
+        f"bytes {mem['argument_size_bytes']} = the real step's; argument + "
+        f"temp {est / 2**30:.2f} GiB vs max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB (rel {gap:.4f}; {gap_less_layer:.4f} with "
+        f"one layer's state, {real['layer_bytes'] / 2**30:.3f} GiB, left "
+        f"out; held to {DRYRUN_MEM_RTOL}); bound {1e3 * r['bound_s']:.1f} ms "
+        f"({r['dominant']}: compute {1e3 * r['compute_s']:.1f}, memory "
+        f"{1e3 * r['memory_s']:.1f} ms) vs "
+        + ", ".join(f"{m:.1f}" for m in real["step_ms"])
+        + f" ms a step measured; traced in {calib['trace_s']:.1f} s; "
+        f"on {smi}")
+    report = {"cells": rows, "calib": {
+        "traced_flops": traced, "real": real, "memory": mem,
+        "mem_gap": gap, "mem_gap_less_layer": gap_less_layer,
+        "roofline": r, "trace_s": calib["trace_s"]},
+        "jobs_s": jobs_s, "phase_s": time.perf_counter() - t_phase,
+        "device": smi}
+    DRYRUN_OUT.with_name("dryrun_report.json").write_text(
+        json.dumps(report, indent=1))
+    log(f"[dryrun] phase 15: {report['phase_s']:.1f} s ({len(jobs)} traces "
+        f"in {jobs_s:.1f} s, side by side)")
+    return report
+
+
 def _k1_sums(report, report2):
     """K1 alone on the heaviest dense round and summed over every round
     that phases 4 and 5 replay; logged and returned."""
@@ -7213,6 +7493,8 @@ def main() -> int:
     report12 = phase_lm_serve(torch, np, dev)
     report13 = phase_lm_train(torch, np, dev, smi)
     report14 = phase_lm_sharded(torch, np, dev, smi, report13)
+    torch.cuda.empty_cache()
+    report15 = phase_dryrun(torch, np, dev, smi)
     heavy, heavy2 = report["heaviest"], report2["heaviest"]
     k3, k4, k9 = report3["k3"], report3["k4"], report3["k9"]
     k9_sum = report3["k9_sum"]
@@ -7222,6 +7504,7 @@ def main() -> int:
                   slice13={"amcca": report11, "lm_serve": report12},
                   slice14={"lm_train": report13},
                   slice15={"lm_sharded": report14},
+                  slice16={"dryrun": report15},
                   device=smi, build_s=build_s,
                   total_s=time.perf_counter() - t_start)
     OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -7368,6 +7651,9 @@ if __name__ == "__main__":
         sys.exit(trace_drops())
     if "--lm-sharded" in sys.argv[1:]:
         sys.exit(lm_sharded_alone())
+    if "--dryrun" in sys.argv[1:]:
+        sys.exit(dryrun_job(json.loads(
+            sys.argv[sys.argv.index("--dryrun") + 1])))
     if "--lm-resume" in sys.argv[1:]:
         sys.exit(lm_resume(sys.argv[sys.argv.index("--lm-resume") + 1]))
     sys.exit(main())

@@ -824,22 +824,30 @@ def shard_arrays(part: Partition, sg, device=None, arrays=None):
     return arrays
 
 
+def shard_round(round_fn, state, sg):
+    """One sharded round's device part: ``round_fn(state)`` -> (state,
+    next frontier, this shard's message count), closed by ONE all-reduce
+    of [messages, work, any-changed].  Returns (state, frontier, the
+    (3,) int64 totals, not read to the host)."""
+    state, chg, mc = round_fn(state)
+    tot = exchange.collectives.psum(torch.stack(
+        [mc.to(torch.int64).reshape(()), chg.sum().to(torch.int64),
+         chg.any().to(torch.int64)]), sg)
+    return state, chg, tot
+
+
 def _run_shard_rounds(run, sg, max_rounds, round_fn, state, chg):
     """The sharded round loop: one all-reduce of the initial frontier's
-    liveness, then a round per iteration — ``round_fn(state)`` -> (state,
-    next frontier, this shard's message count) — each closed by ONE
-    all-reduce of [messages, work, any-changed] read to the host.
-    Returns (state, ``RunStats`` of the all-reduced totals)."""
+    liveness, then a ``shard_round`` per iteration, its totals read to
+    the host.  Returns (state, ``RunStats`` of the all-reduced
+    totals)."""
     psum = exchange.collectives.psum
     dev = chg.device
     live = int(psum(chg.any().to(torch.int64).reshape(1), sg)[0]) > 0
     it = msgs = work_total = pruned = 0
     syncs = 1
     while live and it < max_rounds:
-        state, chg, mc = round_fn(state)
-        tot = psum(torch.stack([mc.to(torch.int64).reshape(()),
-                                chg.sum().to(torch.int64),
-                                chg.any().to(torch.int64)]), sg)
+        state, chg, tot = shard_round(round_fn, state, sg)
         mc, work, anyc = tot.tolist()
         syncs += 1
         it += 1
@@ -849,6 +857,21 @@ def _run_shard_rounds(run, sg, max_rounds, round_fn, state, chg):
         live = anyc > 0
     _count_dispatches(run, it, syncs)
     return state, _host_stats(it, msgs, work_total, pruned, dev)
+
+
+def shard_fixpoint_step(sem: Semiring, arrays, cfg: EngineConfig, S: int,
+                        R_max: int, sg):
+    """The sharded min fixpoint's round as ``shard_round`` drives it:
+    state (val, chg) -> (state, next frontier, this shard's message
+    count), over ``exchange.make_shard_fixpoint_round``."""
+    round_fn = exchange.make_shard_fixpoint_round(sem, arrays, cfg, S,
+                                                  R_max, sg)
+
+    def step(state):
+        val, chg, mc = round_fn(*state)
+        return (val, chg), chg, mc
+
+    return step
 
 
 def make_sharded_fn(sem: Semiring, S: int, R_max: int, mesh,
@@ -868,17 +891,12 @@ def make_sharded_fn(sem: Semiring, S: int, R_max: int, mesh,
     sg = shard_group(S, mesh, axis_names)
 
     def fn(arrays, val):
-        round_fn = exchange.make_shard_fixpoint_round(sem, arrays, cfg, S,
-                                                      R_max, sg)
         chg = sem.improved(val, torch.full_like(val, sem.identity)) \
             & arrays.slot_valid
-
-        def step(state):
-            val, chg, mc = round_fn(*state)
-            return (val, chg), chg, mc
-
         (val, _), stats = _run_shard_rounds(
-            f"{sem.name}_sharded", sg, cfg.max_iters, step, (val, chg), chg)
+            f"{sem.name}_sharded", sg, cfg.max_iters,
+            shard_fixpoint_step(sem, arrays, cfg, S, R_max, sg), (val, chg),
+            chg)
         if cfg.collapse == "deferred":
             val = exchange.collapse(sem, exchange.shard_gather(val, sg),
                                     arrays.sibling_flat, arrays.sibling_mask)

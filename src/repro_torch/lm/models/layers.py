@@ -298,12 +298,12 @@ def apply_attention(p, cfg, x, positions, mask_fn, ctx: ShardCtx | None,
     # the sequence gathered whole before the projections (a layer's
     # input is sequence-parallel at its boundary)
     x = constrain(x, ("act_batch", None, None), ctx)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = project(x, p["wq"], "bsd,dhk->bshk", 1, ctx)
     wk, wv, wo = p["wk"], p["wv"], p["wo"]
     xkv, kv_pos = (x, positions) if kv_override is None else kv_override
     xkv = constrain(xkv, ("act_batch", None, None), ctx)
-    k = torch.einsum("bsd,dhk->bshk", xkv, wk)
-    v = torch.einsum("bsd,dhk->bshk", xkv, wv)
+    k = project(xkv, wk, "bsd,dhk->bshk", 1, ctx)
+    v = project(xkv, wv, "bsd,dhk->bshk", 1, ctx)
     if cfg.attn_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -345,8 +345,8 @@ def apply_attention(p, cfg, x, positions, mask_fn, ctx: ShardCtx | None,
                    positions, kv_pos, scale)
     # the heads' sum reduced here: a gradient that comes back sequence-
     # parallel is gathered before the product's backward folds (b, s)
-    out = constrain(torch.einsum("bshk,hkd->bsd", out, wo),
-                    ("act_batch", None, None), ctx)
+    out = constrain(heads_out(out, wo, ctx), ("act_batch", None, None),
+                    ctx)
     if cfg.attn_bias:
         out = out + p["bo"]
     return out, new_cache
@@ -454,16 +454,21 @@ def init_unembed(key, cfg, dtype):
                                ("embed", "vocab"), dtype)}
 
 
-def _unembed_on_shards(x, w, eq, vocab_dim, ctx):
-    """Logits on each rank's batch rows and vocab slice: ``w`` gathered
-    whole but for its vocab dim, ``x`` with its batch rows and the whole
-    embed dim; the logits keep both shardings."""
+def _product_on_shards(x, w, eq, keep_dim, ctx):
+    """``einsum(eq, x, w)`` on each rank's batch rows and its slice of
+    ``w``'s dim ``keep_dim`` (the vocab of an unembedding, the heads of
+    a projection): ``w`` gathered whole but for that dim, ``x`` with its
+    batch rows and the whole embed dim; the output (B, S, n, ...) keeps
+    both shardings, the batch on its dim 0 and ``w``'s on its dim 2.
+    Run locally, the product needs no ``DTensor`` view of its output,
+    which cannot unflatten a sharded dim into one (heads) that its mesh
+    dim does not divide."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     x = constrain(x, ("act_batch", None, None), ctx)
     mesh = x.device_mesh
-    w = w.redistribute(mesh, tuple(q if q.is_shard(vocab_dim) else Replicate()
+    w = w.redistribute(mesh, tuple(q if q.is_shard(keep_dim) else Replicate()
                                    for q in w.placements))
-    # each rank's products use its batch rows against its vocab slice:
+    # each rank's products use its batch rows against its slice of w:
     # their gradients are pending sums over the other's mesh dims
     xl = x.to_local(grad_placements=tuple(
         Partial() if qw.is_shard() else qx
@@ -477,14 +482,44 @@ def _unembed_on_shards(x, w, eq, vocab_dim, ctx):
     return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
+def heads_out(o, wo, ctx):
+    """The output projection ``einsum("bshk,hkd->bsd", o, wo)``.  On a
+    mesh each rank contracts its own batch rows and query heads with
+    ``wo`` gathered whole but for the heads: a pending sum over the
+    heads' mesh dims (the reference's heads psum), with no ``DTensor``
+    view that folds (h, k) (its backward would unflatten a sharded
+    (h*k) dim into heads its mesh dim does not divide)."""
+    eq = "bshk,hkd->bsd"
+    if not is_dtensor(wo):
+        return torch.einsum(eq, o, wo)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    o = constrain(o, ("act_batch", None, "act_heads", None), ctx)
+    mesh = o.device_mesh
+    wo = wo.redistribute(mesh, tuple(Shard(0) if q.is_shard(2)
+                                     else Replicate() for q in o.placements))
+    # a rank's heads get their whole gradient; wo's is a pending sum
+    # over the batch's mesh dims
+    wl = wo.to_local(grad_placements=tuple(
+        Partial() if qo.is_shard(0) else qw
+        for qo, qw in zip(o.placements, wo.placements)))
+    out = torch.einsum(eq, o.to_local(), wl)
+    pl = tuple(Shard(0) if q.is_shard(0) else Partial() if q.is_shard(2)
+               else Replicate() for q in o.placements)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def project(x, w, eq, keep_dim, ctx):
+    """``einsum(eq, x, w)``, on a mesh by ``_product_on_shards``."""
+    if is_dtensor(w):
+        return _product_on_shards(x, w, eq, keep_dim, ctx)
+    return torch.einsum(eq, x, w)
+
+
 def unembed(p, emb_p, x, cfg, ctx):
     w, eq, vd = ((emb_p["table"], "bsd,vd->bsv", 0) if cfg.tie_embeddings
                  else (p["wout"], "bsd,dv->bsv", 1))
-    if is_dtensor(w):
-        logits = _unembed_on_shards(x, w, eq, vd, ctx)
-    else:
-        logits = torch.einsum(eq, x, w)
-    logits = constrain(logits, ("act_batch", None, "act_vocab"), ctx)
+    logits = constrain(project(x, w, eq, vd, ctx),
+                       ("act_batch", None, "act_vocab"), ctx)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c

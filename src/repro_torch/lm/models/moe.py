@@ -142,11 +142,20 @@ def _combine(out_buf, e_idx, rank_c, st, sg, keep, T):
     return out.reshape(G, T, d)
 
 
+def expert_counts(idx, E: int):
+    """``torch.bincount(idx, minlength=E)`` for expert ids ``idx < E``:
+    a ``scatter_add_`` of ones, whose output shape is known before the
+    ids are (a fake-tensor trace refuses ``bincount``)."""
+    return torch.zeros(E, dtype=torch.int64, device=idx.device
+                       ).scatter_add_(0, idx, torch.ones_like(idx,
+                                                          dtype=torch.int64))
+
+
 def _aux_values(cfg, logits, probs, flat_e, keep, T):
     m = cfg.moe
     E, K = m.num_experts, m.top_k
     me = probs.reshape(-1, E).mean(dim=0)
-    ce = torch.bincount(flat_e.reshape(-1), minlength=E) / (T * K)
+    ce = expert_counts(flat_e.reshape(-1), E) / (T * K)
     return (E * torch.sum(me * ce) * m.router_aux_weight,
             torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
             * m.router_z_weight,
@@ -154,8 +163,8 @@ def _aux_values(cfg, logits, probs, flat_e, keep, T):
 
 
 def _aux(cfg, logits, probs, flat_e, keep, T, ctx=None):
-    """The load-balance, z-loss and drop terms.  ``bincount`` has no
-    ``DTensor`` rule: on a mesh the inputs are gathered whole."""
+    """The load-balance, z-loss and drop terms, each taken over every
+    token: on a mesh the inputs are gathered whole."""
     full = lambda t: (None,) * t.dim()
     vals = local_call(
         lambda *a: _aux_values(cfg, *a, T), ctx,
@@ -227,7 +236,7 @@ def _shardmap_ffn(cfg, xg_l, eidx_l, gate_l, wg_l, wu_l, wd_l, E_loc, Cg,
     flat_g = gate_l.reshape(-1).to(xg_l.dtype)
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
-    counts = torch.bincount(se, minlength=E)
+    counts = expert_counts(se, E)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(Tg * K, device=dev) - starts[se]
     local = (se >= e0) & (se < e0 + E_loc) & (rank < Cg)

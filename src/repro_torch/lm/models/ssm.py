@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.lm.models import layers as L
-from repro_torch.sharding.specs import constrain, pointwise
+from repro_torch.sharding.specs import constrain, local_call, pointwise
 
 MLSTM_CHUNK = 256
 
@@ -48,33 +48,59 @@ def init_mamba(key, cfg, dtype):
     }
 
 
-def _mamba_scan_inputs(p, cfg, xz):
-    """Shared front: conv + projections. xz: (B,S,2*di) -> (u,dt,Bm,Cm,z)."""
+def _causal_conv(u, w, b):
+    """Causal depthwise conv along S of u (B,S,di) with w (d_conv, di),
+    then the bias and SiLU."""
+    up = F.pad(u, (0, 0, w.shape[0] - 1, 0))
+    return F.silu(sum(up[:, i: i + u.shape[1]] * w[i]
+                      for i in range(w.shape[0])) + b)
+
+
+_INNER = ("act_batch", None, "act_mamba_inner")
+
+
+def _mamba_scan_inputs(p, cfg, u, ctx=None):
+    """Shared front: conv + projections. u: (B,S,di) -> (u,dt,Bm,Cm).
+    The conv runs on each rank's batch rows and inner channels (it is
+    depthwise; torch 2.11's ``DTensor`` pad crashes redistributing)."""
     mc = cfg.mamba
     dt_rank = p["dt_proj"].shape[0]
-    u, z = torch.chunk(xz, 2, dim=-1)               # (B,S,di) each
-    # causal depthwise conv along S
-    pad = mc.d_conv - 1
-    up = F.pad(u, (0, 0, pad, 0))
-    u = sum(up[:, i: i + u.shape[1]] * p["conv_w"][i]
-            for i in range(mc.d_conv)) + p["conv_b"]
-    u = F.silu(u)
-    proj = torch.einsum("bsi,ij->bsj", u, p["x_proj"])
+    u = local_call(_causal_conv, ctx,
+                   (_INNER, (None, "mamba_inner"), ("mamba_inner",)),
+                   _INNER)(u, p["conv_w"], p["conv_b"])
+    # the inner dim's sum reduced here, and each product's output placed,
+    # so no sum is left pending where the bias joins (torch 2.11's
+    # DTensor cannot turn the bias's shards into one)
+    proj = constrain(torch.einsum("bsi,ij->bsj", u, p["x_proj"]),
+                     ("act_batch", None, None), ctx)
     dt_in, Bm, Cm = torch.split(proj, [dt_rank, mc.d_state, mc.d_state],
                                 dim=-1)
-    dt = F.softplus(
-        torch.einsum("bsr,ri->bsi", dt_in, p["dt_proj"]) + p["dt_bias"])
-    return u, dt, Bm, Cm, z
+    dt = F.softplus(constrain(torch.einsum("bsr,ri->bsi", dt_in,
+                                           p["dt_proj"]), _INNER, ctx)
+                    + p["dt_bias"])
+    return u, dt, Bm, Cm
+
+
+def _in_proj_halves(w, ctx):
+    """The (d, di) halves of ``in_proj`` (d, 2*di) — the SSM input's and
+    the gate's — each placed by its own axes.  On a mesh the inner dim
+    is gathered first: a split of a dim sharded over its whole length
+    would need the halves' shards on other ranks (torch 2.11's
+    ``DTensor`` crashes redistributing them for the conv's pad)."""
+    halves = torch.chunk(constrain(w, ("embed", None), ctx), 2, dim=1)
+    return tuple(constrain(h, ("embed", "mamba_inner"), ctx) for h in halves)
 
 
 def apply_mamba(p, cfg, x, ctx=None):
     """Sequence form. x: (B,S,d). Returns (y, final_state) so prefill can
     hand the recurrent state to the decode loop."""
     mc = cfg.mamba
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    xz = constrain(xz, ("act_batch", None, "act_mamba_inner"), ctx)
-    u_raw = torch.chunk(xz, 2, dim=-1)[0]
-    u, dt, Bm, Cm, z = _mamba_scan_inputs(p, cfg, xz)
+    # the sequence gathered whole before the product (a layer's input is
+    # sequence-parallel at its boundary), as the attention's is
+    x = constrain(x, ("act_batch", None, None), ctx)
+    u_raw, z = (constrain(torch.einsum("bsd,de->bse", x, w), _INNER, ctx)
+                for w in _in_proj_halves(p["in_proj"], ctx))
+    u, dt, Bm, Cm = _mamba_scan_inputs(p, cfg, u_raw, ctx)
     A = -torch.exp(p["A_log"])                      # (di, N)
 
     B, S, di = u.shape
@@ -89,7 +115,10 @@ def apply_mamba(p, cfg, x, ctx=None):
         ys.append(torch.einsum("bin,bn->bi", h, C_t))
     y = torch.stack(ys, 1).to(x.dtype) + u * p["D"].to(x.dtype)
     y = y * F.silu(z)
-    out = torch.einsum("bsi,id->bsd", y, p["out_proj"])
+    # placed as the product's output is: a gradient that comes back
+    # sequence-parallel is gathered before its backward folds (b, s)
+    out = constrain(torch.einsum("bsi,id->bsd", y, p["out_proj"]),
+                    ("act_batch", None, None), ctx)
     # final conv state: last (d_conv-1) pre-conv inputs
     pad = max(mc.d_conv - 1 - S, 0)
     tail = u_raw[:, S - (mc.d_conv - 1 - pad):]
@@ -165,13 +194,22 @@ def _mlstm_gates(p, x):
     return logi, logf
 
 
+_HEADS = ("act_batch", None, "act_heads")
+
+
+def _mlstm_qkv(p, x, hd, ctx):
+    """(B,S,d) -> the (B,S,H,hd) queries and keys (scaled) and values."""
+    q, k, v = (L.project(x, p[w], "bsd,dhk->bshk", 1, ctx)
+               for w in ("wq", "wk", "wv"))
+    return q * hd ** -0.5, k * hd ** -0.5, v
+
+
 def apply_mlstm(p, cfg, x, ctx=None):
     """Chunkwise-parallel mLSTM. x: (B,S,d)."""
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.hd
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"]) * hd ** -0.5
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"]) * hd ** -0.5
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    x = constrain(x, ("act_batch", None, None), ctx)
+    q, k, v = _mlstm_qkv(p, x, hd, ctx)
     logi, logf = _mlstm_gates(p, x)
 
     Lc = min(MLSTM_CHUNK, S)
@@ -191,8 +229,10 @@ def apply_mlstm(p, cfg, x, ctx=None):
     for c in range(nc):
         sl = slice(c * Lc, (c + 1) * Lc)
         qb, kb, vb, li, lf = q[:, sl], k[:, sl], v[:, sl], logi[:, sl], logf[:, sl]
-        # cumulative log-forget within the chunk
-        Fc = torch.cumsum(lf, dim=1)                   # (B,Lc,H)
+        # cumulative log-forget within the chunk, on each rank's rows
+        # (torch 2.11's DTensor has no rule for its backward's flip)
+        Fc = local_call(lambda t: torch.cumsum(t, dim=1), ctx, (_HEADS,),
+                        _HEADS)(lf)                    # (B,Lc,H)
         # intra-chunk decay matrix D[t,s] = exp(F_t - F_s + i_s) for s<=t
         logD = (Fc[:, :, None, :] - Fc[:, None, :, :]
                 + li[:, None, :, :])                   # (B,Lq,Ls,H)
@@ -225,8 +265,7 @@ def apply_mlstm(p, cfg, x, ctx=None):
         mst = m_new
     out = torch.cat(outs, 1)[:, :S]
     out = L.rms_norm(out, p["norm"], cfg.norm_eps).to(x.dtype)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out, {"C": Cst, "n": nst, "m": mst}
+    return L.heads_out(out, p["wo"], ctx), {"C": Cst, "n": nst, "m": mst}
 
 
 def mlstm_init_state(p, cfg, batch, dtype):
@@ -242,9 +281,8 @@ def mlstm_init_state(p, cfg, batch, dtype):
 def mlstm_step(p, cfg, x_t, state, ctx=None):
     """x_t: (B,1,d); O(1) recurrent update."""
     hd = cfg.hd
-    q = torch.einsum("bd,dhk->bhk", x_t[:, 0], p["wq"]) * hd ** -0.5
-    k = torch.einsum("bd,dhk->bhk", x_t[:, 0], p["wk"]) * hd ** -0.5
-    v = torch.einsum("bd,dhk->bhk", x_t[:, 0], p["wv"])
+    x_t = constrain(x_t, ("act_batch", None, None), ctx)
+    q, k, v = (t[:, 0] for t in _mlstm_qkv(p, x_t, hd, ctx))
     logi, logf = _mlstm_gates(p, x_t)
     logi, logf = logi[:, 0], logf[:, 0]              # (B,H)
     m_new = torch.maximum(state["m"] + logf, logi)
@@ -260,8 +298,7 @@ def mlstm_step(p, cfg, x_t, state, ctx=None):
         torch.exp(-m_new))[..., None]
     out = (h / denom)[:, None]                       # (B,1,H,hd)
     out = L.rms_norm(out, p["norm"], cfg.norm_eps).to(x_t.dtype)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out, {"C": C, "n": n, "m": m_new}
+    return L.heads_out(out, p["wo"], ctx), {"C": C, "n": n, "m": m_new}
 
 
 # ---------------------------------------------------------------------------
@@ -293,12 +330,15 @@ def _slstm_step_math(p, z_t, o_t, logi, logf, state):
     return h, (c_new, n_new, m_new)
 
 
-def _slstm_inputs(p, x):
-    z = torch.einsum("...d,dhk->...hk", x, p["wz"]).float()
-    o = torch.einsum("...d,dhk->...hk", x, p["wo_gate"]).float()
-    logi = torch.einsum("...d,dh->...h", x, p["wi"]).float()
+def _slstm_inputs(p, x, ctx):
+    """x (B,S,d) -> the (B,S,H,hd) cell and output-gate inputs and the
+    (B,S,H) gate logits, the sequence gathered whole first."""
+    x = constrain(x, ("act_batch", None, None), ctx)
+    z = L.project(x, p["wz"], "bsd,dhk->bshk", 1, ctx).float()
+    o = L.project(x, p["wo_gate"], "bsd,dhk->bshk", 1, ctx).float()
+    logi = torch.einsum("bsd,dh->bsh", x, p["wi"]).float()
     logf = (pointwise(F.logsigmoid,
-                      torch.einsum("...d,dh->...h", x, p["wf"]).float())
+                      torch.einsum("bsd,dh->bsh", x, p["wf"]).float())
             + p["f_bias"])
     return z, o, logi, logf
 
@@ -306,7 +346,7 @@ def _slstm_inputs(p, x):
 def apply_slstm(p, cfg, x, ctx=None):
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.hd
-    z, o, logi, logf = _slstm_inputs(p, x)
+    z, o, logi, logf = _slstm_inputs(p, x, ctx)
     carry = (torch.zeros((B, H, hd), dtype=torch.float32, device=x.device),
              torch.zeros((B, H, hd), dtype=torch.float32, device=x.device),
              torch.full((B, H), -30.0, dtype=torch.float32, device=x.device))
@@ -316,9 +356,8 @@ def apply_slstm(p, cfg, x, ctx=None):
                                     logf[:, t], carry)
         hs.append(h)
     h = torch.stack(hs, 1).to(x.dtype)               # (B,S,H,hd)
-    out = torch.einsum("bshk,hkd->bsd", h, p["wo"])
     cf, nf, mf = carry
-    return out, {"c": cf, "n": nf, "m": mf}
+    return L.heads_out(h, p["wo"], ctx), {"c": cf, "n": nf, "m": mf}
 
 
 def slstm_init_state(p, cfg, batch, dtype):
@@ -332,8 +371,8 @@ def slstm_init_state(p, cfg, batch, dtype):
 
 
 def slstm_step(p, cfg, x_t, state, ctx=None):
-    z, o, logi, logf = _slstm_inputs(p, x_t[:, 0])
+    z, o, logi, logf = (t[:, 0] for t in _slstm_inputs(p, x_t, ctx))
     h, (c, n, m) = _slstm_step_math(
         p, z, o, logi, logf, (state["c"], state["n"], state["m"]))
-    out = torch.einsum("bhk,hkd->bd", h.to(x_t.dtype), p["wo"])[:, None]
+    out = L.heads_out(h.to(x_t.dtype)[:, None], p["wo"], ctx)
     return out, {"c": c, "n": n, "m": m}

@@ -9,9 +9,14 @@ the reference's does and nothing else.
 
 ``compress_decompress(grads, residuals)`` takes and returns trees
 (nested dicts) of tensors.  Rounding is half-to-even, as ``jnp.round``
-is, so ``q`` equals the reference's.  A ``DTensor`` leaf (sharded
-training) is quantized whole, as the reference's global array is, and
-each rank keeps its shard of the result.
+is, so ``q`` and the scales equal the reference's, except in a block
+where float32 rounding puts a dequantized value more than half a step
+from its input (about one vector of 500 values in 1,300): there the
+reference misses its own bound, and the port steps ``q`` toward the
+value or, where both neighbours miss, quantizes that block again with
+a scale larger by 2**-20.  A ``DTensor`` leaf (sharded training) is
+quantized whole, as the reference's global array is, and each rank
+keeps its shard of the result.
 """
 from __future__ import annotations
 
@@ -23,6 +28,19 @@ from repro_torch.sharding.specs import gathered, is_dtensor
 BLOCK = 256
 
 
+def _round_steps(blocks, scale):
+    """Half-to-even ``q`` for ``blocks / scale``, and where ``q * scale``
+    still misses the value by more than half a step."""
+    q = torch.clamp(torch.round(blocks / scale), -127, 127)
+    # float32 division can carry a value just inside half a step onto the
+    # tie, and half-to-even then rounds it away from the value: step such
+    # a q back toward it
+    miss = q * scale - blocks
+    q = torch.where(miss.abs() > scale / 2, q - torch.sign(miss), q)
+    return q, ((q * scale - blocks).abs() > scale / 2).any(dim=1,
+                                                           keepdim=True)
+
+
 def _quantize(g):
     """Per-block symmetric int8. Returns (q, scale). g: any shape."""
     flat = g.reshape(-1)
@@ -32,8 +50,16 @@ def _quantize(g):
     blocks = flat.reshape(-1, BLOCK)
     scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
     scale = torch.clamp(scale, min=1e-12)
-    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
-    return q, scale
+    q, over = _round_steps(blocks, scale)
+    # a value within an ulp of a midpoint can be more than half a step
+    # from both rounded products q * scale: only such a block is quantized
+    # again, with a scale larger by 2**-20, which moves every midpoint
+    # clear of it
+    rows = over[:, 0].nonzero()[:, 0]
+    if rows.numel():
+        scale[rows] = scale[rows] * (1 + 2.0 ** -20)
+        q[rows] = _round_steps(blocks[rows], scale[rows])[0]
+    return q.to(torch.int8), scale
 
 
 def _dequantize(q, scale, shape, size):

@@ -255,11 +255,16 @@ def place(tree, axes_tree, ctx: ShardCtx | None):
 
 
 def _local_box(leaf):
+    """(local shape, global offset) of a placed leaf: shape arithmetic,
+    run with every dispatch mode off (torch builds index tensors for
+    it, which a fake-tensor trace must neither fake nor count)."""
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
-    shape, offset = compute_local_shape_and_global_offset(
-        leaf.shape, leaf.device_mesh, leaf.placements)
-    return tuple(shape), tuple(offset)
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        shape, offset = compute_local_shape_and_global_offset(
+            leaf.shape, leaf.device_mesh, leaf.placements)
+    return tuple(int(n) for n in shape), tuple(int(o) for o in offset)
 
 
 def local_shape(leaf) -> tuple:

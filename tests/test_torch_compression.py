@@ -1,6 +1,7 @@
 """The port's int8 gradient compression against the reference's:
 ``_quantize`` gives the same ``q`` and scales (half-to-even rounding on
-both sides), ``compress_decompress`` the same gradients and residuals on
+both sides) except in a block where the reference misses its own error
+bound, ``compress_decompress`` the same gradients and residuals on
 the same inputs, and the reference's own checks (``tests/
 test_compression.py``) hold for the port: the error bound, error
 feedback preserving the sum, the no-feedback mode."""
@@ -11,7 +12,7 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("hypothesis")
 
 import jax.numpy as jnp  # noqa: E402
-from hypothesis import given, settings, strategies as st  # noqa: E402
+from hypothesis import example, given, settings, strategies as st  # noqa: E402
 
 from repro.sharding import compression as ref  # noqa: E402
 from repro_torch.sharding.compression import (  # noqa: E402
@@ -20,6 +21,8 @@ from repro_torch.sharding.compression import (  # noqa: E402
 
 @settings(max_examples=30, deadline=None)
 @given(seed=st.integers(0, 2**31 - 1), scale=st.floats(1e-6, 1e4))
+@example(seed=1312406088, scale=7.0)   # g/s rounds onto a .5 tie
+@example(seed=418, scale=3.0)   # a value within an ulp of a midpoint
 def test_quantization_error_bounded(seed, scale):
     rng = np.random.default_rng(seed)
     g = torch.as_tensor(rng.normal(0, scale, size=500).astype(np.float32))
@@ -42,6 +45,40 @@ def test_quantize_equals_reference(size, seed):
     assert q.dtype == torch.int8
     np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
     np.testing.assert_array_equal(s.numpy(), np.asarray(rs))
+
+
+@pytest.mark.parametrize("seed,scale,repair", [(1312406088, 7.0, "step"),
+                                               (418, 3.0, "scale")])
+def test_quantize_departs_from_reference_only_where_it_misses(seed, scale,
+                                                               repair):
+    """The two inputs of ``test_quantization_error_bounded``'s examples,
+    where float32 rounding puts one of the reference's dequantized values
+    more than half a step from g.  The port departs from the reference
+    in that block alone: ``step`` moves that one q by one toward g (the
+    scales equal); ``scale`` (both neighbours miss) quantizes the block
+    again with its scale times 1 + 2**-20, and every q equals the
+    reference's.  Neither misses the bound."""
+    g = np.random.default_rng(seed).normal(0, scale, size=500).astype(
+        np.float32)
+    rq, rs = map(np.asarray, ref._quantize(jnp.asarray(g)))
+    q, s = (t.numpy() for t in _quantize(torch.as_tensor(g)))
+    blocks = np.pad(g, (0, (-g.size) % BLOCK)).reshape(-1, BLOCK)
+    ref_miss = np.argwhere(np.abs(rq * rs - blocks) > rs / 2)
+    assert len(ref_miss) == 1
+    b, i = ref_miss[0]
+    assert not (np.abs(q * s - blocks) > s / 2).any()
+    other = np.arange(len(rs)) != b
+    np.testing.assert_array_equal(q[other], rq[other])
+    np.testing.assert_array_equal(s[other], rs[other])
+    if repair == "step":
+        assert s[b, 0] == rs[b, 0]
+        diff = np.argwhere(q[b] != rq[b])[:, 0].tolist()
+        assert diff == [i]
+        assert int(q[b, i]) - int(rq[b, i]) == -np.sign(rq[b, i] * rs[b, 0]
+                                                       - blocks[b, i])
+    else:
+        assert s[b, 0] == np.float32(rs[b, 0] * np.float32(1 + 2.0 ** -20))
+        np.testing.assert_array_equal(q[b], rq[b])
 
 
 def test_half_to_even_rounding():

@@ -1,6 +1,7 @@
 """The port stands alone: no ``jax`` and no ``repro`` anywhere in it, and
 its entry points never move to the CPU on their own."""
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -80,7 +81,9 @@ def _tiny():
                                    "serve_cli", "Trainer", "train_cli",
                                    "make_train_step", "make_test_mesh",
                                    "make_ctx", "make_production_mesh",
-                                   "train_cli_mesh"])
+                                   "train_cli_mesh", "dryrun_cli",
+                                   "run_cell", "lower_graph_cell",
+                                   "lower_pipeline_cell"])
 def test_entry_points_without_device_need_cuda(monkeypatch, tmp_path,
                                               entry):
     from repro_torch.apps import (
@@ -94,7 +97,7 @@ def test_entry_points_without_device_need_cuda(monkeypatch, tmp_path,
     from repro_torch.core.partition import PartitionConfig
     from repro_torch.lm.configs import get_config
     from repro_torch.data import TokenPipeline
-    from repro_torch.lm.launch import serve, train
+    from repro_torch.lm.launch import dryrun, serve, train
     from repro_torch.lm.launch.mesh import (make_ctx, make_production_mesh,
                                             make_test_mesh)
     from repro_torch.lm.models import Model
@@ -154,7 +157,15 @@ def test_entry_points_without_device_need_cuda(monkeypatch, tmp_path,
         "train_cli_mesh": lambda: train.main(["--arch", "minitron-4b",
                                               "--reduced", "--mesh", "1,1",
                                               "--ckpt-dir", str(tmp_path)]),
+        "dryrun_cli": lambda: dryrun.main(["--arch", "minitron-4b",
+                                           "--shape", "train_4k",
+                                           "--reduced"]),
+        "run_cell": lambda: dryrun.run_cell("minitron-4b", "train_4k",
+                                            False, reduced=True),
+        "lower_graph_cell": lambda: dryrun.lower_graph_cell(False),
+        "lower_pipeline_cell": lambda: dryrun.lower_pipeline_cell(),
     }
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path / "dryrun"))
     sharded = {
         "run_sharded": lambda mesh, p: engine.run_sharded(
             actions.BFS, p, engine.init_values(p, actions.BFS, {0: 0.0}),
@@ -194,21 +205,44 @@ MIRRORED = ["checkpoint.manager", "runtime.chaos", "runtime.elastic",
             "lm.models.model", "data", "data.pipeline",
             "sharding.compression", "lm.train", "lm.train.optimizer",
             "lm.train.trainer", "sharding.specs", "sharding.pipeline",
-            "lm.models.moe", "lm.launch.mesh"]
+            "lm.models.moe", "lm.launch.mesh", "lm.launch.hlo_analysis",
+            "lm.launch.dryrun", "lm.launch.reanalyze"]
+# importing these reference modules sets XLA_FLAGS (a 512-device host
+# platform) for the whole process: their names are read in a child
+SET_ENV = {"lm.launch.dryrun", "lm.launch.reanalyze"}
+
+
+def _public_names(package, name):
+    import importlib
+    mod = importlib.import_module(f"{package}.{name}")
+    return {n for n in (getattr(mod, "__all__", None) or vars(mod))
+            if not n.startswith("_")
+            and getattr(getattr(mod, n), "__module__", "").startswith(
+                f"{package}.")}
 
 
 @pytest.mark.parametrize("name", MIRRORED)
 def test_new_modules_mirror_reference_names(name):
     """The modules ported for mutation, fault tolerance, the sharded
-    layout, the AM-CCA simulation layer and the LM serving and training
-    paths carry every public name of their reference counterpart."""
+    layout, the AM-CCA simulation layer, the LM serving and training
+    paths and the dry-run tools carry every public name of their
+    reference counterpart."""
     import importlib
-    ref = importlib.import_module(f"repro.{name}")
+    if name in SET_ENV:
+        code = ("import json, sys\n"
+                f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+                "from test_torch_imports import _public_names\n"
+                f"print(json.dumps(sorted(_public_names('repro', {name!r}))))")
+        res = subprocess.run(
+            [sys.executable, "-c", code], capture_output=True, text=True,
+            cwd=ROOT, timeout=120,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                 "JAX_PLATFORMS": "cpu"})
+        assert res.returncode == 0, res.stderr
+        want = set(json.loads(res.stdout.strip().splitlines()[-1]))
+    else:
+        want = _public_names("repro", name)
     port = importlib.import_module(f"repro_torch.{name}")
-    want = {n for n in (getattr(ref, "__all__", None) or vars(ref))
-            if not n.startswith("_")
-            and getattr(getattr(ref, n), "__module__", "").startswith(
-                "repro.")}
     assert want, name
     assert want <= set(vars(port)), sorted(want - set(vars(port)))
 
