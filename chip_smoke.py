@@ -347,6 +347,7 @@ import subprocess
 import shutil
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -7185,9 +7186,23 @@ DRYRUN_OUT = ROOT / "chip_smoke_out" / "dryrun.json"
 DRYRUN_CELLS = (("minitron-4b", "train_4k"), ("minitron-4b", "prefill_32k"),
                 ("minitron-4b", "decode_32k"),
                 ("granite-moe-1b-a400m", "train_4k"),
-                ("xlstm-125m", "long_500k"))      # 16x16 mesh
+                ("xlstm-125m", "long_500k"),
+                ("jamba-v0.1-52b", "train_4k"),
+                ("xlstm-125m", "prefill_32k"))    # 16x16 mesh
+# 15c: the recurrent archs' real steps, each held to its trace on a (1, 1)
+# mesh: job -> (arch, kind, seq, batch, layers kept or None, cut printed)
+SCAN_CELLS = {
+    "calib_xlstm": ("xlstm-125m", "train", 4096, 4, None,
+                    "xlstm-125m at full width and depth (12 layers, d 768, "
+                    "bfloat16, remat), trained at train_4k's S = 4,096 with "
+                    "the batch cut from 256 to 4"),
+    "calib_jamba": ("jamba-v0.1-52b", "prefill", 4096, 1, 8,
+                    "jamba-v0.1-52b at full width cut from 32 layers to one "
+                    "period (8: 7 Mamba, 1 attention, 4 MoE), serving a "
+                    "prefill of 1 x 4,096 in bfloat16 (prefill_32k: 32 x "
+                    "32,768)")}
 DRYRUN_BUDGET_S = 300        # a cell's trace before it counts as failed
-DRYRUN_WAIT_S = 400          # the 15a/15b children, all started together
+DRYRUN_WAIT_S = 400          # the 15a-15c children, all started together
 DRYRUN_FLOPS_RTOL = 0.01     # 15b: traced FLOPs against FlopCounterMode
 # 15b: argument + temp bytes against the real step's peak allocation.  Set
 # from the H100's readings: the trace misses the peak by 0.0006-0.0013 of
@@ -7203,15 +7218,26 @@ def _calib_shape():
     return ShapeSpec("train_4x512", "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH)
 
 
+def _scan_cell(job):
+    """(config, shape, cut) of a SCAN_CELLS job."""
+    from repro_torch.lm.configs import get_config
+    from repro_torch.lm.configs.base import ShapeSpec
+    arch, kind, seq, batch, layers, cut = SCAN_CELLS[job]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, ShapeSpec(f"{kind}_{batch}x{seq}", kind, seq, batch), cut
+
+
 def _dryrun_jobs():
     """Phase 15's traces: DRYRUN_CELLS on the 16x16 mesh,
-    ``graph-bfs-rhizome`` on both meshes, the pipeline cell, and
-    ``calib`` (15b's step)."""
+    ``graph-bfs-rhizome`` on both meshes, the pipeline cell, then
+    ``calib`` (15b's step) and the SCAN_CELLS jobs (15c's steps)."""
     from repro_torch.lm.launch.dryrun import PIPELINE_CELL
     return ([[a, s, False, None] for a, s in DRYRUN_CELLS]
             + [["graph-bfs-rhizome", "rmat22", mp, "rhizome"]
                for mp in (False, True)]
-            + [[*PIPELINE_CELL, True, None], "calib"])
+            + [[*PIPELINE_CELL, True, None], "calib", *SCAN_CELLS])
 
 
 def dryrun_job(job) -> int:
@@ -7220,7 +7246,8 @@ def dryrun_job(job) -> int:
     groups): a cell ``[arch, shape, multi_pod, graph_mode]`` traced on
     fake CUDA tensors by ``dryrun.run_cell`` into DRYRUN_DIR, or
     ``calib``, 13b's minitron-4b step (full width and depth, bfloat16,
-    remat, 4 x 512) traced on a (1, 1) mesh into DRYRUN_DIR/calib.json."""
+    remat, 4 x 512), or a SCAN_CELLS job (15c), traced on a (1, 1) mesh
+    into DRYRUN_DIR/<job>.json."""
     import torch
     sys.path.insert(0, str(SRC))
     from repro_torch.lm.configs import get_config
@@ -7228,28 +7255,31 @@ def dryrun_job(job) -> int:
     from repro_torch.lm.launch.mesh import make_test_mesh
     torch.set_num_threads(1)      # one core a child
     dryrun.RESULTS_DIR = str(DRYRUN_DIR)
-    if job != "calib":
+    if isinstance(job, list):
         arch, shape, multi_pod, graph_mode = job
         dryrun.run_cell(arch, shape, multi_pod, force=True,
                         graph_mode=graph_mode, budget_s=DRYRUN_BUDGET_S)
         return 0
+    cfg, shape = ((get_config(LM_TRAIN_ARCH), _calib_shape()) if job == "calib"
+                  else _scan_cell(job)[:2])
     t0 = time.perf_counter()
     with dryrun.fake_group(1):
         mesh = make_test_mesh((1, 1))
         with dryrun.fake_tensors():
-            low = dryrun.lower_model(get_config(LM_TRAIN_ARCH),
-                                     _calib_shape(), mesh)
+            low = dryrun.lower_model(cfg, shape, mesh)
             calib = dryrun.record_trace({"lower_s": time.perf_counter() - t0},
                                         low, 1, budget_s=DRYRUN_BUDGET_S)
-    (DRYRUN_DIR / "calib.json").write_text(json.dumps(calib, indent=1))
+    (DRYRUN_DIR / f"{job}.json").write_text(json.dumps(calib, indent=1))
     return 0
 
 
-def _run_dryrun_jobs(jobs):
+def _run_dryrun_jobs(jobs, meanwhile):
     """Each job in a child process (``dryrun_job``), all started
-    together, each on a core; every child is stopped before this
-    returns.  Returns the exit codes ("killed" past DRYRUN_WAIT_S) and
-    the wall seconds."""
+    together at a lower priority (nice 10), while ``meanwhile()`` runs
+    here (the card's real steps: the children trace fake tensors on the
+    host's cores); every child is stopped before this returns.  Returns
+    the exit codes ("killed" past DRYRUN_WAIT_S), the wall seconds of
+    both and what ``meanwhile`` returned."""
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     DRYRUN_DIR.mkdir(parents=True)
     t0 = time.perf_counter()
@@ -7261,6 +7291,9 @@ def _run_dryrun_jobs(jobs):
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun",
                  json.dumps(job)], stdout=out, stderr=subprocess.STDOUT,
                 cwd=ROOT), out))
+            with contextlib.suppress(ProcessLookupError):
+                os.setpriority(os.PRIO_PROCESS, procs[-1][0].pid, 10)
+        done = meanwhile()
         rcs = []
         for proc, _ in procs:
             try:
@@ -7274,7 +7307,7 @@ def _run_dryrun_jobs(jobs):
                 proc.kill()
                 proc.wait()
             out.close()
-    return rcs, time.perf_counter() - t0
+    return rcs, time.perf_counter() - t0, done
 
 
 def _finite_tree(x):
@@ -7285,11 +7318,48 @@ def _finite_tree(x):
     return math.isfinite(x)
 
 
-def _real_step(torch, dev, cfg):
-    """13b's step run for real on the card, made as the dry run makes it
+def _real_prefill(torch, dev, cfg, batch_size, seq, timed=1):
+    """A prefill run for real on the card, made as the dry run makes it
+    (``dryrun.lower_model``'s caches and batch): its FLOPs under
+    ``FlopCounterMode``, its parameter, cache and batch bytes, its peak
+    allocation and the ms of ``timed`` more prefills."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.lm.models.model import Model
+    from repro_torch.lm.train.optimizer import _leaves
+    model = Model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    params = model.param_tree()
+    caches = model.init_cache(batch_size, seq)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (batch_size, seq),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    arg_bytes = sum(t.numel() * t.element_size() for t in
+                    _leaves(params) + _leaves(caches) + [batch["tokens"]])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        logits, _ = model.prefill(params, batch, caches)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{cfg.name} prefill: logits not finite")
+    ms = [1e3 * _timed(torch, lambda: model.prefill(params, batch,
+                                                    caches))[1]
+          for _ in range(timed)]
+    del model, params, caches, batch, logits
+    torch.cuda.empty_cache()
+    return {"flops": float(fc.get_total_flops()), "argument_bytes": arg_bytes,
+            "max_memory_allocated": peak, "step_ms": ms}
+
+
+def _real_step(torch, dev, cfg, batch_size=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+               timed=2):
+    """13b's step (or another config's at ``batch_size`` x ``seq``) run
+    for real on the card, made as the dry run makes it
     (``dryrun.lower_model``'s optimizer and batch): its FLOPs under
     ``FlopCounterMode``, its parameter, moment and batch bytes, its peak
-    allocation and the ms of two more steps."""
+    allocation and the ms of ``timed`` more steps."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.lm.models.model import Model
     from repro_torch.lm.train.optimizer import AdamW, _leaves, cosine_schedule
@@ -7301,7 +7371,7 @@ def _real_step(torch, dev, cfg):
     state = TrainState(params, opt.init(params), None)
     step = make_train_step(model, opt)
     gen = torch.Generator(device=dev).manual_seed(1)
-    batch = {k: torch.randint(0, cfg.vocab, (LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+    batch = {k: torch.randint(0, cfg.vocab, (batch_size, seq),
                               generator=gen, device=dev, dtype=torch.int32)
              for k in ("tokens", "labels")}
     leaves = _leaves(params) + _leaves(state.opt.mu) \
@@ -7316,11 +7386,13 @@ def _real_step(torch, dev, cfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with FlopCounterMode(display=False) as fc:
-        state, _ = step(state, batch)
+        state, metrics = step(state, batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(metrics["loss"])),
+          f"{cfg.name} step: loss not finite")
     ms = []
-    for _ in range(2):
+    for _ in range(timed):
         (state, _), s = _timed(torch, lambda: step(state, batch))
         ms.append(1e3 * s)
     del model, opt, state, params, step, leaves, batch
@@ -7330,27 +7402,90 @@ def _real_step(torch, dev, cfg):
             "step_ms": ms}
 
 
+def _scan_reals(torch, dev):
+    """15c's steps run for real on the card: job -> ``_real_step`` (the
+    train step, not run again to be timed: ``--scan-timing`` times it)
+    or ``_real_prefill``; each cut printed on its own line."""
+    out = {}
+    for job in SCAN_CELLS:
+        cfg, shape, cut = _scan_cell(job)
+        log(f"[dryrun] 15c cut: {cut}")
+        torch.cuda.empty_cache()
+        out[job] = (_real_step(torch, dev, cfg, shape.global_batch,
+                               shape.seq_len, timed=0)
+                    if shape.kind == "train" else
+                    _real_prefill(torch, dev, cfg, shape.global_batch,
+                                  shape.seq_len))
+    return out
+
+
+def _scan_steps(reals, smi):
+    """15c: each SCAN_CELLS trace (every recurrence counted one trip
+    weighed by its trip count) held to its real step (``_scan_reals``):
+    FLOPs within DRYRUN_FLOPS_RTOL of ``FlopCounterMode``, argument
+    bytes equal, argument + temp within DRYRUN_MEM_RTOL of the peak
+    allocation."""
+    out = {}
+    for job, real in reals.items():
+        cfg, shape, cut = _scan_cell(job)
+        calib = json.loads((DRYRUN_DIR / f"{job}.json").read_text())
+        traced = calib["per_device"]["flops"]
+        mem = calib["memory"]
+        est = mem["argument_size_bytes"] + mem["temp_size_bytes"]
+        peak = real["max_memory_allocated"]
+        gap = abs(est - peak) / peak
+        name = f"[dryrun] 15c {cfg.name} {shape.name}"
+        check(abs(traced - real["flops"]) <= DRYRUN_FLOPS_RTOL * real["flops"],
+              f"{name}: traced FLOPs {traced:.6g} against FlopCounterMode's "
+              f"{real['flops']:.6g}")
+        check(mem["argument_size_bytes"] == real["argument_bytes"],
+              f"{name}: argument bytes {mem['argument_size_bytes']} against "
+              f"the real step's {real['argument_bytes']}")
+        check(gap <= DRYRUN_MEM_RTOL,
+              f"{name}: argument + temp {est / 2**30:.3f} GiB against the "
+              f"real step's peak {peak / 2**30:.3f} GiB")
+        r = calib["roofline"]
+        log(f"{name} on a (1, 1) mesh: traced FLOPs {traced:.6g} vs "
+            f"FlopCounterMode {real['flops']:.6g} (rel "
+            f"{abs(traced - real['flops']) / real['flops']:.2e}); argument "
+            f"bytes {mem['argument_size_bytes']} = the real step's; "
+            f"argument + temp {est / 2**30:.3f} GiB vs max_memory_allocated "
+            f"{peak / 2**30:.3f} GiB (rel {gap:.4f}; held to "
+            f"{DRYRUN_MEM_RTOL}); bound {1e3 * r['bound_s']:.1f} ms "
+            f"({r['dominant']})"
+            + "".join(f" vs {ms:.1f} ms measured" for ms in real["step_ms"])
+            + f"; traced in {calib['trace_s']:.1f} s; on {smi}")
+        out[job] = {"cut": cut, "traced_flops": traced, "real": real,
+                    "memory": mem, "mem_gap": gap, "roofline": r,
+                    "trace_s": calib["trace_s"]}
+    return out
+
+
 def phase_dryrun(torch, np, dev, smi):
     """Phase 15 (``[dryrun]``), after phase 14: every trace in a child of
-    its own (``_run_dryrun_jobs``), then 15a: every cell ok, its
+    its own (``_run_dryrun_jobs``), the real steps of 15b and 15c on the
+    card meanwhile, then 15a: every cell ok, its
     ``per_device`` fields finite, FLOPs nonzero where it has products,
     and its record as written equal field for field to ``reanalyze`` of
     its trace summary read back from disk; 15b runs 13b's step for real
     and holds the trace of the same step to it: FLOPs within
     DRYRUN_FLOPS_RTOL of ``FlopCounterMode``, argument bytes equal,
     argument + temp within DRYRUN_MEM_RTOL of the peak allocation (and
-    outside it with one layer's state left out)."""
+    outside it with one layer's state left out); 15c does the same for
+    the recurrent SCAN_CELLS (``_scan_steps``)."""
     from repro_torch.lm.configs import get_config
     from repro_torch.lm.launch import dryrun, reanalyze
     t_phase = time.perf_counter()
     jobs = _dryrun_jobs()
-    rcs, jobs_s = _run_dryrun_jobs(jobs)
+    cfg = get_config(LM_TRAIN_ARCH)
+    rcs, jobs_s, (real, scan_reals) = _run_dryrun_jobs(
+        jobs, lambda: (_real_step(torch, dev, cfg), _scan_reals(torch, dev)))
     for i, (job, rc) in enumerate(zip(jobs, rcs)):
         tail = (DRYRUN_DIR / f"job{i}.log").read_text()[-4000:]
         check(rc == 0, f"[dryrun] the child tracing {job} exited {rc}: "
               f"{tail}")
     recs, rows = [], []
-    for arch, shape, multi_pod, _ in jobs[:-1]:
+    for arch, shape, multi_pod, _ in (j for j in jobs if isinstance(j, list)):
         tag = dryrun._tag(arch, shape, multi_pod, "default", (), False)
         rec = json.loads((DRYRUN_DIR / f"{tag}.json").read_text())
         recs.append(rec)
@@ -7383,8 +7518,6 @@ def phase_dryrun(torch, np, dev, smi):
     calib = json.loads((DRYRUN_DIR / "calib.json").read_text())
     DRYRUN_OUT.write_text(json.dumps({"cells": recs, "calib": calib},
                                      indent=1))
-    cfg = get_config(LM_TRAIN_ARCH)
-    real = _real_step(torch, dev, cfg)
     traced = calib["per_device"]["flops"]
     mem = calib["memory"]
     est = mem["argument_size_bytes"] + mem["temp_size_bytes"]
@@ -7422,13 +7555,82 @@ def phase_dryrun(torch, np, dev, smi):
         "traced_flops": traced, "real": real, "memory": mem,
         "mem_gap": gap, "mem_gap_less_layer": gap_less_layer,
         "roofline": r, "trace_s": calib["trace_s"]},
+        "scan_cells": _scan_steps(scan_reals, smi),
         "jobs_s": jobs_s, "phase_s": time.perf_counter() - t_phase,
         "device": smi}
     DRYRUN_OUT.with_name("dryrun_report.json").write_text(
         json.dumps(report, indent=1))
     log(f"[dryrun] phase 15: {report['phase_s']:.1f} s ({len(jobs)} traces "
-        f"in {jobs_s:.1f} s, side by side)")
+        f"side by side, beside the real steps of 15b and 15c: "
+        f"{jobs_s:.1f} s)")
     return report
+
+
+def _time_scan_cell(torch, dev, job):
+    """One SCAN_CELLS step built, warmed up and timed (wall ms, synced);
+    a prefill also profiled (``_tick_profile``).  Everything it builds
+    is freed when it returns."""
+    from repro_torch.lm.models.model import Model
+    from repro_torch.lm.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.lm.train.train_step import TrainState, make_train_step
+    cfg, shape, _ = _scan_cell(job)
+    model = Model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    params = model.param_tree()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len),
+                         generator=gen, device=dev, dtype=torch.int32)
+    if shape.kind == "train":
+        opt = AdamW(lr=cosine_schedule(3e-4, 100, 10000))
+        state = [TrainState(params, opt.init(params), None)]
+        step = make_train_step(model, opt)
+
+        def run():
+            state[0], _ = step(state[0], {"tokens": toks, "labels": toks})
+    else:
+        caches = model.init_cache(shape.global_batch, shape.seq_len)
+
+        def run():
+            model.prefill(params, {"tokens": toks}, caches)
+    ms = [1e3 * _timed(torch, run)[1] for _ in range(2)]
+    out = {"warmup_ms": ms[0], "ms": ms[1]}
+    log(f"[scan-timing] {cfg.name} {shape.name}: {ms[1]:.1f} ms "
+        f"(warm-up {ms[0]:.1f})")
+    if shape.kind != "train":
+        prof = _tick_profile(torch, types.SimpleNamespace(step=run), ticks=1,
+                             top=8)
+        out["profile"] = prof
+        log(f"[scan-timing] {cfg.name} {shape.name} profiled: "
+            f"{prof['wall_ms']:.1f} ms, device busy {prof['busy']:.3f}, "
+            f"{prof['kernels']} kernels; top {prof['top']}")
+    return out
+
+
+def scan_timing(src) -> int:
+    """``--scan-timing [SRC]``: wall ms (synced) of 15c's steps, an
+    xlstm-125m train step and a one-period jamba-v0.1-52b prefill
+    (SCAN_CELLS), each after one warm-up, and the prefill's device busy
+    share and kernels, with the ``repro_torch`` under ``src`` (another
+    checkout's ``src`` times two versions side by side in one call); no
+    kernel build; prints the card and one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    out = {"src": str(src)}
+    log(f"[scan-timing] the repro_torch under {src}")
+    for job in SCAN_CELLS:
+        out[job] = _time_scan_cell(torch, dev, job)
+        torch.cuda.empty_cache()
+    print(smi)
+    print(json.dumps(out))
+    return 0
 
 
 def _k1_sums(report, report2):
@@ -7651,6 +7853,10 @@ if __name__ == "__main__":
         sys.exit(trace_drops())
     if "--lm-sharded" in sys.argv[1:]:
         sys.exit(lm_sharded_alone())
+    if "--scan-timing" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--scan-timing") + 1:]
+        sys.exit(scan_timing(pathlib.Path(rest[0]).resolve() if rest
+                             else SRC))
     if "--dryrun" in sys.argv[1:]:
         sys.exit(dryrun_job(json.loads(
             sys.argv[sys.argv.index("--dryrun") + 1])))

@@ -32,8 +32,14 @@ outside the mode and is not counted):
   point-to-point sends, each by the kind called (a point-to-point send
   or receive is a ``collective-permute`` of the bytes it carries).
 
-Python loops (layers, recurrences, attention chunks) are unrolled in the
-trace, so the counts are the whole step's and no loop is multiplied;
+A recurrence (Mamba's, the sLSTM's over time steps, the mLSTM's over
+chunks: ``lm.models.scan.scan``) is counted as the reference's
+``hlo_analysis`` counts a while loop of known trip count: its forward
+and its backward each trace ONE trip, weighed by the trip count
+(``_RankCounter.repeat``; every trip issues the same ops, so the counts
+equal an unrolled trace's, ``trace(..., unroll=True)``), with its stacked
+outputs and saved carries allocated at full size.  The layer loop and
+the attention's chunks stay unrolled Python loops, counted as traced;
 the graph cell traces ONE round of its data-dependent fixpoint loop.
 
 Results are cached as JSON under ``results/dryrun_torch/`` (one file
@@ -130,8 +136,9 @@ NULL_REASONS = {
     "compile_s": "nothing is compiled: one step is traced on fake tensors",
     "xla_cost_raw": "no XLA cost analysis: the port's ops run eagerly",
     "memory.generated_code_size_bytes": "no generated program: eager ops",
-    "per_device.num_whiles": "Python loops are unrolled in the trace: "
-                             "there is no while op to count",
+    "per_device.num_whiles": "no while op: a recurrence's scan is "
+                             "counted as one trip times its trip count, "
+                             "other Python loops unrolled",
 }
 
 # collective op (namespace.name) -> the reference's kind
@@ -160,8 +167,11 @@ _COLLECTIVES = {
 # ops that move no bytes: allocation without a fill, waits, metadata
 _NO_TRAFFIC = {"aten.empty", "aten.empty_strided", "aten.empty_like",
                "aten.new_empty", "aten.new_empty_strided",
-               "_c10d_functional.wait_tensor", "prim.device",
+               "_c10d_functional.wait_tensor",
                "aten._local_scalar_dense", "aten.lift_fresh"}
+# metadata queries, not counted at all: ``FakeTensorMode`` issues a
+# varying number of them (more on a miss of its dispatch cache)
+_UNCOUNTED = {"prim.device"}
 
 
 def _tensors(tree):
@@ -181,15 +191,30 @@ def _tree_bytes(tree) -> int:
 
 class _RankCounter(torch.utils._python_dispatch.TorchDispatchMode):
     """Counts every local op this rank issues: op -> [calls, FLOPs,
-    bytes, collective kind, collective bytes].  A ``DTensor`` op is
-    handed on to ``DTensor`` (its local ops come back here).  Past
-    ``deadline`` (a ``time.perf_counter`` value) the next op raises
-    ``TimeoutError``."""
+    bytes, collective kind, collective bytes], each weighed by
+    ``weight``.  A ``DTensor`` op is handed on to ``DTensor`` (its local
+    ops come back here).  Past ``deadline`` (a ``time.perf_counter``
+    value) the next op raises ``TimeoutError``.  ``weighs_trips``: a
+    ``scan`` under this counter runs one trip inside ``repeat(length)``
+    (``unroll``: every trip, unweighed)."""
 
-    def __init__(self, deadline: float | None = None):
+    def __init__(self, deadline: float | None = None, unroll: bool = False):
         super().__init__()
         self.ops: dict[str, list] = {}
         self.deadline = deadline
+        self.weighs_trips = not unroll
+        self.weight = 1
+
+    @contextlib.contextmanager
+    def repeat(self, n: int):
+        """Everything issued inside counts ``n`` times (``0``: not at
+        all)."""
+        w = self.weight
+        self.weight = w * n
+        try:
+            yield
+        finally:
+            self.weight = w
 
     def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -203,22 +228,25 @@ class _RankCounter(torch.utils._python_dispatch.TorchDispatchMode):
                 f"{sum(r[0] for r in self.ops.values())} ops")
         out = func(*args, **kwargs)
         name = str(func._overloadpacket)
+        if name in _UNCOUNTED or not self.weight:
+            return out
         row = self.ops.get(name)
         if row is None:
             row = self.ops[name] = [0, 0.0, 0.0, _COLLECTIVES.get(name), 0.0]
-        row[0] += 1
+        w = self.weight
+        row[0] += w
         fl = flop_registry.get(func._overloadpacket)
         if fl is not None:
-            row[1] += float(fl(*args, **kwargs, out_val=out))
+            row[1] += w * float(fl(*args, **kwargs, out_val=out))
         if name in _NO_TRAFFIC or func.is_view:
             return out
         res = _tensors(out)
-        row[2] += float(sum(_nbytes(t) for t in _tensors((args, kwargs)))
-                        + sum(_nbytes(t) for t in res))
+        row[2] += w * float(sum(_nbytes(t) for t in _tensors((args, kwargs)))
+                            + sum(_nbytes(t) for t in res))
         if row[3] is not None:
             # result bytes: a c10d call writes its first argument
             got = _tensors(args[0]) if name.startswith("c10d.") else res
-            row[4] += float(sum(_nbytes(t) for t in got))
+            row[4] += w * float(sum(_nbytes(t) for t in got))
         return out
 
 
@@ -515,18 +543,20 @@ def lower_pipeline_cell(n_micro: int = 8, mb: int = 32, d: int = 4096,
     return Lowered(run, list(w) + [x]), mesh
 
 
-def trace(lowered: Lowered, budget_s: float | None = None):
+def trace(lowered: Lowered, budget_s: float | None = None,
+          unroll: bool = False):
     """Run ``lowered``'s step under the rank counter (inside
     ``fake_tensors``).  Returns (summary, memory, seconds): the per-op
     summary ``per_device`` reads, the memory fields and the trace's wall
     seconds.  The peak comes from
     ``torch.distributed._tools.mem_tracker.MemTracker``, which follows
     each fake storage's bytes: ``temp_size_bytes`` is that peak less the
-    arguments it tracks."""
+    arguments it tracks.  ``unroll``: every trip of every scan traced,
+    none weighed."""
     from torch.distributed._tools.mem_tracker import MemTracker
     tracked = sum(_nbytes(t) for t in lowered.arguments)
     t0 = time.perf_counter()
-    counter = _RankCounter(None if not budget_s else t0 + budget_s)
+    counter = _RankCounter(None if not budget_s else t0 + budget_s, unroll)
     mt = MemTracker()
     mt.track_external(*lowered.arguments)
     with counter, mt:

@@ -2,9 +2,13 @@
 (mLSTM chunked linear attention + sLSTM scalar recurrence).
 
 All blocks expose two forms:
-* sequence form  — ``apply_*(p, cfg, x)`` over (B, S, d) for prefill: a
-  loop over time steps (Mamba, sLSTM) or over chunks (mLSTM), so the
-  reference's ``scan_unroll`` option changes nothing here;
+* sequence form  — ``apply_*(p, cfg, x)`` over (B, S, d) for train and
+  prefill: one ``scan.scan`` over time steps (Mamba, sLSTM) or over
+  chunks (mLSTM), the reference's ``jax.lax.scan``; on a mesh the whole
+  scan runs on each rank's shards (``local_call``, the carry elementwise
+  over the sharded batch and inner / head dims), so a trip issues no
+  ``DTensor`` op.  The reference's ``scan_unroll`` option changes nothing
+  here;
 * step form      — ``*_step(p, cfg, x_t, state)`` for O(1) decode.
 """
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.lm.models import layers as L
+from repro_torch.lm.models.scan import scan
 from repro_torch.sharding.specs import constrain, local_call, pointwise
 
 MLSTM_CHUNK = 256
@@ -81,6 +86,29 @@ def _mamba_scan_inputs(p, cfg, u, ctx=None):
     return u, dt, Bm, Cm
 
 
+_ROWS = ("act_batch", None, None)
+
+
+def _mamba_trip(carry, x, consts, prod):
+    (h,), (u_t, dt_t, B_t, C_t), (A,) = carry, x, consts
+    dA = torch.exp(dt_t[..., None] * A)             # (B,di,N)
+    dBu = dt_t[..., None] * B_t[:, None, :] * u_t[..., None]
+    h = h * dA + dBu
+    return (h,), (prod("bin,bn->bi", h, C_t),)
+
+
+def _mamba_recurrence(u, dt, Bm, Cm, A):
+    """The selective scan over S of u, dt (B,S,di), B, C (B,S,N) and A
+    (di,N) (a rank's shards on a mesh): y (B,S,di) and the final
+    (B,di,N) state, in float32."""
+    B, _, di = u.shape
+    h0 = torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
+                     device=u.device)
+    (h,), (y,) = scan(_mamba_trip, (h0,),
+                      tuple(t.float() for t in (u, dt, Bm, Cm)), consts=(A,))
+    return y, h
+
+
 def _in_proj_halves(w, ctx):
     """The (d, di) halves of ``in_proj`` (d, 2*di) — the SSM input's and
     the gate's — each placed by its own axes.  On a mesh the inner dim
@@ -102,18 +130,14 @@ def apply_mamba(p, cfg, x, ctx=None):
                 for w in _in_proj_halves(p["in_proj"], ctx))
     u, dt, Bm, Cm = _mamba_scan_inputs(p, cfg, u_raw, ctx)
     A = -torch.exp(p["A_log"])                      # (di, N)
-
-    B, S, di = u.shape
-    h = torch.zeros((B, di, mc.d_state), dtype=torch.float32, device=x.device)
-    uf, dtf, Bf, Cf = (t.float() for t in (u, dt, Bm, Cm))
-    ys = []
-    for t in range(S):
-        u_t, dt_t, B_t, C_t = uf[:, t], dtf[:, t], Bf[:, t], Cf[:, t]
-        dA = torch.exp(dt_t[..., None] * A)         # (B,di,N)
-        dBu = dt_t[..., None] * B_t[:, None, :] * u_t[..., None]
-        h = h * dA + dBu
-        ys.append(torch.einsum("bin,bn->bi", h, C_t))
-    y = torch.stack(ys, 1).to(x.dtype) + u * p["D"].to(x.dtype)
+    S = u.shape[1]
+    # the carry and the scan's u and dt over the batch and inner dims, B
+    # and C over the batch (the reference's constraints)
+    y, h = local_call(_mamba_recurrence, ctx,
+                      (_INNER, _INNER, _ROWS, _ROWS, ("mamba_inner", None)),
+                      (_INNER, ("act_batch", "act_mamba_inner", None)))(
+                          u, dt, Bm, Cm, A)
+    y = y.to(x.dtype) + u * p["D"].to(x.dtype)
     y = y * F.silu(z)
     # placed as the product's output is: a gradient that comes back
     # sequence-parallel is gathered before its backward folds (b, s)
@@ -195,6 +219,71 @@ def _mlstm_gates(p, x):
 
 
 _HEADS = ("act_batch", None, "act_heads")
+_HD = _HEADS + (None,)
+_BH = ("act_batch", "act_heads")
+
+
+def _mlstm_trip(carry, x, consts, prod):
+    """One chunk: the chunk's outputs and the state at its end."""
+    Cst, nst, mst = carry          # (B,H,hd,hd),(B,H,hd),(B,H)
+    qb, kb, vb, li, lf = x
+    (tri,) = consts
+    # cumulative log-forget within the chunk
+    Fc = torch.cumsum(lf, dim=1)                   # (B,Lc,H)
+    # intra-chunk decay matrix D[t,s] = exp(F_t - F_s + i_s) for s<=t
+    logD = (Fc[:, :, None, :] - Fc[:, None, :, :]
+            + li[:, None, :, :])                   # (B,Lq,Ls,H)
+    logD = torch.where(tri[None, :, :, None], logD, -math.inf)
+    # inter-chunk: state decayed by exp(F_t), query it
+    m_intra = logD.amax(dim=2)                     # (B,Lq,H)
+    m_inter = mst[:, None, :] + Fc                 # (B,Lq,H)
+    m_all = torch.maximum(m_intra, m_inter)
+    Dn = torch.exp(logD - m_all[:, :, None, :])
+    scores = prod("bqhk,bshk->bqsh", qb, kb) * Dn
+    h_intra = prod("bqsh,bshk->bqhk", scores, vb)
+    w_inter = torch.exp(m_inter - m_all)           # (B,Lq,H)
+    h_inter = prod("bqhk,bhkx->bqhx", qb * w_inter[..., None], Cst)
+    norm_intra = scores.sum(dim=2)                 # (B,Lq,H)
+    norm_inter = prod("bqhk,bhk->bqh", qb * w_inter[..., None], nst)
+    h = h_intra + h_inter
+    denom = torch.maximum(torch.abs(norm_intra + norm_inter),
+                          torch.exp(-m_all))[..., None]
+    out = h / denom
+    # ---- state update to end of chunk ----
+    Fend = Fc[:, -1, :]                            # (B,H)
+    m_new = torch.maximum(mst + Fend,
+                          (Fend[:, None, :] - Fc + li).amax(dim=1))
+    decay_state = torch.exp(mst + Fend - m_new)    # (B,H)
+    wk_ = torch.exp(Fend[:, None, :] - Fc + li - m_new[:, None, :])
+    Cst = (Cst * decay_state[..., None, None]
+           + prod("bshk,bshx->bhkx", wk_[..., None] * kb, vb))
+    nst = (nst * decay_state[..., None]
+           + prod("bsh,bshk->bhk", wk_, kb))
+    return (Cst, nst, m_new), (out,)
+
+
+def _mlstm_recurrence(q, k, v, logi, logf):
+    """The chunkwise scan over S of the (B,S,H,hd) queries, keys and
+    values and the (B,S,H) gate logits (a rank's shards on a mesh), S
+    padded to whole chunks outside the scan: the (B,S,H,hd) outputs and
+    the final C, n, m, in float32."""
+    B, S, H, hd = q.shape
+    Lc = min(MLSTM_CHUNK, S)
+    nc = -(-S // Lc)
+    pad = nc * Lc - S
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        logi = F.pad(logi, (0, 0, 0, pad), value=-30.0)
+        logf = F.pad(logf, (0, 0, 0, pad))
+    q, k, v = q.float(), k.float(), v.float()
+    tri = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool, device=q.device))
+    carry = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=q.device),
+             torch.zeros((B, H, hd), dtype=torch.float32, device=q.device),
+             torch.zeros((B, H), dtype=torch.float32, device=q.device))
+    xs = tuple(t.reshape(B, nc, Lc, *t.shape[2:])
+               for t in (q, k, v, logi, logf))
+    (Cst, nst, mst), (out,) = scan(_mlstm_trip, carry, xs, consts=(tri,))
+    return out.reshape(B, nc * Lc, H, hd)[:, :S], Cst, nst, mst
 
 
 def _mlstm_qkv(p, x, hd, ctx):
@@ -206,64 +295,12 @@ def _mlstm_qkv(p, x, hd, ctx):
 
 def apply_mlstm(p, cfg, x, ctx=None):
     """Chunkwise-parallel mLSTM. x: (B,S,d)."""
-    B, S, d = x.shape
-    H, hd = cfg.n_heads, cfg.hd
     x = constrain(x, ("act_batch", None, None), ctx)
-    q, k, v = _mlstm_qkv(p, x, hd, ctx)
+    q, k, v = _mlstm_qkv(p, x, cfg.hd, ctx)
     logi, logf = _mlstm_gates(p, x)
-
-    Lc = min(MLSTM_CHUNK, S)
-    nc = -(-S // Lc)
-    pad = nc * Lc - S
-    if pad:
-        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
-        logi = F.pad(logi, (0, 0, 0, pad), value=-30.0)
-        logf = F.pad(logf, (0, 0, 0, pad))
-    q, k, v = q.float(), k.float(), v.float()
-    tri = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool, device=x.device))
-
-    Cst = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-    nst = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
-    mst = torch.zeros((B, H), dtype=torch.float32, device=x.device)
-    outs = []
-    for c in range(nc):
-        sl = slice(c * Lc, (c + 1) * Lc)
-        qb, kb, vb, li, lf = q[:, sl], k[:, sl], v[:, sl], logi[:, sl], logf[:, sl]
-        # cumulative log-forget within the chunk, on each rank's rows
-        # (torch 2.11's DTensor has no rule for its backward's flip)
-        Fc = local_call(lambda t: torch.cumsum(t, dim=1), ctx, (_HEADS,),
-                        _HEADS)(lf)                    # (B,Lc,H)
-        # intra-chunk decay matrix D[t,s] = exp(F_t - F_s + i_s) for s<=t
-        logD = (Fc[:, :, None, :] - Fc[:, None, :, :]
-                + li[:, None, :, :])                   # (B,Lq,Ls,H)
-        logD = torch.where(tri[None, :, :, None], logD, -math.inf)
-        # inter-chunk: state decayed by exp(F_t), query it
-        m_intra = logD.amax(dim=2)                     # (B,Lq,H)
-        m_inter = mst[:, None, :] + Fc                 # (B,Lq,H)
-        m_all = torch.maximum(m_intra, m_inter)
-        Dn = torch.exp(logD - m_all[:, :, None, :])
-        scores = torch.einsum("bqhk,bshk->bqsh", qb, kb) * Dn
-        h_intra = torch.einsum("bqsh,bshk->bqhk", scores, vb)
-        w_inter = torch.exp(m_inter - m_all)           # (B,Lq,H)
-        h_inter = torch.einsum("bqhk,bhkx->bqhx", qb * w_inter[..., None], Cst)
-        norm_intra = scores.sum(dim=2)                 # (B,Lq,H)
-        norm_inter = torch.einsum("bqhk,bhk->bqh", qb * w_inter[..., None], nst)
-        h = h_intra + h_inter
-        denom = torch.maximum(torch.abs(norm_intra + norm_inter),
-                              torch.exp(-m_all))[..., None]
-        outs.append(h / denom)
-        # ---- state update to end of chunk ----
-        Fend = Fc[:, -1, :]                            # (B,H)
-        m_new = torch.maximum(mst + Fend,
-                              (Fend[:, None, :] - Fc + li).amax(dim=1))
-        decay_state = torch.exp(mst + Fend - m_new)    # (B,H)
-        wk_ = torch.exp(Fend[:, None, :] - Fc + li - m_new[:, None, :])
-        Cst = (Cst * decay_state[..., None, None]
-               + torch.einsum("bsh,bshk,bshx->bhkx", wk_, kb, vb))
-        nst = (nst * decay_state[..., None]
-               + torch.einsum("bsh,bshk->bhk", wk_, kb))
-        mst = m_new
-    out = torch.cat(outs, 1)[:, :S]
+    out, Cst, nst, mst = local_call(
+        _mlstm_recurrence, ctx, (_HD, _HD, _HD, _HEADS, _HEADS),
+        (_HD, _BH + (None, None), _BH + (None,), _BH))(q, k, v, logi, logf)
     out = L.rms_norm(out, p["norm"], cfg.norm_eps).to(x.dtype)
     return L.heads_out(out, p["wo"], ctx), {"C": Cst, "n": nst, "m": mst}
 
@@ -343,20 +380,30 @@ def _slstm_inputs(p, x, ctx):
     return z, o, logi, logf
 
 
+def _slstm_trip(carry, x, consts, prod):
+    h, carry = _slstm_step_math(None, *x, carry)
+    return carry, (h,)
+
+
+def _slstm_recurrence(z, o, logi, logf):
+    """The scalar recurrence over S of the (B,S,H,hd) cell and gate
+    inputs and the (B,S,H) gate logits (a rank's shards on a mesh): the
+    (B,S,H,hd) outputs and the final c, n, m."""
+    B, _, H, hd = z.shape
+    carry = (torch.zeros((B, H, hd), dtype=torch.float32, device=z.device),
+             torch.zeros((B, H, hd), dtype=torch.float32, device=z.device),
+             torch.full((B, H), -30.0, dtype=torch.float32, device=z.device))
+    (cf, nf, mf), (h,) = scan(_slstm_trip, carry, (z, o, logi, logf))
+    return h, cf, nf, mf
+
+
 def apply_slstm(p, cfg, x, ctx=None):
-    B, S, d = x.shape
-    H, hd = cfg.n_heads, cfg.hd
     z, o, logi, logf = _slstm_inputs(p, x, ctx)
-    carry = (torch.zeros((B, H, hd), dtype=torch.float32, device=x.device),
-             torch.zeros((B, H, hd), dtype=torch.float32, device=x.device),
-             torch.full((B, H), -30.0, dtype=torch.float32, device=x.device))
-    hs = []
-    for t in range(S):
-        h, carry = _slstm_step_math(p, z[:, t], o[:, t], logi[:, t],
-                                    logf[:, t], carry)
-        hs.append(h)
-    h = torch.stack(hs, 1).to(x.dtype)               # (B,S,H,hd)
-    cf, nf, mf = carry
+    # the state elementwise over the batch and heads
+    h, cf, nf, mf = local_call(
+        _slstm_recurrence, ctx, (_HD, _HD, _HEADS, _HEADS),
+        (_HD, _BH + (None,), _BH + (None,), _BH))(z, o, logi, logf)
+    h = h.to(x.dtype)                                # (B,S,H,hd)
     return L.heads_out(h, p["wo"], ctx), {"c": cf, "n": nf, "m": mf}
 
 

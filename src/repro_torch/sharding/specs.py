@@ -300,32 +300,44 @@ def local_call(fn, ctx: ShardCtx | None, in_axes, out_axes):
     dims took in the inputs (a dim named there takes the same mesh
     axes, any other is replicated).  The values equal ``fn``'s on the
     whole tensors as long as ``fn`` treats the sharded dims row by row.
+    An input replicated over a mesh dim that an output is sharded over
+    gets a pending sum there as its gradient (each rank's part of the
+    work adds to it); ``fn`` must not return a replicated and a sharded
+    output over one mesh dim that both depend on such an input.
     Without a mesh: ``fn`` itself."""
     if ctx is None or ctx.mesh is None:
         return fn
+    multi = bool(out_axes) and all(isinstance(a, tuple) for a in out_axes)
 
     def call(*args):
-        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor import DTensor, Partial
         taken: dict[str, object] = {}
-        local = []
+        placed = []
         for a, ax in zip(args, in_axes):
             if ax is None:
-                local.append(a)
+                placed.append(None)
                 continue
             spec = spec_for(ax, ctx, tuple(a.shape))
             for name, entry in zip(ax, spec):
                 if name is not None and entry is not None:
                     taken[name] = entry
-            local.append(constrain(a, ax, ctx).to_local())
+            placed.append(constrain(a, ax, ctx))
+        out_pl = [placements_for(tuple(taken.get(n) if n is not None
+                                       else None for n in ax), ctx.mesh)
+                  for ax in (out_axes if multi else (out_axes,))]
+        split = {i for pl in out_pl for i, q in enumerate(pl) if q.is_shard()}
+        local = []
+        for a, c in zip(args, placed):
+            if c is None:
+                local.append(a)
+                continue
+            grad_pl = tuple(Partial() if i in split and not q.is_shard()
+                            else q for i, q in enumerate(c.placements))
+            local.append(c.to_local(grad_placements=grad_pl))
         outs = fn(*local)
-        single = not isinstance(outs, tuple)
-        outs = (outs,) if single else outs
-        wrapped = []
-        for o, ax in zip(outs, (out_axes,) if single else out_axes):
-            spec = tuple(taken.get(n) if n is not None else None for n in ax)
-            pl = placements_for(spec, ctx.mesh)
-            wrapped.append(DTensor.from_local(o, ctx.mesh, pl,
-                                              run_check=False))
-        return wrapped[0] if single else tuple(wrapped)
+        outs = outs if multi else (outs,)
+        wrapped = tuple(DTensor.from_local(o, ctx.mesh, pl, run_check=False)
+                        for o, pl in zip(outs, out_pl))
+        return wrapped if multi else wrapped[0]
 
     return call

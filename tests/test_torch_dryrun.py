@@ -146,7 +146,9 @@ CHILD = textwrap.dedent("""
 
 # (arch, shape, remat): remat as 15b's full-size step has it
 LM_CELLS = [("minitron-4b", "train_4k", False), ("minitron-4b", "train_4k", True),
-            ("granite-moe-1b-a400m", "decode_32k", False)]
+            ("granite-moe-1b-a400m", "decode_32k", False),
+            ("xlstm-125m", "train_4k", False), ("xlstm-125m", "train_4k", True),
+            ("jamba-v0.1-52b", "prefill_32k", False)]
 
 
 @pytest.fixture(scope="module")
@@ -194,31 +196,61 @@ def test_graph_round_bytes_equal_reference_hlo(reference):
 
 def _moe_halved(cfg, shape):
     """Per-rank FLOPs of the reference's MoE router and expert products
-    on a (2, 2) mesh that the port does not do, all layers: XLA's
+    on a (2, 2) mesh that the port does not do, all MoE layers: XLA's
     partitioner all-gathers the router and the expert weights over
     ``data`` (where they are FSDP'd on d) and every data rank computes
     them whole; ``DTensor`` keeps each weight's d shard and contracts it
     locally into partial sums (reduce-scattered or all-reduced), so each
     rank does half of those products."""
+    from repro_torch.lm.launch.specs import _num_moe_layers
     m = cfg.moe
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
                                    else 1)
     cap = max(int(tokens * m.top_k / m.num_experts * m.capacity_factor), 1)
     router = 2 * (tokens // 2) * cfg.d_model * m.num_experts
     experts = 3 * 2 * (m.num_experts // 2) * cap * cfg.d_model * m.d_expert_ff
-    return cfg.n_layers * (router + experts) / 2
+    return _num_moe_layers(cfg) * (router + experts) / 2
+
+
+def _mlstm_heads_whole(cfg, shape):
+    """Per-rank FLOPs of the reference's mLSTM chunk products on a (2, 2)
+    mesh that the port does not do, all mLSTM layers.  GSPMD runs the
+    reference's chunk scan with every head on each model rank; the
+    port's scan runs on the rank's H / 2 heads (``local_call``), so the
+    reference does the port's mLSTM products twice over: the six of a
+    chunk's forward, the two of each one's transpose and, under remat,
+    the recomputed forward.  Less one 2·B·H·Lc·hd product a chunk of
+    the reference's backward: XLA makes the two transposes that are
+    outer products (the n update's key gradient, ``norm_inter``'s query
+    gradient) multiplies, and its three-operand C update's transpose
+    adds one (B, H, Lc) contraction over hd."""
+    from repro_torch.lm.models.ssm import MLSTM_CHUNK
+    B = shape.global_batch // 2                     # the data axis
+    H, hd = cfg.n_heads, cfg.hd
+    Lc = min(MLSTM_CHUNK, shape.seq_len)
+    nc = -(-shape.seq_len // Lc)
+    forward = 2 * B * (H // 2) * (2 * Lc * Lc * hd + 2 * Lc * hd * hd
+                                  + 2 * Lc * hd)
+    passes = (4 if cfg.remat else 3) if shape.kind == "train" else 1
+    folded = 2 * B * H * Lc * hd if shape.kind == "train" else 0
+    return cfg.n_layers // 2 * nc * (passes * forward - folded)
 
 
 # collective kinds that one package's per-device program has and the
 # other's has not, by design: XLA reshards between layouts by all-to-all
 # (minitron: the attention's sequence- and head-sharded layouts;
-# granite's decode: around the router product) and moves a gather's
-# operand by collective-permute, where the port gathers the whole
-# operand (all-gather); DTensor turns a partial sum into a shard by
-# reduce-scatter, where XLA all-reduces it and slices
+# granite's decode: around the router product; xlstm under remat and
+# jamba's prefill) and moves a gather's operand by collective-permute,
+# where the port gathers the whole operand (all-gather); DTensor turns a
+# partial sum into a shard by reduce-scatter, where XLA all-reduces it
+# and slices.  By arch, or by (arch, remat) where remat changes them.
 KINDS_ONLY_REFERENCE = {"minitron-4b": {"all-to-all"},
                         "granite-moe-1b-a400m": {"all-to-all",
-                                                 "collective-permute"}}
+                                                 "collective-permute"},
+                        ("xlstm-125m", False): set(),
+                        ("xlstm-125m", True): {"all-to-all"},
+                        "jamba-v0.1-52b": {"all-to-all",
+                                           "collective-permute"}}
 KINDS_ONLY_PORT = {"reduce-scatter"}
 
 
@@ -229,9 +261,13 @@ def test_reduced_cell_products_and_collectives_equal_reference(
     per-device HLO for the same config and mesh: the product FLOPs
     (recomputed forwards under remat included) equal the reference's dot
     FLOPs exactly (no fusion changes a dot), less the MoE products the
-    reference repeats on every data rank (``_moe_halved``: granite
-    only); the collective kinds are the reference's, but for the kinds
-    each partitioner uses in place of the other's (``KINDS_ONLY_*``).
+    reference repeats on every data rank (``_moe_halved``: granite and
+    jamba) and the mLSTM products it repeats on every model rank
+    (``_mlstm_heads_whole``: xlstm).  The recurrences are counted one
+    trip weighed by the trip count, as ``hlo_analysis`` counts the
+    reference's scans; Mamba's per-step product is a dot there too.  The
+    collective kinds are the reference's, but for the kinds each
+    partitioner uses in place of the other's (``KINDS_ONLY_*``).
     A MoE train cell is not held: its backward's partitions differ
     further, with no closed form (granite, remat: the port's 2.3676e12
     against the reference's 2.4060e12)."""
@@ -244,10 +280,13 @@ def test_reduced_cell_products_and_collectives_equal_reference(
                 {}, dryrun.lower_model(cfg, SHAPES[shape], mesh), 4)
     want = reference[f"{arch}/{shape}/{remat}"]
     moe = _moe_halved(cfg, SHAPES[shape]) if cfg.moe is not None else 0.0
-    assert rec["per_device"]["flops"] == want["flops"] - moe
+    mlstm = (_mlstm_heads_whole(cfg, SHAPES[shape]) if cfg.xlstm_pattern
+             else 0)
+    assert rec["per_device"]["flops"] == want["flops"] - moe - mlstm
     got_kinds = set(rec["per_device"]["collective_bytes"])
     want_kinds = set(want["collective_bytes"])
-    assert want_kinds - got_kinds == KINDS_ONLY_REFERENCE[arch]
+    assert want_kinds - got_kinds == KINDS_ONLY_REFERENCE.get(
+        (arch, remat), KINDS_ONLY_REFERENCE.get(arch))
     assert got_kinds - want_kinds == KINDS_ONLY_PORT
 
 
@@ -310,6 +349,16 @@ def test_pipeline_cell_sends_and_receives(results):
     assert rec["per_device"]["collective_bytes"] == {
         "collective-permute": float(9 * mb + 8 * mb)}
     assert rec["per_device"]["flops"] == 9 * 4 * 2 * (2 * 32 * 4096 * 16384)
+
+
+def test_reduced_recurrent_train_cell_traces_within_budget(results):
+    """Reduced jamba ``train_4k`` (seven Mamba layers of 4,096 steps,
+    forward and backward) traces inside the sweep's 240 s budget: each
+    scan pass is one trip, weighed by 4,096."""
+    rec = dryrun.run_cell("jamba-v0.1-52b", "train_4k", False, device="cpu",
+                          reduced=True, budget_s=240)
+    _check_record(rec)
+    assert rec["trace_s"] < 240
 
 
 def test_trace_budget_fails_the_cell(results):
@@ -379,6 +428,52 @@ def test_traced_step_counts_equal_the_real_step():
         + [state.opt.step] + list(batch.values())
     with FlopCounterMode(display=False) as fc:
         make_train_step(model, opt)(state, batch)
+    assert rec["per_device"]["flops"] == fc.get_total_flops() > 0
+    assert rec["memory"]["argument_size_bytes"] == sum(
+        t.numel() * t.element_size() for t in leaves)
+
+
+@pytest.mark.parametrize("arch,kind", [("xlstm-125m", "train"),
+                                       ("jamba-v0.1-52b", "prefill")])
+def test_traced_recurrent_steps_count_the_real_step(arch, kind):
+    """Reduced xlstm trained (bfloat16, remat) and reduced jamba's prefill
+    at S = 64, traced on a fake (1, 1) mesh with each recurrence counted
+    one trip weighed by its trip count, count the FLOPs
+    ``FlopCounterMode`` counts over the same step run for real on CPU
+    tensors without a mesh (every trip run), and the real step's
+    argument bytes: phase 15c's check on the card, at small size."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.lm.configs import get_config
+    from repro_torch.lm.configs.base import ShapeSpec
+    from repro_torch.lm.models import Model
+    from repro_torch.lm.train.optimizer import AdamW, _leaves, cosine_schedule
+    from repro_torch.lm.train.train_step import TrainState, make_train_step
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16",
+                              param_dtype="bfloat16", remat=True)
+    shape = ShapeSpec("t", kind, 64, 2)
+    with dryrun.fake_group(1):
+        mesh = make_test_mesh((1, 1), device="cpu")
+        with dryrun.fake_tensors():
+            rec = dryrun.record_trace({}, dryrun.lower_model(cfg, shape, mesh),
+                                      1)
+    model = Model(cfg, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    params = model.param_tree()
+    tokens = torch.randint(0, cfg.vocab, (2, 64), dtype=torch.int32)
+    if kind == "train":
+        opt = AdamW(lr=cosine_schedule(3e-4, 100, 10000))
+        state = TrainState(params, opt.init(params), None)
+        leaves = _leaves(params) + _leaves(state.opt.mu) \
+            + _leaves(state.opt.nu) + [state.opt.step, tokens, tokens]
+        run = lambda: make_train_step(model, opt)(  # noqa: E731
+            state, {"tokens": tokens, "labels": tokens})
+    else:
+        caches = model.init_cache(2, 64)
+        leaves = _leaves(params) + _leaves(caches) + [tokens]
+        run = lambda: model.prefill(params, {"tokens": tokens},  # noqa: E731
+                                    caches)
+    with FlopCounterMode(display=False) as fc:
+        run()
     assert rec["per_device"]["flops"] == fc.get_total_flops() > 0
     assert rec["memory"]["argument_size_bytes"] == sum(
         t.numel() * t.element_size() for t in leaves)
