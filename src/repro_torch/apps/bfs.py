@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import actions, engine
 from repro_torch.core.partition import Partition, PartitionConfig, build_partition
 from repro_torch.graph.graph import COOGraph
@@ -25,18 +26,20 @@ def bfs(g: COOGraph, root: int, part: Partition | None = None,
     ``DeviceMesh``) every rank makes this call and runs its shard
     (``engine.run_sharded``)."""
     dev = engine.resolve_device(device)
-    if part is None:
-        part = build_partition(
-            g, PartitionConfig(num_shards=num_shards, rpvo_max=rpvo_max)
-        )
-    init = engine.init_values(part, actions.BFS, {root: 0.0})
-    if mesh is None:
-        val, stats = engine.run_stacked(actions.BFS, part, init, cfg,
-                                        device=dev)
-    else:
-        val, stats = engine.run_sharded(actions.BFS, part, init, mesh,
-                                        axis_names, cfg, device=dev)
-    lv = engine.vertex_values(part, val)
-    levels = np.where(np.isfinite(lv), lv, 0).astype(np.int64)
-    levels[~np.isfinite(lv)] = UNREACHED
+    with obs.span("app.call", track="app", app="bfs", root=int(root)):
+        if part is None:
+            part = build_partition(
+                g, PartitionConfig(num_shards=num_shards, rpvo_max=rpvo_max)
+            )
+        init = engine.init_values(part, actions.BFS, {root: 0.0})
+        if mesh is None:
+            val, stats = engine.run_stacked(actions.BFS, part, init, cfg,
+                                            device=dev)
+        else:
+            val, stats = engine.run_sharded(actions.BFS, part, init, mesh,
+                                            axis_names, cfg, device=dev)
+        with obs.span("app.extract", track="app"):
+            lv = engine.vertex_values(part, val)
+        levels = np.where(np.isfinite(lv), lv, 0).astype(np.int64)
+        levels[~np.isfinite(lv)] = UNREACHED
     return levels, stats, part

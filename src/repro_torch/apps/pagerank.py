@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import engine
 from repro_torch.core.partition import Partition, PartitionConfig, build_partition
 from repro_torch.graph.graph import COOGraph
@@ -40,14 +41,17 @@ def pagerank(g: COOGraph, damping: float = 0.85, iters: int = 30,
     layout (``engine.run_pagerank_sharded``), every rank making the
     call."""
     dev = engine.resolve_device(device)
-    part = _partition(g, part, num_shards, rpvo_max)
-    if mesh is None:
-        val = engine.run_pagerank_stacked(part, damping, iters, cfg,
-                                          device=dev)
-    else:
-        val = engine.run_pagerank_sharded(part, damping, iters, mesh,
-                                          axis_names, cfg, device=dev)
-    return engine.vertex_values(part, val).astype(np.float64), part
+    with obs.span("app.call", track="app", app="pagerank"):
+        part = _partition(g, part, num_shards, rpvo_max)
+        if mesh is None:
+            val = engine.run_pagerank_stacked(part, damping, iters, cfg,
+                                              device=dev)
+        else:
+            val = engine.run_pagerank_sharded(part, damping, iters, mesh,
+                                              axis_names, cfg, device=dev)
+        with obs.span("app.extract", track="app"):
+            scores = engine.vertex_values(part, val).astype(np.float64)
+    return scores, part
 
 
 def pagerank_delta(g: COOGraph, damping: float = 0.85, tol=1e-7,

@@ -248,23 +248,25 @@ class DeviceArrays(typing.NamedTuple):
             x = np.asarray(x)
             return put(x if shard is None else x[shard:shard + 1], dtype)
 
-        src = row(part.edge_src_root_flat, torch.int32)
-        dst = row(part.edge_dst_flat, torch.int32)
-        mask = row(part.edge_mask, torch.bool)
-        plan = frr.plan_launch(src.reshape(-1), mask.reshape(-1),
-                               dst.reshape(-1), part.S * part.R_max,
-                               part.S * part.R_max)
-        return cls(
-            edge_src_root_flat=src,
-            edge_dst_flat=dst,
-            edge_w=row(part.edge_w, torch.float32),
-            edge_mask=mask,
-            sibling_flat=row(part.sibling_flat, torch.int32),
-            sibling_mask=row(part.sibling_mask, torch.bool),
-            slot_valid=row(part.slot_vertex >= 0, torch.bool),
-            fused_plan=plan,
-            compact=CompactTables(part, put, src, mask, shard),
-        )
+        with obs.span("engine.upload", track="app"):
+            src = row(part.edge_src_root_flat, torch.int32)
+            dst = row(part.edge_dst_flat, torch.int32)
+            mask = row(part.edge_mask, torch.bool)
+            with obs.span("engine.plan", track="app"):
+                plan = frr.plan_launch(src.reshape(-1), mask.reshape(-1),
+                                       dst.reshape(-1), part.S * part.R_max,
+                                       part.S * part.R_max)
+            return cls(
+                edge_src_root_flat=src,
+                edge_dst_flat=dst,
+                edge_w=row(part.edge_w, torch.float32),
+                edge_mask=mask,
+                sibling_flat=row(part.sibling_flat, torch.int32),
+                sibling_mask=row(part.sibling_mask, torch.bool),
+                slot_valid=row(part.slot_vertex >= 0, torch.bool),
+                fused_plan=plan,
+                compact=CompactTables(part, put, src, mask, shard),
+            )
 
     @property
     def edge_dst_compact(self):
@@ -413,13 +415,14 @@ def run_stacked(sem: Semiring, part: Partition, init_val,
     dev = resolve_device(device)
     if arrays is None:
         arrays = DeviceArrays.from_partition(part, dev)
-    val = torch.as_tensor(init_val, dtype=torch.float32, device=dev)
-    if init_changed is not None:
-        chg = torch.as_tensor(init_changed, dtype=torch.bool, device=dev) \
-            & arrays.slot_valid
-    else:
-        chg = sem.improved(val, torch.full_like(val, sem.identity)) \
-            & arrays.slot_valid
+    with obs.span("engine.init", track="app"):
+        val = torch.as_tensor(init_val, dtype=torch.float32, device=dev)
+        if init_changed is not None:
+            chg = torch.as_tensor(init_changed, dtype=torch.bool,
+                                  device=dev) & arrays.slot_valid
+        else:
+            chg = sem.improved(val, torch.full_like(val, sem.identity)) \
+                & arrays.slot_valid
     if cfg.wants_device_worklist:
         S, R_max = part.S, part.R_max
 
@@ -454,8 +457,9 @@ def _run_host_rounds(run, part, arrays, cfg, max_rounds, round_fn, state,
     -> (state, next frontier, message count).  With no planner and no
     recorder the frontier test reads one flag; otherwise the frontier
     comes to the host once per round, for the plan and the accounting
-    alike.  Returns (state, ``RunStats``)."""
-    rec = obs.get_recorder()
+    alike (a recorder that records spans alone changes nothing here).
+    Returns (state, ``RunStats``)."""
+    rec = obs.round_recorder()
     planner = (launch_planner(part, cfg)
                if cfg.wants_worklist or (rec is not None and cfg.use_pallas)
                else None)
@@ -573,14 +577,17 @@ def _run_device_windows(run, part, arrays, cfg, max_rounds, window, state,
     each enqueued by ``window(k, state)`` -> (state, (k,) counts, (k, ...)
     entering frontiers, exit frontier) with no host sync inside, then
     ONE host read of the per-round counts and frontier sizes (the whole
-    frontiers too when a flight recorder is installed, which gets one
-    ``RoundRecord`` per window).  The first window is enqueued without
-    looking at the initial frontier: an empty one gives dead rounds,
-    which are no-ops.  Returns (state, ``RunStats``)."""
+    frontiers too when a round-accounting flight recorder is installed,
+    which gets one ``RoundRecord`` per window).  Each window is an
+    ``engine.window`` span, its read an ``engine.read``.  The first
+    window is enqueued without looking at the initial frontier: an empty
+    one gives dead rounds, which are no-ops.  Returns (state,
+    ``RunStats``)."""
     rec = obs.get_recorder()
-    planner = launch_planner(part, cfg) if rec is not None else None
+    acct = rec if rec is not None and rec.round_accounting else None
+    planner = launch_planner(part, cfg) if acct is not None else None
     l_pad = (frr.device_worklist_pad(arrays.launch_plan(cfg))
-             if rec is not None else 0)
+             if acct is not None else 0)
     it = msgs = work_total = pruned = windows = 0
     live_exit = True
     while it < max_rounds and live_exit:
@@ -588,21 +595,23 @@ def _run_device_windows(run, part, arrays, cfg, max_rounds, window, state,
         windows += 1
         if rec is not None:
             t0 = rec.tracer.now()
-            span = rec.tracer.span("window", track=f"engine/{run}",
+            span = rec.tracer.span("engine.window", track=f"engine/{run}",
                                    window=windows)
         state, counts, ent, chg = window(k, state)
         ent = torch.cat([ent.reshape(k, -1), chg.reshape(1, -1)])
-        if rec is not None:
-            counts_h, ent_h = _fetch(counts, ent)
-            sizes = ent_h.sum(axis=1)
-        else:
-            counts_h, sizes = _fetch(counts, ent.sum(dim=1))
+        with obs.span("engine.read", track=f"engine/{run}"):
+            if acct is not None:
+                counts_h, ent_h = _fetch(counts, ent)
+                sizes = ent_h.sum(axis=1)
+            else:
+                counts_h, sizes = _fetch(counts, ent.sum(dim=1))
         totals = _window_totals(counts_h, sizes)
         live = totals[0]
-        if rec is not None and live:
-            _record_device_window(rec, run, part, planner, l_pad, windows,
+        if acct is not None and live:
+            _record_device_window(acct, run, part, planner, l_pad, windows,
                                   it + live, ent_h, totals,
-                                  rec.tracer.now() - t0)
+                                  acct.tracer.now() - t0)
+        if rec is not None:
             span.end(frontier=int(sizes[0]), messages=totals[1],
                      rounds=live)
         it += live
@@ -656,12 +665,16 @@ def run_pagerank_stacked(part: Partition, damping: float, iters: int,
     dev = resolve_device(device)
     arrays = DeviceArrays.from_partition(part, dev)
     base = (1.0 - damping) / part.n
-    # initial score 1/n on every replica (consistent view)
-    val = torch.where(arrays.slot_valid, 1.0 / part.n, 0.0)
+    with obs.span("engine.init", track="app"):
+        # initial score 1/n on every replica (consistent view)
+        val = torch.where(arrays.slot_valid, 1.0 / part.n, 0.0)
     chg = arrays.slot_valid  # PR predicate is #t — always diffuse
-    for _ in range(iters):
-        val, _ = exchange.pagerank_round_stacked(
-            sem, arrays, cfg, part.S, part.R_max, base, damping, val, chg)
+    with obs.span("engine.iterations", track="engine/pagerank",
+                  iters=iters):
+        for _ in range(iters):
+            val, _ = exchange.pagerank_round_stacked(
+                sem, arrays, cfg, part.S, part.R_max, base, damping, val,
+                chg)
     return val
 
 
@@ -1010,7 +1023,7 @@ def run_pagerank_delta_sharded(part: Partition, damping: float = 0.85,
     else:
         rank = shard_rows(init_rank, sg, dev, torch.float32)
         delta = shard_rows(init_delta, sg, dev, torch.float32)
-    rec = obs.get_recorder()
+    rec = obs.round_recorder()
     rec_path = "torch"
     if cfg.use_pallas and cfg.pallas_mode == "fused":
         rec_path, _ = frr.select_kernel_path(

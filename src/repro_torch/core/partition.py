@@ -32,6 +32,7 @@ import heapq
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.graph.graph import COOGraph
 
 
@@ -520,7 +521,10 @@ def _assemble(g: COOGraph, cfg: PartitionConfig, pl: _Placement,
 
 
 def build_partition(g: COOGraph, cfg: PartitionConfig) -> Partition:
-    return _assemble(g, cfg, _placement(g, cfg))
+    with obs.span("partition.placement", track="partition"):
+        pl = _placement(g, cfg)
+    with obs.span("partition.assemble", track="partition"):
+        return _assemble(g, cfg, pl)
 
 
 def splice_partition(

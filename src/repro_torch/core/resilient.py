@@ -531,13 +531,14 @@ def run_resilient(task, *, chaos: ChaosPlan | None = None,
     max_iters = (max_rounds if max_rounds is not None
                  else getattr(task, "max_rounds", cfg.max_iters))
     rec = obs.get_recorder()
+    acct = obs.round_recorder()     # per-round records and round spans
     report = FixpointReport()
     part = task.part
 
     planner = (engine.launch_planner(part, cfg,
                                      q_pad=getattr(task, "q_pad", 1))
                if (cfg.wants_worklist
-                   or (rec is not None and task.records and cfg.use_pallas
+                   or (acct is not None and task.records and cfg.use_pallas
                        and cfg.pallas_mode == "fused"))
                else None)
 
@@ -738,10 +739,10 @@ def run_resilient(task, *, chaos: ChaosPlan | None = None,
             wl, info = engine.plan_round_worklist(
                 planner, cfg, task.plan_frontier(plan_chg),
                 with_info=True)
-        frontier = int(chg_h.sum()) if rec is not None else 0
-        t0 = rec.tracer.now() if rec is not None else 0.0
-        span = (rec.tracer.span("round", track=f"engine/{task.name}",
-                                round=rnd) if rec is not None else None)
+        frontier = int(chg_h.sum()) if acct is not None else 0
+        t0 = acct.tracer.now() if acct is not None else 0.0
+        span = (acct.tracer.span("round", track=f"engine/{task.name}",
+                                 round=rnd) if acct is not None else None)
         new_state, counts = task.dispatch(dispatch_state, wl)
         mc = int(counts.sum())
         reported = mc
@@ -788,12 +789,12 @@ def run_resilient(task, *, chaos: ChaosPlan | None = None,
         counters["pruned"] += mc - min(work, mc)
         if scrub:
             crc = shard_crcs(task.crc_arrays(state))
-        if rec is not None:
-            wall = rec.tracer.now() - t0
+        if acct is not None:
+            wall = acct.tracer.now() - t0
             span.end(frontier=frontier, messages=mc)
             if task.records:
                 engine._obs_record_round(
-                    rec, task.name, part, cfg, planner, rnd,
+                    acct, task.name, part, cfg, planner, rnd,
                     chg_h.reshape(-1), frontier, mc, work, wl, info,
                     wall)
         if manager is not None and K and counters["it"] % K == 0:

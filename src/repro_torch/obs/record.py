@@ -10,9 +10,13 @@ Enabled, the engine's host-driven round loops append one
 :class:`RoundRecord` per round whose grid-cell / DMA columns come from
 the same host launch mirror the differential tests assert against
 the kernel's ``with_debug`` counters — so the telemetry itself is held
-to the exact-counter bar.  ``save(path)`` writes a session JSON
-(records + metrics snapshot + Chrome trace) that
-``python -m repro_torch.obs.report`` renders.
+to the exact-counter bar.  That accounting changes what the engine runs
+(a host planner, whole frontiers read back, numpy mirrors each round).
+``FlightRecorder(rounds=False)`` records spans and counters alone: the
+engine's loops then take exactly the branches they take with no
+recorder, and every span site adds only its host stamps.
+``save(path)`` writes a session JSON (records + metrics snapshot +
+Chrome trace) that ``python -m repro_torch.obs.report`` renders.
 """
 from __future__ import annotations
 
@@ -75,14 +79,18 @@ class FlightRecorder:
     concurrent sessions don't bleed into each other; pass
     ``metrics.registry()`` explicitly to feed the process-wide registry.
     ``keep_frontiers=True`` additionally stores each recorded round's
-    frontier bitmap — test-only, for re-deriving mirrors."""
+    frontier bitmap — test-only, for re-deriving mirrors.
+    ``rounds=False`` turns the per-round accounting off (see the module's
+    docstring): spans and counters only."""
 
     def __init__(self, registry: MetricsRegistry | None = None,
                  tracer: Tracer | None = None, clock=None,
-                 keep_frontiers: bool = False, meta: dict | None = None):
+                 keep_frontiers: bool = False, meta: dict | None = None,
+                 rounds: bool = True):
         self.registry = registry if registry is not None \
             else MetricsRegistry()
         self.tracer = tracer if tracer is not None else Tracer(clock=clock)
+        self.round_accounting = rounds
         self.rounds: list[RoundRecord] = []
         self.frontiers: list = []
         self.keep_frontiers = keep_frontiers
@@ -95,25 +103,6 @@ class FlightRecorder:
         if self.keep_frontiers:
             self.frontiers.append(frontier_bitmap)
         m, run = self.registry, record.run
-        m.counter("engine_rounds_total",
-                  "engine rounds executed").labels(run=run).inc()
-        m.counter("engine_messages_total",
-                  "actions delivered").labels(run=run).inc(record.messages)
-        m.counter("engine_pruned_total",
-                  "deliveries pruned by their predicate"
-                  ).labels(run=run).inc(record.pruned)
-        m.counter("engine_grid_cells_total",
-                  "live fused-grid cells (planner mirror)"
-                  ).labels(run=run).inc(record.cells)
-        m.counter("engine_dma_bytes_total",
-                  "bytes the tiled kernels stage (planner mirror)"
-                  ).labels(run=run).inc(record.dma_bytes)
-        m.gauge("engine_frontier",
-                "live slots entering the last round"
-                ).labels(run=run).set(record.frontier)
-        m.counter("engine_wall_seconds_total",
-                  "wall time inside engine rounds"
-                  ).labels(run=run).inc(record.wall_s)
         if record.shard_messages:
             m.gauge("engine_shard_message_skew",
                     "per-shard message balance, max/mean (1.0 = even)"
@@ -175,6 +164,39 @@ _active: FlightRecorder | None = None
 def get_recorder() -> FlightRecorder | None:
     """The installed recorder, or None (the default — recording off)."""
     return _active
+
+
+def round_recorder() -> FlightRecorder | None:
+    """The installed recorder when it accounts rounds, else None."""
+    rec = _active
+    return rec if rec is not None and rec.round_accounting else None
+
+
+class _NullSpan:
+    """What :func:`span` returns with recording off."""
+    __slots__ = ()
+
+    def end(self, **extra_args):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+def span(name: str, track: str = "main", **labels):
+    """A span on the installed recorder's tracer (``Tracer.span``), or a
+    no-op one with recording off: the off path is one read of the
+    installed recorder."""
+    rec = _active
+    if rec is None:
+        return _NULL_SPAN
+    return rec.tracer.span(name, track, **labels)
 
 
 def install(recorder: FlightRecorder | None) -> FlightRecorder | None:

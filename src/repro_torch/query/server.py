@@ -638,9 +638,6 @@ class QueryServer:
         rec = obs.get_recorder()
         if rec is not None:
             self._obs_submit_t[qid] = rec.tracer.now()
-            rec.registry.counter(
-                "serve_submitted_total",
-                "requests submitted").labels(kind=kind).inc()
         if deadline_s is not None:
             self._deadline_at[qid] = now + deadline_s
 
@@ -747,11 +744,6 @@ class QueryServer:
         rec.registry.counter(
             "serve_requests_total", "terminal request statuses").labels(
                 status=status, kind=req.kind).inc()
-        rec.registry.histogram(
-            "serve_latency_seconds",
-            "submit -> terminal latency (queue wait included)").labels(
-                kind=req.kind).observe(
-                    self.now() - self._submit_time[req.qid])
         end = rec.tracer.now()
         t0 = self._obs_submit_t.pop(req.qid, None)
         ta = self._obs_admit_t.pop(req.qid, None)
@@ -840,10 +832,6 @@ class QueryServer:
         rec = obs.get_recorder()
         if rec is not None:
             self._obs_admit_t[req.qid] = rec.tracer.now()
-            rec.registry.counter(
-                "serve_admitted_total",
-                "requests admitted into a lane").labels(
-                    kind=req.kind).inc()
 
     def _preempt(self, pool, lane: int):
         """Evict a running lane for a more urgent request: the victim is
@@ -912,36 +900,37 @@ class QueryServer:
 
     # --------------------------------------------------------------- step
     def _retire(self, pool, lane: int, status: str, partial: bool):
-        req = pool.reqs[lane]
-        key = (id(pool), lane)
-        if status == QueryStatus.OK and req.qid in self._resumed_qids:
-            # the lane crossed a restore: the values are complete (and
-            # bit-identical for min lanes) but the path was not clean
-            status = QueryStatus.RECOVERED
-        keep_values = (status == QueryStatus.OK
-                       or status == QueryStatus.RECOVERED
-                       or status in QueryStatus.PARTIAL_VALUED)
-        values = pool.extract(lane) if keep_values else None
-        self.results[req.qid] = QueryResult(
-            qid=req.qid, kind=req.kind, values=values,
-            rounds=self._lane_rounds[key],
-            messages=self._lane_msgs[key], lane=lane,
-            admitted_tick=self._admit_tick[key],
-            completed_tick=self.tick,
-            latency_s=self.now() - self._submit_time[req.qid],
-            exchanged=self._lane_exchanged[key],
-            status=status, partial=partial, tenant=req.tenant,
-            priority=req.priority,
-            preemptions=self._preempt_count.get(req.qid, 0),
-            submitted_tick=self._submit_tick[req.qid])
-        self.counters[status] += 1
-        self._obs_request_end(req, status)
-        if status == QueryStatus.OK and self.serve.cache_size:
-            self.cache.put(_cache_key(req), np.array(values, copy=True),
-                           self.now())
-        pool.reqs[lane] = None             # lane freed immediately
-        if status != QueryStatus.OK:
-            pool.silence(lane)             # kill the in-flight frontier
+        with obs.span("server.retire", track="server", lane=lane):
+            req = pool.reqs[lane]
+            key = (id(pool), lane)
+            if status == QueryStatus.OK and req.qid in self._resumed_qids:
+                # the lane crossed a restore: the values are complete (and
+                # bit-identical for min lanes) but the path was not clean
+                status = QueryStatus.RECOVERED
+            keep_values = (status == QueryStatus.OK
+                           or status == QueryStatus.RECOVERED
+                           or status in QueryStatus.PARTIAL_VALUED)
+            values = pool.extract(lane) if keep_values else None
+            self.results[req.qid] = QueryResult(
+                qid=req.qid, kind=req.kind, values=values,
+                rounds=self._lane_rounds[key],
+                messages=self._lane_msgs[key], lane=lane,
+                admitted_tick=self._admit_tick[key],
+                completed_tick=self.tick,
+                latency_s=self.now() - self._submit_time[req.qid],
+                exchanged=self._lane_exchanged[key],
+                status=status, partial=partial, tenant=req.tenant,
+                priority=req.priority,
+                preemptions=self._preempt_count.get(req.qid, 0),
+                submitted_tick=self._submit_tick[req.qid])
+            self.counters[status] += 1
+            self._obs_request_end(req, status)
+            if status == QueryStatus.OK and self.serve.cache_size:
+                self.cache.put(_cache_key(req), np.array(values, copy=True),
+                               self.now())
+            pool.reqs[lane] = None             # lane freed immediately
+            if status != QueryStatus.OK:
+                pool.silence(lane)             # kill the in-flight frontier
 
     def _evict_overdue(self, pool, occupied, live_before):
         """Budget / deadline / timeout checks on still-live lanes.  A
@@ -987,30 +976,32 @@ class QueryServer:
                     if pool.reqs[lane] is not None]
         if not occupied:
             return 0
-        live_before = pool.live()             # writable: evictions
-        syncs = 1
-        self._evict_overdue(pool, occupied, live_before)  # flip lanes off
-        lives = None           # per-lane live-round counts (window tick)
-        stepped = any(live_before[lane] for lane in occupied)
-        if not stepped:
-            # occupied-but-converged lanes (e.g. empty-frontier queries)
-            # still retire below; nothing ran, so nothing else changed
-            counts = np.zeros(pool.n, np.int64)
-            live_after = live_before
-        else:
-            k = self._tick_window(pool, occupied)
-            if k == 1:
-                reads = (pool.step(),)
+        with obs.span("server.step", track="server"):
+            live_before = pool.live()             # writable: evictions
+            syncs = 1
+            self._evict_overdue(pool, occupied, live_before)  # lanes off
+            lives = None       # per-lane live-round counts (window tick)
+            stepped = any(live_before[lane] for lane in occupied)
+            if not stepped:
+                # occupied-but-converged lanes (e.g. empty-frontier
+                # queries) still retire below; nothing ran, so nothing
+                # else changed
+                counts = np.zeros(pool.n, np.int64)
+                live_after = live_before
             else:
-                reads = pool.step_window(k)
-            # counts (and a window's live rounds) with the exit flags,
-            # one transfer
-            out = self._read(*reads, pool.live_dev())
-            counts, live_after = out[0], out[-1]
-            if k > 1:
-                lives = out[1]
-            self.rounds_driven += k
-            syncs += 1
+                k = self._tick_window(pool, occupied)
+                if k == 1:
+                    reads = (pool.step(),)
+                else:
+                    reads = pool.step_window(k)
+                # counts (and a window's live rounds) with the exit
+                # flags, one transfer
+                out = self._read(*reads, pool.live_dev())
+                counts, live_after = out[0], out[-1]
+                if k > 1:
+                    lives = out[1]
+                self.rounds_driven += k
+                syncs += 1
         engine._count_dispatches(
             "server_min" if pool is self.min_pool else "server_ppr",
             int(stepped), syncs)
@@ -1060,11 +1051,13 @@ class QueryServer:
     def step(self) -> bool:
         """One global round tick. Returns False when fully drained."""
         rec = obs.get_recorder()
-        span = (rec.tracer.span("tick", track="server", tick=self.tick)
+        span = (rec.tracer.span("server.tick", track="server",
+                                tick=self.tick)
                 if rec is not None else None)
         self._apply_faults()
         self._expire_queued()
-        self._admit()
+        with obs.span("server.admit", track="server"):
+            self._admit()
         n_live = self._step_pool(self.min_pool) \
             + self._step_pool(self.ppr_pool)
         self.occupancy_trace.append(n_live)
@@ -1079,8 +1072,6 @@ class QueryServer:
                                  "server round ticks").inc()
             rec.registry.gauge("serve_queue_depth",
                                "queued requests after the tick").set(depth)
-            rec.registry.gauge("serve_live_lanes",
-                               "live lanes this tick").set(n_live)
             rec.tracer.counter("server",
                                {"queue_depth": depth, "live_lanes": n_live})
         return bool(n_live or len(self.queue)

@@ -1446,3 +1446,48 @@ def test_sharded_bfs_on_one_rank_nccl_group(dev):
         assert [int(x) for x in stats] == [int(x) for x in want_stats]
     finally:
         dist.destroy_process_group()
+
+
+def test_tracer_spans_share_the_profiler_clock(dev):
+    """A ``Tracer`` span around a ~20 ms sleep kernel and its
+    ``synchronize()``, mapped onto ``torch.profiler``'s clock
+    (``trace_start_ns`` + ``time_range``), contains the kernel within 5 ms
+    at each end; prints the kernel's offsets from the span's ends."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch import obs
+
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    stop.record()
+    torch.cuda.synchronize()
+    cycles = int(1_000_000 * 20.0 / start.elapsed_time(stop))
+    tracer = obs.Tracer()
+    prof = profile(activities=[ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
+    prof.start()
+    torch.cuda._sleep(1000)            # the thrown-away warm-up step
+    torch.cuda.synchronize()
+    prof.step()
+    with tracer.span("sleep"):
+        torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+    prof.step()
+    prof.stop()
+    base = prof.profiler.kineto_results.trace_start_ns()
+    kernel = max((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.end - e.time_range.start)
+    k0 = base + kernel.time_range.start * 1e3
+    k1 = base + kernel.time_range.end * 1e3
+    span = next(e for e in tracer.events() if e["name"] == "sleep")
+    s0 = tracer.epoch_ns + span["ts"] * 1e3
+    s1 = s0 + span["dur"] * 1e3
+    print(f"[clock] kernel {kernel.name[:40]} {(k1 - k0) / 1e6:.3f} ms; "
+          f"kernel start - span start {(k0 - s0) / 1e6:+.4f} ms, span end "
+          f"- kernel end {(s1 - k1) / 1e6:+.4f} ms")
+    assert (k1 - k0) / 1e6 > 10.0
+    assert abs(k0 - s0) <= 5e6 and abs(s1 - k1) <= 5e6
