@@ -294,6 +294,67 @@ class DeviceArrays(typing.NamedTuple):
             else self.fused_plan
 
 
+# --------------------------------------------------------------------------
+# resident device tables: one upload per partition and device
+# --------------------------------------------------------------------------
+
+_RESIDENT = "_device_tables"
+
+
+class _Resident(dict):
+    """A partition's resident ``DeviceArrays`` by device, kept in the
+    partition's ``__dict__``.  Pickled (or deep-copied) it is empty:
+    device tables do not travel with a partition."""
+
+    def __reduce__(self):
+        return (_Resident, ())
+
+
+def _device_key(dev: torch.device) -> torch.device:
+    """``dev`` with its index made explicit, so ``cuda`` and ``cuda:0``
+    (the current device) name one entry, as ``cpu`` and ``cpu:0`` do."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu") if dev.type == "cpu" else dev
+
+
+def device_arrays(part: Partition, device=None) -> DeviceArrays:
+    """``part``'s static device tables on ``device``, resident across
+    calls: ``DeviceArrays.from_partition`` uploads and plans them on the
+    first call for a device (its spans ``engine.upload`` ⊃
+    ``engine.plan``); later calls return the same tables, their launch
+    plan and the plan's scratch included (an ``engine.upload`` span with
+    ``resident=True`` around the lookup).  ``engine_device_tables_total``
+    counts each call under ``result`` ``upload`` or ``hit``.
+
+    Keyed on the partition object and the resolved device.  The tables
+    live on the partition and go with it: they and the partition form a
+    cycle (``CompactTables`` holds its partition), which ``gc.collect()``
+    frees once nothing else holds the partition.  They are the
+    partition's arrays as first uploaded: a caller that writes a
+    partition's arrays in place calls ``drop_device_arrays`` first.  A
+    splice (``splice_partition``), a server's mutation or a restore makes
+    a new ``Partition``, and so new tables."""
+    key = _device_key(resolve_device(device))
+    tables = vars(part).setdefault(_RESIDENT, _Resident())
+    counter = obs.registry().counter(
+        "engine_device_tables_total",
+        "partition device-table requests, uploaded or found resident")
+    if key in tables:
+        with obs.span("engine.upload", track="app", resident=True):
+            counter.labels(result="hit").inc()
+            return tables[key]
+    tables[key] = DeviceArrays.from_partition(part, key)
+    counter.labels(result="upload").inc()
+    return tables[key]
+
+
+def drop_device_arrays(part: Partition) -> None:
+    """Forget ``part``'s resident device tables on every device, so its
+    next ``device_arrays`` call uploads them anew."""
+    vars(part).pop(_RESIDENT, None)
+
+
 class RunStats(typing.NamedTuple):
     iterations: torch.Tensor        # rounds executed
     messages: torch.Tensor          # actions delivered (edge messages)
@@ -404,8 +465,9 @@ def run_stacked(sem: Semiring, part: Partition, init_val,
     plan the worklist); under 'device_worklist' rounds are enqueued in
     windows of ``cfg.device_window`` with one host read per window.
     ``engine_dispatches_total`` / ``engine_host_syncs_total`` count
-    exactly that.  ``arrays``: ``DeviceArrays.from_partition(part)``
-    when the caller has uploaded it already (``None``: uploaded here).
+    exactly that.  ``arrays``: the caller's own
+    ``DeviceArrays.from_partition(part)`` (``None``: the partition's
+    resident tables, ``device_arrays``).
     Returns ((S, R_max) values, ``RunStats``) as tensors on ``device``."""
     if sem.segment != "min":
         raise ValueError(
@@ -414,7 +476,7 @@ def run_stacked(sem: Semiring, part: Partition, init_val,
             "run_pagerank_stacked for counted sum-semiring rounds")
     dev = resolve_device(device)
     if arrays is None:
-        arrays = DeviceArrays.from_partition(part, dev)
+        arrays = device_arrays(part, dev)
     with obs.span("engine.init", track="app"):
         val = torch.as_tensor(init_val, dtype=torch.float32, device=dev)
         if init_changed is not None:
@@ -658,12 +720,13 @@ def _count_dispatches(run: str, dispatches: int, host_syncs: int):
 
 def run_pagerank_stacked(part: Partition, damping: float, iters: int,
                          cfg: EngineConfig = EngineConfig(), device=None):
-    """``iters`` dense PageRank rounds on the stacked layout; returns the
+    """``iters`` dense PageRank rounds on the stacked layout, on the
+    partition's resident tables (``device_arrays``); returns the
     (S, R_max) scores on ``device``."""
     from repro_torch.core.actions import PAGERANK as sem
 
     dev = resolve_device(device)
-    arrays = DeviceArrays.from_partition(part, dev)
+    arrays = device_arrays(part, dev)
     base = (1.0 - damping) / part.n
     with obs.span("engine.init", track="app"):
         # initial score 1/n on every replica (consistent view)
@@ -719,7 +782,7 @@ def run_pagerank_delta(part: Partition, damping: float = 0.85,
 
     dev = resolve_device(device)
     if arrays is None:
-        arrays = DeviceArrays.from_partition(part, dev)
+        arrays = device_arrays(part, dev)
     S, R_max = part.S, part.R_max
     base = (1.0 - damping) / part.n
     tol_t = _tol_table(part, tol, dev)

@@ -18,7 +18,10 @@ The spans the port records, by layer (track in brackets):
 - app [``app``]: ``app.call`` (args ``app``, ``root``) around
   ``apps.bfs`` / ``sssp`` / ``pagerank``; ``engine.upload``
   (``DeviceArrays.from_partition``) with its child ``engine.plan``
-  (``plan_launch``); ``engine.init`` (the initial tensors put on the
+  (``plan_launch``), or, arg ``resident``, ``engine.device_arrays``
+  finding a partition's tables on the device already (counted by
+  ``engine_device_tables_total``, ``result`` ``upload`` or ``hit``);
+  ``engine.init`` (the initial tensors put on the
   device in ``run_stacked`` / ``run_pagerank_stacked``); ``app.extract``
   (``engine.vertex_values`` as the apps call it);
 - engine driver [``engine/<run>``]: ``engine.window`` (one

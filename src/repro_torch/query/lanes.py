@@ -183,14 +183,14 @@ def make_stacked_lanes_fn(part: Partition,
     ``lane_budget`` ((Q,) int, optional) is a per-lane round budget: a
     lane that has been live for ``budget`` rounds is frozen in-round
     (``exchange.fixpoint_round_stacked``'s ``lane_mask``) — its values
-    stop improving and it costs no further messages.  ``arrays``:
-    ``DeviceArrays.from_partition(part)`` when the caller has uploaded it
-    already (``None``: uploaded here)."""
+    stop improving and it costs no further messages.  ``arrays``: the
+    caller's own ``DeviceArrays.from_partition(part)`` (``None``: the
+    partition's resident tables, ``engine.device_arrays``)."""
     _check_cfg(cfg)
     _check_min(sem)
     dev = engine.resolve_device(device)
     if arrays is None:
-        arrays = DeviceArrays.from_partition(part, dev)
+        arrays = engine.device_arrays(part, dev)
     S, R_max = part.S, part.R_max
     vol = _volume(part, cfg)
 
@@ -460,8 +460,7 @@ def make_ppr_round(part: Partition, cfg: EngineConfig = EngineConfig(),
     off (they cost no messages) and their values carry through."""
     _check_cfg(cfg)
     if arrays is None:
-        arrays = DeviceArrays.from_partition(part, engine.resolve_device(
-            device))
+        arrays = engine.device_arrays(part, device)
     S, R_max = part.S, part.R_max
     sem = actions.PAGERANK
     total = S * R_max
@@ -497,7 +496,7 @@ def run_ppr_lanes(part: Partition, seeds, dampings,
     val = torch.as_tensor(np.stack(
         [engine.init_values(part, actions.PAGERANK, {int(s): 1.0})
          for s in seeds], axis=-1).astype(np.float32), device=dev)
-    arrays = DeviceArrays.from_partition(part, dev)
+    arrays = engine.device_arrays(part, dev)
     round_fn = make_ppr_round(part, cfg, arrays)
     vol = _volume(part, cfg)
     n_slots = arrays.slot_valid.sum()
@@ -524,8 +523,7 @@ def make_ppr_delta_round(part: Partition,
     any worklist launch — shrinks as lanes converge."""
     _check_cfg(cfg)
     if arrays is None:
-        arrays = DeviceArrays.from_partition(part, engine.resolve_device(
-            device))
+        arrays = engine.device_arrays(part, device)
     S, R_max = part.S, part.R_max
     sem = actions.PAGERANK
     total = S * R_max
@@ -561,7 +559,7 @@ def run_ppr_delta_lanes(part: Partition, seeds, dampings,
     dampings = np.broadcast_to(np.asarray(dampings, np.float32), (q,)).copy()
     tols = np.broadcast_to(np.asarray(tol, np.float32), (q,)).copy()
     base = torch.as_tensor(ppr_base_table(part, seeds, dampings), device=dev)
-    arrays = DeviceArrays.from_partition(part, dev)
+    arrays = engine.device_arrays(part, dev)
     round_fn = make_ppr_delta_round(part, cfg, arrays)
     planner = engine.launch_planner(part, cfg, q_pad=q) \
         if cfg.wants_worklist else None

@@ -1491,3 +1491,61 @@ def test_tracer_spans_share_the_profiler_clock(dev):
           f"- kernel end {(s1 - k1) / 1e6:+.4f} ms")
     assert (k1 - k0) / 1e6 > 10.0
     assert abs(k0 - s0) <= 5e6 and abs(s1 - k1) <= 5e6
+
+
+def _htod_copies(work, tmp_path, name):
+    """The bytes of each host-to-device copy ``work()`` makes on the card,
+    read from a ``torch.profiler`` trace (CUDA activity; one thrown-away
+    warm-up step first, as the profiler can lose a trace's first
+    records)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    prof = profile(activities=[ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
+    prof.start()
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+    prof.step()
+    out = work()
+    torch.cuda.synchronize()
+    prof.step()
+    prof.stop()
+    path = tmp_path / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    assert copies and all("bytes" in e.get("args", {}) for e in copies)
+    return [int(e["args"]["bytes"]) for e in copies], out
+
+
+def test_second_call_uploads_no_partition_table(dev, tmp_path):
+    """A second ``apps.bfs`` on one partition copies nothing to the card
+    larger than the (S, R_max) initial table: the partition's tables are
+    resident.  After ``drop_device_arrays`` the same call copies them
+    again, which the trace shows (so it can see such a copy)."""
+    g = generators.rmat(14, edge_factor=8, seed=7).with_random_weights(
+        seed=7)
+    root = int(np.argmax(g.out_degrees()))
+    part = build_partition(g, PartitionConfig(num_shards=16, rpvo_max=4))
+    cfg = engine.EngineConfig(use_pallas=True, grid_mode="device_worklist")
+    first = bfs(g, root, part=part, cfg=cfg)
+    assert engine.device_arrays(part, "cuda") is \
+        engine.device_arrays(part, torch.device("cuda", 0))
+    table = part.S * part.R_max * 4
+    warm, second = _htod_copies(
+        lambda: bfs(g, root, part=part, cfg=cfg), tmp_path, "warm")
+    engine.drop_device_arrays(part)
+    cold, third = _htod_copies(
+        lambda: bfs(g, root, part=part, cfg=cfg), tmp_path, "cold")
+    print(f"[resident] S*R_max*4 = {table} B; warm call's copies "
+          f"{sorted(warm)[-3:]} B (largest three), cold call's "
+          f"{sorted(cold)[-3:]}")
+    assert max(warm) <= table
+    assert max(cold) > table
+    np.testing.assert_array_equal(second[0], reference.bfs_levels(g, root))
+    for other in (first, third):
+        np.testing.assert_array_equal(second[0], other[0])
+        assert [int(x) for x in second[1]] == [int(x) for x in other[1]]
