@@ -6,6 +6,7 @@
     python3 chip_smoke.py --fold-sweep
     python3 chip_smoke.py --trace-drops
     python3 chip_smoke.py --lm-sharded
+    python3 chip_smoke.py --tree
     python3 chip_smoke.py --dryrun JOB
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
@@ -305,6 +306,19 @@ started together) and runs, in order:
    ``chip_smoke_out/dryrun.json`` (the records) and
    ``dryrun_report.json``.
 
+16. K10, the parent pass (``phase_tree``, ``[k10]``): on the Graph500
+   scale-22 graph of ``portbench/configs/graph500-s22.json`` (134,217,728
+   stacked edges, made on the card by the benchmark's generator) in its
+   partition, BFS and SSSP fixpoints from the vertex of largest
+   out-degree; on each, one K10 launch and one tie round equal K10's
+   plain version on the same card tensors (``torch.equal``), and
+   ``apps.bfs_tree`` / ``sssp_tree`` give the parents of the plain pass
+   with one launch a search plus its tie rounds; K10, its plain version
+   and its bound (the benchmark's ``tree_bytes`` at 3.35 TB/s) are timed.
+
+``--tree`` runs phase 16 alone, after building the kernels, and writes
+``chip_smoke_out/tree.json``.
+
 ``--lm-sharded`` runs 13b (cut to 14a's steps, its reference) and phase
 14 alone, with no kernel build, and writes
 ``chip_smoke_out/lm_sharded.json``.
@@ -366,7 +380,7 @@ PR_RTOL, PR_ATOL = 1e-4, 1e-7
 # the sources: K1/K2, K3/K4, K9, K5/K6 and K7/K8
 KERNELS = ("fused_relax_reduce_wl", "fused_relax_reduce_wl_lanes",
            "segment_combine", "fused_relax_reduce_wl_tiled",
-           "fused_relax_reduce_wl_tiled_lanes")
+           "fused_relax_reduce_wl_tiled_lanes", "tree_parents")
 LANES = 16               # the lane slice's batch: 8 BFS + 8 SSSP queries
 PPR_SEEDS = 8            # personalized-PageRank lanes
 PPR_DAMPINGS = (0.85, 0.7, 0.6, 0.5)
@@ -7633,6 +7647,188 @@ def scan_timing(src) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# phase 16: K10, the parent pass of Graph500's kernels 2 and 3
+# --------------------------------------------------------------------------
+
+TREE_CONFIG = ROOT / "portbench" / "configs" / "graph500-s22.json"
+TREE_SEED = 3              # the graph's seed (the benchmark's generator)
+
+
+def _tree_chain(torch, k10, flat, edges, sv, root_flat, root, n, weighted):
+    """The parent pass of ``apps/tree.py`` made of K10's plain version on
+    the card: the first launch, the root, then tie rounds while they
+    parent someone.  Returns (int32 (n,) parents, -1 unreached; tie
+    rounds)."""
+    parent = torch.full((n,), k10.NONE, dtype=torch.int32,
+                        device=flat.device)
+    k10.tree_parents_ref(flat, *edges, sv, parent, weighted)
+    parent[root] = root
+    reached = torch.isfinite(flat[root_flat])
+    rounds, left = 0, int((reached & (parent == k10.NONE)).sum())
+    while left and weighted:
+        k10.tree_parents_ref(flat, *edges, sv, parent, weighted,
+                             before=parent.clone())
+        rounds += 1
+        now = int((reached & (parent == k10.NONE)).sum())
+        check(now < left, f"the plain tie round parented nobody ({now} left)")
+        left = now
+    return parent.masked_fill_(parent == k10.NONE, -1), rounds
+
+
+def phase_tree(torch, np, dev):
+    """K10 (``kernels/tree_parents.py``) at its size on the main path:
+    the Graph500 scale-22 graph of ``portbench/configs/graph500-s22.json``
+    (134,217,728 stacked edges, made on the card from ``TREE_SEED`` by the
+    benchmark's generator) in its partition, a BFS and an SSSP fixpoint
+    from the vertex of largest out-degree under ``device_worklist``; on
+    each, one K10 launch and one tie round on its parents equal K10's
+    plain version on the same card tensors (``torch.equal``), and
+    ``apps.bfs_tree`` / ``sssp_tree`` from that key give the plain pass's
+    parents with one launch a search plus its tie rounds (``launches``,
+    ``tree_tie_rounds_total``).  Then K10 (one launch, less the fill of
+    the parent array), its plain version and the bound (``tree_bytes`` of
+    the benchmark at 3.35 TB/s) are timed with CUDA events."""
+    sys.path.insert(0, str(ROOT / "portbench"))
+    from benchlib import graphgen, port
+    from benchlib.graph500 import tree_bytes
+    from repro_torch import apps, obs
+    from repro_torch.core import actions, engine
+    from repro_torch.kernels import tree_parents as k10
+    t0 = time.perf_counter()
+    cfg = json.loads(TREE_CONFIG.read_text())
+    g = graphgen.make_graph(cfg, TREE_SEED, dev)
+    root = int(torch.bincount(g.src, minlength=g.n).argmax())
+    coo = port.coo(g)
+    del g
+    part = port.build_partition(coo, cfg["partition"])
+    arrays = engine.device_arrays(part, dev)
+    ecfg = engine.EngineConfig(use_pallas=True, grid_mode="device_worklist")
+    n, e = part.n, int(arrays.edge_mask.sum())
+    log(f"[k10] graph500 scale {cfg['scale']} (seed {TREE_SEED}): "
+        f"{e:,} stacked edges, n {n:,}, root {root}; graph and partition "
+        f"in {time.perf_counter() - t0:.1f} s")
+    sv = arrays.slot_vertex.reshape(-1)
+    edges = (arrays.edge_src_root_flat.reshape(-1),
+             arrays.edge_dst_flat.reshape(-1), arrays.edge_w.reshape(-1),
+             arrays.edge_mask.reshape(-1))
+
+    def ties(app):
+        snap = obs.registry().snapshot().get("tree_tie_rounds_total")
+        return sum(v for k, v in snap["series"].items()
+                   if app in str(k)) if snap else 0
+
+    out = {"n": n, "edges": e, "root": root, "seed": TREE_SEED}
+    launches = 0
+    for kind, sem, weighted in (("bfs", actions.BFS, False),
+                                ("sssp", actions.SSSP, True)):
+        init = engine.init_values(part, sem, {root: 0.0})
+        val, _ = engine.run_stacked(sem, part, init, ecfg, device=dev,
+                                    arrays=arrays)
+        flat = val.reshape(-1)
+
+        def fresh():
+            return torch.full((n,), k10.NONE, dtype=torch.int32, device=dev)
+        at = k10.launches
+        got = k10.tree_parents(flat, *edges, sv, fresh(), weighted)
+        want = k10.tree_parents_ref(flat, *edges, sv, fresh(), weighted)
+        check(torch.equal(got, want),
+              f"K10 {kind}: {int((got != want).sum())} parents differ from "
+              "its plain version")
+        base = got.clone()
+        base[root] = root
+        got = k10.tree_parents(flat, *edges, sv, base.clone(), weighted,
+                               before=base.clone())
+        want = k10.tree_parents_ref(flat, *edges, sv, base.clone(),
+                                    weighted, before=base.clone())
+        check(torch.equal(got, want),
+              f"K10 {kind} tie round: {int((got != want).sum())} parents "
+              "differ from its plain version")
+        tie_gained = int((got != base).sum())
+        check(weighted or tie_gained == 0, "a BFS tie round parented someone")
+        check(k10.launches - at == 2, "K10 did not count its launches")
+        chain, rounds = _tree_chain(torch, k10, flat, edges, sv,
+                                    arrays.root_flat, root, n, weighted)
+        at, t_at = k10.launches, ties(f"{kind}_tree")
+        (_, par), _, _ = getattr(apps, f"{kind}_tree")(
+            coo, root, part=part, cfg=ecfg, device=dev)
+        app_launches = k10.launches - at
+        app_ties = ties(f"{kind}_tree") - t_at
+        check(np.array_equal(par, chain.cpu().numpy().astype(np.int64)),
+              f"apps.{kind}_tree's parents differ from the plain pass")
+        check(app_ties == rounds and app_launches == 1 + rounds,
+              f"apps.{kind}_tree: {app_launches} K10 launches and "
+              f"{app_ties} tie rounds; the plain pass took {rounds}")
+        launches += k10.launches - at + 2
+        reached = int(torch.isfinite(flat[arrays.root_flat]).sum())
+        live = int((edges[3] & torch.isfinite(flat[edges[0].long()])).sum())
+        bound_ms = tree_bytes(n, reached, live, weighted) \
+            / HBM_BYTES_PER_S * 1e3
+        p = fresh()
+        fill_ms = time_ms(torch, lambda: p.fill_(k10.NONE))
+        kernel_ms = time_ms(torch, lambda: k10.tree_parents(
+            flat, *edges, sv, p.fill_(k10.NONE), weighted)) - fill_ms
+        plain_ms = time_ms(torch, lambda: k10.tree_parents_ref(
+            flat, *edges, sv, p.fill_(k10.NONE), weighted)) - fill_ms
+        out[kind] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "fill_ms": fill_ms,
+                     "reached": reached, "edges_out_of_reached": live,
+                     "tie_rounds": rounds, "tie_round_parented": tie_gained,
+                     "app_launches": app_launches}
+        log(f"[k10] {kind}: equal to its plain version (one launch and a "
+            f"tie round that parented {tie_gained:,}); apps.{kind}_tree "
+            f"equal to the plain pass, {app_launches} launches, {rounds} "
+            f"tie rounds; {reached:,} reached; kernel {kernel_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"(fill {fill_ms:.4f} ms)")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    engine.drop_device_arrays(part)
+    return out
+
+
+def _tree_row(report):
+    """The kernel table's K10 row from ``phase_tree``'s report."""
+    bfs, sssp = report["bfs"], report["sssp"]
+    return {
+        "name": "tree_parents",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tree_parents.cu",
+        "replaces": None,
+        "launches": report["launches"],
+        "max_abs_err": 0,
+        "ms": bfs["kernel_ms"],
+        "plain_ms": bfs["plain_ms"],
+        "bound_ms": bfs["bound_ms"],
+        "bound_by": "bytes",
+        "kernel_ms": bfs["kernel_ms"],
+        "sssp_kernel_ms": sssp["kernel_ms"],
+        "sssp_plain_ms": sssp["plain_ms"],
+        "sssp_bound_ms": sssp["bound_ms"],
+        "checked": True,
+    }
+
+
+def tree_alone() -> int:
+    """``--tree``: phase 16 alone, after building K10 and the kernels its
+    fixpoints run; writes ``chip_smoke_out/tree.json`` and prints the card
+    and the kernel table's K10 row as one JSON line."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    smi, build_s = phase_device()
+    out = phase_tree(torch, np, torch.device("cuda"))
+    out.update(device=smi, build_s=build_s)
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / "tree.json").write_text(json.dumps(out, indent=1))
+    print(smi)
+    print(json.dumps(_tree_row(out)))
+    return 0
+
+
 def _k1_sums(report, report2):
     """K1 alone on the heaviest dense round and summed over every round
     that phases 4 and 5 replay; logged and returned."""
@@ -7697,6 +7893,8 @@ def main() -> int:
     report14 = phase_lm_sharded(torch, np, dev, smi, report13)
     torch.cuda.empty_cache()
     report15 = phase_dryrun(torch, np, dev, smi)
+    torch.cuda.empty_cache()
+    report16 = phase_tree(torch, np, dev)
     heavy, heavy2 = report["heaviest"], report2["heaviest"]
     k3, k4, k9 = report3["k3"], report3["k4"], report3["k9"]
     k9_sum = report3["k9_sum"]
@@ -7707,6 +7905,7 @@ def main() -> int:
                   slice14={"lm_train": report13},
                   slice15={"lm_sharded": report14},
                   slice16={"dryrun": report15},
+                  tree=report16,
                   device=smi, build_s=build_s,
                   total_s=time.perf_counter() - t_start)
     OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -7833,6 +8032,7 @@ def main() -> int:
             "vblk": row["vblk"],
             "checked": True,
         })
+    kernels["kernels"].append(_tree_row(report16))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))
@@ -7853,6 +8053,8 @@ if __name__ == "__main__":
         sys.exit(trace_drops())
     if "--lm-sharded" in sys.argv[1:]:
         sys.exit(lm_sharded_alone())
+    if "--tree" in sys.argv[1:]:
+        sys.exit(tree_alone())
     if "--scan-timing" in sys.argv[1:]:
         rest = sys.argv[sys.argv.index("--scan-timing") + 1:]
         sys.exit(scan_timing(pathlib.Path(rest[0]).resolve() if rest

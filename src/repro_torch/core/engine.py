@@ -223,7 +223,10 @@ class DeviceArrays(typing.NamedTuple):
     ``from_partition(part, shard=r)`` uploads one shard: every field is
     row r with a leading dim of 1 (the reference's ``x[0]`` under
     ``shard_map``) and the plan is that shard's own launch — its edges
-    into the ``S*R_max`` slots of every shard."""
+    into the ``S*R_max`` slots of every shard.  ``root_flat`` (each
+    vertex's root slot, read with ``slot_vertex`` by the parent pass of
+    ``apps.bfs_tree`` / ``sssp_tree``) is the whole partition's either
+    way."""
 
     edge_src_root_flat: torch.Tensor  # (S, E_max) int32
     edge_dst_flat: torch.Tensor       # (S, E_max) int32 (sorted per shard)
@@ -234,6 +237,8 @@ class DeviceArrays(typing.NamedTuple):
     slot_valid: torch.Tensor          # (S, R_max) bool
     fused_plan: frr.LaunchPlan        # block -> edge-chunk lists
     compact: CompactTables            # the compact exchange's tables
+    slot_vertex: torch.Tensor | None = None  # (S, R_max) int32, -1 pad
+    root_flat: torch.Tensor | None = None    # (n,) int64, every shard's
 
     @classmethod
     def from_partition(cls, part: Partition, device=None,
@@ -266,6 +271,8 @@ class DeviceArrays(typing.NamedTuple):
                 slot_valid=row(part.slot_vertex >= 0, torch.bool),
                 fused_plan=plan,
                 compact=CompactTables(part, put, src, mask, shard),
+                slot_vertex=row(part.slot_vertex, torch.int32),
+                root_flat=put(part.root_flat, torch.int64),
             )
 
     @property

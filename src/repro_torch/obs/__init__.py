@@ -16,14 +16,18 @@ The spans the port records, by layer (track in brackets):
 - partition [``partition``]: ``partition.placement``,
   ``partition.assemble`` (``core.partition.build_partition``);
 - app [``app``]: ``app.call`` (args ``app``, ``root``) around
-  ``apps.bfs`` / ``sssp`` / ``pagerank``; ``engine.upload``
-  (``DeviceArrays.from_partition``) with its child ``engine.plan``
-  (``plan_launch``), or, arg ``resident``, ``engine.device_arrays``
-  finding a partition's tables on the device already (counted by
+  ``apps.bfs`` / ``sssp`` / ``pagerank`` / ``bfs_tree`` / ``sssp_tree``;
+  ``engine.upload`` (``DeviceArrays.from_partition``) with its child
+  ``engine.plan`` (``plan_launch``), or, arg ``resident``,
+  ``engine.device_arrays`` finding a partition's tables on the device
+  already (counted by
   ``engine_device_tables_total``, ``result`` ``upload`` or ``hit``);
   ``engine.init`` (the initial tensors put on the
   device in ``run_stacked`` / ``run_pagerank_stacked``); ``app.extract``
-  (``engine.vertex_values`` as the apps call it);
+  (``engine.vertex_values`` as the apps call it); ``app.tree`` (arg
+  ``app``: ``apps.bfs_tree`` / ``sssp_tree``'s parent pass, K10, and its
+  read; counted by ``tree_passes_total{app}``, its tie rounds by
+  ``tree_tie_rounds_total{app}``);
 - engine driver [``engine/<run>``]: ``engine.window`` (one
   ``device_worklist`` window) with its child ``engine.read`` (the
   window's one host read); ``engine.iterations`` (PageRank's rounds);
